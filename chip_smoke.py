@@ -5,10 +5,13 @@
 
 Phases, each printing its lines before the last:
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernels from ``prodiff_tpu_torch/csrc`` (nvcc), timed;
+  2. build of the CUDA kernels from ``prodiff_tpu_torch/csrc`` (one nvcc per
+     source, all started together), timed;
   3. each kernel vs its plain PyTorch twin on the card, in parity mode
-     (float32, TF32 off), at the main path's full-width shapes: error against
-     the stated tolerance and CUDA-event times of both;
+     (float32, TF32 off), at the main paths' full-width shapes: error against
+     the stated tolerance and CUDA-event times of both; the FastDiff layer
+     kernels (K4 ``ublock_layer``, K6 ``lvc``) at every (block, layer) of the
+     LJSpeech net at T_mel=512, reading a hoisted 4-step kernel stack;
   4. the slice at full width on seeded random weights: the base-config
      teacher (4 encoder layers, hidden 256, 20x256 WaveNet, 4 steps,
      voicing/breath embeds) and the default NSF-HiFiGAN generator behind the
@@ -17,13 +20,24 @@ Phases, each printing its lines before the last:
      two deterministic renders, the host/render split of one 6 s request, and
      one short render held against the same weights on the CPU (the plain
      path, no kernels): the teacher's mel as it enters the vocoder, and the
-     wav.
-The second-to-last line is the kernels' JSON summary; the last line is
+     wav;
+  5. the FastDiff text->wav path at full width on seeded random weights: the
+     2-step teacher of ``__graft_entry__._flagship(n_mels=80)`` and FastDiff-4
+     at FastDiff's LJSpeech config (22.05 kHz, hop 256), one render at
+     T_mel=512 (131,072 samples) through ``get_vocoder_cls("fastdiff")`` with
+     the launch counts of that render (K1 2 x 41, K4 4 steps x 3 blocks x 4
+     layers), the same render with the unfused layer (``fastdiff_packed:
+     false``: K6 48 times), a bit-identity check of two renders on injected
+     noise, and a 32-frame render held against the same weights on the CPU.
+Each path runs with every launch count set to 0 just before it and read just
+after; a kernel of the path that did not launch, or one off the path that
+did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit, no
 result line). There is no CPU mode: without a CUDA card the script exits
 non-zero before printing anything.
 """
 
+import itertools
 import json
 import subprocess
 import sys
@@ -82,6 +96,26 @@ RES_STAGES = ((256, 4096), (128, 32768), (64, 65536), (32, 131072), (16, 262144)
 RES_K, RES_D = (3, 7, 11), ((1, 3, 5),) * 3
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)  # float32 both sides; only the sum order differs
 CPU_TOL = 1e-3  # card vs CPU render (mel and wav), relative to each one's peak (see phase 4)
+# the H100 SXM's published float32 (non-tensor-core) peak and HBM rate, at 700 W:
+# bound_ms is the larger of operations / FP32_PEAK and bytes / HBM_RATE
+FP32_PEAK, HBM_RATE = 67e12, 3.35e12
+
+# FastDiff text->wav (bench.py's e2e_fastdiff cell): __graft_entry__._flagship(n_mels=80)
+FD_TEACHER_HPARAMS = dict(BASE_HPARAMS, num_spk=4, languages={"zh": 1, "jp": 2},
+                          use_voicing_embed=False, use_breath_embed=False,
+                          audio_num_mel_bins=80)
+# FastDiff's LJSpeech config (Huang et al., IJCAI 2022; the JAX FastDiff defaults)
+FD_CONFIG = {
+    "audio_channels": 1, "inner_channels": 32, "cond_channels": 80,
+    "upsample_ratios": [8, 8, 4], "lvc_layers_each_block": 4, "lvc_kernel_size": 3,
+    "kpnet_hidden_channels": 64, "kpnet_conv_size": 3, "diffusion_step_embed_dim_in": 128,
+    "diffusion_step_embed_dim_mid": 512, "diffusion_step_embed_dim_out": 512,
+    "beta_0": 1e-6, "beta_T": 0.01, "T": 1000,
+}
+FD_T_MEL, FD_T_PH, FD_TEACHER_STEPS, FD_STEPS = 512, 16, 2, 4
+FD_HOPS = (8, 64, 256)  # the LVC blocks' windows at 22.05 kHz / hop 256
+FD_CPU_FRAMES = 32
+COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "lvc")
 
 
 def log(msg: str) -> None:
@@ -114,6 +148,39 @@ def compare(name, got, want, torch) -> dict:
     return {"max_abs_err": max_abs, "max_rel_err": max_rel}
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations at the FP32 peak or
+    bytes at the HBM rate, whichever is longer."""
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def counters():
+    from prodiff_tpu_torch.ops.lvc import lvc
+    from prodiff_tpu_torch.ops.resblock import resblock_stage
+    from prodiff_tpu_torch.ops.ublock import ublock_layer
+    from prodiff_tpu_torch.ops.wavenet_stack import residual_stack
+
+    return {"residual_stack": residual_stack.launches, "resblock_stage": resblock_stage.launches,
+            "ublock_layer": ublock_layer.launches, "lvc": lvc.launches}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def check_counts(path: str, want: dict) -> dict:
+    """Every counter against ``want`` (0 for a kernel off the path)."""
+    got = {k: c.count for k, c in counters().items()}
+    want = {k: want.get(k, 0) for k in COUNTED}
+    log(f"kernel launches during {path}: {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{path}: the kernels did not run the expected number of times")
+    return got
+
+
 def phase_kernels(dev, torch):
     from prodiff_tpu_torch.ops import wavenet_stack as wn
     from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
@@ -142,13 +209,22 @@ def phase_kernels(dev, torch):
         res = compare(f"K1 residual_stack L=20 C=256 H=256 B={b} T={t}", got, want, torch)
         ms = timed_ms(lambda: wn.residual_stack(x0, cond, step, w), 20, torch)
         plain_ms = timed_ms(lambda: wn.residual_stack_plain(x0, cond, step, w), 20, torch)
-        log(f"K1 B={b} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        layer = 3 * c * 2 * c + h * 2 * c + c * 2 * c  # MACs per frame and layer
+        flops = 2 * b * t * n_layers * layer + 2 * b * n_layers * c * c
+        nbytes = 4 * (2 * b * t * c + b * t * h + b * c + n_layers * (layer + c * c + 7 * c))
+        lim = bound(flops, nbytes)
+        log(f"K1 B={b} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{lim['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: {lim['bound_by']})")
         k1["max_abs_err"] = max(k1["max_abs_err"], res["max_abs_err"])
         if t == 512:
-            k1.update(ms=ms, plain_ms=plain_ms)
+            k1.update(ms=ms, plain_ms=plain_ms, **lim)
 
     res_total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    flops = nbytes = 0
     for c, t in RES_STAGES:
+        taps = 6 * sum(RES_K)  # 18 convs: 6 per kernel size
+        flops += 2 * taps * c * c * t
+        nbytes += 4 * (2 * t * c + taps * c * c + 18 * c)
         ws = [rand(k * c * c, scale=(k * c) ** -0.5) for k in RES_K for _ in range(6)]
         weights, biases = torch.cat(ws), rand(18, c, scale=0.1)
         x = rand(1, t, c)
@@ -161,9 +237,69 @@ def phase_kernels(dev, torch):
         res_total["max_abs_err"] = max(res_total["max_abs_err"], res["max_abs_err"])
         res_total["ms"] += ms
         res_total["plain_ms"] += plain_ms
+    res_total.update(bound(flops, nbytes))
     log(f"resblock, all 5 stages of one vocoder pass at T_mel=512: kernel "
-        f"{res_total['ms']:.4f} ms, plain {res_total['plain_ms']:.4f} ms")
+        f"{res_total['ms']:.4f} ms, plain {res_total['plain_ms']:.4f} ms, "
+        f"bound {res_total['bound_ms']:.4f} ms ({res_total['bound_by']})")
     return k1, res_total
+
+
+def phase_fastdiff_kernels(dev, torch):
+    """K4 and K6 vs their twins at every (block, layer) of one FastDiff
+    forward at T_mel=512, B=1, reading step ``s`` of a hoisted 4-step stack
+    [4, 1, 512, 4*96, 64] (201 MB a block) in place. Each timed call reads
+    another step's windows, as the sampler does, so the window kernels come
+    from HBM. ``ms``/``plain_ms`` sum the 12 calls of one forward."""
+    from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
+    from prodiff_tpu_torch.ops.ublock import ublock_layer, ublock_layer_plain
+
+    rng = np.random.default_rng(SEED + 1)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    c, n_layers, n_win = 32, FD_CONFIG["lvc_layers_each_block"], FD_T_MEL
+    out = {}
+    for name in ("ublock_layer", "lvc"):
+        out[name] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
+    for hop in FD_HOPS:
+        t = n_win * hop
+        x, ad, y = rand(1, t, c), rand(1, t, c), rand(1, t, c)
+        km = rand(FD_STEPS, 1, n_win, n_layers * 3 * c, 2 * c, scale=0.1)
+        lb = rand(FD_STEPS, 1, n_win, n_layers * 2 * c, scale=0.1)
+        window_bytes = 4 * n_win * (3 * c * 2 * c + 2 * c)  # one (step, layer)'s kernels
+        for i in range(n_layers):
+            d = 3 ** i
+            cw, cb = rand(c, c, 3, scale=0.2), rand(c, scale=0.1)
+            cases = {
+                "ublock_layer": (ublock_layer, ublock_layer_plain,
+                                 lambda fn, s: fn(x, ad, cw, cb, km, lb, d, hop, step_idx=s,
+                                                  layer_idx=i),
+                                 18432 * t, 4 * (3 * t * c + 3 * c * c + c) + window_bytes),
+                "lvc": (lvc, lvc_plain, lambda fn, s: fn(y, km, lb, hop, step_idx=s, layer_idx=i),
+                        12288 * t, 4 * (t * c + t * 2 * c) + window_bytes),
+            }
+            for name, (kernel, plain, call, flops, nbytes) in cases.items():
+                got, want = call(kernel, i), call(plain, i)
+                res = compare(f"{name} hop={hop} dilation={d} T={t} (step {i}, layer {i})",
+                              got, want, torch)
+                steps = itertools.cycle(range(FD_STEPS))
+                ms = timed_ms(lambda: call(kernel, next(steps)), 20, torch)
+                plain_ms = timed_ms(lambda: call(plain, next(steps)), 20, torch)
+                log(f"{name} hop={hop} dilation={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms")
+                acc = out[name]
+                acc["max_abs_err"] = max(acc["max_abs_err"], res["max_abs_err"])
+                acc["ms"] += ms
+                acc["plain_ms"] += plain_ms
+                acc["flops"] += flops
+                acc["bytes"] += nbytes
+        del km, lb
+    for name, acc in out.items():
+        acc.update(bound(acc.pop("flops"), acc.pop("bytes")))
+        log(f"{name}, the 12 layers of one FastDiff forward at T_mel={FD_T_MEL}: kernel {acc['ms']:.4f} ms, "
+            f"plain {acc['plain_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms ({acc['bound_by']})")
+    return out
 
 
 def build_models(torch):
@@ -273,8 +409,6 @@ def request_split(web, req, latency_s: float) -> None:
 
 
 def phase_slice(dev, torch):
-    from prodiff_tpu_torch.ops.resblock import resblock_stage
-    from prodiff_tpu_torch.ops.wavenet_stack import residual_stack
     from prodiff_tpu_torch.serve.handler import WebHandler
 
     teacher_sd, voc_sd = build_models(torch)
@@ -293,8 +427,7 @@ def phase_slice(dev, torch):
         if info["speakers"] != list(SPEAKERS) or info["samplerate"] != sr:
             raise AssertionError(f"basic_info: {info}")
         log(f"GET /api/basic_info: {json.dumps(info)}")
-        residual_stack.launches.reset()
-        resblock_stage.launches.reset()
+        reset_counts()
         for seconds in REQUEST_SECONDS:
             req = request_payload(seconds, rng)
             last = req
@@ -309,8 +442,10 @@ def phase_slice(dev, torch):
                 f"samples, peak {np.abs(wav).max():.4f}, std {wav.std():.4f}, "
                 f"latency {latency * 1000:.3f} ms "
                 f"(RTF {latency / (wav.shape[0] / sr):.4f})")
-        launches = {"residual_stack": residual_stack.launches.count,
-                    "resblock_stage": resblock_stage.launches.count}
+        n = len(REQUEST_SECONDS)
+        launches = check_counts("the requests", {
+            "residual_stack": n * SLICE_HPARAMS["timesteps"] * (1 + 2 * SLICE_HPARAMS["residual_layers"]),
+            "resblock_stage": n * 5 * 18})
         request_split(web, last, latency)
     finally:
         server.shutdown()
@@ -318,12 +453,6 @@ def phase_slice(dev, torch):
         thread.join(timeout=30)
     if thread.is_alive():
         raise AssertionError("server thread did not stop")
-    n = len(REQUEST_SECONDS)
-    want = {"residual_stack": n * SLICE_HPARAMS["timesteps"] * (1 + 2 * SLICE_HPARAMS["residual_layers"]),
-            "resblock_stage": n * 5 * 18}
-    log(f"kernel launches during the requests: {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError("the main path did not run the kernels the expected number of times")
 
     # deterministic renders are bit-identical
     core.deterministic = True
@@ -353,6 +482,137 @@ def phase_slice(dev, torch):
     return launches
 
 
+def fastdiff_inputs(rng, t_ph: int, t_mel: int):
+    """Seeded teacher inputs at B=1 (``__graft_entry__._example_inputs``):
+    tokens, mel2ph, f0, language ids, speaker id."""
+    tokens = rng.integers(3, 64, (1, t_ph))
+    dur = rng.integers(4, 2 * max(t_mel // t_ph, 3), t_ph)
+    mel2ph = np.full((1, t_mel), t_ph, np.int64)
+    pos = 0
+    for k in range(t_ph):
+        mel2ph[0, pos: min(pos + dur[k], t_mel)] = k + 1
+        pos += dur[k]
+    f0 = rng.uniform(100, 500, (1, t_mel)).astype(np.float32)
+    return tokens, mel2ph, f0, np.ones((1, t_ph), np.int64), np.zeros((1,), np.int64)
+
+
+def phase_fastdiff(dev, torch):
+    """The FastDiff text->wav path at full width on seeded random weights."""
+    from prodiff_tpu_torch.models.fastdiff import FastDiff as FastDiffNet
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.vocoders import get_vocoder_cls
+
+    torch.manual_seed(SEED)
+    teacher = ProDiffTeacher(64, FD_TEACHER_HPARAMS)
+    torch.nn.init.normal_(teacher.diffusion.denoise_fn.output_projection.weight, std=0.02)
+    teacher_sd = teacher.state_dict()
+    teacher = teacher.to(dev).eval()
+    torch.manual_seed(SEED + 2)
+    fd_sd = FastDiffNet.from_config(FD_CONFIG).state_dict()  # a seeded reference state dict
+    n_fd = sum(v.numel() for v in fd_sd.values())
+    log(f"FastDiff path: teacher {sum(p.numel() for p in teacher.parameters()) / 1e6:.2f}M params "
+        f"(80 mels, {FD_TEACHER_STEPS} steps), FastDiff {n_fd / 1e6:.2f}M params "
+        f"(LJSpeech config, {FD_STEPS} steps), seed {SEED}")
+    vocoder = get_vocoder_cls("fastdiff")
+    voc = vocoder({}, state_dict=fd_sd, config=FD_CONFIG, device=dev)
+    voc_unfused = vocoder({"fastdiff_packed": False}, state_dict=fd_sd, config=FD_CONFIG, device=dev)
+    hop = voc.hop
+    rng = np.random.default_rng(SEED)
+    tokens, mel2ph, f0, lang, spk = (torch.as_tensor(a, device=dev) for a in
+                                     fastdiff_inputs(rng, FD_T_PH, FD_T_MEL))
+
+    def acoustic(**noise):
+        return teacher.infer(tokens, mel2ph, f0, infer_step=FD_TEACHER_STEPS, lang_seq=lang,
+                             spk_embed_id=spk, **noise)
+
+    def render(v, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        mel = acoustic(generator=gen)
+        return mel, v.spec2wav(mel[0], generator=gen)
+
+    for v in (voc, voc_unfused):  # warm-up: cuDNN plans, the allocator
+        render(v, 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    gen = torch.Generator(dev).manual_seed(1)
+    start = time.perf_counter()
+    mel = acoustic(generator=gen)
+    torch.cuda.synchronize()
+    mid = time.perf_counter()
+    wav = voc.spec2wav(mel[0], generator=gen)
+    end = time.perf_counter()
+    launches = check_counts("the FastDiff render", {
+        "residual_stack": FD_TEACHER_STEPS * (1 + 2 * FD_TEACHER_HPARAMS["residual_layers"]),
+        "ublock_layer": FD_STEPS * len(FD_HOPS) * FD_CONFIG["lvc_layers_each_block"]})
+    n_samples = FD_T_MEL * hop
+    if wav.shape != (n_samples,) or not np.isfinite(wav).all():
+        raise AssertionError(f"FastDiff render: wav {wav.shape}, want ({n_samples},) finite")
+    log(f"FastDiff text->wav render T_mel={FD_T_MEL}: wav {wav.shape[0]} samples "
+        f"({n_samples / 22050:.3f} s at 22.05 kHz), peak {np.abs(wav).max():.4f}, std "
+        f"{wav.std():.4f}; {(end - start) * 1000:.3f} ms on the host clock (teacher "
+        f"{(mid - start) * 1000:.3f} ms, FastDiff {(end - mid) * 1000:.3f} ms with the wav's copy "
+        f"to the host; RTF {(end - start) / (n_samples / 22050):.5f})")
+
+    reset_counts()
+    gen = torch.Generator(dev).manual_seed(1)
+    start = time.perf_counter()
+    mel_u = acoustic(generator=gen)
+    wav_u = voc_unfused.spec2wav(mel_u[0], generator=gen)
+    end = time.perf_counter()
+    launches_u = check_counts("the unfused-layer FastDiff render", {
+        "residual_stack": FD_TEACHER_STEPS * (1 + 2 * FD_TEACHER_HPARAMS["residual_layers"]),
+        "lvc": FD_STEPS * len(FD_HOPS) * FD_CONFIG["lvc_layers_each_block"]})
+    err, peak = float(np.abs(wav_u - wav).max()), float(np.abs(wav).max())
+    log(f"unfused layer (K6) render: {(end - start) * 1000:.3f} ms; vs the fused layer (K4): "
+        f"max abs err {err:.3e}, peak {peak:.4f}, tol {CPU_TOL} x peak")
+    if not (torch.equal(mel_u, mel) and err <= CPU_TOL * peak):
+        raise AssertionError("the unfused layer's render disagrees with the fused layer's")
+
+    # two renders on injected noise are bit-identical
+    nrng = np.random.default_rng(SEED + 3)
+
+    def noise(*shape):
+        return torch.tensor(nrng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    mb = FD_TEACHER_HPARAMS["audio_num_mel_bins"]
+    t_noise = dict(init_noise=noise(1, 1, FD_T_MEL, mb),
+                   step_noises=noise(FD_TEACHER_STEPS, 1, 1, FD_T_MEL, mb))
+    v_noise = dict(init_noise=noise(1, n_samples, 1), step_noises=noise(FD_STEPS, 1, n_samples, 1))
+    a, b = (voc.spec2wav(acoustic(**t_noise)[0], **v_noise) for _ in range(2))
+    if not np.array_equal(a, b):
+        raise AssertionError("two FastDiff renders on injected noise differ")
+    log(f"FastDiff render on injected noise twice: bit-identical ({a.shape[0]} samples)")
+
+    # a short render on the CPU (plain path, no kernels, same weights and noise)
+    cpu = torch.device("cpu")
+    teacher_cpu = ProDiffTeacher(64, FD_TEACHER_HPARAMS)
+    teacher_cpu.load_state_dict(teacher_sd)
+    teacher_cpu.eval()
+    voc_cpu = vocoder({}, state_dict=fd_sd, config=FD_CONFIG, device=cpu)
+    inputs = fastdiff_inputs(np.random.default_rng(SEED + 4), 4, FD_CPU_FRAMES)
+    n_short = FD_CPU_FRAMES * hop
+    short_noise = (np.random.default_rng(SEED + 5).normal(size=s).astype(np.float32) for s in (
+        (1, 1, FD_CPU_FRAMES, mb), (FD_TEACHER_STEPS, 1, 1, FD_CPU_FRAMES, mb),
+        (1, n_short, 1), (FD_STEPS, 1, n_short, 1)))
+    short_noise = list(short_noise)
+    got = {}
+    for where, tch, v in (("card", teacher, voc), ("cpu", teacher_cpu, voc_cpu)):
+        d = dev if where == "card" else cpu
+        tk, m2p, f, lg, sp = (torch.as_tensor(x, device=d) for x in inputs)
+        tn, ts, vn, vs = (torch.as_tensor(x, device=d) for x in short_noise)
+        m = tch.infer(tk, m2p, f, infer_step=FD_TEACHER_STEPS, lang_seq=lg, spk_embed_id=sp,
+                      init_noise=tn, step_noises=ts)
+        got[where] = (m[0].cpu().numpy(), v.spec2wav(m[0], init_noise=vn, step_noises=vs))
+    for i, name in enumerate(("mel", "wav")):
+        g, ref = got["card"][i], got["cpu"][i]
+        err, peak = float(np.abs(g - ref).max()), float(np.abs(ref).max())
+        log(f"FastDiff path, card (kernels) vs CPU (plain) {name} {list(ref.shape)}: max_abs_err "
+            f"{err:.3e}, peak {peak:.4f}, std {float(ref.std()):.4f}, tol {CPU_TOL} x peak")
+        if not (np.isfinite(g).all() and err <= CPU_TOL * peak):
+            raise AssertionError(f"FastDiff path: the card's {name} disagrees with the CPU reference")
+    return launches, launches_u
+
+
 def main() -> int:
     import torch
 
@@ -370,27 +630,34 @@ def main() -> int:
     log(smi[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; precision mode {policy.precision()}")
 
+    sources = ("wavenet_stack", "resblock", "ublock", "lvc")
     t0 = time.time()
-    for name in ("wavenet_stack", "resblock"):
-        start = time.time()
-        cuda_build.load(name)
+    cuda_build.load_all(sources)  # one nvcc per source, all at once
+    log(f"kernel build (parallel nvcc) {time.time() - t0:.3f} s")
+    for name in sources:
         regs = [ln.strip() for ln in cuda_build.build_log(name).splitlines() if "registers" in ln]
-        log(f"build {name}: {time.time() - start:.3f} s; ptxas: {' | '.join(regs)}")
-    log(f"kernel build total {time.time() - t0:.3f} s")
+        log(f"ptxas {name}: {' | '.join(regs)}")
 
     k1, res = phase_kernels(dev, torch)
+    fd = phase_fastdiff_kernels(dev, torch)
     launches = phase_slice(dev, torch)
+    fd_launches, fd_unfused_launches = phase_fastdiff(dev, torch)
+
+    def entry(name, source, replaces, n, m):
+        return dict(name=name, route="cuda", source=f"prodiff_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=n, max_abs_err=m["max_abs_err"], ms=m["ms"],
+                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                    library_ms=None)  # no single PyTorch call computes any of these
 
     kernels = [
-        dict(name="wavenet_residual_stack", route="cuda",
-             source="prodiff_tpu_torch/csrc/wavenet_stack.cu",
-             replaces="prodiff_tpu/ops/pallas/wavenet.py:177",
-             launches=launches["residual_stack"], max_abs_err=k1["max_abs_err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
-        dict(name="resblock_stage", route="cuda", source="prodiff_tpu_torch/csrc/resblock.cu",
-             replaces="prodiff_tpu/ops/pallas/resblock.py:357",
-             launches=launches["resblock_stage"], max_abs_err=res["max_abs_err"],
-             ms=res["ms"], plain_ms=res["plain_ms"]),
+        entry("wavenet_residual_stack", "wavenet_stack.cu", "prodiff_tpu/ops/pallas/wavenet.py:177",
+              launches["residual_stack"], k1),
+        entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
+              launches["resblock_stage"], res),
+        entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
+              fd_launches["ublock_layer"], fd["ublock_layer"]),
+        entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",
+              fd_unfused_launches["lvc"], fd["lvc"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,12 +22,12 @@ def main(argv=None) -> None:
     infer.add_argument("--lang", default="zh")
     infer.add_argument("--keyshift", type=int, default=0)
     infer.add_argument("--gender", type=float, default=0.0)
-    infer.add_argument("--device", default=None, help="default: cuda when available, else cpu")
+    infer.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
     web = sub.add_parser("web", help="serve the HTTP API")
     web.add_argument("--exp_name", required=True)
     web.add_argument("--port", type=int, default=7694)
-    web.add_argument("--device", default=None, help="default: cuda when available, else cpu")
+    web.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
     args = parser.parse_args(argv)
     if args.command == "infer":

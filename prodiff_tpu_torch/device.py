@@ -47,10 +47,15 @@ def compute_dtype() -> torch.dtype:
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` picks the first CUDA card when there is one, else the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+    """``None`` means the CUDA card. The CPU is used only when named; asking
+    for a card where there is none raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card (torch.cuda.is_available() is false): the port runs on "
+            "the card unless the caller names the CPU (device='cpu', --device cpu)"
+        )
+    return device
 
 
 set_precision(PARITY)

@@ -18,37 +18,32 @@ an in-memory ``hparams`` dict, ``state_dict``, ``maps`` and ``vocoder``.
 
 from __future__ import annotations
 
-import glob
 import json
 import os
-import re
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from prodiff_tpu.data.collate import round_up
-from prodiff_tpu.utils.audio import cross_fade, save_wav
-from prodiff_tpu.utils.pitch_utils import resample_align_curve, shift_pitch
-from prodiff_tpu.utils.text_encoder import TokenTextEncoder
 from prodiff_tpu_torch.device import resolve_device
 from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
-from prodiff_tpu_torch.utils.convert import load_flax_checkpoint, teacher_state_dict
+from prodiff_tpu_torch.utils.audio import cross_fade, save_wav
+from prodiff_tpu_torch.utils.convert import (
+    last_checkpoint_path,
+    load_flax_checkpoint,
+    teacher_state_dict,
+)
+from prodiff_tpu_torch.utils.pitch_utils import resample_align_curve, shift_pitch
+from prodiff_tpu_torch.utils.text_encoder import TokenTextEncoder
 from prodiff_tpu_torch.vocoders import get_vocoder_cls
 
 MEL_PAD_LOG10 = -5.0  # log10 of the STFT clip floor (silence)
 MAP_FILES = {"phone_set": "phone_set.json", "spk_map": "spk_map.json", "lang_map": "lang_map.json"}
 
 
-def last_checkpoint_path(work_dir: str) -> Optional[str]:
-    """Newest ``model_ckpt_steps_{N}.ckpt`` in ``work_dir`` by step number."""
-    found = []
-    for path in glob.glob(os.path.join(work_dir, "model_ckpt_steps_*.ckpt")):
-        m = re.search(r"model_ckpt_steps_(\d+)\.ckpt$", path)
-        if m:
-            found.append((int(m.group(1)), path))
-    return max(found)[1] if found else None
+def round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
 
 
 def phone_encoder(ph_map: Dict[str, str]) -> TokenTextEncoder:
@@ -124,10 +119,9 @@ class SVSInferHandler:
 
     @staticmethod
     def _load_experiment(exp_name: str, checkpoints_root: str):
-        from prodiff_tpu.config import set_hparams  # needs PyYAML, only on this route
+        from prodiff_tpu_torch.config import set_hparams  # needs PyYAML, only on this route
 
-        hp = set_hparams(exp_name=exp_name, task="svs", make_work_dir=False,
-                         checkpoints_root=checkpoints_root)
+        hp = set_hparams(exp_name, "svs", checkpoints_root)
         maps = {}
         for key, fname in MAP_FILES.items():
             path = os.path.join(hp["work_dir"], fname)

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from prodiff_tpu.ops.schedules import DiffusionCoefficients
+from prodiff_tpu_torch.ops.schedules import DiffusionCoefficients
 
 
 class GaussianDiffusion(nn.Module):

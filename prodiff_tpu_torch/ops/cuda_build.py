@@ -3,20 +3,23 @@
 Each source file has a plain C interface (no PyTorch headers), so a build
 takes seconds. The shared library goes into ``build/cuda/`` at the checkout
 root (listed in ``.gitignore``; override with ``PRODIFF_TORCH_BUILD_DIR``),
-named by a hash of the source so an edited kernel is rebuilt. Nothing is
-built or loaded at import time: the first wrapper call on a CUDA tensor does
-it. A missing compiler or a failed build raises; there is no fallback.
+named by a hash of the source and the shared headers (``csrc/*.cuh``) so an
+edited kernel is rebuilt. Nothing is built or loaded at import time: the
+first wrapper call on a CUDA tensor does it, or :func:`load_all`, which runs
+one nvcc per source at once. A missing compiler or a failed build raises;
+there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -47,34 +50,60 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def _paths(name: str) -> Tuple[str, str]:
+    """(source, library path named by the hash of the source, the shared
+    headers and the flags)."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def load_all(names: Sequence[str]) -> None:
+    """Build every missing library of ``names`` with one nvcc each, all
+    started together, then load them."""
+    with _lock:
+        todo = [n for n in names if n not in _loaded]
+        procs = []
+        try:
+            for name in todo:
+                src, lib_path = _paths(name)
+                if os.path.exists(lib_path):
+                    continue
+                os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+                tmp = f"{lib_path}.{os.getpid()}.tmp"
+                procs.append((src, lib_path, tmp, subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )))
+            failed = []
+            for src, lib_path, tmp, proc in procs:
+                out, err = proc.communicate()
+                with open(lib_path[: -len(".so")] + ".log", "w") as f:
+                    f.write(out + err)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {src} (rc {proc.returncode}):\n{err[-4000:]}")
+                else:
+                    os.replace(tmp, lib_path)
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in todo:
+            _, lib_path = _paths(name)
+            _loaded[name] = (ctypes.CDLL(lib_path), lib_path[: -len(".so")] + ".log")
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (once per source version) and load ``csrc/{name}.cu``."""
+    load_all([name])
     with _lock:
-        if name in _loaded:
-            return _loaded[name][0]
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out_dir = build_dir()
-        os.makedirs(out_dir, exist_ok=True)
-        lib_path = os.path.join(out_dir, f"lib{name}_{digest}.so")
-        log_path = lib_path[: -len(".so")] + ".log"
-        if not os.path.exists(lib_path):
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                capture_output=True, text=True,
-            )
-            with open(log_path, "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src} (rc {proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(lib_path)
-        _loaded[name] = (lib, log_path)
-        return lib
+        return _loaded[name][0]
 
 
 def build_log(name: str) -> str:

@@ -21,8 +21,8 @@ from typing import Optional
 
 import numpy as np
 
-from prodiff_tpu.utils.pitch_utils import midi_to_hz
 from prodiff_tpu_torch.infer.handler import SVSInferHandler
+from prodiff_tpu_torch.utils.pitch_utils import midi_to_hz
 
 
 class BadRequest(Exception):

@@ -6,27 +6,36 @@
   ``prodiff_tpu/utils/teacher_convert.py:convert_prodiff_teacher``.
 - :func:`nsf_hifigan_state_dict` does the same for the NSF-HiFiGAN
   generator, inverting ``prodiff_tpu/utils/torch_convert.py:convert_nsf_hifigan``.
+- :func:`fastdiff_state_dict` does the same for the FastDiff vocoder,
+  inverting ``prodiff_tpu/models/fastdiff.py:convert_fastdiff``: the result is
+  a torch-reference state dict (``kernel_conv`` rows in the reference's
+  ``[layers, Cin, Cout, k]`` order), as a released checkpoint holds it.
 - :func:`load_flax_checkpoint` reads the JAX package's checkpoint files
   (flax msgpack: arrays as msgpack ext type 1 holding ``(shape, dtype name,
   bytes)``, numpy scalars as ext type 3, arrays over 1 GiB split into
   ``__msgpack_chunked_array__`` dicts) without importing flax.
 - :func:`load_torch_state_dict` reads a torch generator checkpoint (tensors
-  only) and folds weight norm the way the reference does at load time.
+  only) and folds weight norm the way the reference does at load time;
+  :func:`last_checkpoint_path` finds the newest ``model_ckpt_steps_*.ckpt``.
 
 Layouts: flax convs are ``[k, C_in, C_out]``, torch's ``[C_out, C_in, k]``;
 flax dense kernels are ``[in, out]``, torch's ``[out, in]``; the JAX
 ``ConvTranspose1d`` stores the torch ``[C_in, C_out, k]`` kernel pre-flipped
-as ``[k, C_in, C_out]``.
+as ``[k, C_in, C_out]``. ``fold_weight_norm`` is the port's copy of
+``prodiff_tpu/utils/torch_convert.py:fold_weight_norm``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import glob
+import os
+import re
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from prodiff_tpu.utils.torch_convert import fold_weight_norm
+from prodiff_tpu_torch.models.fastdiff import kernel_conv_perm
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -123,9 +132,7 @@ def nsf_hifigan_state_dict(flax_params: Dict[str, Any], h: dict) -> StateDict:
     _conv(sd, "conv_post", p["conv_post"]["conv"])
     n_up = len(h["upsample_rates"])
     for i in range(n_up):
-        k = np.asarray(p[f"ups_{i}"]["kernel"])  # [k, Cin, Cout], pre-flipped
-        sd[f"ups.{i}.weight"] = _t(np.transpose(k, (1, 2, 0))[:, :, ::-1])
-        sd[f"ups.{i}.bias"] = _t(p[f"ups_{i}"]["bias"])
+        _convt(sd, f"ups.{i}", p[f"ups_{i}"])
         _conv(sd, f"noise_convs.{i}", p[f"noise_convs_{i}"]["conv"])
     if str(h["resblock"]) != "1":
         raise NotImplementedError("ResBlock2 generators land with the other-vocoders slice")
@@ -137,6 +144,76 @@ def nsf_hifigan_state_dict(flax_params: Dict[str, Any], h: dict) -> StateDict:
                 _conv(sd, f"resblocks.{n}.{group}.{j}", block[f"{group}_{j}"]["conv"])
     _dense(sd, "m_source.l_linear", p["m_source"]["l_linear"])
     return sd
+
+
+def _convt(sd: StateDict, dst: str, node: dict) -> None:
+    """The JAX ``ConvTranspose1d`` kernel ``[k, Cin, Cout]`` is stored
+    pre-flipped; torch's is ``[Cin, Cout, k]``."""
+    k = np.asarray(node["kernel"])
+    sd[f"{dst}.weight"] = _t(np.transpose(k, (1, 2, 0))[:, :, ::-1])
+    sd[f"{dst}.bias"] = _t(node["bias"])
+
+
+def fastdiff_state_dict(flax_params: Dict[str, Any], config: dict) -> StateDict:
+    """JAX ``FastDiff`` params -> the torch reference's state dict."""
+    p = _params(flax_params)
+    sd: StateDict = {}
+    _conv(sd, "first_audio_conv", p["first_audio_conv"])
+    _dense(sd, "fc_t1", p["fc_t1"])
+    _dense(sd, "fc_t2", p["fc_t2"])
+    _conv(sd, "final_conv.0", p["final_conv"])
+    cin, k = config["inner_channels"], config["lvc_kernel_size"]
+    perm = kernel_conv_perm(config["lvc_layers_each_block"], cin, 2 * cin, k)
+    for i in range(len(config["upsample_ratios"])):
+        down = p[f"downsample_{i}"]
+        _conv(sd, f"downsample.{i}.residual_dense", down["residual_dense"])
+        for j in range(3):
+            _conv(sd, f"downsample.{i}.conv.{j}", down[f"conv_{j}"])
+        blk, dst = p[f"lvc_blocks_{i}"], f"lvc_blocks.{i}"
+        _dense(sd, f"{dst}.fc_t", blk["fc_t"])
+        _convt(sd, f"{dst}.upsample", blk["upsample"])
+        for j in range(config["lvc_layers_each_block"]):
+            _conv(sd, f"{dst}.convs.{j}", blk[f"convs_{j}"])
+        kp, kdst = blk["kernel_predictor"], f"{dst}.kernel_predictor"
+        _conv(sd, f"{kdst}.input_conv.0", kp["input_conv"])
+        for j, idx in enumerate((1, 3, 6, 8, 11, 13)):
+            _conv(sd, f"{kdst}.residual_conv.{idx}", kp[f"residual_conv_{j}"])
+        _conv(sd, f"{kdst}.bias_conv", kp["bias_conv"])
+        # the JAX kernel_conv emits tap-major channels: undo the load-time
+        # permutation (reference row perm[r] is tap-major row r)
+        _conv(sd, f"{kdst}.kernel_conv", kp["kernel_conv"])
+        for name in ("weight", "bias"):
+            tap_major = sd[f"{kdst}.kernel_conv.{name}"]
+            ref = torch.empty_like(tap_major)
+            ref[torch.from_numpy(perm)] = tap_major
+            sd[f"{kdst}.kernel_conv.{name}"] = ref
+    return sd
+
+
+def fold_weight_norm(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``w = g * v / ||v||`` (norm over every dim but the output channel's,
+    torch ``weight_norm``'s default), as the reference's
+    ``remove_weight_norm`` does at load time."""
+    out = dict(sd)
+    for k in list(sd):
+        if k.endswith(".weight_g"):
+            base = k[: -len(".weight_g")]
+            g = np.asarray(sd[k], np.float64)
+            v = np.asarray(sd[base + ".weight_v"], np.float64)
+            norm = np.sqrt((v ** 2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+            out[base + ".weight"] = (g * v / norm).astype(np.float32)
+            del out[k], out[base + ".weight_v"]
+    return out
+
+
+def last_checkpoint_path(work_dir: str) -> Optional[str]:
+    """Newest ``model_ckpt_steps_{N}.ckpt`` in ``work_dir`` by step number."""
+    found = []
+    for path in glob.glob(os.path.join(work_dir, "model_ckpt_steps_*.ckpt")):
+        m = re.search(r"model_ckpt_steps_(\d+)\.ckpt$", path)
+        if m:
+            found.append((int(m.group(1)), path))
+    return max(found)[1] if found else None
 
 
 def load_torch_state_dict(path: str) -> StateDict:

@@ -1,0 +1,34 @@
+"""Pitch-curve helpers (the port's copy of the parts of
+``prodiff_tpu/utils/pitch_utils.py`` the port uses)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def resample_align_curve(points: np.ndarray, original_timestep: float,
+                         target_timestep: float, align_length: int) -> np.ndarray:
+    """Resample a control curve to a new time grid and pad/trim to a length."""
+    t_max = (len(points) - 1) * original_timestep
+    curve_interp = np.interp(
+        np.arange(0, t_max, target_timestep),
+        original_timestep * np.arange(len(points)),
+        points,
+    ).astype(points.dtype)
+    delta_l = align_length - len(curve_interp)
+    if delta_l < 0:
+        curve_interp = curve_interp[:align_length]
+    elif delta_l > 0:
+        curve_interp = np.concatenate(
+            (curve_interp, np.full(delta_l, fill_value=curve_interp[-1])), axis=0
+        )
+    return curve_interp
+
+
+def shift_pitch(f0, n_semitones):
+    return f0 * (2 ** (n_semitones / 12))
+
+
+def midi_to_hz(midi):
+    midi = np.asarray(midi, dtype=np.float64)
+    return 440.0 * 2 ** ((midi - 69) / 12)

@@ -11,12 +11,12 @@ def register_vocoder(cls):
 
 
 def get_vocoder_cls(name: str):
-    from prodiff_tpu_torch.vocoders import nsf_hifigan  # noqa: F401
+    from prodiff_tpu_torch.vocoders import fastdiff, nsf_hifigan  # noqa: F401
 
     if name.lower() not in VOCODERS:
         raise ValueError(
-            f"Vocoder {name} not found in {sorted(VOCODERS)}; FastDiff and the "
-            "other vocoders land with later slices"
+            f"Vocoder {name} not found in {sorted(VOCODERS)}; the other vocoders "
+            "land with a later slice"
         )
     return VOCODERS[name.lower()]
 

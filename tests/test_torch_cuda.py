@@ -7,7 +7,8 @@ JAX, so on the GPU machine it runs without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance: both sides are float32 with TF32 off; they differ only in the
-order of the float32 sums, so atol 1e-4 / rtol 1e-4 at these widths.
+order of the float32 sums, so atol 1e-4 / rtol 1e-4 at these widths (a whole
+FastDiff forward: 1e-4 of its output's peak).
 """
 
 import numpy as np
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 from prodiff_tpu_torch.ops import cuda_build
+from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
 from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
+from prodiff_tpu_torch.ops.ublock import ublock_layer, ublock_layer_plain
 from prodiff_tpu_torch.ops.wavenet_stack import (
     StackedWaveNet,
     residual_stack,
@@ -88,17 +91,23 @@ def test_resblock_stage_kernel_matches_plain(cuda, c, t):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
-def test_cuda_tensor_raises_without_kernel(cuda, monkeypatch):
+@pytest.mark.parametrize("wrapper", ["resblock_stage", "ublock_layer", "lvc"])
+def test_cuda_tensor_raises_without_kernel(cuda, monkeypatch, wrapper):
     """No fallback: a failed build on the CUDA path raises."""
     def broken(name):
         raise RuntimeError(f"build of {name} failed")
 
     monkeypatch.setattr(cuda_build, "load", broken)
-    rng = np.random.default_rng(2)
-    w, bias = _stage(rng, 16, (3,), ((1,),), cuda)
-    x = torch.zeros((1, 8, 16), device=cuda)
-    with pytest.raises(RuntimeError, match="build of resblock failed"):
-        resblock_stage(x, w, bias, (3,), ((1,),))
+    w, bias = _stage(np.random.default_rng(2), 16, (3,), ((1,),), cuda)
+    x, ad, cw, cb, km, lb = _layer_operands(np.random.default_rng(6), 1, 2, 64, cuda)
+    calls = {
+        "resblock_stage": lambda: resblock_stage(torch.zeros((1, 8, 16), device=cuda), w, bias,
+                                                 (3,), ((1,),)),
+        "ublock_layer": lambda: ublock_layer(x, ad, cw, cb, km, lb, 1, 64),
+        "lvc": lambda: lvc(x, km, lb, 64),
+    }
+    with pytest.raises(RuntimeError, match="build of .* failed"):
+        calls[wrapper]()
 
 
 def test_modules_route_through_the_kernels(cuda):
@@ -134,3 +143,104 @@ def test_modules_route_through_the_kernels(cuda):
         want = ref(mel, f0)
     assert resblock_stage.launches.count - before == 3 * 18
     torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+
+
+def _layer_operands(rng, b, n_win, hop, dev, stack=None):
+    """x, audio_down [B, T, 32], conv [32, 32, 3] + [32], and window kernels:
+    per layer, or a hoisted stack of ``stack = (steps, layers)``."""
+    def r(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    t, c = n_win * hop, 32
+    lead = (b, n_win) if stack is None else (stack[0], b, n_win)
+    n_layers = 1 if stack is None else stack[1]
+    km = r(*lead, n_layers * 3 * c, 2 * c, scale=0.1)
+    lb = r(*lead, n_layers * 2 * c, scale=0.1)
+    if stack is None:
+        km = km.view(b, n_win, 3 * c, 2 * c)
+    return r(b, t, c), r(b, t, c), r(c, c, 3, scale=0.2), r(c, scale=0.1), km, lb
+
+
+@pytest.mark.parametrize("hop,dilation,n_win", [
+    (8, 27, 40), (8, 1, 3), (16, 3, 9), (32, 9, 5), (64, 9, 6), (256, 27, 3), (256, 1, 1),
+    (512, 3, 2),
+])
+def test_ublock_layer_kernel_matches_plain(cuda, hop, dilation, n_win):
+    """Hop 8 runs 4 windows a block (n_win 3: one short group; 40: ten whole
+    ones) with the dilation-27 halo spanning 3 windows; one window puts the
+    LVC taps' zeros at both sequence ends into one block."""
+    rng = np.random.default_rng(3)
+    ops = _layer_operands(rng, 2, n_win, hop, cuda)
+    before = ublock_layer.launches.count
+    got = ublock_layer(*ops, dilation, hop)
+    torch.cuda.synchronize()
+    assert ublock_layer.launches.count - before == 1
+    torch.testing.assert_close(got, ublock_layer_plain(*ops, dilation, hop), atol=ATOL, rtol=RTOL)
+
+
+def test_ublock_layer_kernel_stepped_read(cuda):
+    """(step 2, layer 3) of a [3, B, L, 4*96, 64] stack, read in place."""
+    rng = np.random.default_rng(4)
+    ops = _layer_operands(rng, 2, 10, 64, cuda, stack=(3, 4))
+    got = ublock_layer(*ops, 27, 64, step_idx=2, layer_idx=3)
+    want = ublock_layer_plain(*ops, 27, 64, step_idx=2, layer_idx=3)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hop,n_win", [(8, 41), (16, 3), (64, 6), (256, 1), (256, 3)])
+def test_lvc_kernel_matches_plain(cuda, hop, n_win):
+    rng = np.random.default_rng(5)
+    x, _, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda)
+    before = lvc.launches.count
+    got = lvc(x, km, lb, hop)
+    torch.cuda.synchronize()
+    assert lvc.launches.count - before == 1
+    torch.testing.assert_close(got, lvc_plain(x, km, lb, hop), atol=ATOL, rtol=RTOL)
+    x, _, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(4, 4))
+    torch.testing.assert_close(lvc(x, km, lb, hop, step_idx=3, layer_idx=1),
+                               lvc_plain(x, km, lb, hop, step_idx=3, layer_idx=1),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_fastdiff_routes_through_the_kernels(cuda):
+    """A FastDiff forward on CUDA tensors launches K4 once per LVC layer
+    (3 blocks x 4 layers) by default and K6 as often with the unfused layer,
+    and agrees with a CPU copy (the plain twins); a hoisted 4-step sampler
+    reads its stacks in place, 48 launches."""
+    import copy
+
+    from prodiff_tpu_torch.models.fastdiff import (
+        FastDiff,
+        fastdiff_step_kernels,
+        sampling_given_noise_schedule,
+    )
+
+    torch.manual_seed(0)
+    ref = FastDiff(cond_channels=16).eval()
+    n_win, hop = 4, 256
+    audio, cond = torch.randn(2, n_win * hop, 1), torch.randn(2, n_win, 16)
+    steps = torch.tensor([[2.5], [40.0]])
+    with torch.no_grad():
+        want = ref(audio, cond, steps)
+    for fused, counter in ((True, ublock_layer.launches), (False, lvc.launches)):
+        net = copy.deepcopy(ref).to(cuda)
+        net.fused_layer = fused
+        before = counter.count
+        with torch.no_grad():
+            got = net(audio.to(cuda), cond.to(cuda), steps.to(cuda))
+        torch.cuda.synchronize()
+        assert counter.count - before == 12
+        peak = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4 * peak, rtol=RTOL)
+
+    net = copy.deepcopy(ref).to(cuda)
+    sched = [np.array([1e-4, 1e-3, 1e-2, 0.5]), np.array([0.99, 0.98, 0.9, 0.6]),
+             np.array([0.0, 0.1, 0.2, 0.3]), np.array([3.0, 20.0, 70.0, 500.0])]
+    c = cond[:1].to(cuda)
+    kp = fastdiff_step_kernels(net, c, torch.tensor(sched[3], dtype=torch.float32, device=cuda))
+    before = ublock_layer.launches.count
+    wav = sampling_given_noise_schedule(net, c, n_win * hop, *sched,
+                                        generator=torch.Generator(cuda).manual_seed(0), kp_all=kp)
+    torch.cuda.synchronize()
+    assert ublock_layer.launches.count - before == 48
+    assert wav.shape == (1, n_win * hop) and torch.isfinite(wav).all()

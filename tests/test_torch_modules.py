@@ -288,13 +288,15 @@ def test_teacher_condition_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every submodule leaves jax/flax out of sys.modules."""
+    """Importing the port and every submodule leaves jax/flax and the JAX
+    package (``prodiff_tpu``, ``prodiff_tpu.*``) out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import prodiff_tpu_torch\n"
         "for m in pkgutil.walk_packages(prodiff_tpu_torch.__path__, 'prodiff_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'prodiff_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
