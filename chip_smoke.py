@@ -28,7 +28,21 @@ Phases, each printing its lines before the last:
      the launch counts of that render (K1 2 x 41, K4 4 steps x 3 blocks x 4
      layers), the same render with the unfused layer (``fastdiff_packed:
      false``: K6 48 times), a bit-identity check of two renders on injected
-     noise, and a 32-frame render held against the same weights on the CPU.
+     noise, and a 32-frame render held against the same weights on the CPU;
+  3c. K5, the trainable WaveNet stack, vs its plain twins at the training
+     shape (B=16, T=1536, L=20, C=H=256): the save-forward's skip/xs/zs, the
+     backward chain's dz/dy/dx0, and the 11 gradients of the autograd
+     Function (kernels + cuBLAS) vs autograd through the plain stack, with
+     CUDA-event times of each part and the computed bounds;
+  6. SVS teacher training at full width through ``python -m prodiff_tpu_torch
+     train svs`` (in-process, ``__main__.main``) on the port's synthetic
+     dataset at the JAX bench's input-pipeline scale (128 items of
+     1,440-1,536 frames x 128 mels, B=16, T=1536): 8 steps with validation
+     and checkpoints every 4, then a resumed run to step 10; per-step launch
+     counts (K5 on every training step, K1 only in validation), finite
+     losses, the checkpoints and their params read back, the median step
+     time; then one training step on a short batch held against the same
+     step on the CPU (loss, every gradient, the params after the update).
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -115,7 +129,22 @@ FD_CONFIG = {
 FD_T_MEL, FD_T_PH, FD_TEACHER_STEPS, FD_STEPS = 512, 16, 2, 4
 FD_HOPS = (8, 64, 256)  # the LVC blocks' windows at 22.05 kHz / hop 256
 FD_CPU_FRAMES = 32
-COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "lvc")
+# the JAX bench's real-input-pipeline train cell (bench.py:560-633)
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_VAL_EVERY = 16, 1536, 10, 8, 4
+TRAIN_HPARAMS = dict(
+    audio_num_mel_bins=128, hidden_size=256, enc_layers=4, num_heads=2, residual_layers=20,
+    residual_channels=256, max_frames=2000, max_tokens=TRAIN_B * TRAIN_T,
+    max_sentences=TRAIN_B, batch_size_buckets=[TRAIN_B], length_bucket_step=128,
+    mel_loss="l1:0.5|ssim:0.5", clip_grad_norm=1, val_check_interval=TRAIN_VAL_EVERY,
+    tb_log_interval=1, num_sanity_val_steps=1, print_nan_grads=True, max_valid_sentences=1,
+)
+TRAIN_N_VALID = 2  # validation items: one batch each
+# K5's gradients sum B*T frame products: held at 1e-4 of each one's peak;
+# the card's training step vs the CPU's at 1e-3 of each gradient's peak
+# (the CPU runs the plain module loop, a different summation order end to end)
+GRAD_TOL, STEP_TOL = 1e-4, 1e-3
+COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "lvc",
+           "residual_stack_save", "residual_stack_chain")
 
 
 def log(msg: str) -> None:
@@ -161,9 +190,12 @@ def counters():
     from prodiff_tpu_torch.ops.resblock import resblock_stage
     from prodiff_tpu_torch.ops.ublock import ublock_layer
     from prodiff_tpu_torch.ops.wavenet_stack import residual_stack
+    from prodiff_tpu_torch.ops.wavenet_train import residual_stack_chain, residual_stack_save
 
     return {"residual_stack": residual_stack.launches, "resblock_stage": resblock_stage.launches,
-            "ublock_layer": ublock_layer.launches, "lvc": lvc.launches}
+            "ublock_layer": ublock_layer.launches, "lvc": lvc.launches,
+            "residual_stack_save": residual_stack_save.launches,
+            "residual_stack_chain": residual_stack_chain.launches}
 
 
 def reset_counts() -> None:
@@ -613,6 +645,345 @@ def phase_fastdiff(dev, torch):
     return launches, launches_u
 
 
+def grad_compare(name, got, want, tol, torch) -> float:
+    """max |got - want| against ``tol`` x the reference's peak; raises beyond."""
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= tol * max(peak, 1e-12)
+    log(f"{name}: max_abs_err={err:.3e} peak={peak:.4e} tol {tol} x peak {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the card disagrees with its reference")
+    return err
+
+
+def phase_train_kernels(dev, torch):
+    """K5 vs its plain twins at the training shape, and the whole backward
+    (chain kernel + cuBLAS weight gradients) vs autograd through the plain
+    stack. Returns the K5a / K5b summaries for the kernels line."""
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+    from prodiff_tpu_torch.ops import wavenet_train as wt
+
+    rng = np.random.default_rng(SEED + 6)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    b, t, n_layers, c, h = TRAIN_B, TRAIN_T, 20, 256, 256
+    w = wn.StackedWaveNet(
+        dilated_w=rand(n_layers, 3, c, 2 * c, scale=(3 * c) ** -0.5),
+        dilated_b=rand(n_layers, 2 * c, scale=0.1),
+        diff_w=rand(n_layers, c, c, scale=c ** -0.5), diff_b=rand(n_layers, c, scale=0.1),
+        cond_w=rand(n_layers, h, 2 * c, scale=h ** -0.5), cond_b=rand(n_layers, 2 * c, scale=0.1),
+        out_w=rand(n_layers, c, 2 * c, scale=c ** -0.5), out_b=rand(n_layers, 2 * c, scale=0.1),
+    )
+    x0, cond, step, g = rand(b, t, c), rand(b, t, h), rand(b, c), rand(b, t, c)
+    tag = f"L={n_layers} C={c} H={h} B={b} T={t}"
+
+    skip, xs, zs = wt.residual_stack_save(x0, cond, step, w)
+    want = wt.residual_stack_save_plain(x0, cond, step, w)
+    fwd_err = max(compare(f"K5a save-forward {name} {tag}", got, ref, torch)["max_abs_err"]
+                  for name, got, ref in zip(("skip", "xs", "zs"), (skip, xs, zs), want))
+    if not torch.equal(skip, wn.residual_stack(x0, cond, step, w)):
+        raise AssertionError("K5a's skip differs from K1's")
+    log("K5a skip vs K1 on the same inputs: bit-identical")
+    del want
+    dz, dy, dx0 = wt.residual_stack_chain(zs, g, w)
+    ref_dz, ref_dy, ref_dx0 = wt.residual_stack_chain_plain(zs, g, w)
+    chain_err = max(grad_compare(f"K5b chain {name} {tag}", got, ref, GRAD_TOL, torch)
+                    for name, got, ref in (("dz", dz, ref_dz), ("dy", dy, ref_dy),
+                                           ("dx0", dx0, ref_dx0)))
+    del ref_dz, ref_dy, ref_dx0
+
+    # the Function's 11 gradients vs autograd through the plain stack (on the card)
+    ins = [a.clone().requires_grad_() for a in (x0, cond, step, *w)]
+    got = torch.autograd.grad(wt.ResidualStackFn.apply(*ins), ins, g)
+    ref = torch.autograd.grad(wn.residual_stack_plain(ins[0], ins[1], ins[2],
+                                                      wn.StackedWaveNet(*ins[3:])), ins, g)
+    names = ("x0", "cond", "step") + wn.StackedWaveNet._fields
+    grad_err = max(grad_compare(f"K5 gradient {name}", a, r, GRAD_TOL, torch)
+                   for name, a, r in zip(names, got, ref))
+    del got, ref
+
+    needs = (True,) * 11
+
+    def plain_fwd_bwd():
+        _, p_xs, p_zs = wt.residual_stack_save_plain(x0, cond, step, w)
+        wt.stack_param_grads(p_xs, p_zs, *wt.residual_stack_chain_plain(p_zs, g, w), g, cond,
+                             step, w, needs)
+
+    ms = {
+        "save": timed_ms(lambda: wt.residual_stack_save(x0, cond, step, w), 5, torch),
+        "chain": timed_ms(lambda: wt.residual_stack_chain(zs, g, w), 5, torch),
+        "backward": timed_ms(lambda: wt.stack_param_grads(
+            xs, zs, *wt.residual_stack_chain(zs, g, w), g, cond, step, w, needs), 5, torch),
+        "save_plain": timed_ms(lambda: wt.residual_stack_save_plain(x0, cond, step, w), 3, torch),
+        "chain_plain": timed_ms(lambda: wt.residual_stack_chain_plain(zs, g, w), 3, torch),
+        "plain_fwd_bwd": timed_ms(plain_fwd_bwd, 3, torch),
+    }
+    bt = b * t
+    fwd_flops = 2 * bt * n_layers * (3 * c * 2 * c + h * 2 * c + c * 2 * c) + 2 * b * n_layers * c * c
+    fwd_bytes = 4 * (bt * (c + h + c) + b * c + n_layers * (3 * c * 2 * c + h * 2 * c + c * 2 * c
+                                                         + c * c + 7 * c) + n_layers * bt * 3 * c)
+    chain_flops = 2 * bt * n_layers * (2 * c * c + 3 * 2 * c * c)
+    chain_bytes = 4 * (n_layers * bt * 2 * c + bt * c + n_layers * (3 * c * 2 * c + c * 2 * c)
+                       + n_layers * bt * 3 * c + bt * c)
+    wgrad_flops = 2 * bt * n_layers * (3 * c * 2 * c + h * 2 * c + h * 2 * c + c * 2 * c)
+    k5a = dict(max_abs_err=fwd_err, ms=ms["save"], plain_ms=ms["save_plain"], **bound(fwd_flops, fwd_bytes))
+    k5b = dict(max_abs_err=chain_err, ms=ms["chain"], plain_ms=ms["chain_plain"],
+               **bound(chain_flops, chain_bytes))
+    log(f"K5a save-forward {tag}: kernel {ms['save']:.4f} ms, plain {ms['save_plain']:.4f} ms, bound "
+        f"{k5a['bound_ms']:.4f} ms ({fwd_flops / 1e9:.1f} GFLOP, {fwd_bytes / 1e9:.3f} GB: {k5a['bound_by']})")
+    log(f"K5b backward chain {tag}: kernel {ms['chain']:.4f} ms, plain {ms['chain_plain']:.4f} ms, bound "
+        f"{k5b['bound_ms']:.4f} ms ({chain_flops / 1e9:.1f} GFLOP, {chain_bytes / 1e9:.3f} GB: {k5b['bound_by']})")
+    log(f"K5 whole backward (chain + cuBLAS weight/cond/step gradients, {wgrad_flops / 1e9:.1f} GFLOP "
+        f"outside the chain): {ms['backward']:.4f} ms; the plain twins' forward + backward "
+        f"{ms['plain_fwd_bwd']:.4f} ms; max gradient error {grad_err:.3e}")
+    return k5a, k5b
+
+
+def profile_train_step(trainer, batch, torch) -> None:
+    """Where one training step's device time goes: torch.profiler over two
+    steps of the live trainer on one batch; the device time of every kernel
+    by name, grouped, against the host-clock time of the window (the rest is
+    the device's idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):  # warm-up
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    n = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / n
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0 and e.device_type.name == "CUDA":
+            rows.append((dev_us / 1e3 / n, e.count // n, e.key))
+    if not rows:
+        log("training step profile: the profiler saw no device time (not measured)")
+        return
+    groups = {"K5 backward chain": ("chain_gate_kernel", "chain_dy_kernel"),
+              "K5 save-forward (gate/out/step_proj kernels)": ("gate_kernel", "out_kernel",
+                                                             "step_proj"),
+              "GEMM (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
+              "convolution (cuDNN)": ("conv", "cudnn", "implicit", "winograd", "fft"),
+              "memcpy/memset": ("Memcpy", "Memset", "memcpy", "memset")}
+    sums = {g: 0.0 for g in groups}
+    sums["other (elementwise, reductions, indexing)"] = 0.0
+    for ms, _, key in rows:
+        for g, keys in groups.items():
+            if any(k in key for k in keys):
+                sums[g] += ms
+                break
+        else:
+            sums["other (elementwise, reductions, indexing)"] += ms
+    busy = sum(ms for ms, _, _ in rows)
+    log(f"training step profile (torch.profiler, mean of {n} steps on one B={TRAIN_B} x "
+        f"T={TRAIN_T} batch): {wall_ms:.3f} ms on the host clock, {busy:.3f} ms of kernel time "
+        f"(device idle share {max(0.0, 1 - busy / wall_ms):.3f}); by group (ms): "
+        + json.dumps({g: round(v, 3) for g, v in sums.items()}))
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+
+
+def train_config(data_dir: str) -> dict:
+    from prodiff_tpu_torch.utils.synthetic import small_hparams
+
+    hp = small_hparams(data_dir, **TRAIN_HPARAMS)
+    hp.pop("work_dir")  # set from --exp_name
+    return hp
+
+
+def train_step_vs_cpu(trainer_hp, dev, torch):
+    """One training step of a seeded full-width teacher on a short batch
+    (B=2, T=128 of the synthetic set), same injected t and noise, dropout
+    off: card (K5 + cuBLAS) vs CPU (the plain module loop)."""
+    from prodiff_tpu_torch.tasks.svs import SVSTask
+    from prodiff_tpu_torch.training.optim import Optimizer
+    from prodiff_tpu_torch.training.trainer import host_tensors
+
+    task = SVSTask(trainer_hp)
+    ds = task.train_iterator().dataset
+    batch = ds.collater([ds[0], ds[1]])
+    batch.pop("nsamples")
+    batch = {k: v[:, :128] if k in ds.time_keys else v for k, v in batch.items()}
+    rng = np.random.default_rng(SEED + 7)
+    t = np.array([1, 4])
+    noise = rng.normal(size=(2, 1, *batch["mel"].shape[1:])).astype(np.float32)
+    torch.manual_seed(SEED)
+    sd = task.build_model().state_dict()
+    sd["diffusion.denoise_fn.output_projection.weight"].normal_(std=0.02)
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = task.build_model()
+        model.load_state_dict(sd)
+        model.to(d).eval()  # dropout off; grad mode on, so the card runs K5
+        opt = Optimizer(model.named_parameters(), trainer_hp)
+        lr = opt.lr()
+        b = host_tensors(batch, pin=False)
+        b = {k: v.to(d) for k, v in b.items()}
+        losses = task.compute_losses(model, b, t=torch.as_tensor(t, device=d),
+                                     noise=torch.as_tensor(noise, device=d))
+        total = sum(losses.values())
+        total.backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        opt.step()
+        params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        out[where] = (total.detach().cpu(), grads, params)
+    loss_err = grad_compare("one training step, card vs CPU: loss", out["card"][0], out["cpu"][0],
+                            STEP_TOL, torch)
+    worst = ("", 0.0)
+    for n in out["cpu"][1]:
+        got, ref = out["card"][1][n], out["cpu"][1][n]
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-12)
+        if not (torch.isfinite(got).all() and rel <= STEP_TOL):
+            raise AssertionError(f"gradient of {n}: card vs CPU {rel:.3e} x its peak")
+        worst = max(worst, (n, rel), key=lambda x: x[1])
+        # an element whose gradient is ~0 may take Adam's first step (at most ~lr)
+        # either way, so the params also get twice the step's learning rate
+        pg, pr = out["card"][2][n], out["cpu"][2][n]
+        if float((pg - pr).abs().max()) > STEP_TOL * float(pr.abs().max()) + 2 * lr:
+            raise AssertionError(f"{n} after the update: card vs CPU beyond tolerance")
+    log(f"one training step, card vs CPU: {len(out['cpu'][1])} parameter gradients within "
+        f"{STEP_TOL} x their peaks (worst {worst[0]}: {worst[1]:.3e}), loss {float(out['cpu'][0]):.6f} "
+        f"(err {loss_err:.3e}), params after one AdamW step (lr {lr:.1e}) within {STEP_TOL} x their "
+        f"peaks + 2 lr")
+
+
+def phase_train(dev, torch):
+    """The training path at full width through the train CLI, in-process."""
+    import os
+    import tempfile
+
+    import yaml
+
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.utils.convert import load_flax_checkpoint, teacher_state_dict
+    from prodiff_tpu_torch.utils.synthetic import make_svs_dataset
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_train_")
+    cwd = os.getcwd()
+    data_dir = os.path.join(tmp, "data")
+    t0 = time.time()
+    make_svs_dataset(data_dir, n_train=128, n_valid=TRAIN_N_VALID, n_mels=128, seed=7,
+                     t_ph_range=(32, 33), dur_range=(45, 49))
+    hp = train_config(data_dir)
+    cfg = os.path.join(tmp, "train.yaml")
+    with open(cfg, "w") as f:
+        yaml.dump(hp, f)
+    log(f"synthetic dataset (128 train items, 128 mels, seed 7) and config written in "
+        f"{time.time() - t0:.3f} s")
+
+    calls = []  # (kind, global_step before, ms, launch deltas, batch shape)
+    orig = {"train": Trainer.train_step, "val": Trainer.val_step}
+    live = {}
+
+    def wrap(kind):
+        def run(self, batch):
+            live["trainer"] = self
+            torch.cuda.synchronize()
+            before = {k: c.count for k, c in counters().items()}
+            start = time.perf_counter()
+            out = orig[kind](self, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            delta = {k: c.count - before[k] for k, c in counters().items()}
+            calls.append((kind, self.global_step, ms, delta, tuple(batch["mel"].shape)))
+            return out
+        return run
+
+    Trainer.train_step, Trainer.val_step = wrap("train"), wrap("val")
+    argv = ["train", "svs", "--config", cfg, "--exp_name", "smoke"]
+    os.chdir(tmp)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        t0 = time.time()
+        port_cli(argv + ["--max_steps", str(TRAIN_RESUME_AT)])
+        t1 = time.time()
+        port_cli(argv + ["--max_steps", str(TRAIN_STEPS)])
+        t2 = time.time()
+        torch.cuda.synchronize()
+        totals = {k: c.count for k, c in counters().items()}
+    finally:
+        Trainer.train_step, Trainer.val_step = orig["train"], orig["val"]
+        os.chdir(cwd)
+    work = os.path.join(tmp, "checkpoints", "smoke", "svs")
+    n_layers = hp["residual_layers"]
+    per_train = {"residual_stack_save": 1 + 2 * n_layers, "residual_stack_chain": 2 * n_layers}
+    per_val = {"residual_stack": 1 + 2 * n_layers}
+    trains = [c for c in calls if c[0] == "train"]
+    vals = [c for c in calls if c[0] == "val"]
+    for kind, _, _, delta, shape in calls:
+        want = per_train if kind == "train" else per_val
+        if {k: v for k, v in delta.items() if v} != want or shape != (TRAIN_B, TRAIN_T, 128):
+            raise AssertionError(f"a {kind} step launched {delta} on a {shape} batch, expected {want}")
+    steps = [c[1] for c in trains]
+    if steps != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"training steps ran from global steps {steps}")
+    n_val = 1 + (TRAIN_RESUME_AT // TRAIN_VAL_EVERY) * TRAIN_N_VALID  # sanity batch + 2 validations
+    if len(vals) != n_val:
+        raise AssertionError(f"{len(vals)} validation batches, expected {n_val}")
+    launches = check_counts("the training runs", {k: len(trains) * v for k, v in per_train.items()}
+                            | {"residual_stack": len(vals) * per_val["residual_stack"]})
+    log(f"train CLI: run 1 (steps 1-{TRAIN_RESUME_AT}) {t1 - t0:.3f} s, run 2 (restored at "
+        f"step {trains[TRAIN_RESUME_AT][1]}, steps {TRAIN_RESUME_AT + 1}-{TRAIN_STEPS}) {t2 - t1:.3f} s, "
+        f"wall clock with model build, validation and checkpoints; every training step launched "
+        f"K5a {per_train['residual_stack_save']} and K5b {per_train['residual_stack_chain']} times "
+        f"and K1 none; each of the {len(vals)} validation batches K1 {per_val['residual_stack']}")
+
+    files = sorted(os.listdir(work))
+    want_files = [f"model_ckpt_steps_{s}.ckpt" for s in (4, 8, 10)] + ["model_ckpt_best.pt"]
+    if not all(f in files for f in want_files):
+        raise AssertionError(f"work dir holds {files}, expected {want_files}")
+    records = [json.loads(line) for line in open(os.path.join(work, "metrics.jsonl"))]
+    logged = [r for r in records if "tr/total_loss" in r]
+    if [r["step"] for r in logged] != list(range(1, TRAIN_STEPS + 1)):
+        raise AssertionError(f"logged steps {[r['step'] for r in logged]}")
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        raise AssertionError("a logged loss or gradient norm is not finite")
+    log("logged per step (loss, grad norm): " + ", ".join(
+        f"{r['step']}: {r['tr/total_loss']:.4f}/{r['tr/grad_norm']:.4f}" for r in logged))
+    log("validation: " + ", ".join(f"step {r['step']}: {r['val/total_loss']:.4f}"
+                                   for r in records if "val/total_loss" in r))
+
+    trainer = live.pop("trainer")
+    payload = load_flax_checkpoint(os.path.join(work, f"model_ckpt_steps_{TRAIN_STEPS}.ckpt"))
+    if payload["global_step"] != TRAIN_STEPS:
+        raise AssertionError(f"checkpoint at global_step {payload['global_step']}")
+    read = teacher_state_dict(payload["state_dict"], trainer.hparams)
+    live_sd = trainer.model.state_dict()
+    if set(read) != set(live_sd) or not all(
+            torch.equal(read[k], live_sd[k].cpu()) for k in live_sd):
+        raise AssertionError("the params read back from the step-10 checkpoint differ from the model's")
+    log(f"step-{TRAIN_STEPS} checkpoint read back through load_flax_checkpoint + teacher_state_dict: "
+        f"{len(read)} tensors equal to the live model's "
+        f"({os.path.getsize(os.path.join(work, f'model_ckpt_steps_{TRAIN_STEPS}.ckpt')) / 1e6:.1f} MB)")
+
+    step_ms = sorted(c[2] for c in trains[1:])  # the first step warms the allocator up
+    med = step_ms[len(step_ms) // 2]
+    real = TRAIN_B * TRAIN_T
+    log(f"training step (host clock, synchronised, steps 2-{TRAIN_STEPS}): median {med:.3f} ms, "
+        f"min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}; {real / med * 1e3:.0f} frames/s at "
+        f"B={TRAIN_B} x T={TRAIN_T}; validation batch median "
+        f"{sorted(c[2] for c in vals)[len(vals) // 2]:.3f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    from prodiff_tpu_torch.training.trainer import DevicePrefetcher
+
+    _, batch = next(iter(DevicePrefetcher(trainer.task.train_iterator(), dev)))
+    profile_train_step(trainer, batch, torch)
+    del trainer, live_sd, batch
+    torch.cuda.empty_cache()
+    train_step_vs_cpu(dict(hp, work_dir=work, task="svs"), dev, torch)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -630,7 +1001,7 @@ def main() -> int:
     log(smi[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; precision mode {policy.precision()}")
 
-    sources = ("wavenet_stack", "resblock", "ublock", "lvc")
+    sources = ("wavenet_stack", "resblock", "ublock", "lvc", "wavenet_train")
     t0 = time.time()
     cuda_build.load_all(sources)  # one nvcc per source, all at once
     log(f"kernel build (parallel nvcc) {time.time() - t0:.3f} s")
@@ -640,8 +1011,10 @@ def main() -> int:
 
     k1, res = phase_kernels(dev, torch)
     fd = phase_fastdiff_kernels(dev, torch)
+    k5a, k5b = phase_train_kernels(dev, torch)
     launches = phase_slice(dev, torch)
     fd_launches, fd_unfused_launches = phase_fastdiff(dev, torch)
+    train_launches = phase_train(dev, torch)
 
     def entry(name, source, replaces, n, m):
         return dict(name=name, route="cuda", source=f"prodiff_tpu_torch/csrc/{source}",
@@ -658,6 +1031,12 @@ def main() -> int:
               fd_launches["ublock_layer"], fd["ublock_layer"]),
         entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",
               fd_unfused_launches["lvc"], fd["lvc"]),
+        entry("wavenet_stack_save_forward", "wavenet_train.cu",
+              "prodiff_tpu/ops/pallas/wavenet_train.py:71",
+              train_launches["residual_stack_save"], k5a),
+        entry("wavenet_stack_backward_chain", "wavenet_train.cu",
+              "prodiff_tpu/ops/pallas/wavenet_train.py:161",
+              train_launches["residual_stack_chain"], k5b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

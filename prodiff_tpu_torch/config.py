@@ -1,5 +1,5 @@
-"""Experiment config loading (the port's copy of the ``exp_name`` route of
-``prodiff_tpu/config.py:set_hparams``).
+"""Experiment config loading (the port's copy of ``load_config``,
+``load_base_config`` and ``set_hparams`` of ``prodiff_tpu/config.py``).
 
 A config is YAML with an optional ``base_config`` parent (one path, a list
 of paths merged in order, or ``base``/``builtin`` for the shipped defaults);
@@ -11,7 +11,7 @@ imported only here.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import yaml
 
@@ -43,13 +43,28 @@ def load_config(config_fn: str) -> Dict[str, Any]:
     return merged
 
 
-def set_hparams(exp_name: str, task: str, checkpoints_root: str = "checkpoints") -> Dict[str, Any]:
-    """``checkpoints_root/exp_name/task/config.yaml`` with ``task``,
-    ``exp_name`` and ``work_dir`` stamped in; writes nothing."""
+def load_base_config() -> Dict[str, Any]:
+    """The shipped defaults."""
+    with open(BASE_CONFIG_PATH) as f:
+        return yaml.safe_load(f)
+
+
+def set_hparams(exp_name: str, task: str, checkpoints_root: str = "checkpoints",
+                config_fn: Optional[str] = None, make_work_dir: bool = False) -> Dict[str, Any]:
+    """``config_fn`` when it exists, else the work dir's ``config.yaml``
+    (``checkpoints_root/exp_name/task``), with ``task``, ``exp_name`` and
+    ``work_dir`` stamped in. ``make_work_dir`` creates the work dir and
+    writes the merged config there as ``config.yaml``, as the JAX trainer
+    does."""
     work_dir = os.path.join(checkpoints_root, exp_name, task)
-    config_fn = os.path.join(work_dir, "config.yaml")
+    if config_fn is None or not os.path.exists(config_fn):
+        config_fn = os.path.join(work_dir, "config.yaml")
     if not os.path.exists(config_fn):
         raise FileNotFoundError(f"Config file not found: {config_fn}")
     hp = load_config(config_fn)
     hp.update(task=task, exp_name=exp_name, work_dir=work_dir)
+    if make_work_dir:
+        os.makedirs(work_dir, exist_ok=True)
+        with open(os.path.join(work_dir, "config.yaml"), "w") as f:
+            yaml.dump(hp, f)
     return hp

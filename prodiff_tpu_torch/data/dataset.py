@@ -1,0 +1,148 @@
+"""Datasets over binarized shards and the batch iterator (port of
+``prodiff_tpu/data/dataset.py``).
+
+``BaseDataset`` mirrors the reference (``component/train_task/base_dataset.py``):
+IndexedDataset-backed, ``{prefix}_lengths.npy`` sizes, ``max_frames``
+clamp, shuffled-then-mergesorted ordering. ``BatchIterator`` batches by
+token budget, collates to numpy, pads to quantised (B, T) buckets and
+collates ahead on a background thread. The seeded shuffle draws from
+``numpy.random.default_rng(seed)`` in the JAX package's order, so both
+packages give the same batches for the same seed. The JAX package's
+multi-host ``local_block`` loading waits for the port's multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from prodiff_tpu_torch.data.collate import batch_by_size, pad_to_buckets
+from prodiff_tpu_torch.utils.indexed_datasets import IndexedDataset
+
+
+class BaseDataset:
+    # static-shape metadata, overridden per task
+    time_keys: Dict[str, int] = {}
+    pad_values: Dict[str, float] = {}
+
+    def __init__(self, prefix: str, shuffle: bool, hparams: dict):
+        self.hparams = hparams
+        self.shuffle = shuffle
+        self.sort_by_len = hparams.get("sort_by_len", True)
+        self.data_dir = os.path.join(hparams["data_dir"], hparams["task"])
+        self.prefix = prefix
+        self.sizes = np.load(f"{self.data_dir}/{self.prefix}_lengths.npy")
+        self.indexed_ds: Optional[IndexedDataset] = None
+        self._rng = np.random.default_rng(hparams.get("seed", 1234))
+
+    def __len__(self) -> int:
+        return len(self.sizes)
+
+    def __getitem__(self, index: int) -> dict:
+        if self.indexed_ds is None:
+            self.indexed_ds = IndexedDataset(
+                self.data_dir, self.prefix,
+                segment_size=self.hparams.get("idx_ds_segment_size", 1024),
+            )
+        return self.indexed_ds[index]
+
+    def size(self, index: int) -> int:
+        return int(min(self.sizes[index], self.hparams["max_frames"]))
+
+    def num_tokens(self, index: int) -> int:
+        return self.size(index)
+
+    def ordered_indices(self) -> np.ndarray:
+        if self.shuffle:
+            indices = self._rng.permutation(len(self))
+            if self.sort_by_len:
+                indices = indices[np.argsort(np.asarray(self.sizes)[indices], kind="mergesort")]
+        else:
+            indices = np.arange(len(self))
+        return indices
+
+    def collater(self, samples: List[dict]) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def pad_batch(self, batch: Dict[str, np.ndarray], batch_multiple: int = 1) -> Dict[str, np.ndarray]:
+        return pad_to_buckets(
+            batch,
+            time_keys=self.time_keys,
+            batch_buckets=self.hparams.get("batch_size_buckets", [1, 2, 4, 8, 16, 32, 48]),
+            length_bucket_step=self.hparams.get("length_bucket_step", 128),
+            pad_values=self.pad_values,
+            batch_multiple=batch_multiple,
+        )
+
+
+class BatchIterator:
+    """Token-bucketed, bucket-padded batch stream, collated ahead on a
+    thread. Leaving the loop early stops and joins that thread."""
+
+    def __init__(self, dataset: BaseDataset, max_tokens: int, max_sentences: int,
+                 required_batch_size_multiple: int = 1, prefetch: int = 4):
+        self.dataset = dataset
+        self.max_tokens = max_tokens if max_tokens and max_tokens > 0 else None
+        self.max_sentences = max_sentences if max_sentences and max_sentences > 0 else None
+        self.bsz_mult = required_batch_size_multiple
+        self.prefetch = prefetch
+
+    def _make_batches(self) -> List[List[int]]:
+        return batch_by_size(
+            self.dataset.ordered_indices(), self.dataset.num_tokens,
+            max_tokens=self.max_tokens, max_sentences=self.max_sentences,
+            required_batch_size_multiple=self.bsz_mult,
+        )
+
+    def __len__(self) -> int:
+        return len(self._make_batches())
+
+    def _produce(self, batches: Sequence[Sequence[int]], q: "queue.Queue",
+                 stop: threading.Event):
+        try:
+            for idxs in batches:
+                if stop.is_set():
+                    return
+                batch = self.dataset.collater([self.dataset[i] for i in idxs])
+                q.put(self.dataset.pad_batch(batch, batch_multiple=self.bsz_mult))
+        except Exception as e:  # surface loader errors on the consumer side
+            q.put(e)
+        finally:
+            q.put(None)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self._make_batches()
+        if self.dataset.shuffle:
+            # shuffle batch order (sizes stay grouped within batches)
+            order = self.dataset._rng.permutation(len(batches))
+            batches = [batches[i] for i in order]
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        thread = threading.Thread(target=self._produce, args=(batches, q, stop), daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while thread.is_alive():
+                drain(q)
+                thread.join(timeout=0.05)
+
+
+def drain(q: "queue.Queue") -> None:
+    """Take every item that is in ``q`` now."""
+    try:
+        while True:
+            q.get_nowait()
+    except queue.Empty:
+        pass

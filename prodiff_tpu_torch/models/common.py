@@ -3,10 +3,12 @@
 
 Pre-LN self-attention without qkv bias, conv-FFN with kernel 9 scaled by
 ``k^-0.5`` then exact GELU, padding-aware sinusoidal positions, per-layer
-nonpadding masking. Public layout is ``[B, T, C]``. Parameter names follow
-the torch reference's state dict (``encoder.layers.{i}.op.self_attn.
-in_proj_weight`` ...), which ``prodiff_tpu/utils/teacher_convert.py`` maps to
-the JAX package's tree. LayerNorm epsilon is flax's 1e-6, the reference this
+nonpadding masking, and ``nn.Dropout`` at the JAX package's four places
+(after the embeddings, after attention, inside the FFN after GELU, after the
+FFN), active in ``.train()`` only. Public layout is ``[B, T, C]``.
+Parameter names follow the torch reference's state dict
+(``encoder.layers.{i}.op.self_attn.in_proj_weight`` ...), which
+``prodiff_tpu/utils/teacher_convert.py`` maps to the JAX package's tree. LayerNorm epsilon is flax's 1e-6, the reference this
 port is held against.
 """
 
@@ -110,47 +112,52 @@ class MultiheadSelfAttention(nn.Module):
 class TransformerFFNLayer(nn.Module):
     """Conv(k) -> *k^-0.5 -> GELU -> Linear FFN (reference ``common_layers.py:542-585``)."""
 
-    def __init__(self, hidden_size: int, filter_size: int, kernel_size: int = 9):
+    def __init__(self, hidden_size: int, filter_size: int, kernel_size: int = 9,
+                 dropout: float = 0.1):
         super().__init__()
         self.kernel_size = kernel_size
         self.ffn_1 = nn.Conv1d(hidden_size, filter_size, kernel_size, padding=kernel_size // 2)
+        self.dropout = nn.Dropout(dropout)
         self.ffn_2 = Linear(filter_size, hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ffn_1(x.transpose(1, 2)).transpose(1, 2)
         x = F.gelu(x * self.kernel_size ** -0.5)
-        return self.ffn_2(x)
+        return self.ffn_2(self.dropout(x))
 
 
 class EncSALayer(nn.Module):
     """Pre-LN encoder layer: LN->MHA->res->mask, LN->FFN->res->mask."""
 
-    def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9):
+    def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         if num_heads > 0:
             self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
             self.self_attn = MultiheadSelfAttention(hidden_size, num_heads)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.ffn = TransformerFFNLayer(hidden_size, 4 * hidden_size, kernel_size)
+        self.ffn = TransformerFFNLayer(hidden_size, 4 * hidden_size, kernel_size, dropout)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         nonpad = (~padding_mask).to(x.dtype)[:, :, None]
         if self.num_heads > 0:
             residual = x
             x = self.self_attn(self.layer_norm1(x), key_padding_mask=padding_mask)
-            x = (residual + x) * nonpad
+            x = (residual + self.dropout(x)) * nonpad
         residual = x
         x = self.ffn(self.layer_norm2(x))
-        return (residual + x) * nonpad
+        return (residual + self.dropout(x)) * nonpad
 
 
 class TransformerEncoderLayer(nn.Module):
     """The reference's wrapper that names each layer's body ``op``."""
 
-    def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9):
+    def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
+                 dropout: float = 0.1):
         super().__init__()
-        self.op = EncSALayer(hidden_size, num_heads, kernel_size)
+        self.op = EncSALayer(hidden_size, num_heads, kernel_size, dropout)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         return self.op(x, padding_mask)
@@ -162,10 +169,10 @@ class FFTBlocks(nn.Module):
     encoder that owns the stack, as on the slice's path."""
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2):
+                 num_heads: int = 2, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size)
+            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, dropout)
             for _ in range(num_layers)
         )
         self.layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)

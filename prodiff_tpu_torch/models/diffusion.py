@@ -1,13 +1,17 @@
-"""x0-prediction DDPM sampling (port of the inference branch of
-``prodiff_tpu/models/diffusion.py:GaussianDiffusion``).
+"""x0-prediction DDPM (port of ``prodiff_tpu/models/diffusion.py:GaussianDiffusion``
+for mel specs: training forward and sampling).
 
 Tensors are ``[B, F, T, M]`` (the denoiser sees ``[B, T, F*M]``). The
 sampling loop is a Python loop over the (default 4) steps. Inference starts
 from **uniform** noise by default, the reference's quirk that the JAX package
 keeps (``noise_init: "gaussian"`` for the standard start). ``init_noise`` /
 ``step_noises`` inject the randomness explicitly; otherwise it is drawn from
-the ``torch.Generator`` the caller passes. Training (``q_sample`` and the
-loss) waits for the training slice.
+the ``torch.Generator`` the caller passes.
+
+Training (:meth:`GaussianDiffusion.forward`) draws ``t ~ U{0..timesteps}``
+(inclusive, as the reference) and Gaussian noise from the caller's
+generator, or takes them injected (``t=``, ``noise=``), and returns
+``(x0_pred, x0)``; the loss lives in ``ops/losses.py``.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ class GaussianDiffusion(nn.Module):
             timesteps=timesteps, schedule_type=schedule_type,
             max_beta=max_beta, min_beta=min_beta,
         )
-        for name in ("posterior_mean_coef1", "posterior_mean_coef2",
+        for name in ("sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+                     "posterior_mean_coef1", "posterior_mean_coef2",
                      "posterior_log_variance_clipped"):
             self.register_buffer(name, torch.from_numpy(getattr(coefs, name)), persistent=False)
 
@@ -44,6 +49,28 @@ class GaussianDiffusion(nn.Module):
         flat = x.permute(0, 2, 1, 3).reshape(b, tt, f * m)
         out = self.denoise_fn(flat, t, cond)
         return out.reshape(b, tt, f, m).permute(0, 2, 1, 3)
+
+    def q_sample(self, x_0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """x_t from x_0 [B, F, T, M] at steps ``t`` [B] with ``noise``."""
+        return (self.sqrt_alphas_cumprod[t][:, None, None, None] * x_0
+                + self.sqrt_one_minus_alphas_cumprod[t][:, None, None, None] * noise)
+
+    def forward(self, cond: torch.Tensor, gt_spec: torch.Tensor,
+                t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training: cond [B, T, H], gt_spec [B, F, T, M] -> (x0_pred, x0).
+
+        ``t`` [B] (long, in ``[0, timesteps]``) and ``noise`` [B, F, T, M]
+        are drawn from ``generator`` where not given."""
+        x_0 = gt_spec
+        if t is None:
+            t = torch.randint(0, self.timesteps + 1, (x_0.shape[0],), generator=generator,
+                              device=x_0.device)
+        if noise is None:
+            noise = torch.randn(x_0.shape, generator=generator, device=x_0.device,
+                                dtype=x_0.dtype)
+        x_t = self.q_sample(x_0, t, noise)
+        return self._denoise(x_t, t, cond), x_0
 
     def q_posterior_sample(self, x_0: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor,
                            noise: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn as nn
 
 from prodiff_tpu_torch.models.common import Embedding, FFTBlocks, SinusoidalPositionalEmbedding
 
@@ -16,11 +17,12 @@ class FastspeechEncoder(FFTBlocks):
     ``embed_tokens``, ``layers.{i}.op...`` and ``layer_norm``."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
-                 kernel_size: int = 9, num_heads: int = 2):
-        super().__init__(hidden_size, num_layers, kernel_size, num_heads)
+                 kernel_size: int = 9, num_heads: int = 2, dropout: float = 0.1):
+        super().__init__(hidden_size, num_layers, kernel_size, num_heads, dropout)
         self.hidden_size = hidden_size
         self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
         self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, txt_tokens: torch.Tensor,
                 extra_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -28,5 +30,5 @@ class FastspeechEncoder(FFTBlocks):
         x = self.hidden_size ** 0.5 * self.embed_tokens(txt_tokens)
         if extra_embed is not None:
             x = x + extra_embed
-        x = x + self.embed_positions(~padding_mask)
+        x = self.dropout(x + self.embed_positions(~padding_mask))
         return self.run_layers(x, padding_mask)

@@ -1,10 +1,12 @@
 """ProDiffTeacher, the SVS acoustic model (port of
-``prodiff_tpu/models/prodiff.py``, ``diff_type: prodiff`` inference only).
+``prodiff_tpu/models/prodiff.py``, ``diff_type: prodiff``).
 
 Phoneme encoder with duration/language extra embeds -> length-regulate to
 frames through mel2ph -> add pitch/speaker/gender/voicing/breath
 conditioning -> zero padded frames -> 4-step x0-prediction diffusion over
-the mel. Rectified flow (``diff_type: reflow``) waits for a later slice.
+the mel. :meth:`ProDiffTeacher.forward` is the training call (``gt_spec``
+-> ``(x0_pred, x0)``), :meth:`ProDiffTeacher.infer` samples. Rectified flow
+(``diff_type: reflow``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ class ProDiffTeacher(nn.Module):
         self.mel_bins = hp["audio_num_mel_bins"]
         self.encoder = FastspeechEncoder(
             vocab_size, hidden, hp["enc_layers"], hp["enc_ffn_kernel_size"], hp["num_heads"],
+            hp.get("dropout", 0.1),
         )
         self.with_dur_embed = hp.get("use_dur_embed", True)
         if self.with_dur_embed:
@@ -108,6 +111,15 @@ class ProDiffTeacher(nn.Module):
                     raise ValueError(f"use_{name}_embed is True, {name} is required")
                 condition = condition + getattr(self, f"{name}_embed")(curve[:, :, None])
         return condition * (mel2ph > 0).to(condition.dtype)[:, :, None]
+
+    def forward(self, txt_tokens, mel2ph, f0, gt_spec: torch.Tensor,
+                t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, **cond_kw):
+        """Training: ``gt_spec`` [B, T_mel, M] -> (x0_pred, x0), both
+        [B, 1, T_mel, M]. ``t``/``noise``/``generator`` as
+        :meth:`GaussianDiffusion.forward`; ``cond_kw`` as :meth:`infer`."""
+        condition = self.forward_condition(txt_tokens, mel2ph, f0, **cond_kw)
+        return self.diffusion(condition, gt_spec[:, None], t=t, noise=noise, generator=generator)
 
     @torch.no_grad()
     def infer(self, txt_tokens, mel2ph, f0, infer_step: int = 4,

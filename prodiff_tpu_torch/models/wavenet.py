@@ -5,9 +5,11 @@ same function:
 
 - the plain module loop (the JAX linen path), used on the CPU and whenever
   ``dilation_cycle_length != 1``;
-- the residual-stack kernel (``ops/wavenet_stack.py``, port of the Pallas
-  K1), used for CUDA tensors when every layer has dilation 1, exactly where
-  the JAX package routes to Pallas.
+- the kernels (CUDA tensors, every layer of dilation 1, where the JAX
+  package routes to Pallas): ``ops/wavenet_train.py:differentiable_stack``,
+  which runs K1 (``ops/wavenet_stack.py``) when no gradient is needed and
+  otherwise the trainable stack (K5's save-forward and backward chain), so
+  a backward pass reaches every parameter and ``cond``.
 
 State-dict names follow the torch reference (``input_projection``,
 ``mlp.0``/``mlp.2``, ``residual_layers.{i}.dilated_conv`` ...).
@@ -21,7 +23,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from prodiff_tpu_torch.models.common import Linear, SinusoidalPosEmb, mish, params_key
-from prodiff_tpu_torch.ops.wavenet_stack import StackedWaveNet, residual_stack
+from prodiff_tpu_torch.ops.wavenet_stack import StackedWaveNet
+from prodiff_tpu_torch.ops.wavenet_train import differentiable_stack
 
 
 class Mish(nn.Module):
@@ -81,27 +84,33 @@ class WaveNet(nn.Module):
         self._stacked = None
 
     def stacked_weights(self) -> StackedWaveNet:
-        """The residual layers' weights stacked for the kernel (counterpart of
-        ``stack_wavenet_params``), rebuilt when a parameter changes."""
-        key = params_key(self)
-        if self._stacked is None or self._stacked[0] != key:
-            ls = self.residual_layers
+        """The residual layers' weights stacked for the kernels (counterpart
+        of ``stack_wavenet_params``). With grad mode on and trainable
+        parameters the stack is built anew and differentiable; otherwise it
+        is cached and rebuilt when a parameter changes."""
+        ls = self.residual_layers
 
+        def build():
             def stack(fn):
                 return torch.stack([fn(layer) for layer in ls]).contiguous()
 
+            return StackedWaveNet(
+                dilated_w=stack(lambda l: l.dilated_conv.weight.permute(2, 1, 0)),
+                dilated_b=stack(lambda l: l.dilated_conv.bias),
+                diff_w=stack(lambda l: l.diffusion_projection.weight.t()),
+                diff_b=stack(lambda l: l.diffusion_projection.bias),
+                cond_w=stack(lambda l: l.conditioner_projection.weight[:, :, 0].t()),
+                cond_b=stack(lambda l: l.conditioner_projection.bias),
+                out_w=stack(lambda l: l.output_projection.weight[:, :, 0].t()),
+                out_b=stack(lambda l: l.output_projection.bias),
+            )
+
+        if torch.is_grad_enabled() and any(p.requires_grad for p in ls.parameters()):
+            return build()
+        key = params_key(self)
+        if self._stacked is None or self._stacked[0] != key:
             with torch.no_grad():
-                w = StackedWaveNet(
-                    dilated_w=stack(lambda l: l.dilated_conv.weight.permute(2, 1, 0)),
-                    dilated_b=stack(lambda l: l.dilated_conv.bias),
-                    diff_w=stack(lambda l: l.diffusion_projection.weight.t()),
-                    diff_b=stack(lambda l: l.diffusion_projection.bias),
-                    cond_w=stack(lambda l: l.conditioner_projection.weight[:, :, 0].t()),
-                    cond_b=stack(lambda l: l.conditioner_projection.bias),
-                    out_w=stack(lambda l: l.output_projection.weight[:, :, 0].t()),
-                    out_b=stack(lambda l: l.output_projection.bias),
-                )
-            self._stacked = (key, w)
+                self._stacked = (key, build())
         return self._stacked[1]
 
     def forward(self, spec: torch.Tensor, diffusion_step: torch.Tensor,
@@ -109,7 +118,7 @@ class WaveNet(nn.Module):
         x = F.relu(conv1x1(spec, self.input_projection))
         step = self.mlp(self.diffusion_embedding(diffusion_step))
         if spec.is_cuda and self.dilation_cycle_length == 1:
-            x = residual_stack(x, cond, step, self.stacked_weights())
+            x = differentiable_stack(x, cond, step, self.stacked_weights())
         else:
             skip_sum = torch.zeros_like(x)
             for layer in self.residual_layers:

@@ -39,8 +39,9 @@ def get_noise_schedule_list(schedule_mode: str, timesteps: int, min_beta: float 
 
 
 class DiffusionCoefficients:
-    """The posterior coefficients of an x0-prediction DDPM, each of length
-    ``timesteps + 1`` (the schedule is built with ``timesteps + 1`` entries)."""
+    """The q-sample and posterior coefficients of an x0-prediction DDPM, each
+    of length ``timesteps + 1`` (the schedule is built with ``timesteps + 1``
+    entries)."""
 
     def __init__(self, timesteps: int, schedule_type: str = "vpsde",
                  max_beta: float = 0.02, min_beta: float = 0.1):
@@ -50,6 +51,8 @@ class DiffusionCoefficients:
         alphas = 1.0 - betas
         alphas_cumprod = np.cumprod(alphas, axis=0)
         alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+        self.sqrt_alphas_cumprod = np.sqrt(alphas_cumprod).astype(np.float32)
+        self.sqrt_one_minus_alphas_cumprod = np.sqrt(1.0 - alphas_cumprod).astype(np.float32)
         posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
         self.posterior_log_variance_clipped = np.log(
             np.maximum(posterior_variance, 1e-20)).astype(np.float32)

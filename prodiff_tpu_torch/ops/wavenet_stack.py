@@ -38,26 +38,65 @@ class StackedWaveNet(NamedTuple):
     out_b: torch.Tensor  # [L, 2C]
 
 
+def wavenet_layer_plain(x: torch.Tensor, cond: torch.Tensor, step: torch.Tensor,
+                        w: StackedWaveNet, i: int):
+    """Layer ``i`` of the stack: x [B,T,C] -> (next x, skip part of o, the
+    pre-gate z [B,T,2C]). Frames outside ``[0, T)`` are the k=3 conv's zero
+    padding."""
+    c = x.shape[-1]
+    step_proj = step @ w.diff_w[i] + w.diff_b[i]  # [B, C]
+    y = x + step_proj[:, None, :]
+    y_prev = F.pad(y, (0, 0, 1, 0))[:, :-1]
+    y_next = F.pad(y, (0, 0, 0, 1))[:, 1:]
+    z = y @ w.dilated_w[i, 1] + y_prev @ w.dilated_w[i, 0] + y_next @ w.dilated_w[i, 2]
+    z = z + w.dilated_b[i] + (cond @ w.cond_w[i] + w.cond_b[i])
+    gate = torch.sigmoid(z[..., :c]) * torch.tanh(z[..., c:])
+    o = gate @ w.out_w[i] + w.out_b[i]
+    return (x + o[..., :c]) * RSQRT2, o[..., c:], z
+
+
 def residual_stack_plain(x0: torch.Tensor, cond: torch.Tensor, step: torch.Tensor,
                          w: StackedWaveNet) -> torch.Tensor:
-    """x0 [B,T,C], cond [B,T,H], step [B,C] -> skip sum / sqrt(L), [B,T,C].
-
-    Frames outside ``[0, T)`` are the k=3 conv's zero padding."""
-    n_layers, _, c, _ = w.dilated_w.shape
+    """x0 [B,T,C], cond [B,T,H], step [B,C] -> skip sum / sqrt(L), [B,T,C]."""
+    n_layers = w.dilated_w.shape[0]
     x = x0
     skip = torch.zeros_like(x0)
     for i in range(n_layers):
-        step_proj = step @ w.diff_w[i] + w.diff_b[i]  # [B, C]
-        y = x + step_proj[:, None, :]
-        y_prev = F.pad(y, (0, 0, 1, 0))[:, :-1]
-        y_next = F.pad(y, (0, 0, 0, 1))[:, 1:]
-        z = y @ w.dilated_w[i, 1] + y_prev @ w.dilated_w[i, 0] + y_next @ w.dilated_w[i, 2]
-        z = z + w.dilated_b[i] + (cond @ w.cond_w[i] + w.cond_b[i])
-        gate = torch.sigmoid(z[..., :c]) * torch.tanh(z[..., c:])
-        o = gate @ w.out_w[i] + w.out_b[i]
-        x = (x + o[..., :c]) * RSQRT2
-        skip = skip + o[..., c:]
+        x, s, _ = wavenet_layer_plain(x, cond, step, w, i)
+        skip = skip + s
     return skip * (1.0 / math.sqrt(n_layers))
+
+
+def check_operands(what: str, x0: torch.Tensor, cond: torch.Tensor, step: torch.Tensor,
+                   w: StackedWaveNet):
+    """The kernels' contract on CUDA operands; returns (B, T, C, H, L)."""
+    if x0.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x0.device}")
+    b, t, c = x0.shape
+    n_layers, h, c2 = w.cond_w.shape
+    dtype = device.compute_dtype()
+    for a in (x0, cond, step, *w):
+        if a.device != x0.device or a.dtype != dtype:
+            raise ValueError(
+                f"{what}: every operand must be {dtype} on {x0.device}, "
+                f"got {a.dtype} on {a.device}"
+            )
+    expect = {
+        "cond": (cond.shape, (b, t, h)), "step": (step.shape, (b, c)),
+        "dilated_w": (w.dilated_w.shape, (n_layers, 3, c, c2)),
+        "dilated_b": (w.dilated_b.shape, (n_layers, c2)),
+        "diff_w": (w.diff_w.shape, (n_layers, c, c)),
+        "diff_b": (w.diff_b.shape, (n_layers, c)),
+        "cond_b": (w.cond_b.shape, (n_layers, c2)),
+        "out_w": (w.out_w.shape, (n_layers, c, c2)),
+        "out_b": (w.out_b.shape, (n_layers, c2)),
+    }
+    for name, (got, want) in expect.items():
+        if tuple(got) != want:
+            raise ValueError(f"{what}: {name} has shape {tuple(got)}, expected {want}")
+    if c2 != 2 * c or c % 32 or h % 32:
+        raise ValueError(f"{what}: needs C % 32 == 0, H % 32 == 0 (C={c}, H={h})")
+    return b, t, c, h, n_layers
 
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -75,41 +114,24 @@ def residual_stack(x0: torch.Tensor, cond: torch.Tensor, step: torch.Tensor,
     """x0 [B,T,C], cond [B,T,H], step [B,C] -> skip sum / sqrt(L), [B,T,C].
 
     CPU tensors run :func:`residual_stack_plain`; CUDA tensors launch the
-    kernel (1 + 2L launches, counted in ``residual_stack.launches``)."""
+    kernel (1 + 2L launches, counted in ``residual_stack.launches``). The
+    kernel has no backward: with grad mode on, an operand that requires grad
+    raises. A stack that trains goes through
+    ``ops/wavenet_train.py:differentiable_stack``."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x0, cond, step, *w)):
+        raise RuntimeError(
+            "residual_stack has no backward and an operand requires grad: call it under "
+            "torch.no_grad(), or train through ops/wavenet_train.py:differentiable_stack"
+        )
     if x0.device.type == "cpu":
         return residual_stack_plain(x0, cond, step, w)
-    if x0.device.type != "cuda":
-        raise ValueError(f"residual_stack: unsupported device {x0.device}")
-    b, t, c = x0.shape
-    n_layers, h, c2 = w.cond_w.shape
-    dtype = device.compute_dtype()
-    for a in (x0, cond, step, *w):
-        if a.device != x0.device or a.dtype != dtype:
-            raise ValueError(
-                f"residual_stack: every operand must be {dtype} on {x0.device}, "
-                f"got {a.dtype} on {a.device}"
-            )
-    expect = {
-        "cond": (cond.shape, (b, t, h)), "step": (step.shape, (b, c)),
-        "dilated_w": (w.dilated_w.shape, (n_layers, 3, c, c2)),
-        "dilated_b": (w.dilated_b.shape, (n_layers, c2)),
-        "diff_w": (w.diff_w.shape, (n_layers, c, c)),
-        "diff_b": (w.diff_b.shape, (n_layers, c)),
-        "cond_b": (w.cond_b.shape, (n_layers, c2)),
-        "out_w": (w.out_w.shape, (n_layers, c, c2)),
-        "out_b": (w.out_b.shape, (n_layers, c2)),
-    }
-    for name, (got, want) in expect.items():
-        if tuple(got) != want:
-            raise ValueError(f"residual_stack: {name} has shape {tuple(got)}, expected {want}")
-    if c2 != 2 * c or c % 32 or h % 32:
-        raise ValueError(f"residual_stack: needs C % 32 == 0, H % 32 == 0 (C={c}, H={h})")
+    b, t, c, h, n_layers = check_operands("residual_stack", x0, cond, step, w)
     cond, step = cond.contiguous(), step.contiguous()
     w = StackedWaveNet(*(a.contiguous() for a in w))
     x = x0.contiguous().clone()
     skip = torch.empty_like(x)
     gate = torch.empty_like(x)
-    step_proj = torch.empty((n_layers, b, c), device=x.device, dtype=dtype)
+    step_proj = torch.empty((n_layers, b, c), device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -4,6 +4,8 @@
   params (the nested dict of arrays that ``ckpt_utils.load_checkpoint_file``
   returns under ``state_dict``) into this port's ``state_dict``. It inverts
   ``prodiff_tpu/utils/teacher_convert.py:convert_prodiff_teacher``.
+  :func:`teacher_flax_params` goes the other way, for the checkpoints the
+  port's trainer writes (``utils/ckpt_utils.py``).
 - :func:`nsf_hifigan_state_dict` does the same for the NSF-HiFiGAN
   generator, inverting ``prodiff_tpu/utils/torch_convert.py:convert_nsf_hifigan``.
 - :func:`fastdiff_state_dict` does the same for the FastDiff vocoder,
@@ -30,7 +32,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +126,67 @@ def teacher_state_dict(flax_params: Dict[str, Any], hparams: dict) -> StateDict:
     return sd
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _dense_params(sd: StateDict, src: str) -> dict:
+    node = {"kernel": _np(sd[f"{src}.weight"]).T.copy()}
+    if f"{src}.bias" in sd:
+        node["bias"] = _np(sd[f"{src}.bias"])
+    return node
+
+
+def _conv_params(sd: StateDict, src: str) -> dict:
+    return {"kernel": np.ascontiguousarray(np.transpose(_np(sd[f"{src}.weight"]), (2, 1, 0))),
+            "bias": _np(sd[f"{src}.bias"])}
+
+
+def _layer_norm_params(sd: StateDict, src: str) -> dict:
+    return {"scale": _np(sd[f"{src}.weight"]), "bias": _np(sd[f"{src}.bias"])}
+
+
+def teacher_flax_params(state_dict: StateDict, hparams: dict) -> Dict[str, Any]:
+    """This port's ``ProDiffTeacher`` state dict -> the JAX package's param
+    tree ``{"params": ...}`` (the inverse of :func:`teacher_state_dict`)."""
+    sd = state_dict
+    blocks = {}
+    for i in range(hparams["enc_layers"]):
+        src = f"encoder.layers.{i}.op"
+        blocks[f"layers_{i}"] = {
+            "layer_norm1": _layer_norm_params(sd, f"{src}.layer_norm1"),
+            "self_attn": {"in_proj": {"kernel": _np(sd[f"{src}.self_attn.in_proj_weight"]).T.copy()},
+                          "out_proj": _dense_params(sd, f"{src}.self_attn.out_proj")},
+            "layer_norm2": _layer_norm_params(sd, f"{src}.layer_norm2"),
+            "ffn": {"ffn_1": _conv_params(sd, f"{src}.ffn.ffn_1"),
+                    "ffn_2": {"Dense_0": _dense_params(sd, f"{src}.ffn.ffn_2")}},
+        }
+    blocks["layer_norm"] = _layer_norm_params(sd, "encoder.layer_norm")
+    p: Dict[str, Any] = {"encoder": {"embed_tokens": {"embedding": _np(sd["encoder.embed_tokens.weight"])},
+                                     "fft_blocks": blocks}}
+    for name in ("dur_embed", "pitch_embed", "voicing_embed", "breath_embed"):
+        if f"{name}.weight" in sd:
+            p[name] = {"Dense_0": _dense_params(sd, name)}
+    for name in ("spk_embed", "gender_embed", "lang_embed"):
+        if f"{name}.weight" in sd:
+            p[name] = {"embedding": _np(sd[f"{name}.weight"])}
+    pre = "diffusion.denoise_fn."
+    net = {name: _conv_params(sd, pre + name)
+           for name in ("input_projection", "skip_projection", "output_projection")}
+    net["mlp_0"] = {"Dense_0": _dense_params(sd, pre + "mlp.0")}
+    net["mlp_1"] = {"Dense_0": _dense_params(sd, pre + "mlp.2")}
+    for i in range(hparams["residual_layers"]):
+        src = f"{pre}residual_layers.{i}"
+        net[f"layers_{i}"] = {
+            "dilated_conv": _conv_params(sd, f"{src}.dilated_conv"),
+            "diffusion_projection": {"Dense_0": _dense_params(sd, f"{src}.diffusion_projection")},
+            "output_projection": _conv_params(sd, f"{src}.output_projection"),
+        }
+        net[f"layers_{i}_conditioner_projection"] = _conv_params(sd, f"{src}.conditioner_projection")
+    p["diffusion"] = {"denoise_fn": net}
+    return {"params": p}
+
+
 def nsf_hifigan_state_dict(flax_params: Dict[str, Any], h: dict) -> StateDict:
     """JAX NSF-HiFiGAN ``Generator`` params -> this port's ``Generator`` state dict."""
     p = _params(flax_params)
@@ -206,14 +269,21 @@ def fold_weight_norm(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def last_checkpoint_path(work_dir: str) -> Optional[str]:
-    """Newest ``model_ckpt_steps_{N}.ckpt`` in ``work_dir`` by step number."""
+def sorted_checkpoints(work_dir: str) -> List[Tuple[str, int]]:
+    """[(path, step)] of the ``model_ckpt_steps_{N}.ckpt`` in ``work_dir``,
+    ascending by step."""
     found = []
     for path in glob.glob(os.path.join(work_dir, "model_ckpt_steps_*.ckpt")):
         m = re.search(r"model_ckpt_steps_(\d+)\.ckpt$", path)
         if m:
-            found.append((int(m.group(1)), path))
-    return max(found)[1] if found else None
+            found.append((path, int(m.group(1))))
+    return sorted(found, key=lambda x: x[1])
+
+
+def last_checkpoint_path(work_dir: str) -> Optional[str]:
+    """Newest ``model_ckpt_steps_{N}.ckpt`` in ``work_dir`` by step number."""
+    found = sorted_checkpoints(work_dir)
+    return found[-1][0] if found else None
 
 
 def load_torch_state_dict(path: str) -> StateDict:

@@ -8,7 +8,8 @@ JAX, so on the GPU machine it runs without the repo's conftest:
 
 Tolerance: both sides are float32 with TF32 off; they differ only in the
 order of the float32 sums, so atol 1e-4 / rtol 1e-4 at these widths (a whole
-FastDiff forward: 1e-4 of its output's peak).
+FastDiff forward: 1e-4 of its output's peak). Gradients, summed over every
+frame of the batch, are held at 1e-4 of each one's peak (rtol 1e-3).
 """
 
 import numpy as np
@@ -23,6 +24,13 @@ from prodiff_tpu_torch.ops.wavenet_stack import (
     StackedWaveNet,
     residual_stack,
     residual_stack_plain,
+)
+from prodiff_tpu_torch.ops.wavenet_train import (
+    ResidualStackFn,
+    residual_stack_chain,
+    residual_stack_chain_plain,
+    residual_stack_save,
+    residual_stack_save_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -244,3 +252,114 @@ def test_fastdiff_routes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert ublock_layer.launches.count - before == 48
     assert wav.shape == (1, n_win * hop) and torch.isfinite(wav).all()
+
+
+def assert_grad_close(got, want, name=""):
+    """Within 1e-4 of the reference's peak (rtol 1e-3): a gradient sums
+    B*T frame products, so its error scales with its size."""
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4 * max(peak, 1e-6), rtol=1e-3,
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("b,t,c,h,n_layers", [(2, 37, 128, 64, 3), (3, 100, 256, 256, 5)])
+def test_wavenet_train_kernels_match_plain(cuda, b, t, c, h, n_layers):
+    """K5: the save-forward's skip/xs/zs and the chain's dz/dy/dx0 vs their
+    plain twins; the save-forward's skip is K1's, bit for bit (the same
+    tile code)."""
+    rng = np.random.default_rng(7)
+    w = _stacked(rng, n_layers, c, h, cuda)
+
+    def r(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+
+    x0, cond, step, g = r(b, t, c), r(b, t, h), r(b, c), r(b, t, c)
+    saves, chains = residual_stack_save.launches.count, residual_stack_chain.launches.count
+    skip, xs, zs = residual_stack_save(x0, cond, step, w)
+    dz, dy, dx0 = residual_stack_chain(zs, g, w)
+    torch.cuda.synchronize()
+    assert residual_stack_save.launches.count - saves == 1 + 2 * n_layers
+    assert residual_stack_chain.launches.count - chains == 2 * n_layers
+    assert torch.equal(skip, residual_stack(x0, cond, step, w))
+    want = residual_stack_save_plain(x0, cond, step, w)
+    for got_a, want_a in zip((skip, xs, zs), want):
+        torch.testing.assert_close(got_a, want_a, atol=ATOL, rtol=RTOL)
+    for name, got_a, want_a in zip(("dz", "dy", "dx0"), (dz, dy, dx0),
+                                   residual_stack_chain_plain(zs, g, w)):
+        assert_grad_close(got_a, want_a, name)
+
+
+def test_residual_stack_fn_grads_match_cpu(cuda):
+    """All 11 gradients of the Function on the card (K5 + cuBLAS) vs the
+    same Function on the CPU (the plain twins), B=3 so the conv taps'
+    sequence-boundary corrections count."""
+    rng = np.random.default_rng(8)
+    b, t, c, h, n_layers = 3, 50, 128, 64, 4
+    w_cpu = _stacked(rng, n_layers, c, h, "cpu")
+    ins_cpu = [torch.tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((b, t, c), (b, t, h), (b, c))] + list(w_cpu)
+    g = torch.tensor(rng.normal(size=(b, t, c)), dtype=torch.float32)
+    grads = {}
+    for where, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        ins = [a.to(dev).requires_grad_() for a in ins_cpu]
+        out = ResidualStackFn.apply(*ins)
+        grads[where] = [out.detach().cpu()] + [
+            a.cpu() for a in torch.autograd.grad(out, ins, g.to(dev))]
+    names = ("skip", "x0", "cond", "step") + StackedWaveNet._fields
+    for name, got, want in zip(names, grads["card"], grads["cpu"]):
+        assert_grad_close(got, want, name)
+
+
+TRAIN_HP = {
+    "audio_num_mel_bins": 16, "hidden_size": 32, "enc_layers": 1, "enc_ffn_kernel_size": 9,
+    "dropout": 0.1, "num_heads": 2, "use_dur_embed": True, "use_spk_id": True, "num_spk": 2,
+    "use_gender_id": False, "use_lang_id": True, "languages": {"zh": 1},
+    "use_voicing_embed": False, "use_breath_embed": False, "residual_layers": 3,
+    "residual_channels": 64, "dilation_cycle_length": 1, "diff_type": "prodiff",
+    "timesteps": 4, "timescale": 1000, "schedule_type": "vpsde", "max_beta": 40,
+}
+
+
+def test_teacher_grads_on_card_match_cpu(cuda):
+    """A small teacher's training loss on the card (K5 forward and backward)
+    gives every parameter the gradient its CPU copy (the plain module loop)
+    gets: the encoder, the embeddings and every residual layer included."""
+    import copy
+
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.ops.losses import parse_loss_spec, spec_loss_prodiff
+
+    torch.manual_seed(0)
+    ref = ProDiffTeacher(10, TRAIN_HP).eval()  # dropout off; grad mode stays on
+    torch.nn.init.normal_(ref.diffusion.denoise_fn.output_projection.weight, std=0.05)
+    model = copy.deepcopy(ref).to(cuda)
+    rng = np.random.default_rng(9)
+    tokens = np.array([[3, 4, 5, 6, 7, 8], [5, 3, 9, 4, 0, 0]])
+    mel2ph = np.zeros((2, 40), np.int64)
+    mel2ph[0] = np.repeat(np.arange(1, 7), [7, 7, 6, 7, 7, 6])
+    mel2ph[1, :30] = np.repeat(np.arange(1, 5), [8, 7, 8, 7])
+    inputs = {
+        "tokens": tokens, "mel2ph": mel2ph, "lang": (tokens > 0).astype(np.int64),
+        "f0": rng.uniform(100, 400, (2, 40)), "spk": np.array([1, 0]),
+        "mel": rng.normal(size=(2, 40, 16)) - 4, "t": np.array([4, 2]),
+        "noise": rng.normal(size=(2, 1, 40, 16)),
+    }
+    loss_type = parse_loss_spec("l1:0.5|ssim:0.5")
+    saves, chains, k1 = (residual_stack_save.launches.count, residual_stack_chain.launches.count,
+                         residual_stack.launches.count)
+    for net, dev in ((model, cuda), (ref, torch.device("cpu"))):
+        a = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+        for k in ("f0", "mel", "noise"):
+            a[k] = a[k].float()
+        pred, gt = net(a["tokens"], a["mel2ph"], a["f0"], gt_spec=a["mel"], t=a["t"],
+                       noise=a["noise"], lang_seq=a["lang"], spk_embed_id=a["spk"])
+        sum(spec_loss_prodiff(pred, gt, a["mel2ph"] > 0, loss_type).values()).backward()
+    torch.cuda.synchronize()
+    assert residual_stack_save.launches.count - saves == 1 + 2 * 3
+    assert residual_stack_chain.launches.count - chains == 2 * 3
+    assert residual_stack.launches.count == k1
+    cpu_params = dict(ref.named_parameters())
+    for name, p in model.named_parameters():
+        want = cpu_params[name].grad
+        assert p.grad is not None and want is not None, name
+        assert_grad_close(p.grad.cpu(), want, name)

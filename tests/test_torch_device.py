@@ -6,6 +6,7 @@ import torch
 
 from prodiff_tpu_torch.__main__ import main as port_cli
 from prodiff_tpu_torch.device import resolve_device
+from prodiff_tpu_torch.training.trainer import Trainer
 from prodiff_tpu_torch.vocoders import get_vocoder_cls
 
 
@@ -25,6 +26,7 @@ def test_resolve_device_defaults_to_the_card(no_cuda):
 @pytest.mark.parametrize("argv", [
     ["infer", "song.ds", "--exp_name", "exp", "--spk_name", "spk0"],
     ["web", "--exp_name", "exp"],
+    ["train", "svs", "--config", "train.yaml", "--exp_name", "exp"],
 ])
 def test_cli_defaults_to_the_card(no_cuda, argv, tmp_path, monkeypatch):
     """``--device`` defaults to ``cuda``: without a card the CLI stops before
@@ -38,3 +40,23 @@ def test_cli_defaults_to_the_card(no_cuda, argv, tmp_path, monkeypatch):
 def test_vocoders_default_to_the_card(no_cuda, name):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         get_vocoder_cls(name)({}, state_dict={}, config={})
+
+
+def test_trainer_defaults_to_the_card(no_cuda, tmp_path):
+    hp = {"work_dir": str(tmp_path / "work")}
+    for asked in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            Trainer(hp, device=asked)
+    assert Trainer(hp, device="cpu").device == torch.device("cpu")
+
+
+def test_train_cli_stops_before_writing_without_a_card(no_cuda, tmp_path, monkeypatch):
+    """Without a card the train CLI writes no work dir; ``--device cpu``
+    goes on to read the config (missing here)."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["train", "svs", "--config", "train.yaml", "--exp_name", "exp"]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        port_cli(argv)
+    assert not (tmp_path / "checkpoints").exists()
+    with pytest.raises(FileNotFoundError, match="config"):
+        port_cli(argv + ["--device", "cpu"])

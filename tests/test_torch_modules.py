@@ -119,7 +119,7 @@ def test_encoder_matches_jax():
     jenc = JaxEncoder(vocab_size=12, hidden_size=32, num_layers=2)
     params = perturb(jax.jit(jenc.init)(jax.random.PRNGKey(0), jnp.asarray(tokens), jnp.asarray(extra)))
     want = jax.jit(jenc.apply)(params, jnp.asarray(tokens), jnp.asarray(extra))
-    enc = FastspeechEncoder(12, 32, 2)
+    enc = FastspeechEncoder(12, 32, 2).eval()  # dropout off, as the JAX apply's default
     enc.load_state_dict(encoder_state_dict(params["params"], 2, prefix=""))
     got = enc(torch.from_numpy(tokens), torch.from_numpy(extra))
     close(got, want)
@@ -242,7 +242,7 @@ def teacher_pair():
     jmodel, params, inputs = _jax_teacher()
     model = ProDiffTeacher(12, TEACHER_HP)
     model.load_state_dict(teacher_state_dict(params, TEACHER_HP))
-    return jmodel, params, model, inputs
+    return jmodel, params, model.eval(), inputs
 
 
 def test_teacher_4step_infer_matches_jax():
