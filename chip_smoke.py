@@ -11,7 +11,9 @@ Phases, each printing its lines before the last:
      (float32, TF32 off), at the main paths' full-width shapes: error against
      the stated tolerance and CUDA-event times of both; the FastDiff layer
      kernels (K4 ``ublock_layer``, K6 ``lvc``) at every (block, layer) of the
-     LJSpeech net at T_mel=512, reading a hoisted 4-step kernel stack;
+     LJSpeech net at T_mel=512, reading a hoisted 4-step kernel stack, and
+     the block kernel (K7 ``ublock_block``) at blocks 1 and 2 of that net,
+     timed beside its twin and the chain of four K4 launches it replaces;
   4. the slice at full width on seeded random weights: the base-config
      teacher (4 encoder layers, hidden 256, 20x256 WaveNet, 4 steps,
      voicing/breath embeds) and the default NSF-HiFiGAN generator behind the
@@ -27,8 +29,19 @@ Phases, each printing its lines before the last:
      T_mel=512 (131,072 samples) through ``get_vocoder_cls("fastdiff")`` with
      the launch counts of that render (K1 2 x 41, K4 4 steps x 3 blocks x 4
      layers), the same render with the unfused layer (``fastdiff_packed:
-     false``: K6 48 times), a bit-identity check of two renders on injected
-     noise, and a 32-frame render held against the same weights on the CPU;
+     false``: K6 48 times), the same render with ``MONO_BLOCK`` (K7 8 times on
+     blocks 1 and 2, K4 16 on block 0; within 1e-4 of the layer route's
+     peak), a bit-identity check of two renders on injected noise, and a
+     32-frame render held against the same weights on the CPU;
+  5b. ``python -m prodiff_tpu_torch vocode wav2wav`` (in-process,
+     ``__main__.main``) at full width on seeded random vocoder checkpoints:
+     NSF-HiFiGAN (the openvpi 44.1 kHz generator, base-config audio, ACF
+     pitch) on a 6.0 s tone at keyshift 0 and +3 (K2/K3 90 launches a
+     render), and FastDiff-4 (LJSpeech config and audio, ``MONO_BLOCK``) on
+     a 512-frame tone (K7 8, K4 16); the time split of each run (load,
+     wav2spec, get_pitch, spec2wav, save_wav), the card's mel and f0 held
+     against the CPU's, and each written wav against the same command run on
+     the CPU (FastDiff on a 32-frame tone, the same noise injected);
   3c. K5, the trainable WaveNet stack, vs its plain twins at the training
      shape (B=16, T=1536, L=20, C=H=256): the save-forward's skip/xs/zs, the
      backward chain's dz/dy/dx0, and the 11 gradients of the autograd
@@ -143,8 +156,23 @@ TRAIN_N_VALID = 2  # validation items: one batch each
 # the card's training step vs the CPU's at 1e-3 of each gradient's peak
 # (the CPU runs the plain module loop, a different summation order end to end)
 GRAD_TOL, STEP_TOL = 1e-4, 1e-3
-COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "lvc",
+COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "ublock_block", "lvc",
            "residual_stack_save", "residual_stack_chain")
+# vocode wav2wav: NSF-HiFiGAN at the base config's audio settings (the openvpi
+# 44.1 kHz generator), FastDiff at its LJSpeech audio settings (22.05 kHz, hop
+# 256, 80 mels, fmin 80, fmax 7600), both with the built-in ACF extractor
+VOCODE_NSF_AUDIO = {"audio_sample_rate": 44100, "audio_num_mel_bins": 128, "fft_size": 2048,
+                    "win_size": 2048, "hop_size": 512, "fmin": 40, "fmax": 16000,
+                    "pitch_extractor": "acf", "interp_uv": True}
+VOCODE_FD_AUDIO = {"audio_sample_rate": 22050, "audio_num_mel_bins": 80, "fft_size": 1024,
+                   "win_size": 1024, "hop_size": 256, "fmin": 80, "fmax": 7600,
+                   "pitch_extractor": "acf", "interp_uv": True}
+VOCODE_NSF_SAMPLES = 264600  # 6.0 s at 44.1 kHz: 516 mel frames
+VOCODE_FD_SAMPLES = 131072  # 5.94 s at 22.05 kHz: 512 mel frames
+VOCODE_KEYSHIFTS = (0, 3)
+# FastDiff on random weights: the injected noise at 0.05 of a unit normal and
+# the final conv at 0.1 keep the render inside save_wav's int16 range
+VOCODE_FD_NOISE, VOCODE_FD_FINAL_SCALE = 0.05, 0.1
 
 
 def log(msg: str) -> None:
@@ -188,12 +216,13 @@ def bound(flops: float, nbytes: float) -> dict:
 def counters():
     from prodiff_tpu_torch.ops.lvc import lvc
     from prodiff_tpu_torch.ops.resblock import resblock_stage
-    from prodiff_tpu_torch.ops.ublock import ublock_layer
+    from prodiff_tpu_torch.ops.ublock import ublock_block, ublock_layer
     from prodiff_tpu_torch.ops.wavenet_stack import residual_stack
     from prodiff_tpu_torch.ops.wavenet_train import residual_stack_chain, residual_stack_save
 
     return {"residual_stack": residual_stack.launches, "resblock_stage": resblock_stage.launches,
-            "ublock_layer": ublock_layer.launches, "lvc": lvc.launches,
+            "ublock_layer": ublock_layer.launches, "ublock_block": ublock_block.launches,
+            "lvc": lvc.launches,
             "residual_stack_save": residual_stack_save.launches,
             "residual_stack_chain": residual_stack_chain.launches}
 
@@ -281,9 +310,14 @@ def phase_fastdiff_kernels(dev, torch):
     forward at T_mel=512, B=1, reading step ``s`` of a hoisted 4-step stack
     [4, 1, 512, 4*96, 64] (201 MB a block) in place. Each timed call reads
     another step's windows, as the sampler does, so the window kernels come
-    from HBM. ``ms``/``plain_ms`` sum the 12 calls of one forward."""
+    from HBM. ``ms``/``plain_ms`` sum the 12 calls of one forward. K7 vs its
+    twin at the blocks it runs (1 and 2: hops 64, 256) on the same operands,
+    reading step 2, timed beside its twin and the chain of four K4 launches
+    over the same block (the JAX package's ``_MONO_BLOCK`` A/B);
+    ``ms``/``plain_ms``/``k4_chain_ms`` sum the 2 blocks of one forward."""
     from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
-    from prodiff_tpu_torch.ops.ublock import ublock_layer, ublock_layer_plain
+    from prodiff_tpu_torch.ops.ublock import (mono_block_supported, ublock_block,
+                                              ublock_block_plain, ublock_layer, ublock_layer_plain)
 
     rng = np.random.default_rng(SEED + 1)
 
@@ -291,18 +325,23 @@ def phase_fastdiff_kernels(dev, torch):
         return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
 
     c, n_layers, n_win = 32, FD_CONFIG["lvc_layers_each_block"], FD_T_MEL
+    dilations = [3 ** i for i in range(n_layers)]
     out = {}
-    for name in ("ublock_layer", "lvc"):
+    for name in ("ublock_layer", "lvc", "ublock_block"):
         out[name] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
+    out["ublock_block"]["k4_chain_ms"] = 0.0
     for hop in FD_HOPS:
         t = n_win * hop
         x, ad, y = rand(1, t, c), rand(1, t, c), rand(1, t, c)
         km = rand(FD_STEPS, 1, n_win, n_layers * 3 * c, 2 * c, scale=0.1)
         lb = rand(FD_STEPS, 1, n_win, n_layers * 2 * c, scale=0.1)
         window_bytes = 4 * n_win * (3 * c * 2 * c + 2 * c)  # one (step, layer)'s kernels
+        cws, cbs = [], []
         for i in range(n_layers):
             d = 3 ** i
             cw, cb = rand(c, c, 3, scale=0.2), rand(c, scale=0.1)
+            cws.append(cw)
+            cbs.append(cb)
             cases = {
                 "ublock_layer": (ublock_layer, ublock_layer_plain,
                                  lambda fn, s: fn(x, ad, cw, cb, km, lb, d, hop, step_idx=s,
@@ -326,26 +365,58 @@ def phase_fastdiff_kernels(dev, torch):
                 acc["plain_ms"] += plain_ms
                 acc["flops"] += flops
                 acc["bytes"] += nbytes
+        if mono_block_supported(hop, dilations):
+            def block(fn, s):
+                return fn(x, ad, cws, cbs, km, lb, dilations, hop, s)
+
+            def k4_chain(s):
+                h = x
+                for i, (cw, cb) in enumerate(zip(cws, cbs)):
+                    h = ublock_layer(h, ad, cw, cb, km, lb, dilations[i], hop, s, i)
+                return h
+
+            got, want = block(ublock_block, 2), block(ublock_block_plain, 2)
+            res = compare(f"K7 ublock_block hop={hop} T={t} (step 2, {n_layers} layers)", got, want,
+                          torch)
+            chain_err = float((k4_chain(2) - got).abs().max())
+            steps = itertools.cycle(range(FD_STEPS))
+            ms = timed_ms(lambda: block(ublock_block, next(steps)), 20, torch)
+            plain_ms = timed_ms(lambda: block(ublock_block_plain, next(steps)), 20, torch)
+            chain_ms = timed_ms(lambda: k4_chain(next(steps)), 20, torch)
+            ms2 = timed_ms(lambda: block(ublock_block, next(steps)), 20, torch)
+            flops = 18432 * t * n_layers  # useful work: the halo recompute is not counted
+            nbytes = 4 * (3 * t * c + n_layers * (3 * c * c + c)) + n_layers * window_bytes
+            lim = bound(flops, nbytes)
+            log(f"K7 ublock_block hop={hop} T={t}: kernel {ms:.4f} ms (again after the K4 chain: "
+                f"{ms2:.4f}), plain {plain_ms:.4f} ms, the chain of {n_layers} K4 launches "
+                f"{chain_ms:.4f} ms (vs K7 max abs {chain_err:.3e}), bound {lim['bound_ms']:.4f} ms "
+                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: {lim['bound_by']})")
+            acc = out["ublock_block"]
+            acc["max_abs_err"] = max(acc["max_abs_err"], res["max_abs_err"])
+            acc["ms"] += ms
+            acc["plain_ms"] += plain_ms
+            acc["k4_chain_ms"] += chain_ms
+            acc["flops"] += flops
+            acc["bytes"] += nbytes
         del km, lb
     for name, acc in out.items():
         acc.update(bound(acc.pop("flops"), acc.pop("bytes")))
+    for name in ("ublock_layer", "lvc"):
+        acc = out[name]
         log(f"{name}, the 12 layers of one FastDiff forward at T_mel={FD_T_MEL}: kernel {acc['ms']:.4f} ms, "
             f"plain {acc['plain_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms ({acc['bound_by']})")
+    acc = out["ublock_block"]
+    log(f"K7 ublock_block, blocks 1 and 2 of one FastDiff forward at T_mel={FD_T_MEL}: kernel "
+        f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, K4 chain {acc['k4_chain_ms']:.4f} ms, "
+        f"bound {acc['bound_ms']:.4f} ms ({acc['bound_by']})")
     return out
 
 
-def build_models(torch):
-    """Seeded full-width teacher + NSF-HiFiGAN state dicts (random weights)."""
-    from prodiff_tpu_torch.infer.handler import phone_encoder
+def seeded_generator(torch):
+    """The openvpi 44.1 kHz NSF-HiFiGAN architecture on random weights drawn
+    from torch's global generator."""
     from prodiff_tpu_torch.models.nsf_hifigan import Generator
-    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
 
-    torch.manual_seed(SEED)
-    n_vocab = len(phone_encoder(PHONE_SET))
-    teacher = ProDiffTeacher(n_vocab, SLICE_HPARAMS)
-    # the reference zero-inits the denoiser's output projection, which would
-    # make the mel independent of the residual stack: give it seeded weights
-    torch.nn.init.normal_(teacher.diffusion.denoise_fn.output_projection.weight, std=0.02)
     gen = Generator.from_config(VOCODER_H)
     # the reference's N(0, 0.01) conv init leaves the wav bias-dominated and
     # nearly independent of the mel; scale by fan-in so the input reaches it
@@ -356,6 +427,21 @@ def build_models(torch):
                 fan_in = w.shape[1] * w.shape[2] if isinstance(m, torch.nn.Conv1d) \
                     else w.shape[0] * w.shape[2] / m.stride[0]
                 torch.nn.init.normal_(w, std=0.5 / fan_in ** 0.5)
+    return gen
+
+
+def build_models(torch):
+    """Seeded full-width teacher + NSF-HiFiGAN state dicts (random weights)."""
+    from prodiff_tpu_torch.infer.handler import phone_encoder
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+
+    torch.manual_seed(SEED)
+    n_vocab = len(phone_encoder(PHONE_SET))
+    teacher = ProDiffTeacher(n_vocab, SLICE_HPARAMS)
+    # the reference zero-inits the denoiser's output projection, which would
+    # make the mel independent of the residual stack: give it seeded weights
+    torch.nn.init.normal_(teacher.diffusion.denoise_fn.output_projection.weight, std=0.02)
+    gen = seeded_generator(torch)
     n_t = sum(p.numel() for p in teacher.parameters())
     n_g = sum(p.numel() for p in gen.parameters())
     log(f"models: teacher {n_t / 1e6:.2f}M params, NSF-HiFiGAN {n_g / 1e6:.2f}M params (seed {SEED})")
@@ -600,6 +686,65 @@ def phase_fastdiff(dev, torch):
     if not (torch.equal(mel_u, mel) and err <= CPU_TOL * peak):
         raise AssertionError("the unfused layer's render disagrees with the fused layer's")
 
+    # the same render with MONO_BLOCK: K7 on the audio-rate blocks, K4 on block 0
+    import prodiff_tpu_torch.models.fastdiff as fd_model
+    from prodiff_tpu_torch.ops.ublock import mono_block_supported
+
+    n_lay = FD_CONFIG["lvc_layers_each_block"]
+    mono = [mono_block_supported(h, [3 ** i for i in range(n_lay)]) for h in FD_HOPS]
+    fd_model.MONO_BLOCK = True
+    try:
+        render(voc, 0)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        gen = torch.Generator(dev).manual_seed(1)
+        start = time.perf_counter()
+        mel_m = acoustic(generator=gen)
+        torch.cuda.synchronize()
+        mid = time.perf_counter()
+        wav_m = voc.spec2wav(mel_m[0], generator=gen)
+        end = time.perf_counter()
+    finally:
+        fd_model.MONO_BLOCK = False
+    launches_m = check_counts("the mono-block FastDiff render", {
+        "residual_stack": FD_TEACHER_STEPS * (1 + 2 * FD_TEACHER_HPARAMS["residual_layers"]),
+        "ublock_block": FD_STEPS * sum(mono),
+        "ublock_layer": FD_STEPS * n_lay * (len(FD_HOPS) - sum(mono))})
+    err, peak = float(np.abs(wav_m - wav).max()), float(np.abs(wav).max())
+    log(f"mono-block (K7) render: {(end - start) * 1000:.3f} ms on the host clock (teacher "
+        f"{(mid - start) * 1000:.3f} ms, FastDiff {(end - mid) * 1000:.3f} ms with the wav's copy "
+        f"to the host); vs the layer route (K4): max abs err {err:.3e}, peak {peak:.4f}, "
+        f"tol 1e-4 x peak")
+    if not (torch.equal(mel_m, mel) and np.isfinite(wav_m).all() and err <= 1e-4 * peak):
+        raise AssertionError("the mono-block render disagrees with the layer route's")
+    # the vocoder alone on that mel, the two routes in turns (layer, mono, mono,
+    # layer) x 5, then each under torch.profiler: host clock vs kernel time
+    times = {False: [], True: []}
+
+    def vocoder_ms(mono_route):
+        fd_model.MONO_BLOCK = mono_route
+        try:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            voc.spec2wav(mel[0], generator=torch.Generator(dev).manual_seed(1))
+            return (time.perf_counter() - start) * 1e3
+        finally:
+            fd_model.MONO_BLOCK = False
+
+    for _ in range(5):
+        for mono_route in (False, True, True, False):
+            times[mono_route].append(vocoder_ms(mono_route))
+    busy = {m: device_time(lambda m=m: vocoder_ms(m), 2, torch) for m in (False, True)}
+    def idle(wall_ms, busy_ms):
+        return f"{max(0.0, 1 - busy_ms / wall_ms):.3f}" if busy_ms > 0 else "not measured"
+
+    log(f"FastDiff vocoder alone on the T_mel={FD_T_MEL} mel, 10 renders a route in turns (host "
+        "clock, synchronised, with the wav's copy): " + "; ".join(
+            f"{'mono-block (K7)' if m else 'layer (K4)'} median {sorted(v)[len(v) // 2]:.3f} ms, "
+            f"min {min(v):.3f}, max {max(v):.3f}, under torch.profiler {busy[m][0]:.3f} ms with "
+            f"{busy[m][1]:.3f} ms of kernel time (device idle share {idle(*busy[m])})"
+            for m, v in times.items()))
+
     # two renders on injected noise are bit-identical
     nrng = np.random.default_rng(SEED + 3)
 
@@ -642,7 +787,200 @@ def phase_fastdiff(dev, torch):
             f"{err:.3e}, peak {peak:.4f}, std {float(ref.std()):.4f}, tol {CPU_TOL} x peak")
         if not (np.isfinite(g).all() and err <= CPU_TOL * peak):
             raise AssertionError(f"FastDiff path: the card's {name} disagrees with the CPU reference")
-    return launches, launches_u
+    return launches, launches_u, launches_m
+
+
+def vibrato_tone(n_samples: int, sr: int, seed: int) -> np.ndarray:
+    """A seeded 220 Hz vibrato tone (+-1 semitone at 5 Hz), 4 partials at 1/k,
+    white noise 30 dB below, a silent gap over 5% of it at 40%; float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_samples) / sr
+    phase = 2 * np.pi * np.cumsum(220.0 * 2 ** (np.sin(2 * np.pi * 5 * t) / 12)) / sr
+    y = sum(np.sin(k * phase) / k for k in range(1, 5))
+    y = 0.4 * y / np.abs(y).max() + 0.4 * 10 ** (-30 / 20) * rng.normal(size=n_samples)
+    gap = int(0.4 * n_samples)
+    y[gap: gap + n_samples // 20] = 0.0
+    return y.astype(np.float32)
+
+
+class Spans:
+    """Host-clock spans of patched callables, synchronised with the card."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.ms, self.saved = torch, targets, {}, []
+
+    def __enter__(self):
+        for owner, attr, name in self.targets:
+            raw = owner.__dict__[attr] if isinstance(owner, type) else getattr(owner, attr)
+            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+            def run(*args, _fn=fn, _name=name, **kw):
+                start = time.perf_counter()
+                out = _fn(*args, **kw)
+                if self.torch.cuda.is_initialized():
+                    self.torch.cuda.synchronize()
+                self.ms[_name] = self.ms.get(_name, 0.0) + (time.perf_counter() - start) * 1e3
+                return out
+
+            self.saved.append((owner, attr, raw))
+            setattr(owner, attr, staticmethod(run) if isinstance(raw, staticmethod) else run)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, raw in reversed(self.saved):
+            setattr(owner, attr, raw)
+
+
+def phase_vocode(dev, torch):
+    """``python -m prodiff_tpu_torch vocode wav2wav`` at full width through
+    ``__main__.main`` on seeded random vocoder checkpoints in a temporary
+    directory: NSF-HiFiGAN (openvpi 44.1 kHz generator, base-config audio,
+    deterministic source) on a 6.0 s tone at keyshift 0 and +3, and FastDiff-4
+    (LJSpeech config, ``MONO_BLOCK`` set) on a 512-frame tone; the launch
+    counts and the time split of each run; the card's mel and f0 against the
+    CPU's, and each written wav against the same CLI run on the CPU (FastDiff
+    on a 32-frame tone, both with the same injected noise)."""
+    import os
+    import tempfile
+
+    import yaml
+    from scipy.io import wavfile
+
+    import prodiff_tpu_torch.models.fastdiff as fd_model
+    import prodiff_tpu_torch.utils.audio as audio
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.models.fastdiff import FastDiff as FastDiffNet
+    from prodiff_tpu_torch.ops.ublock import mono_block_supported
+    from prodiff_tpu_torch.pe.acf import ACF
+    from prodiff_tpu_torch.vocoders.fastdiff import FastDiff as FastDiffVocoder
+    from prodiff_tpu_torch.vocoders.nsf_hifigan import NsfHifiGAN
+
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_vocode_")
+    os.makedirs(os.path.join(tmp, "nsf"))
+    torch.manual_seed(SEED + 8)
+    torch.save({"generator": seeded_generator(torch).state_dict()}, os.path.join(tmp, "nsf", "model"))
+    with open(os.path.join(tmp, "nsf", "config.json"), "w") as f:
+        json.dump(dict(VOCODER_H, n_fft=2048, win_size=2048, hop_size=512, fmin=40, fmax=16000), f)
+    os.makedirs(os.path.join(tmp, "fastdiff"))
+    torch.manual_seed(SEED + 9)
+    net = FastDiffNet.from_config(FD_CONFIG)
+    with torch.no_grad():
+        net.final_conv[0].weight.mul_(VOCODE_FD_FINAL_SCALE)
+    torch.save({"state_dict": {"model": net.state_dict()}},
+               os.path.join(tmp, "fastdiff", "model_ckpt_steps_0.ckpt"))
+    with open(os.path.join(tmp, "fastdiff", "config.yaml"), "w") as f:
+        yaml.dump(FD_CONFIG, f)
+    cells = {
+        "nsfhifigan": (dict(VOCODE_NSF_AUDIO, vocoder="nsfhifigan", vocoder_deterministic=True,
+                            vocoder_ckpt=os.path.join(tmp, "nsf", "model")), NsfHifiGAN,
+                       VOCODE_NSF_SAMPLES, VOCODE_KEYSHIFTS),
+        "fastdiff": (dict(VOCODE_FD_AUDIO, vocoder="fastdiff",
+                          vocoder_ckpt=os.path.join(tmp, "fastdiff")), FastDiffVocoder,
+                     VOCODE_FD_SAMPLES, (0,)),
+    }
+
+    def noise(n_samples, where):
+        """FastDiff's injected noise for an n-sample render, the same on both devices."""
+        rng = np.random.default_rng(SEED + 10)
+        init = rng.normal(size=(1, n_samples, 1)) * VOCODE_FD_NOISE
+        steps = rng.normal(size=(FD_STEPS, 1, n_samples, 1)) * VOCODE_FD_NOISE
+        return {k: torch.tensor(v, dtype=torch.float32, device=where)
+                for k, v in (("init_noise", init), ("step_noises", steps))}
+
+    fd_render = FastDiffVocoder.spec2wav
+
+    def render_with_noise(self, mel, **kw):
+        return fd_render(self, mel, **noise(len(mel) * self.hop, self.device), **kw)
+
+    n_lay = FD_CONFIG["lvc_layers_each_block"]
+    n_mono = sum(mono_block_supported(h, [3 ** i for i in range(n_lay)]) for h in FD_HOPS)
+    per_render = {"nsfhifigan": {"resblock_stage": 5 * 18},
+                  "fastdiff": {"ublock_block": FD_STEPS * n_mono,
+                               "ublock_layer": FD_STEPS * n_lay * (len(FD_HOPS) - n_mono)}}
+
+    def cli(name, wav_path, keyshift, where):
+        hp, cls, _, _ = cells[name]
+        cfg = os.path.join(tmp, f"{name}.yaml")
+        with open(cfg, "w") as f:
+            yaml.dump(hp, f)
+        out_dir = os.path.join(tmp, f"out_{name}_{keyshift}_{where}_{os.path.basename(wav_path)}")
+        targets = [(cls, "__init__", "load"), (cls, "wav2spec", "wav2spec"),
+                   (ACF, "get_pitch", "get_pitch"), (cls, "spec2wav", "spec2wav"),
+                   (audio, "save_wav", "save_wav")]
+        with Spans(torch, targets) as spans:
+            start = time.perf_counter()
+            port_cli(["vocode", "wav2wav", wav_path, "--config", cfg, "--keyshift", str(keyshift),
+                      "--output_dir", out_dir, "--device", where])
+            if where == "cuda":
+                torch.cuda.synchronize()
+            total = time.perf_counter() - start
+        sr, wav = wavfile.read(os.path.join(out_dir, "tone.wav"))
+        return wav, total, spans.ms
+
+    fd_model.MONO_BLOCK = True
+    launches = {}
+    try:
+        for name, (hp, cls, n_samples, keyshifts) in cells.items():
+            sr = hp["audio_sample_rate"]
+            wav_dir = os.path.join(tmp, f"in_{name}")
+            os.makedirs(wav_dir)
+            wav_path = os.path.join(wav_dir, "tone.wav")
+            wavfile.write(wav_path, sr, vibrato_tone(n_samples, sr, SEED + 11))
+            # the card's mel and f0 vs the CPU's on the same file
+            for k in keyshifts:
+                (wave, mel), (_, mel_cpu) = (cls.wav2spec(wav_path, hp, keyshift=k, device=d)
+                                             for d in (dev, "cpu"))
+                err, peak = float(np.abs(mel - mel_cpu).max()), float(np.abs(mel_cpu).max())
+                f0, uv = ACF(hp, device=dev).get_pitch(wave, sr, len(mel), hop_size=hp["hop_size"],
+                                                       interp_uv=False)
+                f0_cpu, uv_cpu = ACF(hp, device="cpu").get_pitch(
+                    wave, sr, len(mel), hop_size=hp["hop_size"], interp_uv=False)
+                voiced = ~uv_cpu
+                f0_err = float(np.max(np.abs(f0[voiced] - f0_cpu[voiced]) / f0_cpu[voiced]))
+                log(f"vocode {name}: card vs CPU, keyshift {k}: mel {list(mel.shape)} max_abs_err "
+                    f"{err:.3e} (peak {peak:.4f}, tol 1e-4 x peak); ACF f0 voiced {int(voiced.sum())}"
+                    f"/{len(f0)} frames on both: {bool(np.array_equal(uv, uv_cpu))}, max rel err "
+                    f"{f0_err:.3e} (tol 1e-3)")
+                if not (err <= 1e-4 * peak and np.array_equal(uv, uv_cpu) and f0_err <= 1e-3
+                        and voiced.sum() > len(f0) // 2):
+                    raise AssertionError(f"vocode {name}: the card's mel or f0 disagrees with the CPU's")
+            hop = hp["hop_size"]
+            n_frames = (n_samples + hp["win_size"] - hop - hp["win_size"]) // hop + 1
+            if name == "fastdiff":
+                FastDiffVocoder.spec2wav = render_with_noise
+            try:
+                cli(name, wav_path, keyshifts[0], "cuda")  # warm-up: cuDNN plans, the allocator
+                for k in keyshifts:
+                    reset_counts()
+                    wav, total, ms = cli(name, wav_path, k, "cuda")
+                    launches[name] = check_counts(f"vocode wav2wav {name} keyshift {k}",
+                                                  per_render[name])
+                    if wav.shape != (n_frames * hop,):
+                        raise AssertionError(f"vocode {name}: wav {wav.shape}, want ({n_frames * hop},)")
+                    log(f"vocode wav2wav {name} keyshift {k}: {n_samples} samples in, {n_frames} mel "
+                        f"frames, {wav.shape[0]} samples written (peak {int(np.abs(wav).max())} of "
+                        f"32767); {total * 1000:.3f} ms on the host clock, RTF "
+                        f"{total / (n_samples / sr):.5f}; split (ms): "
+                        + json.dumps({k2: round(v, 3) for k2, v in ms.items()}))
+                    if name == "fastdiff":  # the CPU reference runs a shorter tone
+                        short = os.path.join(tmp, "in_fastdiff_short")
+                        os.makedirs(short)
+                        wav_path = os.path.join(short, "tone.wav")
+                        wavfile.write(wav_path, sr, vibrato_tone(FD_CPU_FRAMES * hop, sr, SEED + 12))
+                        wav, _, _ = cli(name, wav_path, k, "cuda")
+                    wav_cpu, total_cpu, _ = cli(name, wav_path, k, "cpu")
+                    err, peak = float(np.abs(wav.astype(np.float64) - wav_cpu).max()), \
+                        float(np.abs(wav_cpu.astype(np.float64)).max())
+                    log(f"vocode wav2wav {name} keyshift {k}: card vs CPU written wav "
+                        f"{list(wav_cpu.shape)} max_abs_err {err:.0f} (int16 steps), peak {peak:.0f}, "
+                        f"tol {CPU_TOL} x peak; the CPU run {total_cpu:.3f} s")
+                    if not (0 < peak < 32767 and err <= CPU_TOL * peak):
+                        raise AssertionError(f"vocode {name}: the card's wav disagrees with the CPU's")
+            finally:
+                FastDiffVocoder.spec2wav = fd_render
+    finally:
+        fd_model.MONO_BLOCK = False
+    return launches
 
 
 def grad_compare(name, got, want, tol, torch) -> float:
@@ -738,6 +1076,30 @@ def phase_train_kernels(dev, torch):
         f"outside the chain): {ms['backward']:.4f} ms; the plain twins' forward + backward "
         f"{ms['plain_fwd_bwd']:.4f} ms; max gradient error {grad_err:.3e}")
     return k5a, k5b
+
+
+def device_time(fn, n: int, torch):
+    """(host-clock ms, kernel ms) per call of ``fn`` over ``n`` calls under
+    torch.profiler, after one warm-up call; kernel ms is 0 where the profiler
+    saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / n
+    busy = 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0 and e.device_type.name == "CUDA":
+            busy += dev_us / 1e3 / n
+    return wall_ms, busy
 
 
 def profile_train_step(trainer, batch, torch) -> None:
@@ -1001,7 +1363,7 @@ def main() -> int:
     log(smi[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; precision mode {policy.precision()}")
 
-    sources = ("wavenet_stack", "resblock", "ublock", "lvc", "wavenet_train")
+    sources = ("wavenet_stack", "resblock", "ublock", "ublock_block", "lvc", "wavenet_train")
     t0 = time.time()
     cuda_build.load_all(sources)  # one nvcc per source, all at once
     log(f"kernel build (parallel nvcc) {time.time() - t0:.3f} s")
@@ -1013,7 +1375,8 @@ def main() -> int:
     fd = phase_fastdiff_kernels(dev, torch)
     k5a, k5b = phase_train_kernels(dev, torch)
     launches = phase_slice(dev, torch)
-    fd_launches, fd_unfused_launches = phase_fastdiff(dev, torch)
+    fd_launches, fd_unfused_launches, fd_mono_launches = phase_fastdiff(dev, torch)
+    vocode_launches = phase_vocode(dev, torch)
     train_launches = phase_train(dev, torch)
 
     def entry(name, source, replaces, n, m):
@@ -1037,7 +1400,12 @@ def main() -> int:
         entry("wavenet_stack_backward_chain", "wavenet_train.cu",
               "prodiff_tpu/ops/pallas/wavenet_train.py:161",
               train_launches["residual_stack_chain"], k5b),
+        dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
+                   vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"]),
+             k4_chain_ms=fd["ublock_block"]["k4_chain_ms"]),
     ]
+    if fd_mono_launches["ublock_block"] != vocode_launches["fastdiff"]["ublock_block"]:
+        raise AssertionError("K7 launched a different number of times in the mono render and vocode")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,58 @@
-"""Command line of the port: ``python -m prodiff_tpu_torch train|infer|web ...``.
+"""Command line of the port: ``python -m prodiff_tpu_torch train|infer|vocode|web ...``.
 
 The flags are those of the JAX package's ``main.py train`` / ``main.py
-infer`` / ``main.py web`` that the port supports, plus ``--device``. The
-experiment directory (``checkpoints/{exp_name}/{task}``: ``config.yaml``,
-the maps and the checkpoints, written by either package) is read without
-JAX. ``train`` needs PyYAML and msgpack.
+infer`` / ``main.py vocode wav2wav`` / ``main.py web`` that the port
+supports, plus ``--device``. The experiment directory
+(``checkpoints/{exp_name}/{task}``: ``config.yaml``, the maps and the
+checkpoints, written by either package) is read without JAX. ``train``
+needs PyYAML and msgpack.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+
+def vocode_wav2wav(wav: str, config: str, keyshift: int = 0, output_dir: str = "infer_out",
+                   device: str = "cuda") -> list:
+    """Copy-synthesis / key-shifted voice conversion through the vocoder
+    (``main.py vocode wav2wav``): for each wav (a file, or the ``.wav`` files
+    of a directory) the vocoder's mel, the pitch extractor's f0 (shifted by
+    ``keyshift`` semitones), the vocoder's render of both, written as
+    ``{output_dir}/{title}.wav``. Returns the written paths."""
+    import numpy as np
+
+    from prodiff_tpu_torch.config import set_hparams
+    from prodiff_tpu_torch.device import resolve_device
+    from prodiff_tpu_torch.pe import get_pe_cls
+    from prodiff_tpu_torch.utils.audio import save_wav
+    from prodiff_tpu_torch.utils.pitch_utils import shift_pitch
+    from prodiff_tpu_torch.vocoders import get_vocoder_cls
+
+    device = resolve_device(device)  # no card: stop before anything is read
+    hparams = set_hparams(task="vocoder", config_fn=config)
+    vocoder = get_vocoder_cls(hparams["vocoder"])(hparams, device=device)
+    pe = get_pe_cls(hparams.get("pitch_extractor", "parselmouth"))(hparams, device=device)
+    os.makedirs(output_dir, exist_ok=True)
+    if os.path.isdir(wav):
+        wav_files = sorted(os.path.join(wav, f) for f in os.listdir(wav) if f.endswith(".wav"))
+    else:
+        wav_files = [wav]
+    written = []
+    for wav_file in wav_files:
+        wave, mel = vocoder.wav2spec(wav_file, hparams=hparams, keyshift=keyshift, device=device)
+        f0, _ = pe.get_pitch(wave, hparams["audio_sample_rate"], len(mel),
+                             hop_size=hparams["hop_size"],
+                             interp_uv=hparams.get("interp_uv", True))
+        if keyshift != 0:
+            f0 = shift_pitch(f0, keyshift)
+        res = vocoder.spec2wav(mel, f0=np.asarray(f0, np.float32))
+        title = os.path.basename(wav_file).split(".")[0]
+        path = os.path.join(output_dir, f"{title}.wav")
+        save_wav(res, path, hparams["audio_sample_rate"])
+        written.append(path)
+    return written
 
 
 def main(argv=None) -> None:
@@ -32,6 +75,15 @@ def main(argv=None) -> None:
     infer.add_argument("--gender", type=float, default=0.0)
     infer.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
+    vocode = sub.add_parser("vocode", help="run audio through a vocoder")
+    vocode_sub = vocode.add_subparsers(dest="vocode_command", required=True)
+    wav2wav = vocode_sub.add_parser("wav2wav", help="copy-synthesis / key-shifted voice conversion")
+    wav2wav.add_argument("wav", help="a .wav file or a directory of them")
+    wav2wav.add_argument("--config", required=True)
+    wav2wav.add_argument("--keyshift", type=int, default=0)
+    wav2wav.add_argument("--output_dir", default="infer_out")
+    wav2wav.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
+
     web = sub.add_parser("web", help="serve the HTTP API")
     web.add_argument("--exp_name", required=True)
     web.add_argument("--port", type=int, default=7694)
@@ -49,6 +101,10 @@ def main(argv=None) -> None:
                               make_work_dir=True)
         task = get_task_cls(args.train_task)(hparams)
         Trainer(hparams, device=device).fit(task, max_steps=args.max_steps)
+    elif args.command == "vocode":
+        for path in vocode_wav2wav(args.wav, args.config, args.keyshift, args.output_dir,
+                                   args.device):
+            print(f"| wrote {path}")
     elif args.command == "infer":
         from prodiff_tpu_torch.infer.handler import SVSInferHandler
 

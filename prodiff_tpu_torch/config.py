@@ -49,20 +49,27 @@ def load_base_config() -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
-def set_hparams(exp_name: str, task: str, checkpoints_root: str = "checkpoints",
-                config_fn: Optional[str] = None, make_work_dir: bool = False) -> Dict[str, Any]:
+def set_hparams(exp_name: Optional[str] = None, task: Optional[str] = None,
+                checkpoints_root: str = "checkpoints", config_fn: Optional[str] = None,
+                make_work_dir: bool = False) -> Dict[str, Any]:
     """``config_fn`` when it exists, else the work dir's ``config.yaml``
-    (``checkpoints_root/exp_name/task``), with ``task``, ``exp_name`` and
-    ``work_dir`` stamped in. ``make_work_dir`` creates the work dir and
-    writes the merged config there as ``config.yaml``, as the JAX trainer
+    (``checkpoints_root/exp_name/task``, or ``checkpoints_root/task`` without
+    an experiment, as for ``vocode``), with ``task``, ``exp_name`` (when
+    given) and ``work_dir`` stamped in. ``make_work_dir`` creates the work dir
+    and writes the merged config there as ``config.yaml``, as the JAX trainer
     does."""
-    work_dir = os.path.join(checkpoints_root, exp_name, task)
+    if config_fn is None and task is None:
+        raise ValueError("set_hparams: give a config file or a task")
+    work_dir = os.path.join(checkpoints_root, *([exp_name] if exp_name is not None else []),
+                            task or "")
     if config_fn is None or not os.path.exists(config_fn):
         config_fn = os.path.join(work_dir, "config.yaml")
     if not os.path.exists(config_fn):
         raise FileNotFoundError(f"Config file not found: {config_fn}")
     hp = load_config(config_fn)
-    hp.update(task=task, exp_name=exp_name, work_dir=work_dir)
+    hp.update(task=task, work_dir=work_dir)
+    if exp_name is not None:
+        hp["exp_name"] = exp_name
     if make_work_dir:
         os.makedirs(work_dir, exist_ok=True)
         with open(os.path.join(work_dir, "config.yaml"), "w") as f:

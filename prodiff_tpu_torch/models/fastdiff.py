@@ -16,9 +16,17 @@ Two routes run each LVC layer; both compute ``TimeAwareLVCBlock``'s layer:
   dilated conv in cuDNN, the LVC through ``ops/lvc.py`` (port of the Pallas
   ``lvc_pallas``), then gate and residual in PyTorch.
 
+With the module constant ``MONO_BLOCK`` set (the counterpart of the JAX
+package's ``_MONO_BLOCK``, off by default as there) and the fused layer, a
+block that :func:`~prodiff_tpu_torch.ops.ublock.mono_block_supported` admits
+(the audio-rate blocks: hops 64 and 256 at the LJSpeech config) runs all its
+layers in one launch of ``ops/ublock.py:ublock_block`` (port of the Pallas
+``ublock_block_packed``); the others keep the layer route.
+
 On CUDA tensors the wrappers launch their kernels; on CPU tensors they run
 their plain twins. Per forward that is blocks x layers = 12 launches of the
-route's kernel. The JAX package's packed space-to-depth trunk
+route's layer kernel, or with ``MONO_BLOCK`` 4 layer launches (block 0) and
+2 block launches. The JAX package's packed space-to-depth trunk
 (``_packed_forward``, ``ops/packed.py``) is a TPU lane layout and is not
 ported; nor are its diagnostic knobs.
 
@@ -47,9 +55,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from prodiff_tpu_torch.ops.lvc import lvc
-from prodiff_tpu_torch.ops.ublock import LRELU_SLOPE, dilated_conv, gated_residual, ublock_layer
+from prodiff_tpu_torch.ops.ublock import (
+    LRELU_SLOPE,
+    dilated_conv,
+    gated_residual,
+    mono_block_supported,
+    ublock_block,
+    ublock_layer,
+)
 
 KP_LRELU = 0.1
+# Run all layers of an audio-rate LVC block in one kernel launch (K7) instead
+# of one launch per layer (K4). Off by default, as the JAX package's
+# _MONO_BLOCK; chip_smoke.py sets it to measure the one against the other.
+MONO_BLOCK = False
 # Hoisting stacks [n_steps, B, L, layers*3C*2C] kernels per block: fine for
 # the 4/6/8-step schedules, ruinous for the 1000-step one.
 MAX_HOISTED_STEPS = 16
@@ -176,6 +195,11 @@ class TimeAwareLVCBlock(nn.Module):
         km, lb = kp
         hop = self.cond_hop_length
         x = self.upsample(F.leaky_relu(x, 0.2)).transpose(1, 2).contiguous()
+        dilations = [conv.dilation[0] for conv in self.convs]
+        if MONO_BLOCK and fused_layer and mono_block_supported(hop, dilations):
+            return ublock_block(x, audio_down, [conv.weight for conv in self.convs],
+                                [conv.bias for conv in self.convs], km, lb, dilations, hop,
+                                step_idx)
         for i, conv in enumerate(self.convs):
             d = conv.dilation[0]
             if fused_layer:

@@ -1,6 +1,7 @@
-"""One FastDiff LVC layer, fused: CUDA kernel wrapper and its plain PyTorch twin.
+"""FastDiff's LVC layers, fused: CUDA kernel wrappers and their plain PyTorch twins.
 
-Port of ``prodiff_tpu/ops/pallas/ublock.py:ublock_layer_packed`` (the body
+:func:`ublock_layer` (K4) is the port of
+``prodiff_tpu/ops/pallas/ublock.py:ublock_layer_packed`` (the body
 ``_fused_layer_compute``), on the unpacked ``[B, T, C]`` layout: the packed
 ``[B, T/4, 128]`` trunk and its block-diagonal kernels are a TPU lane layout
 and are not ported. The layer (``TimeAwareLVCBlock``'s loop body):
@@ -16,18 +17,25 @@ function with ``F.conv1d`` and :func:`~prodiff_tpu_torch.ops.lvc.lvc_plain`.
 tensor launches the kernel or raises. The conv weight is in torch's
 ``Conv1d`` layout ``[C, C, 3]``; the window kernels come per layer or as the
 hoisted stack read at ``(step_idx, layer_idx)``, as for ``ops/lvc.py``.
+
+:func:`ublock_block` (K7) is the port of ``ublock_block_packed``: all layers
+of one ``TimeAwareLVCBlock`` (layer i with conv dilation ``dilations[i]``)
+in one launch of ``csrc/ublock_block.cu``, reading layer i's windows from the
+hoisted stack at ``(step_idx, i)``. :func:`ublock_block_plain` is the chain
+of :func:`ublock_layer_plain`; :func:`mono_block_supported` is the static
+gate of the blocks the kernel takes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from prodiff_tpu_torch.ops import cuda_build
-from prodiff_tpu_torch.ops.lvc import check_kernel_operands, lvc_plain
+from prodiff_tpu_torch.ops.lvc import KERNEL_C, check_kernel_operands, lvc_plain
 
 LRELU_SLOPE = 0.2
 
@@ -100,3 +108,107 @@ def ublock_layer(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.Tensor
 
 
 ublock_layer.launches = cuda_build.LaunchCounter()
+
+
+# csrc/ublock_block.cu's limits: at most MONO_MAX_LAYERS layers; one block of
+# the kernel stages hop + 2 * margin rows of x, audio_down and y, one window
+# kernel and one conv weight in its 227 KB of shared memory.
+MONO_MIN_HOP = 64  # the JAX route's _FUSED_MIN_HOP: K7 runs on the audio-rate blocks only
+MONO_MAX_LAYERS = 8
+_MAX_SMEM = 232448
+_LD = KERNEL_C + 1
+
+
+def block_margins(dilations: Sequence[int]) -> list:
+    """Cumulative halo ``A[i]`` (rows each side) that layers i.. of a block
+    consume beyond their output: layer i reaches ``d_i`` (conv) + 1 (LVC
+    taps), so ``A[n] = 0`` and ``A[i] = A[i + 1] + d_i + 1``."""
+    margins = [0]
+    for d in reversed(list(dilations)):
+        margins.insert(0, margins[0] + d + 1)
+    return margins
+
+
+def mono_block_smem(hop: int, dilations: Sequence[int]) -> int:
+    """Shared-memory bytes of one block of the kernel (one window, R = hop rows)."""
+    a = block_margins(dilations)
+    c = KERNEL_C
+    floats = (3 * c * 2 * c + 2 * c + 3 * c * c + c
+              + 2 * (hop + 2 * a[0]) * _LD + (hop + 2 * a[1] + 2) * _LD)
+    return 4 * floats
+
+
+def mono_block_supported(hop: int, dilations: Sequence[int]) -> bool:
+    """Static gate of :func:`ublock_block`: the audio-rate blocks (hop a
+    multiple of 32, at least ``MONO_MIN_HOP``) whose inner layers' halo
+    ``A[1]`` lies inside one neighbouring window and whose rows fit in shared
+    memory. At the LJSpeech config that is blocks 1 and 2 (hops 64 and 256),
+    the blocks the JAX route runs ``ublock_block_packed`` on; no sequence
+    length is too short for the unpacked kernel."""
+    dilations = list(dilations)
+    return (hop >= MONO_MIN_HOP and hop % 32 == 0 and 1 <= len(dilations) <= MONO_MAX_LAYERS
+            and min(dilations) >= 1 and block_margins(dilations)[1] <= hop
+            and mono_block_smem(hop, dilations) <= _MAX_SMEM)
+
+
+def ublock_block_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[torch.Tensor],
+                       conv_bs: Sequence[torch.Tensor], kmat: torch.Tensor, bias: torch.Tensor,
+                       dilations: Sequence[int], hop: int, step_idx: int) -> torch.Tensor:
+    """x, audio_down [B, T, C] -> the block's output [B, T, C]: layer i of the
+    hoisted stack ``kmat [N, B, L, layers*3C, 2C]`` / ``bias [N, B, L,
+    layers*2C]`` at step ``step_idx``, one :func:`ublock_layer_plain` each."""
+    for i, (w, b, d) in enumerate(zip(conv_ws, conv_bs, dilations)):
+        x = ublock_layer_plain(x, audio_down, w, b, kmat, bias, d, hop, step_idx, i)
+    return x
+
+
+def _block_library() -> ctypes.CDLL:
+    lib = cuda_build.load("ublock_block")
+    lib.ublock_block_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)]
+                                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.ublock_block_forward.restype = ctypes.c_int
+    return lib
+
+
+def ublock_block(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[torch.Tensor],
+                 conv_bs: Sequence[torch.Tensor], kmat: torch.Tensor, bias: torch.Tensor,
+                 dilations: Sequence[int], hop: int, step_idx: int) -> torch.Tensor:
+    """x, audio_down [B, T, C] -> the block's output [B, T, C].
+
+    CPU tensors run :func:`ublock_block_plain`; CUDA tensors launch the
+    kernel once (counted in ``ublock_block.launches``), which needs C = 32,
+    every layer of the stack and :func:`mono_block_supported`."""
+    if x.device.type == "cpu":
+        return ublock_block_plain(x, audio_down, conv_ws, conv_bs, kmat, bias, dilations, hop,
+                                  step_idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"ublock_block: unsupported device {x.device}")
+    dilations = [int(d) for d in dilations]
+    n = len(dilations)
+    if not (len(conv_ws) == len(conv_bs) == n) or not mono_block_supported(hop, dilations):
+        raise ValueError(f"ublock_block: {len(conv_ws)} convs, {len(conv_bs)} biases, dilations "
+                         f"{dilations} at hop {hop}: outside the kernel's gate")
+    cw, cb = torch.stack(list(conv_ws)), torch.stack(list(conv_bs))
+    (n_win, layers, step, _), (x, kmat, bias, audio_down, cw, cb) = check_kernel_operands(
+        "ublock_block", x, kmat, bias, hop, step_idx, 0, audio_down, cw, cb)
+    b, t, c = x.shape
+    if audio_down.shape != x.shape or cw.shape != (n, c, c, 3) or cb.shape != (n, c):
+        raise ValueError(f"ublock_block: audio_down {tuple(audio_down.shape)}, convs "
+                         f"{tuple(cw.shape)} / {tuple(cb.shape)} for x {tuple(x.shape)}")
+    if layers != n:
+        raise ValueError(f"ublock_block: the stack holds {layers} layers, the block {n}")
+    out = torch.empty_like(x)
+    lib = _block_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ublock_block_forward(
+            x.data_ptr(), audio_down.data_ptr(), cw.data_ptr(), cb.data_ptr(),
+            kmat.data_ptr(), bias.data_ptr(), out.data_ptr(), (ctypes.c_int * n)(*dilations),
+            n, b, t, n_win, hop, layers, step, stream,
+        )
+    cuda_build.check(err, "ublock_block_forward")
+    ublock_block.launches.add(1)
+    return out
+
+
+ublock_block.launches = cuda_build.LaunchCounter()

@@ -14,6 +14,31 @@ def save_wav(wav: np.ndarray, path: str, sr: int) -> None:
     wavfile.write(path, sr, (wav * 32767).astype(np.int16))
 
 
+def load_wav(path: str, sr: int = None) -> tuple:
+    """Load a wav as float32 in [-1, 1] (int16/int32/uint8 scaled, several
+    channels averaged to mono); resample on the host if ``sr`` differs, which
+    needs librosa (imported only then)."""
+    from scipy.io import wavfile
+
+    file_sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        data = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    if data.ndim > 1:
+        data = data.mean(axis=1)
+    if sr is not None and file_sr != sr:
+        import librosa
+
+        data = librosa.resample(data, orig_sr=file_sr, target_sr=sr)
+        file_sr = sr
+    return data, file_sr
+
+
 def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
     """Linearly cross-fade segment ``b`` into ``a`` starting at sample ``idx``
     (stitches the per-segment renders of a long song)."""

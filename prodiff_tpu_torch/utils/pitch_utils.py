@@ -6,6 +6,35 @@ from __future__ import annotations
 import numpy as np
 
 
+def norm_f0(f0, uv=None):
+    """log2 f0, ``-inf`` where unvoiced (the reference's ``pitch_norm: log``)."""
+    if uv is None:
+        uv = f0 == 0
+    f0 = f0.astype(np.float64) if f0.dtype.kind != "f" else f0.copy()
+    f0 = np.log2(f0 + uv)
+    f0[uv] = -np.inf
+    return f0
+
+
+def denorm_f0(f0, uv=None):
+    """Inverse of :func:`norm_f0`; 0 where ``uv``."""
+    f0 = 2 ** np.asarray(f0, dtype=np.float64)
+    if uv is not None:
+        f0[uv > 0] = 0
+    return f0
+
+
+def interp_f0(f0, uv=None):
+    """Linearly interpolate f0 over unvoiced regions (in the log2 domain)
+    -> (f0, uv)."""
+    if uv is None:
+        uv = f0 == 0
+    f0 = norm_f0(f0, uv)
+    if uv.any() and not uv.all():
+        f0[uv] = np.interp(np.where(uv)[0], np.where(~uv)[0], f0[~uv])
+    return denorm_f0(f0, uv=None), uv
+
+
 def resample_align_curve(points: np.ndarray, original_timestep: float,
                          target_timestep: float, align_length: int) -> np.ndarray:
     """Resample a control curve to a new time grid and pad/trim to a length."""

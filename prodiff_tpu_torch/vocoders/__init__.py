@@ -25,6 +25,15 @@ class BaseVocoder:
     def __init__(self, hparams: dict):
         self.hparams = hparams
 
+    def spec2wav(self, mel, **kwargs):
+        """mel [T, M] log10-mel -> wav [T'] (numpy)"""
+        raise NotImplementedError
+
     def spec2wav_batch(self, mel, f0, **kwargs):
         """mel [B, T, M] log10-mel -> wav [B, T']"""
+        raise NotImplementedError
+
+    @staticmethod
+    def wav2spec(wav_fn: str, hparams: dict, keyshift=0, speed=1, device=None):
+        """A wav file -> (wav [L] numpy, log10-mel [T, M] numpy)"""
         raise NotImplementedError

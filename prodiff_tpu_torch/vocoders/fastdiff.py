@@ -35,6 +35,7 @@ from prodiff_tpu_torch.models.fastdiff import (
 )
 from prodiff_tpu_torch.utils.convert import last_checkpoint_path, load_torch_state_dict
 from prodiff_tpu_torch.vocoders import BaseVocoder, register_vocoder
+from prodiff_tpu_torch.vocoders.nsf_hifigan import NsfHifiGAN
 
 NOISE_SCHEDULES = {
     1000: np.linspace(0.000001, 0.01, 1000),
@@ -103,12 +104,13 @@ class FastDiff(BaseVocoder):
     @torch.no_grad()
     def spec2wav(self, mel, generator: Optional[torch.Generator] = None,
                  init_noise: Optional[torch.Tensor] = None,
-                 step_noises: Optional[torch.Tensor] = None) -> np.ndarray:
+                 step_noises: Optional[torch.Tensor] = None, **kwargs) -> np.ndarray:
         """mel [T, M] as the acoustic model emits it -> wav [T * hop].
 
         The noise is ``init_noise`` [1, T*hop, 1] / ``step_noises``
         [n, 1, T*hop, 1] where given, else drawn from ``generator`` (default:
-        seed 0)."""
+        seed 0). Other keywords (the ``f0`` the vocode route hands every
+        vocoder) are ignored: FastDiff is conditioned on the mel alone."""
         c = torch.as_tensor(mel, dtype=torch.float32, device=self.device)[None]
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
@@ -122,3 +124,8 @@ class FastDiff(BaseVocoder):
             step_noises=step_noises, kp_all=kp_all,
         )
         return wav[0].cpu().numpy()
+
+    @staticmethod
+    def wav2spec(inp_path: str, hparams: dict, keyshift=0, speed=1, device=None):
+        """NSF-HiFiGAN's log10-mel of a wav file, as in the JAX package."""
+        return NsfHifiGAN.wav2spec(inp_path, hparams, keyshift, speed, device=device)

@@ -3,7 +3,8 @@
 Loads a torch generator checkpoint plus the ``config.json`` beside it
 (``vocoder_ckpt``), folding weight norm, or takes an in-memory state dict
 and config. The acoustic model works in log10-mel; the generator wants
-natural log, hence the ``* LOG10_TO_LN``.
+natural log, hence the ``* LOG10_TO_LN``. ``wav2spec`` is the log10-mel of a
+wav file at the config's audio settings (``ops/mel.py``).
 """
 
 from __future__ import annotations
@@ -12,14 +13,15 @@ import json
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from prodiff_tpu_torch.device import resolve_device
 from prodiff_tpu_torch.models.nsf_hifigan import Generator
+from prodiff_tpu_torch.ops.mel import LOG10_TO_LN, MelSpectrogram
+from prodiff_tpu_torch.utils.audio import load_wav
 from prodiff_tpu_torch.utils.convert import load_torch_state_dict
 from prodiff_tpu_torch.vocoders import BaseVocoder, register_vocoder
-
-LOG10_TO_LN = 2.30259  # the reference's constant (prodiff_tpu/ops/mel.py)
 
 
 @register_vocoder
@@ -57,3 +59,24 @@ class NsfHifiGAN(BaseVocoder):
         elif generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         return self.model(mel * LOG10_TO_LN, f0, generator)
+
+    def spec2wav(self, mel, f0=None, generator: Optional[torch.Generator] = None,
+                 deterministic: Optional[bool] = None, **kwargs) -> np.ndarray:
+        """mel [T, M] log10, f0 [T] Hz -> wav [T*upp] (numpy)."""
+        wav = self.spec2wav_batch(np.asarray(mel)[None], np.asarray(f0)[None], generator,
+                                  deterministic=deterministic)
+        return wav[0].cpu().numpy()
+
+    @staticmethod
+    def wav2spec(inp_path: str, hparams: dict, keyshift=0, speed=1, device=None):
+        """A wav file at ``audio_sample_rate`` -> (wav [L], log10-mel [T, M]),
+        numpy; the mel is computed on ``device`` (default: the card)."""
+        wav, _ = load_wav(inp_path, sr=hparams["audio_sample_rate"])
+        extractor = MelSpectrogram(
+            sr=hparams["audio_sample_rate"], n_mels=hparams["audio_num_mel_bins"],
+            n_fft=hparams["fft_size"], win_size=hparams["win_size"],
+            hop_length=hparams["hop_size"], fmin=hparams["fmin"], fmax=hparams["fmax"],
+            device=device,
+        )
+        mel = extractor.wav2mel_log10(wav[None], keyshift=keyshift, speed=speed)
+        return wav, mel[0].cpu().numpy()

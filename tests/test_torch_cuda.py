@@ -19,7 +19,12 @@ import torch
 from prodiff_tpu_torch.ops import cuda_build
 from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
 from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
-from prodiff_tpu_torch.ops.ublock import ublock_layer, ublock_layer_plain
+from prodiff_tpu_torch.ops.ublock import (
+    ublock_block,
+    ublock_block_plain,
+    ublock_layer,
+    ublock_layer_plain,
+)
 from prodiff_tpu_torch.ops.wavenet_stack import (
     StackedWaveNet,
     residual_stack,
@@ -99,7 +104,7 @@ def test_resblock_stage_kernel_matches_plain(cuda, c, t):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("wrapper", ["resblock_stage", "ublock_layer", "lvc"])
+@pytest.mark.parametrize("wrapper", ["resblock_stage", "ublock_layer", "ublock_block", "lvc"])
 def test_cuda_tensor_raises_without_kernel(cuda, monkeypatch, wrapper):
     """No fallback: a failed build on the CUDA path raises."""
     def broken(name):
@@ -112,6 +117,7 @@ def test_cuda_tensor_raises_without_kernel(cuda, monkeypatch, wrapper):
         "resblock_stage": lambda: resblock_stage(torch.zeros((1, 8, 16), device=cuda), w, bias,
                                                  (3,), ((1,),)),
         "ublock_layer": lambda: ublock_layer(x, ad, cw, cb, km, lb, 1, 64),
+        "ublock_block": lambda: ublock_block(x, ad, [cw], [cb], km[None], lb[None], [1], 64, 0),
         "lvc": lambda: lvc(x, km, lb, 64),
     }
     with pytest.raises(RuntimeError, match="build of .* failed"):
@@ -208,6 +214,60 @@ def test_lvc_kernel_matches_plain(cuda, hop, n_win):
     torch.testing.assert_close(lvc(x, km, lb, hop, step_idx=3, layer_idx=1),
                                lvc_plain(x, km, lb, hop, step_idx=3, layer_idx=1),
                                atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hop,n_win,step", [(64, 7, 2), (256, 3, 1), (256, 1, 0), (96, 5, 3),
+                                           (64, 1, 0)])
+def test_ublock_block_kernel_matches_plain(cuda, hop, n_win, step):
+    """K7: the 4 layers of a block (dilations 1, 3, 9, 27) in one launch,
+    step ``step`` of a [4, B, L, 4*96, 64] stack; one window puts both
+    sequence ends (the masked halo rows) into one block."""
+    rng = np.random.default_rng(7)
+    x, ad, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(4, 4))
+    _, _, cw0, cb0, _, _ = _layer_operands(rng, 1, 1, hop, cuda)
+    cws = [cw0 * (0.5 + i / 4) for i in range(4)]
+    cbs = [cb0 + 0.1 * i for i in range(4)]
+    dil = [1, 3, 9, 27]
+    before = ublock_block.launches.count
+    got = ublock_block(x, ad, cws, cbs, km, lb, dil, hop, step)
+    torch.cuda.synchronize()
+    assert ublock_block.launches.count - before == 1
+    want = ublock_block_plain(x, ad, cws, cbs, km, lb, dil, hop, step)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_ublock_block_rejects_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(8)
+    x, ad, cw, cb, km, lb = _layer_operands(rng, 1, 2, 64, cuda, stack=(1, 4))
+    with pytest.raises(ValueError, match="gate"):  # hop 8: block 0 keeps the layer route
+        ublock_block(x, ad, [cw] * 4, [cb] * 4, km, lb, [1, 3, 9, 27], 8, 0)
+    with pytest.raises(ValueError, match="layers"):  # the stack holds 4 layers, the block 2
+        ublock_block(x, ad, [cw] * 2, [cb] * 2, km, lb, [1, 3], 64, 0)
+
+
+def test_mono_route_launches_the_block_kernel(cuda, monkeypatch):
+    """With ``MONO_BLOCK`` a FastDiff forward launches K7 once per audio-rate
+    block and K4 on block 0, and agrees with the layer route and a CPU copy."""
+    import copy
+
+    import prodiff_tpu_torch.models.fastdiff as fd_model
+
+    torch.manual_seed(1)
+    ref = fd_model.FastDiff(cond_channels=16).eval()
+    audio, cond = torch.randn(2, 4 * 256, 1), torch.randn(2, 4, 16)
+    steps = torch.tensor([[2.5], [40.0]])
+    net = copy.deepcopy(ref).to(cuda)
+    with torch.no_grad():
+        layer = net(audio.to(cuda), cond.to(cuda), steps.to(cuda))
+        monkeypatch.setattr(fd_model, "MONO_BLOCK", True)
+        want = ref(audio, cond, steps)
+        before = (ublock_block.launches.count, ublock_layer.launches.count)
+        got = net(audio.to(cuda), cond.to(cuda), steps.to(cuda))
+    torch.cuda.synchronize()
+    assert (ublock_block.launches.count - before[0], ublock_layer.launches.count - before[1]) == (2, 4)
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * peak, rtol=RTOL)
+    torch.testing.assert_close(got, layer, atol=1e-4 * peak, rtol=RTOL)
 
 
 def test_fastdiff_routes_through_the_kernels(cuda):

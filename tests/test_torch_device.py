@@ -1,11 +1,14 @@
 """The port's device policy, on the CPU: its entry points run on the card
 unless the caller names the CPU, and raise where there is no card."""
 
+import numpy as np
 import pytest
 import torch
 
 from prodiff_tpu_torch.__main__ import main as port_cli
 from prodiff_tpu_torch.device import resolve_device
+from prodiff_tpu_torch.ops.mel import MelSpectrogram
+from prodiff_tpu_torch.pe.acf import ACF
 from prodiff_tpu_torch.training.trainer import Trainer
 from prodiff_tpu_torch.vocoders import get_vocoder_cls
 
@@ -27,6 +30,7 @@ def test_resolve_device_defaults_to_the_card(no_cuda):
     ["infer", "song.ds", "--exp_name", "exp", "--spk_name", "spk0"],
     ["web", "--exp_name", "exp"],
     ["train", "svs", "--config", "train.yaml", "--exp_name", "exp"],
+    ["vocode", "wav2wav", "in.wav", "--config", "vocoder.yaml"],
 ])
 def test_cli_defaults_to_the_card(no_cuda, argv, tmp_path, monkeypatch):
     """``--device`` defaults to ``cuda``: without a card the CLI stops before
@@ -40,6 +44,26 @@ def test_cli_defaults_to_the_card(no_cuda, argv, tmp_path, monkeypatch):
 def test_vocoders_default_to_the_card(no_cuda, name):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         get_vocoder_cls(name)({}, state_dict={}, config={})
+
+
+def test_mel_and_pitch_default_to_the_card(no_cuda, tmp_path):
+    """``MelSpectrogram``, ``ACF`` and the vocoders' ``wav2spec`` run on the
+    card unless given the CPU."""
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        MelSpectrogram()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ACF({})
+    from scipy.io import wavfile
+
+    wavfile.write(str(tmp_path / "in.wav"), 44100, np.zeros(4096, np.float32))
+    hp = {"audio_sample_rate": 44100, "audio_num_mel_bins": 16, "fft_size": 512,
+          "win_size": 512, "hop_size": 128, "fmin": 40, "fmax": 16000}
+    for name in ("nsfhifigan", "fastdiff"):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            get_vocoder_cls(name).wav2spec(str(tmp_path / "in.wav"), hp)
+        _, mel = get_vocoder_cls(name).wav2spec(str(tmp_path / "in.wav"), hp, device="cpu")
+        assert mel.shape == (4096 // 128, 16)
+    assert MelSpectrogram(device="cpu").device == torch.device("cpu")
 
 
 def test_trainer_defaults_to_the_card(no_cuda, tmp_path):

@@ -288,8 +288,9 @@ def test_teacher_condition_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every submodule leaves jax/flax and the JAX
-    package (``prodiff_tpu``, ``prodiff_tpu.*``) out of sys.modules."""
+    """Importing the port and every submodule (the vocode slice's mel and
+    pitch-extractor modules among them) leaves jax/flax and the JAX package
+    (``prodiff_tpu``, ``prodiff_tpu.*``) out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import prodiff_tpu_torch\n"
@@ -298,6 +299,8 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'prodiff_tpu'))\n"
         "assert not bad, bad\n"
+        "for name in ('ops.mel', 'ops.ublock', 'pe', 'pe.acf', 'pe.parselmouth_pe'):\n"
+        "    assert 'prodiff_tpu_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
