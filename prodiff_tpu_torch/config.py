@@ -39,6 +39,10 @@ def load_config(config_fn: str) -> Dict[str, Any]:
     merged: Dict[str, Any] = {}
     for parent in parents:
         merged.update(load_config(_resolve_base_path(config_fn, parent)))
+    if isinstance(base, (list, tuple)):
+        # a list of parents is resolved here and dropped, so the merged config
+        # written to a work dir names no parent by a relative path
+        hp = {k: v for k, v in hp.items() if k != "base_config"}
     merged.update(hp)
     return merged
 

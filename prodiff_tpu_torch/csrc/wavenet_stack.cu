@@ -30,8 +30,7 @@
 // One step_proj_kernel per stack computes W_s[l] . step for every layer
 // first. Launches per stack: 1 + 2L. Tiles are plain shared-memory SGEMM;
 // wgmma/TMA and a halo-tiled whole-stack kernel are later work. The kernels
-// live in wavenet_tiles.cuh, which K5's save-forward (wavenet_train.cu)
-// shares.
+// live in wavenet_tiles.cuh.
 
 #include "wavenet_tiles.cuh"
 
@@ -45,7 +44,6 @@ extern "C" int wavenet_residual_stack(
     const float* step, const float* dw, const float* db, const float* diffw,
     const float* diffb, const float* cw, const float* cb, const float* ow,
     const float* ob, int B, int T, int C, int H, int L, void* stream_ptr) {
-  return wavenet::run_stack<false>(x, skip, gate, sp, nullptr, nullptr, cond, step, dw, db,
-                                   diffw, diffb, cw, cb, ow, ob, B, T, C, H, L,
-                                   (cudaStream_t)stream_ptr);
+  return wavenet::run_stack(x, skip, gate, sp, cond, step, dw, db, diffw, diffb, cw, cb, ow,
+                            ob, B, T, C, H, L, (cudaStream_t)stream_ptr);
 }

@@ -1,5 +1,5 @@
-// Tile code shared by the WaveNet residual-stack kernels: K1
-// (wavenet_stack.cu, inference) and K5's save-forward (wavenet_train.cu).
+// Tile code of the WaveNet residual-stack kernels: K1 (wavenet_stack.cu,
+// inference); K5 (wavenet_train.cu) shares its step projection.
 //
 // One layer l of the stack on x [B,T,C], cond [B,T,H]:
 //   y    = x + (step . W_s[l] + b_s[l])              (zero outside [0, T))
@@ -10,10 +10,6 @@
 // and the stack returns skip / sqrt(L). The layer loop is a host loop of two
 // kernels (gate_kernel, out_kernel) over the whole T with x and skip in
 // device memory; see wavenet_stack.cu for the design and its bounds.
-//
-// gate_kernel<true> also writes each layer's input x to xs[l] and its
-// pre-gate z (both halves, all biases and cond included) to zs[l], the
-// residuals the backward chain (wavenet_train.cu) reads.
 
 #pragma once
 
@@ -80,15 +76,12 @@ __device__ __forceinline__ void tile_fma(const float* As, int shift, const float
   }
 }
 
-// gate[b, t, j] = sigmoid(z[t, j]) * tanh(z[t, C+j]) for one layer. SAVE:
-// also xs[b, t, :] = x (column block 0 only) and zs[b, t, (j, C+j)] = z.
-template <bool SAVE>
+// gate[b, t, j] = sigmoid(z[t, j]) * tanh(z[t, C+j]) for one layer.
 __global__ void __launch_bounds__(NT)
 gate_kernel(const float* __restrict__ x, const float* __restrict__ sp,
             const float* __restrict__ cond, const float* __restrict__ dw,
             const float* __restrict__ db, const float* __restrict__ cw,
             const float* __restrict__ cb, float* __restrict__ gate,
-            float* __restrict__ xs, float* __restrict__ zs,
             int T, int C, int H) {
   __shared__ float As[(BM + 2) * LDA];
   __shared__ float Bs[BK * 2 * BP];
@@ -107,8 +100,6 @@ gate_kernel(const float* __restrict__ x, const float* __restrict__ sp,
       const bool in = t >= 0 && t < T;
       const float xv = in ? xb[(size_t)t * C + c0 + c] : 0.f;
       As[r * LDA + c] = in ? xv + spb[c0 + c] : 0.f;
-      if (SAVE && blockIdx.x == 0 && in && r >= 1 && r <= BM)
-        xs[((size_t)b * T + t) * C + c0 + c] = xv;
     }
     for (int q = 0; q < 3; ++q) {
       if (q > 0) __syncthreads();
@@ -138,11 +129,6 @@ gate_kernel(const float* __restrict__ x, const float* __restrict__ sp,
       const float zg = acc1[m][p] + db[j] + cb[j];
       const float zf = acc2[m][p] + db[C + j] + cb[C + j];
       gate[((size_t)b * T + t) * C + j] = (1.f / (1.f + expf(-zg))) * tanhf(zf);
-      if (SAVE) {
-        float* zrow = zs + ((size_t)b * T + t) * 2 * C;
-        zrow[j] = zg;
-        zrow[C + j] = zf;
-      }
     }
   }
 }
@@ -185,14 +171,12 @@ out_kernel(const float* __restrict__ gate, const float* __restrict__ ow,
 
 // The whole stack: 1 + 2L launches on `stream`. x: [B,T,C] in: x0, out: the
 // last layer's residual; skip: [B,T,C] out: skip / sqrt(L); gate: [B,T,C]
-// scratch; sp: [L,B,C] scratch. SAVE: xs [L,B,T,C] and zs [L,B,T,2C] out.
-// Returns the first launch error (cudaError_t) or 0.
-template <bool SAVE>
-int run_stack(float* x, float* skip, float* gate, float* sp, float* xs, float* zs,
-              const float* cond, const float* step, const float* dw, const float* db,
-              const float* diffw, const float* diffb, const float* cw, const float* cb,
-              const float* ow, const float* ob, int B, int T, int C, int H, int L,
-              cudaStream_t stream) {
+// scratch; sp: [L,B,C] scratch. Returns the first launch error (cudaError_t)
+// or 0.
+inline int run_stack(float* x, float* skip, float* gate, float* sp, const float* cond,
+                     const float* step, const float* dw, const float* db, const float* diffw,
+                     const float* diffb, const float* cw, const float* cb, const float* ow,
+                     const float* ob, int B, int T, int C, int H, int L, cudaStream_t stream) {
   if (B < 1 || T < 1 || L < 1 || C % BP != 0 || C % BK != 0 || H % BK != 0)
     return (int)cudaErrorInvalidValue;
   step_proj_kernel<<<dim3(L, B), C < 1024 ? C : 1024, 0, stream>>>(step, diffw, diffb, sp, B, C);
@@ -201,11 +185,10 @@ int run_stack(float* x, float* skip, float* gate, float* sp, float* xs, float* z
   const dim3 grid(C / BP, (T + BM - 1) / BM, B);
   const float last_scale = (float)(1.0 / sqrt((double)L));
   for (int l = 0; l < L; ++l) {
-    gate_kernel<SAVE><<<grid, NT, 0, stream>>>(
+    gate_kernel<<<grid, NT, 0, stream>>>(
         x, sp + (size_t)l * B * C, cond, dw + (size_t)l * 3 * C * 2 * C,
         db + (size_t)l * 2 * C, cw + (size_t)l * H * 2 * C, cb + (size_t)l * 2 * C,
-        gate, SAVE ? xs + (size_t)l * B * T * C : nullptr,
-        SAVE ? zs + (size_t)l * B * T * 2 * C : nullptr, T, C, H);
+        gate, T, C, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     out_kernel<<<grid, NT, 0, stream>>>(

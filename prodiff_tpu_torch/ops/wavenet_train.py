@@ -212,7 +212,9 @@ def residual_stack_chain(zs: Tensor, g: Tensor,
     if c2 != 2 * c or c % 64:
         raise ValueError(f"residual_stack_chain: needs C % 64 == 0 (C={c})")
     zs, g = zs.contiguous(), g.contiguous()
-    dw, ow = w.dilated_w.contiguous(), w.out_w.contiguous()
+    # the chain's B tiles read W_d and W_o transposed: [L,3,2C,C], [L,2C,C]
+    dwt = w.dilated_w.transpose(2, 3).contiguous()
+    owt = w.out_w.transpose(1, 2).contiguous()
     dx = torch.zeros_like(g)
     dz = g.new_empty((b, t, n_layers, c2))
     dy = g.new_empty((n_layers, b, t, c))
@@ -220,7 +222,7 @@ def residual_stack_chain(zs: Tensor, g: Tensor,
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.wavenet_stack_backward_chain(
-            zs.data_ptr(), g.data_ptr(), dw.data_ptr(), ow.data_ptr(), dx.data_ptr(),
+            zs.data_ptr(), g.data_ptr(), dwt.data_ptr(), owt.data_ptr(), dx.data_ptr(),
             dz.data_ptr(), dy.data_ptr(), b, t, c, n_layers, stream,
         )
     cuda_build.check(err, "wavenet_stack_backward_chain")

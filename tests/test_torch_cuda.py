@@ -322,11 +322,19 @@ def assert_grad_close(got, want, name=""):
                                msg=lambda m: f"{name}: {m}")
 
 
-@pytest.mark.parametrize("b,t,c,h,n_layers", [(2, 37, 128, 64, 3), (3, 100, 256, 256, 5)])
+@pytest.mark.parametrize("b,t,c,h,n_layers", [
+    (2, 37, 128, 64, 3), (3, 100, 256, 256, 5),
+    # T inside one 128-frame tile, across tiles and one frame past them; B=1
+    # and B=3 for the halo at t = 0 and t = T-1 of each sequence
+    (1, 37, 64, 64, 2), (3, 1537, 64, 256, 2), (1, 1537, 256, 64, 2), (3, 300, 128, 256, 2),
+    # C % 64 == 32: the forward masks half of its last column block; the
+    # chain's contract is C % 64 == 0
+    (2, 130, 96, 64, 2),
+])
 def test_wavenet_train_kernels_match_plain(cuda, b, t, c, h, n_layers):
     """K5: the save-forward's skip/xs/zs and the chain's dz/dy/dx0 vs their
-    plain twins; the save-forward's skip is K1's, bit for bit (the same
-    tile code)."""
+    plain twins; the save-forward's skip agrees with K1's (another tile, so
+    another float32 sum order)."""
     rng = np.random.default_rng(7)
     w = _stacked(rng, n_layers, c, h, cuda)
 
@@ -336,14 +344,19 @@ def test_wavenet_train_kernels_match_plain(cuda, b, t, c, h, n_layers):
     x0, cond, step, g = r(b, t, c), r(b, t, h), r(b, c), r(b, t, c)
     saves, chains = residual_stack_save.launches.count, residual_stack_chain.launches.count
     skip, xs, zs = residual_stack_save(x0, cond, step, w)
-    dz, dy, dx0 = residual_stack_chain(zs, g, w)
     torch.cuda.synchronize()
     assert residual_stack_save.launches.count - saves == 1 + 2 * n_layers
-    assert residual_stack_chain.launches.count - chains == 2 * n_layers
-    assert torch.equal(skip, residual_stack(x0, cond, step, w))
+    torch.testing.assert_close(skip, residual_stack(x0, cond, step, w), atol=ATOL, rtol=RTOL)
     want = residual_stack_save_plain(x0, cond, step, w)
     for got_a, want_a in zip((skip, xs, zs), want):
         torch.testing.assert_close(got_a, want_a, atol=ATOL, rtol=RTOL)
+    if c % 64:
+        with pytest.raises(ValueError, match="C % 64 == 0"):
+            residual_stack_chain(zs, g, w)
+        return
+    dz, dy, dx0 = residual_stack_chain(zs, g, w)
+    torch.cuda.synchronize()
+    assert residual_stack_chain.launches.count - chains == 2 * n_layers
     for name, got_a, want_a in zip(("dz", "dy", "dx0"), (dz, dy, dx0),
                                    residual_stack_chain_plain(zs, g, w)):
         assert_grad_close(got_a, want_a, name)

@@ -23,8 +23,10 @@ import numpy as np
 import optax
 import pytest
 import torch
+import yaml
 from flax import serialization
 
+from prodiff_tpu import config as jax_config
 from prodiff_tpu.models.prodiff import ProDiffTeacher as JaxTeacher
 from prodiff_tpu.ops import losses as jax_losses
 from prodiff_tpu.ops import ssim as jax_ssim
@@ -33,6 +35,7 @@ from prodiff_tpu.tasks.svs import SVSTask as JaxSVSTask
 from prodiff_tpu.training.optim import build_optimizer
 from prodiff_tpu.utils import ckpt_utils as jax_ckpt
 from prodiff_tpu.utils.synthetic import make_svs_dataset
+from prodiff_tpu_torch import config as port_config
 from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
 from prodiff_tpu_torch.ops.losses import parse_loss_spec, spec_loss_prodiff
 from prodiff_tpu_torch.ops.ssim import ssim
@@ -306,3 +309,36 @@ def test_trainer_saves_and_stops_on_sigusr1(train_env, monkeypatch):
     assert trainer.global_step == 4
     assert [s for _, s in ckpt_utils.sorted_checkpoints(hp["work_dir"])] == [4]
     assert signal.getsignal(signal.SIGUSR1) is not None
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["one_parent", "two_parents"])
+def test_config_parents_and_work_dir_reload_match_jax(tmp_path, monkeypatch, multi):
+    """``load_config`` as the JAX package's for one parent (the key kept) and
+    for a list of parents (merged in order, the key dropped); the config that
+    ``set_hparams(make_work_dir=True)`` writes reloads through ``exp_name``
+    from another working directory to the same hparams."""
+    cfg_dir, run_dir, other_dir = (tmp_path / d for d in ("cfg", "run", "other"))
+    for d in (cfg_dir, run_dir, other_dir):
+        d.mkdir()
+    (cfg_dir / "p1.yaml").write_text(yaml.dump({"a": 1, "b": 1}))
+    (cfg_dir / "p2.yaml").write_text(yaml.dump({"b": 2, "c": 2}))
+    # one parent by absolute path (a relative one cannot be found from the
+    # work dir by either package); a list by paths relative to the child
+    base = ["p1.yaml", "p2.yaml"] if multi else str(cfg_dir / "p1.yaml")
+    child = cfg_dir / "child.yaml"
+    child.write_text(yaml.dump({"base_config": base, "c": 3}))
+
+    got = port_config.load_config(str(child))
+    assert got == jax_config.load_config(str(child))
+    assert {k: got[k] for k in "abc"} == ({"a": 1, "b": 2, "c": 3} if multi
+                                          else {"a": 1, "b": 1, "c": 3})
+    assert ("base_config" in got) is not multi
+
+    root = str(tmp_path / "checkpoints")
+    monkeypatch.chdir(run_dir)
+    hp = port_config.set_hparams("e", "svs", root, config_fn=str(child), make_work_dir=True)
+    assert hp == jax_config.set_hparams(config_fn=str(child), exp_name="e", task="svs",
+                                        global_hparams=False, make_work_dir=False,
+                                        checkpoints_root=root)
+    monkeypatch.chdir(other_dir)
+    assert port_config.set_hparams("e", "svs", root) == hp
