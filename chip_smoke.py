@@ -9,7 +9,10 @@ Phases, each printing its lines before the last:
      source, all started together), timed;
   3. each kernel vs its plain PyTorch twin on the card, in parity mode
      (float32, TF32 off), at the main paths' full-width shapes: error against
-     the stated tolerance and CUDA-event times of both; the FastDiff layer
+     the stated tolerance, CUDA-event times of both and the share of the
+     computed bound (K1 at T=512, 640 and 2048; the resblock stage at each of
+     the five stages of one T_mel=512 vocoder pass), and K1 (T=640) and the
+     C=128 resblock stage replayed from a CUDA graph; the FastDiff layer
      kernels (K4 ``ublock_layer``, K6 ``lvc``) at every (block, layer) of the
      LJSpeech net at T_mel=512, reading a hoisted 4-step kernel stack, and
      the block kernel (K7 ``ublock_block``) at blocks 1 and 2 of that net,
@@ -19,7 +22,9 @@ Phases, each printing its lines before the last:
      voicing/breath embeds) and the default NSF-HiFiGAN generator behind the
      port's web server on 127.0.0.1; three /api/infer requests (~2, 4, 6 s of
      audio) with the kernel launch counts of that run, a bit-identity check of
-     two deterministic renders, the host/render split of one 6 s request, and
+     two deterministic renders, the split of the 6 s request (every part
+     timed in that request), that request's render under torch.profiler (K1,
+     the resblock stage, the other kernels, the device's idle share), and
      one short render held against the same weights on the CPU (the plain
      path, no kernels): the teacher's mel as it enters the vocoder, and the
      wav;
@@ -27,7 +32,7 @@ Phases, each printing its lines before the last:
      2-step teacher of ``__graft_entry__._flagship(n_mels=80)`` and FastDiff-4
      at FastDiff's LJSpeech config (22.05 kHz, hop 256), one render at
      T_mel=512 (131,072 samples) through ``get_vocoder_cls("fastdiff")`` with
-     the launch counts of that render (K1 2 x 41, K4 4 steps x 3 blocks x 4
+     the launch counts of that render (K1 2 x 3, K4 4 steps x 3 blocks x 4
      layers), the same render with the unfused layer (``fastdiff_packed:
      false``: K6 48 times), the same render with ``MONO_BLOCK`` (K7 8 times on
      blocks 1 and 2, K4 16 on block 0; within 1e-4 of the layer route's
@@ -119,7 +124,7 @@ SPEAKERS = {"spk0": 0, "spk1": 1}
 PHONES = ["SP", "AP"] + [f"p{i}" for i in range(60)]
 PHONE_SET = {f"{p}/zh": p for p in PHONES}
 REQUEST_SECONDS = (2.0, 4.0, 6.0)
-K1_SHAPES = ((1, 512), (1, 2048))  # (B, T) at L=20, C=256, H=256
+K1_SHAPES = ((1, 512), (1, 640), (1, 2048))  # (B, T) at L=20, C=256, H=256; 640: a 6 s request
 RES_STAGES = ((256, 4096), (128, 32768), (64, 65536), (32, 131072), (16, 262144))  # T_mel=512
 RES_K, RES_D = (3, 7, 11), ((1, 3, 5),) * 3
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)  # float32 both sides; only the sum order differs
@@ -157,6 +162,7 @@ TRAIN_N_VALID = 2  # validation items: one batch each
 # the card's training step vs the CPU's at 1e-3 of each gradient's peak
 # (the CPU runs the plain module loop, a different summation order end to end)
 GRAD_TOL, STEP_TOL = 1e-4, 1e-3
+K1_LAUNCHES = 3  # a stack: step projection, cond GEMM, the cooperative layer chain
 COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "ublock_block", "lvc",
            "residual_stack_save", "residual_stack_chain")
 # vocode wav2wav: NSF-HiFiGAN at the base config's audio settings (the openvpi
@@ -204,6 +210,24 @@ def compare(name, got, want, torch) -> dict:
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel}
+
+
+def graph_replay(name, fn, want, torch) -> None:
+    """Capture one call of ``fn`` into a CUDA graph (after a warm-up on a
+    side stream), replay it and hold its output against ``want``; times the
+    eager call and the replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    res = compare(f"{name}, replayed from a CUDA graph", out, want, torch)
+    log(f"{name}: captured into a CUDA graph; eager {timed_ms(fn, 20, torch):.4f} ms, replay "
+        f"{timed_ms(graph.replay, 20, torch):.4f} ms (max abs err {res['max_abs_err']:.3e})")
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -263,7 +287,7 @@ def phase_kernels(dev, torch):
         out_w=rand(n_layers, c, 2 * c, scale=c ** -0.5),
         out_b=rand(n_layers, 2 * c, scale=0.1),
     )
-    k1 = {"max_abs_err": 0.0}
+    k1 = {"max_abs_err": 0.0, "by_shape": []}
     for b, t in K1_SHAPES:
         x0, cond, step = rand(b, t, c), rand(b, t, h), rand(b, c)
         got = wn.residual_stack(x0, cond, step, w)
@@ -276,17 +300,24 @@ def phase_kernels(dev, torch):
         nbytes = 4 * (2 * b * t * c + b * t * h + b * c + n_layers * (layer + c * c + 7 * c))
         lim = bound(flops, nbytes)
         log(f"K1 B={b} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{lim['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: {lim['bound_by']})")
+            f"{lim['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: {lim['bound_by']}), "
+            f"share of bound {lim['bound_ms'] / ms:.3f}; {wn.stack_launches(b, t, c, n_layers)} launches "
+            f"a stack, chain tile rows {wn.chain_rows(b, t, c, wn._slots[dev.index])}")
         k1["max_abs_err"] = max(k1["max_abs_err"], res["max_abs_err"])
+        k1["by_shape"].append(dict(B=b, T=t, ms=ms, plain_ms=plain_ms, **lim,
+                                   share=lim["bound_ms"] / ms))
         if t == 512:
             k1.update(ms=ms, plain_ms=plain_ms, **lim)
+        if t == 640:  # the cooperative chain launch inside a CUDA graph (serving's warm-up route)
+            graph_replay(f"K1 B={b} T={t}", lambda: wn.residual_stack(x0, cond, step, w), want, torch)
 
-    res_total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    res_total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "stages": []}
     flops = nbytes = 0
     for c, t in RES_STAGES:
         taps = 6 * sum(RES_K)  # 18 convs: 6 per kernel size
-        flops += 2 * taps * c * c * t
-        nbytes += 4 * (2 * t * c + taps * c * c + 18 * c)
+        st_flops, st_bytes = 2 * taps * c * c * t, 4 * (2 * t * c + taps * c * c + 18 * c)
+        flops += st_flops
+        nbytes += st_bytes
         ws = [rand(k * c * c, scale=(k * c) ** -0.5) for k in RES_K for _ in range(6)]
         weights, biases = torch.cat(ws), rand(18, c, scale=0.1)
         x = rand(1, t, c)
@@ -295,14 +326,23 @@ def phase_kernels(dev, torch):
         res = compare(f"resblock_stage C={c} T={t}", got, want, torch)
         ms = timed_ms(lambda: resblock_stage(x, weights, biases, RES_K, RES_D), 10, torch)
         plain_ms = timed_ms(lambda: resblock_stage_plain(x, weights, biases, RES_K, RES_D), 10, torch)
-        log(f"resblock C={c} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        lim = bound(st_flops, st_bytes)
+        log(f"resblock C={c} T={t}: kernel {ms:.4f} ms, plain (18 cuDNN convs) {plain_ms:.4f} ms, "
+            f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}), share of bound "
+            f"{lim['bound_ms'] / ms:.3f}, kernel / cuDNN {ms / plain_ms:.3f}")
         res_total["max_abs_err"] = max(res_total["max_abs_err"], res["max_abs_err"])
         res_total["ms"] += ms
         res_total["plain_ms"] += plain_ms
+        res_total["stages"].append(dict(C=c, T=t, ms=ms, plain_ms=plain_ms, **lim,
+                                        share=lim["bound_ms"] / ms))
+        if c == 128:
+            graph_replay(f"resblock_stage C={c} T={t}",
+                         lambda: resblock_stage(x, weights, biases, RES_K, RES_D), want, torch)
     res_total.update(bound(flops, nbytes))
     log(f"resblock, all 5 stages of one vocoder pass at T_mel=512: kernel "
         f"{res_total['ms']:.4f} ms, plain {res_total['plain_ms']:.4f} ms, "
-        f"bound {res_total['bound_ms']:.4f} ms ({res_total['bound_by']})")
+        f"bound {res_total['bound_ms']:.4f} ms ({res_total['bound_by']}), share of bound "
+        f"{res_total['bound_ms'] / res_total['ms']:.3f}")
     return k1, res_total
 
 
@@ -497,34 +537,70 @@ def capture_mel(handler) -> dict:
     return seen
 
 
-def request_split(web, req, latency_s: float) -> None:
-    """Time the parts of one request outside HTTP: the handler's front end
-    (``prepare``), the render (teacher + vocoder + wav copy to the host), all
-    of ``api_infer`` (adds request validation, the segment's text fields and
-    the wav to a list), then ``json.dumps``/``json.loads`` of the answer."""
-    core, spans = web.core, {}
+class RequestSpans:
+    """Host-clock spans of the parts of each /api/infer request, all taken
+    in that request: the handler's front end (``prepare``), the render
+    (teacher + vocoder + the wav's copy to the host, ``render_batch``), all
+    of ``api_infer`` (adds validation, the segment's text fields and the wav
+    to a list), and the server's ``json.dumps`` of the answer. Installed on
+    the instances (and the server module's ``json``) before the server is
+    made; ``spans`` holds the latest request's spans (after ``reset``) and
+    ``segment`` the segment it rendered."""
 
-    def timed(name, fn):
-        def run(*args):
-            start = time.perf_counter()
-            out = fn(*args)
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - start
-            return out
-        return run
+    def __init__(self, web):
+        import types
 
-    core.prepare, core.render_batch = timed("prepare", core.prepare), timed("render", core.render_batch)
-    try:
-        result = timed("api_infer", web.api_infer)(req)
-    finally:
-        del core.prepare, core.render_batch
-    body = timed("json_dumps", json.dumps)(result)
-    timed("json_loads", json.loads)(body)
-    ms = {k: round(v * 1000, 3) for k, v in spans.items()}
-    log(f"{REQUEST_SECONDS[-1]:.0f} s request split, outside HTTP (one call, ms): {json.dumps(ms)}; the HTTP request "
-        f"above took {latency_s * 1000:.3f} ms, which leaves "
-        f"{latency_s * 1000 - ms['api_infer'] - ms['json_dumps'] - ms['json_loads']:.3f} ms for the "
-        f"HTTP exchange itself (sockets, server thread, the client's array conversion; not split "
-        f"further); answer {len(body)} bytes")
+        import prodiff_tpu_torch.serve.handler as server_module
+
+        self.web, self.module, self.json = web, server_module, server_module.json
+        self.spans, self.segment = {}, None
+        core = web.core
+
+        def timed(name, fn):
+            def run(*args):
+                start = time.perf_counter()
+                out = fn(*args)
+                self.spans[name] = self.spans.get(name, 0.0) + time.perf_counter() - start
+                return out
+            return run
+
+        infer = core.infer
+
+        def infer_seen(segment):
+            self.segment = dict(segment)
+            return infer(segment)
+
+        core.prepare = timed("prepare", core.prepare)
+        core.render_batch = timed("render", core.render_batch)
+        core.infer = infer_seen
+        web.api_infer = timed("api_infer", web.api_infer)
+        server_module.json = types.SimpleNamespace(dumps=timed("server_json_dumps", self.json.dumps),
+                                                   loads=self.json.loads)
+
+    def reset(self):
+        self.spans = {}
+
+    def close(self):
+        for attr in ("prepare", "render_batch", "infer"):
+            del self.web.core.__dict__[attr]
+        del self.web.__dict__["api_infer"]
+        self.module.json = self.json
+
+
+def post_timed(url: str, payload: dict):
+    """(answer, seconds of the whole exchange, seconds of the client's
+    ``json.loads`` of the answer, answer bytes)."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    start = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        body = r.read()
+    mid = time.perf_counter()
+    out = json.loads(body)
+    end = time.perf_counter()
+    return out, end - start, end - mid, len(body)
 
 
 def phase_slice(dev, torch):
@@ -535,6 +611,7 @@ def phase_slice(dev, torch):
     t0 = time.time()
     web = WebHandler(core=core, host="127.0.0.1", port=0)  # warm-up runs here
     log(f"server warm-up {time.time() - t0:.3f} s")
+    spans = RequestSpans(web)
     server = web.make_server()
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -549,12 +626,11 @@ def phase_slice(dev, torch):
         reset_counts()
         for seconds in REQUEST_SECONDS:
             req = request_payload(seconds, rng)
-            last = req
             ph_acc = np.round(np.cumsum(req["ph_dur_list"]) / (hop / sr) + 0.5).astype(np.int64)
             mel_len = int(np.diff(ph_acc, prepend=0).sum())
-            start = time.perf_counter()
-            wav = np.asarray(post(f"{base}/api/infer", req)["wav"], np.float32)
-            latency = time.perf_counter() - start
+            spans.reset()
+            answer, latency, loads_s, n_body = post_timed(f"{base}/api/infer", req)
+            wav = np.asarray(answer["wav"], np.float32)
             if wav.shape != (mel_len * hop,) or not np.isfinite(wav).all():
                 raise AssertionError(f"/api/infer: wav {wav.shape}, want ({mel_len * hop},) finite")
             log(f"POST /api/infer {seconds:.0f} s of audio: mel_len {mel_len}, wav {wav.shape[0]} "
@@ -563,15 +639,24 @@ def phase_slice(dev, torch):
                 f"(RTF {latency / (wav.shape[0] / sr):.4f})")
         n = len(REQUEST_SECONDS)
         launches = check_counts("the requests", {
-            "residual_stack": n * SLICE_HPARAMS["timesteps"] * (1 + 2 * SLICE_HPARAMS["residual_layers"]),
+            "residual_stack": n * SLICE_HPARAMS["timesteps"] * K1_LAUNCHES,
             "resblock_stage": n * 5 * 18})
-        request_split(web, last, latency)
+        ms = {k: round(v * 1000, 3) for k, v in spans.spans.items()}
+        ms["client_json_loads"] = round(loads_s * 1000, 3)
+        rest = latency * 1000 - ms["api_infer"] - ms["server_json_dumps"] - ms["client_json_loads"]
+        log(f"{REQUEST_SECONDS[-1]:.0f} s request split, every part timed in that request (ms): "
+            f"{json.dumps(ms)}; of its {latency * 1000:.3f} ms, {rest:.3f} ms are the HTTP exchange "
+            f"itself (sockets, the server thread, the server's json.loads of the request; not "
+            f"split further); answer {n_body} bytes")
+        segment = spans.segment
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+        spans.close()
     if thread.is_alive():
         raise AssertionError("server thread did not stop")
+    profile_render(core, segment, mel_len, torch)
 
     # deterministic renders are bit-identical
     core.deterministic = True
@@ -661,7 +746,7 @@ def phase_fastdiff(dev, torch):
     wav = voc.spec2wav(mel[0], generator=gen)
     end = time.perf_counter()
     launches = check_counts("the FastDiff render", {
-        "residual_stack": FD_TEACHER_STEPS * (1 + 2 * FD_TEACHER_HPARAMS["residual_layers"]),
+        "residual_stack": FD_TEACHER_STEPS * K1_LAUNCHES,
         "ublock_layer": FD_STEPS * len(FD_HOPS) * FD_CONFIG["lvc_layers_each_block"]})
     n_samples = FD_T_MEL * hop
     if wav.shape != (n_samples,) or not np.isfinite(wav).all():
@@ -679,7 +764,7 @@ def phase_fastdiff(dev, torch):
     wav_u = voc_unfused.spec2wav(mel_u[0], generator=gen)
     end = time.perf_counter()
     launches_u = check_counts("the unfused-layer FastDiff render", {
-        "residual_stack": FD_TEACHER_STEPS * (1 + 2 * FD_TEACHER_HPARAMS["residual_layers"]),
+        "residual_stack": FD_TEACHER_STEPS * K1_LAUNCHES,
         "lvc": FD_STEPS * len(FD_HOPS) * FD_CONFIG["lvc_layers_each_block"]})
     err, peak = float(np.abs(wav_u - wav).max()), float(np.abs(wav).max())
     log(f"unfused layer (K6) render: {(end - start) * 1000:.3f} ms; vs the fused layer (K4): "
@@ -708,7 +793,7 @@ def phase_fastdiff(dev, torch):
     finally:
         fd_model.MONO_BLOCK = False
     launches_m = check_counts("the mono-block FastDiff render", {
-        "residual_stack": FD_TEACHER_STEPS * (1 + 2 * FD_TEACHER_HPARAMS["residual_layers"]),
+        "residual_stack": FD_TEACHER_STEPS * K1_LAUNCHES,
         "ublock_block": FD_STEPS * sum(mono),
         "ublock_layer": FD_STEPS * n_lay * (len(FD_HOPS) - sum(mono))})
     err, peak = float(np.abs(wav_m - wav).max()), float(np.abs(wav).max())
@@ -1103,21 +1188,25 @@ def device_time(fn, n: int, torch):
     return wall_ms, busy
 
 
-def profile_train_step(trainer, batch, torch) -> None:
-    """Where one training step's device time goes: torch.profiler over two
-    steps of the live trainer on one batch; the device time of every kernel
-    by name, grouped, against the host-clock time of the window (the rest is
-    the device's idle share)."""
+# library kernels by substrings of their names
+LIBRARY_GROUPS = {"GEMM (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
+                  "convolution (cuDNN)": ("conv", "cudnn", "implicit", "winograd", "fft"),
+                  "memcpy/memset": ("Memcpy", "Memset", "memcpy", "memset")}
+
+
+def kernel_split(fn, n: int, ours: dict, torch):
+    """torch.profiler over ``n`` calls of ``fn`` (after the caller's
+    warm-up): (host-clock ms a call, kernel ms a call, {group: ms a call},
+    [(ms, launches, name)] by kernel). The port's kernels are grouped by
+    their exact function names (``ours``: name -> group), library kernels
+    by substrings of theirs; the rest is "other"."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):  # warm-up
-        trainer.train_step(batch)
     torch.cuda.synchronize()
-    n = 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         for _ in range(n):
-            trainer.train_step(batch)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / n
     rows = []
@@ -1127,25 +1216,53 @@ def profile_train_step(trainer, batch, torch) -> None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
         if dev_us > 0 and e.device_type.name == "CUDA":
             rows.append((dev_us / 1e3 / n, e.count // n, e.key))
+    other = "other (elementwise, reductions, indexing)"
+    sums = {g: 0.0 for g in (*dict.fromkeys(ours.values()), *LIBRARY_GROUPS, other)}
+    for ms, _, key in rows:
+        name = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+        group = ours.get(name.group(1)) if name else None
+        sums[group or next((g for g, keys in LIBRARY_GROUPS.items() if any(k in key for k in keys)),
+                           other)] += ms
+    return wall_ms, sum(ms for ms, _, _ in rows), sums, rows
+
+
+def profile_render(core, segment, mel_len: int, torch) -> None:
+    """Where one render of the 6 s request goes on the card: torch.profiler
+    over two renders of its segment (teacher + vocoder + the wav's copy to
+    the host), split into K1, the resblock stage, the other kernels and the
+    device's idle share."""
+    ours = {"step_proj_kernel": "K1 wavenet_stack", "cond_kernel": "K1 wavenet_stack",
+            "chain_kernel": "K1 wavenet_stack", "conv_kernel": "K2/K3 resblock_stage"}
+    core.infer(dict(segment))  # warm-up
+    n = 2
+    wall_ms, busy, sums, rows = kernel_split(lambda: core.infer(dict(segment)), n, ours, torch)
     if not rows:
-        log("training step profile: the profiler saw no device time (not measured)")
+        log("6 s render profile: the profiler saw no device time (not measured)")
         return
+    log(f"{REQUEST_SECONDS[-1]:.0f} s render profile (torch.profiler, mean of {n} renders of the "
+        f"request's segment, mel_len {mel_len}): {wall_ms:.3f} ms on the host clock, {busy:.3f} ms "
+        f"of kernel time (device idle share {max(0.0, 1 - busy / wall_ms):.3f}); by group (ms): "
+        + json.dumps({g: round(v, 3) for g, v in sums.items()}))
+    for ms, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+
+
+def profile_train_step(trainer, batch, torch) -> None:
+    """Where one training step's device time goes: torch.profiler over two
+    steps of the live trainer on one batch; the device time of every kernel
+    by name, grouped, against the host-clock time of the window (the rest is
+    the device's idle share)."""
+    for _ in range(2):  # warm-up
+        trainer.train_step(batch)
+    n = 2
     # the port's kernels (wavenet_train.cu) by their exact function names
     ours = {"save_gate_kernel": "K5a save-forward", "save_out_kernel": "K5a save-forward",
             "step_proj_kernel": "K5a save-forward", "chain_gate_kernel": "K5b backward chain",
             "chain_dy_kernel": "K5b backward chain"}
-    # library kernels by substrings of their names
-    groups = {"GEMM (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
-              "convolution (cuDNN)": ("conv", "cudnn", "implicit", "winograd", "fft"),
-              "memcpy/memset": ("Memcpy", "Memset", "memcpy", "memset")}
-    other = "other (elementwise, reductions, indexing)"
-    sums = {g: 0.0 for g in (*dict.fromkeys(ours.values()), *groups, other)}
-    for ms, _, key in rows:
-        name = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
-        group = ours.get(name.group(1)) if name else None
-        sums[group or next((g for g, keys in groups.items() if any(k in key for k in keys)),
-                           other)] += ms
-    busy = sum(ms for ms, _, _ in rows)
+    wall_ms, busy, sums, rows = kernel_split(lambda: trainer.train_step(batch), n, ours, torch)
+    if not rows:
+        log("training step profile: the profiler saw no device time (not measured)")
+        return
     log(f"training step profile (torch.profiler, mean of {n} steps on one B={TRAIN_B} x "
         f"T={TRAIN_T} batch): {wall_ms:.3f} ms on the host clock, {busy:.3f} ms of kernel time "
         f"(device idle share {max(0.0, 1 - busy / wall_ms):.3f}); by group (ms): "
@@ -1280,7 +1397,7 @@ def phase_train(dev, torch):
     work = os.path.join(tmp, "checkpoints", "smoke", "svs")
     n_layers = hp["residual_layers"]
     per_train = {"residual_stack_save": 1 + 2 * n_layers, "residual_stack_chain": 2 * n_layers}
-    per_val = {"residual_stack": 1 + 2 * n_layers}
+    per_val = {"residual_stack": K1_LAUNCHES}
     trains = [c for c in calls if c[0] == "train"]
     vals = [c for c in calls if c[0] == "val"]
     for kind, _, _, delta, shape in calls:
@@ -1387,10 +1504,11 @@ def main() -> int:
                     library_ms=None)  # no single PyTorch call computes any of these
 
     kernels = [
-        entry("wavenet_residual_stack", "wavenet_stack.cu", "prodiff_tpu/ops/pallas/wavenet.py:177",
-              launches["residual_stack"], k1),
-        entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
-              launches["resblock_stage"], res),
+        dict(entry("wavenet_residual_stack", "wavenet_stack.cu",
+                   "prodiff_tpu/ops/pallas/wavenet.py:177", launches["residual_stack"], k1),
+             by_shape=k1["by_shape"]),
+        dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
+                   launches["resblock_stage"], res), stages=res["stages"]),
         entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
               fd_launches["ublock_layer"], fd["ublock_layer"]),
         entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",

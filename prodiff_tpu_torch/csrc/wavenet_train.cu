@@ -53,7 +53,8 @@
 // blocks an SM (128 registers; the gate kernel spills 64 bytes, which beat
 // one block without the spill on the H100), 4 chain_gate blocks and 3
 // chain_dy blocks (155 registers, no spill, which beat 4 blocks with one).
-// The reduction runs in chunks of BK = 8, double-buffered (run_chunks):
+// The reduction runs in chunks of BK = 8, double-buffered (run_chunks, in
+// tile_gemm.cuh, which K1 and the resblock stage share):
 // chunk k+1's weights go to shared memory by cp.async and its activations
 // through registers (where the step projection, do's scales and the zero
 // padding outside [0, T) are applied, and the forward writes xs) while chunk
@@ -61,6 +62,7 @@
 // tile of BM + 2 rows (frames t0-1 .. t0+BM of the block's own sequence) at
 // row offsets 0, 1, 2.
 
+#include "tile_gemm.cuh"
 #include "wavenet_tiles.cuh"
 
 namespace {
@@ -75,96 +77,26 @@ constexpr int FWD_NT = (BM / 8) * (FWD_BN / 8);  // 256 threads
 constexpr int CH_BN = 64;     // chain: 64 columns of C a block
 constexpr int CH_NT = (BM / 8) * (CH_BN / 8);    // 128 threads
 
-__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+using tile::ceil_div;
+using tile::cp_async16;
+using tile::cp_async_commit;
+using tile::cp_async_wait_all;
+using tile::ld4;
+using tile::run_chunks;
+using tile::sigmoid;
+using tile::st4;
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-// 16 bytes global -> shared without a register round trip; zero-filled
-// where !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Reduction rows k..k+3 (v.x..v.w) of frame row r into the k-major A tile.
 __device__ __forceinline__ void put_a(float* As, int r, int k, float4 v) {
-  As[k * LDA + r] = v.x;
-  As[(k + 1) * LDA + r] = v.y;
-  As[(k + 2) * LDA + r] = v.z;
-  As[(k + 3) * LDA + r] = v.w;
-}
-
-// The double-buffered reduction over n chunks: fetch(buf, i) starts chunk
-// i's copies into buffer buf (weights by cp.async, activations into
-// registers), put(buf, i) stores those registers into the A tile, fma(buf, i)
-// computes on the staged chunk. Chunk i+1 is fetched before chunk i computes
-// and put after it, into the buffers chunk i-1 used, which every thread left
-// at the last barrier: one __syncthreads a chunk.
-template <class Fetch, class Put, class Fma>
-__device__ __forceinline__ void run_chunks(int n, Fetch fetch, Put put, Fma fma) {
-  fetch(0, 0);
-  put(0, 0);
-  cp_async_wait_all();
-  __syncthreads();
-  for (int i = 0; i < n; ++i) {
-    const int cur = i & 1;
-    if (i + 1 < n) fetch(cur ^ 1, i + 1);
-    fma(cur, i);
-    if (i + 1 < n) {
-      put(cur ^ 1, i + 1);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-  }
+  tile::put_a<LDA>(As, r, k, v);
 }
 
 // acc[m][n] += sum_k sum_q A[k][row0 + m + q] * B[q][k][col(n)] over one
-// staged chunk, col(n) = col0 + n for n < 4 and col0 + BN/2 + n - 4 after.
+// staged chunk (tile::frag_fma with 8 x 8 fragments).
 template <int BN, int NTAP>
 __device__ __forceinline__ void tile_fma(const float* __restrict__ As,
                                          const float* __restrict__ Bs, int row0, int col0,
                                          float (&acc)[8][8]) {
-  static_assert(NTAP == 1 || NTAP == 3, "one tap or the three conv taps");
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    const float* ar = As + k * LDA + row0;
-    const float4 a0 = ld4(ar), a1 = ld4(ar + 4);
-    float a[8 + NTAP - 1];
-    a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-    a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-    if constexpr (NTAP == 3) {
-      const float2 a2 = *reinterpret_cast<const float2*>(ar + 8);
-      a[8] = a2.x;
-      a[9] = a2.y;
-    }
-#pragma unroll
-    for (int q = 0; q < NTAP; ++q) {
-      const float* br = Bs + (q * BK + k) * BN + col0;
-      const float4 b0 = ld4(br), b1 = ld4(br + BN / 2);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(a[q + m], bv[n], acc[m][n]);
-    }
-  }
+  tile::frag_fma<8, BK, NTAP, LDA, BN, BK * BN>(As, Bs, row0, col0, acc);
 }
 
 // z and gate for 64 column pairs of one layer. Chunks 0 .. C/BK-1 are the
@@ -484,9 +416,7 @@ extern "C" int wavenet_stack_save_forward(
   if (B < 1 || T < 1 || L < 1 || C % 32 != 0 || H % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  wavenet::step_proj_kernel<<<dim3(L, B), C < 1024 ? C : 1024, 0, stream>>>(
-      step, diffw, diffb, sp, B, C);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = wavenet::launch_step_proj(step, diffw, diffb, sp, B, C, L, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(ceil_div(C, FWD_BN / 2), ceil_div(T, BM), B);
   const float last_scale = (float)(1.0 / sqrt((double)L));

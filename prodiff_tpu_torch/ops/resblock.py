@@ -23,6 +23,8 @@ from prodiff_tpu_torch import device
 from prodiff_tpu_torch.ops import cuda_build
 
 LRELU_SLOPE = 0.1
+KERNEL_SIZES = (3, 7, 11)  # the kernel's taps (csrc/resblock.cu: a template argument)
+MAX_PAD = 32  # the kernel's largest halo a side, get_padding(k, d)
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -101,9 +103,12 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
             )
     if not (c in (16, 32) or c % 64 == 0):
         raise ValueError(f"resblock_stage: C must be 16, 32 or a multiple of 64, got {c}")
-    if len(ksizes) != len(dsizes) or any(k % 2 == 0 for k in ksizes):
-        raise ValueError(f"resblock_stage: odd kernel sizes, one per resblock: {ksizes}")
+    if len(ksizes) != len(dsizes) or any(k not in KERNEL_SIZES for k in ksizes):
+        raise ValueError(
+            f"resblock_stage: kernel sizes in {KERNEL_SIZES}, one per resblock: {ksizes}")
     layout = list(_conv_layout(ksizes, dsizes))
+    if any(get_padding(k, d) > MAX_PAD for k, d in layout):
+        raise ValueError(f"resblock_stage: a conv's halo exceeds {MAX_PAD} frames: {dsizes}")
     n_w = sum(k * c * c for k, _ in layout)
     if weights.numel() != n_w or tuple(biases.shape) != (len(layout), c):
         raise ValueError(

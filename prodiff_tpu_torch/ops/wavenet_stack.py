@@ -99,14 +99,65 @@ def check_operands(what: str, x0: torch.Tensor, cond: torch.Tensor, step: torch.
     return b, t, c, h, n_layers
 
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# the conditioner terms zc [group, B, T, 2C] of one launch stay under this
+# many bytes; a larger stack runs its layers in groups (csrc/wavenet_stack.cu)
+ZC_BUDGET = 1 << 30
+# the chain kernel's tile rows, each with the relative time a frame row takes
+# in such a tile: its FM x 8 fragments (FM = rows / 4) read 32 bytes of
+# weights from shared memory per 8 * FM FMAs, so the smaller tiles run
+# nearer the shared-memory limit (a ranking, not a measurement)
+CHAIN_ROWS = {32: 1.0, 24: 1.1, 16: 1.2}
+CHAIN_PAIRS = 32  # column pairs (j, C+j) a chain tile
+
+
+def layer_group(b: int, t: int, c: int, n_layers: int) -> int:
+    """Layers a cond + chain launch pair covers: as many as keep zc under
+    ``ZC_BUDGET`` bytes (at least one)."""
+    budget, per_layer = ZC_BUDGET, 4 * b * t * 2 * c
+    return max(1, min(n_layers, budget // per_layer))
+
+
+def stack_launches(b: int, t: int, c: int, n_layers: int) -> int:
+    """Kernel launches of one stack: the step projection, then a cond GEMM
+    and a chain launch per layer group."""
+    return 1 + 2 * -(-n_layers // layer_group(b, t, c, n_layers))
+
+
+def chain_rows(b: int, t: int, c: int, slots: dict) -> int:
+    """The chain's tile rows: the choice of ``CHAIN_ROWS`` whose tiles take
+    the least time, counted as rounds of the grid times the rows of a tile
+    times their relative cost; ``slots[rows]`` is how many blocks of that
+    kernel can be co-resident."""
+    def cost(rows):
+        tiles = b * -(-t // rows) * (c // CHAIN_PAIRS)
+        return -(-tiles // max(1, slots[rows])) * rows * CHAIN_ROWS[rows]
+
+    return min(CHAIN_ROWS, key=cost)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_slots: dict = {}
 
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("wavenet_stack")
     lib.wavenet_residual_stack.argtypes = _ARGTYPES
     lib.wavenet_residual_stack.restype = ctypes.c_int
+    lib.wavenet_chain_slots.argtypes = [ctypes.c_int]
+    lib.wavenet_chain_slots.restype = ctypes.c_int
     return lib
+
+
+def _chain_slots(lib, dev: torch.device) -> dict:
+    """Co-resident chain blocks on ``dev`` for each tile-row choice (once a
+    device)."""
+    key = dev.index
+    if key not in _slots:
+        got = {rows: lib.wavenet_chain_slots(rows) for rows in CHAIN_ROWS}
+        if min(got.values()) < 1:
+            raise RuntimeError(f"wavenet_chain_slots: occupancy query failed ({got})")
+        _slots[key] = got
+    return _slots[key]
 
 
 def residual_stack(x0: torch.Tensor, cond: torch.Tensor, step: torch.Tensor,
@@ -114,10 +165,10 @@ def residual_stack(x0: torch.Tensor, cond: torch.Tensor, step: torch.Tensor,
     """x0 [B,T,C], cond [B,T,H], step [B,C] -> skip sum / sqrt(L), [B,T,C].
 
     CPU tensors run :func:`residual_stack_plain`; CUDA tensors launch the
-    kernel (1 + 2L launches, counted in ``residual_stack.launches``). The
-    kernel has no backward: with grad mode on, an operand that requires grad
-    raises. A stack that trains goes through
-    ``ops/wavenet_train.py:differentiable_stack``."""
+    kernels (:func:`stack_launches`: 3 while zc fits ``ZC_BUDGET``, counted
+    in ``residual_stack.launches``). The kernel has no backward: with grad
+    mode on, an operand that requires grad raises. A stack that trains goes
+    through ``ops/wavenet_train.py:differentiable_stack``."""
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x0, cond, step, *w)):
         raise RuntimeError(
             "residual_stack has no backward and an operand requires grad: call it under "
@@ -132,17 +183,20 @@ def residual_stack(x0: torch.Tensor, cond: torch.Tensor, step: torch.Tensor,
     skip = torch.empty_like(x)
     gate = torch.empty_like(x)
     step_proj = torch.empty((n_layers, b, c), device=x.device, dtype=x.dtype)
+    group = layer_group(b, t, c, n_layers)
+    zc = torch.empty((group, b, t, 2 * c), device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
+        rows = chain_rows(b, t, c, _chain_slots(lib, x.device))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.wavenet_residual_stack(
             x.data_ptr(), skip.data_ptr(), gate.data_ptr(), step_proj.data_ptr(),
-            cond.data_ptr(), step.data_ptr(),
+            zc.data_ptr(), cond.data_ptr(), step.data_ptr(),
             *(a.data_ptr() for a in w),
-            b, t, c, h, n_layers, stream,
+            b, t, c, h, n_layers, group, rows, stream,
         )
     cuda_build.check(err, "wavenet_residual_stack")
-    residual_stack.launches.add(1 + 2 * n_layers)
+    residual_stack.launches.add(stack_launches(b, t, c, n_layers))
     return skip
 
 

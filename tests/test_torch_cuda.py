@@ -12,6 +12,8 @@ FastDiff forward: 1e-4 of its output's peak). Gradients, summed over every
 frame of the batch, are held at 1e-4 of each one's peak (rtol 1e-3).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -25,10 +27,12 @@ from prodiff_tpu_torch.ops.ublock import (
     ublock_layer,
     ublock_layer_plain,
 )
+from prodiff_tpu_torch.ops import wavenet_stack
 from prodiff_tpu_torch.ops.wavenet_stack import (
     StackedWaveNet,
     residual_stack,
     residual_stack_plain,
+    stack_launches,
 )
 from prodiff_tpu_torch.ops.wavenet_train import (
     ResidualStackFn,
@@ -65,8 +69,19 @@ def _stacked(rng, n_layers, c, h, dev):
     )
 
 
-@pytest.mark.parametrize("b,t,c,h,n_layers", [(2, 37, 128, 32, 4), (1, 512, 256, 256, 20)])
+K1_CASES = [(2, 37, 128, 32, 4), (1, 512, 256, 256, 20)] + [
+    # every B and T with each (C, H, L); T = 1 and 37 inside one chain tile,
+    # 513 one frame past the 16-row tiles, 640 ragged in the 24-row ones,
+    # 2048 the 32-row ones
+    (b, t, c, h, n_layers) for b in (1, 3) for t in (1, 37, 256, 513, 640, 2048)
+    for c, h, n_layers in ((256, 256, 20), (256, 128, 4), (128, 32, 1))
+] + [(16, 1536, 256, 256, 20)]  # a training-validation batch: the chain's largest walk
+
+
+@pytest.mark.parametrize("b,t,c,h,n_layers", K1_CASES)
 def test_residual_stack_kernel_matches_plain(cuda, b, t, c, h, n_layers):
+    """K1: the step projection, the hoisted cond GEMM and the cooperative
+    chain (3 launches) vs the plain twin."""
     rng = np.random.default_rng(0)
     w = _stacked(rng, n_layers, c, h, cuda)
     x0 = torch.tensor(rng.normal(size=(b, t, c)), dtype=torch.float32, device=cuda)
@@ -75,9 +90,39 @@ def test_residual_stack_kernel_matches_plain(cuda, b, t, c, h, n_layers):
     before = residual_stack.launches.count
     got = residual_stack(x0, cond, step, w)
     torch.cuda.synchronize()
-    assert residual_stack.launches.count - before == 1 + 2 * n_layers
+    assert residual_stack.launches.count - before == 3
     want = residual_stack_plain(x0, cond, step, w)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_residual_stack_runs_layer_groups(cuda, monkeypatch):
+    """Past ZC_BUDGET the layers run in groups (a cond and a chain launch
+    each); the skip sum still agrees with the plain twin."""
+    rng = np.random.default_rng(10)
+    b, t, c, h, n_layers = 2, 300, 256, 128, 7
+    monkeypatch.setattr(wavenet_stack, "ZC_BUDGET", 3 * 4 * b * t * 2 * c)
+    w = _stacked(rng, n_layers, c, h, cuda)
+    x0, cond, step = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device=cuda)
+                      for s in ((b, t, c), (b, t, h), (b, c)))
+    before = residual_stack.launches.count
+    got = residual_stack(x0, cond, step, w)
+    torch.cuda.synchronize()
+    assert residual_stack.launches.count - before == stack_launches(b, t, c, n_layers) == 7
+    torch.testing.assert_close(got, residual_stack_plain(x0, cond, step, w), atol=ATOL, rtol=RTOL)
+
+
+def test_refused_chain_launch_raises(cuda, monkeypatch):
+    """A nonzero code from the stack's C entry (here a refused cooperative
+    launch, cudaErrorCooperativeLaunchTooLarge) raises in the wrapper."""
+    lib = types.SimpleNamespace(wavenet_residual_stack=lambda *args: 720,
+                                wavenet_chain_slots=lambda rows: 264)
+    monkeypatch.setattr(cuda_build, "load", lambda name: lib)
+    monkeypatch.setattr(wavenet_stack, "_slots", {})
+    rng = np.random.default_rng(11)
+    w = _stacked(rng, 2, 128, 32, cuda)
+    x0 = torch.zeros((1, 8, 128), device=cuda)
+    with pytest.raises(RuntimeError, match="wavenet_residual_stack: CUDA error 720"):
+        residual_stack(x0, torch.zeros((1, 8, 32), device=cuda), torch.zeros((1, 128), device=cuda), w)
 
 
 def _stage(rng, c, ksizes, dsizes, dev):
@@ -90,8 +135,14 @@ def _stage(rng, c, ksizes, dsizes, dev):
     return as_t(np.concatenate(ws)), as_t(np.stack(bs))
 
 
-@pytest.mark.parametrize("c,t", [(256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049)])
+@pytest.mark.parametrize("c,t", [
+    (256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049),
+    # T < k * d: every conv's halo reaches past both sequence ends
+    (256, 7), (128, 20), (64, 1), (32, 54), (16, 9),
+])
 def test_resblock_stage_kernel_matches_plain(cuda, c, t):
+    """Every C's tile, B = 2, ragged T; 12 of the 18 convs take the d = 1
+    route (each tap's rows read once for all taps)."""
     rng = np.random.default_rng(1)
     ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
     w, bias = _stage(rng, c, ksizes, dsizes, cuda)
@@ -102,6 +153,18 @@ def test_resblock_stage_kernel_matches_plain(cuda, c, t):
     assert resblock_stage.launches.count - before == 18
     want = resblock_stage_plain(x, w, bias, ksizes, dsizes)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_resblock_stage_rejects_what_it_does_not_take(cuda):
+    """The kernel's taps are 3, 7 or 11 with a halo of at most 32 frames."""
+    rng = np.random.default_rng(12)
+    x = torch.zeros((1, 64, 16), device=cuda)
+    w, bias = _stage(rng, 16, (5,), ((1,),), cuda)
+    with pytest.raises(ValueError, match="kernel sizes"):
+        resblock_stage(x, w, bias, (5,), ((1,),))
+    w, bias = _stage(rng, 16, (11,), ((7,),), cuda)
+    with pytest.raises(ValueError, match="halo"):
+        resblock_stage(x, w, bias, (11,), ((7,),))
 
 
 @pytest.mark.parametrize("wrapper", ["resblock_stage", "ublock_layer", "ublock_block", "lvc"])
@@ -143,7 +206,7 @@ def test_modules_route_through_the_kernels(cuda):
     with torch.no_grad():
         got = net(x.to(cuda), t.to(cuda), cond.to(cuda))
         want = ref(x, t, cond)
-    assert residual_stack.launches.count - before == 1 + 2 * 4
+    assert residual_stack.launches.count - before == 3
     torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
 
     gen = Generator(num_mels=16, upsample_initial_channel=128, upsample_rates=(4, 4, 2),
