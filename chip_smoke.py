@@ -2,6 +2,13 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fastdiff-kernels
+
+The second form builds the kernels and runs only the FastDiff kernel phase
+(K4, K6, K7 against their twins, timed, without K4's phase split) and
+prints its JSON. It imports ``prodiff_tpu_torch`` from the script's own
+directory, so a copy of the script beside another checkout's package times
+that version's kernels.
 
 Phases, each printing its lines before the last:
   1. the card's name and power limit (nvidia-smi);
@@ -14,9 +21,14 @@ Phases, each printing its lines before the last:
      the five stages of one T_mel=512 vocoder pass), and K1 (T=640) and the
      C=128 resblock stage replayed from a CUDA graph; the FastDiff layer
      kernels (K4 ``ublock_layer``, K6 ``lvc``) at every (block, layer) of the
-     LJSpeech net at T_mel=512, reading a hoisted 4-step kernel stack, and
-     the block kernel (K7 ``ublock_block``) at blocks 1 and 2 of that net,
-     timed beside its twin and the chain of four K4 launches it replaces;
+     LJSpeech net at T_mel=512, reading a hoisted 4-step kernel stack, timed
+     by replaying a CUDA graph of four calls (one a step: the wrappers'
+     host time exceeds these kernels') with each block's time and bound,
+     K4's split by phase (each block timed again with variants of
+     ``ublock.cu`` built without the conv, without the window product, and
+     without both: ``LVCT_SKIP``), and the block kernel (K7 ``ublock_block``) at blocks 1 and 2 of that
+     net, timed so beside its twin and the chain of four K4 launches it
+     replaces, and replayed from a CUDA graph at block 2;
   4. the slice at full width on seeded random weights: the base-config
      teacher (4 encoder layers, hidden 256, 20x256 WaveNet, 4 steps,
      voicing/breath embeds) and the default NSF-HiFiGAN generator behind the
@@ -36,7 +48,9 @@ Phases, each printing its lines before the last:
      layers), the same render with the unfused layer (``fastdiff_packed:
      false``: K6 48 times), the same render with ``MONO_BLOCK`` (K7 8 times on
      blocks 1 and 2, K4 16 on block 0; within 1e-4 of the layer route's
-     peak), a bit-identity check of two renders on injected noise, and a
+     peak), the vocoder alone by each route in turns and under
+     torch.profiler (kernel time, K4's and K7's shares, the device's idle
+     share), a bit-identity check of two renders on injected noise, and a
      32-frame render held against the same weights on the CPU;
   5b. ``python -m prodiff_tpu_torch vocode wav2wav`` (in-process,
      ``__main__.main``) at full width on seeded random vocoder checkpoints:
@@ -69,8 +83,8 @@ result line). There is no CPU mode: without a CUDA card the script exits
 non-zero before printing anything.
 """
 
-import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -346,16 +360,46 @@ def phase_kernels(dev, torch):
     return k1, res_total
 
 
-def phase_fastdiff_kernels(dev, torch):
+def graph_ms(calls, torch, reps: int = 10) -> float:
+    """Milliseconds a call of ``calls`` (zero-argument callables), captured
+    together into one CUDA graph (after a warm-up on a side stream) and
+    replayed ``reps`` times between CUDA events: the kernels' time with the
+    gaps between launches, without the host's (the wrappers' Python), which
+    at a few microseconds of kernel is longer than the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    ms = timed_ms(graph.replay, reps, torch) / len(calls)
+    del graph
+    return ms
+
+
+# K4's phase-skip variants (csrc/lvc_tiles.cuh: LVCT_SKIP), timed beside the kernel
+K4_SKIPS = {"no_conv": 1, "no_window_product": 2, "neither": 3}
+
+
+def phase_fastdiff_kernels(dev, torch, split: bool = True):
     """K4 and K6 vs their twins at every (block, layer) of one FastDiff
     forward at T_mel=512, B=1, reading step ``s`` of a hoisted 4-step stack
-    [4, 1, 512, 4*96, 64] (201 MB a block) in place. Each timed call reads
-    another step's windows, as the sampler does, so the window kernels come
-    from HBM. ``ms``/``plain_ms`` sum the 12 calls of one forward. K7 vs its
+    [4, 1, 512, 4*96, 64] (201 MB a block) in place. Times by ``graph_ms``
+    over four calls, one a step, as the sampler reads them, so the window
+    kernels come from HBM; ``ms``/``plain_ms`` sum the 12 calls of one
+    forward, ``by_block`` sums each block's 4 (with its own bound). K7 vs its
     twin at the blocks it runs (1 and 2: hops 64, 256) on the same operands,
     reading step 2, timed beside its twin and the chain of four K4 launches
-    over the same block (the JAX package's ``_MONO_BLOCK`` A/B);
-    ``ms``/``plain_ms``/``k4_chain_ms`` sum the 2 blocks of one forward."""
+    over the same block (the JAX package's ``_MONO_BLOCK`` A/B), and replayed
+    from a CUDA graph at hop 256; ``ms``/``plain_ms``/``k4_chain_ms`` sum the
+    2 blocks of one forward. With ``split``, each K4 block is also timed
+    with the phase-skip variants of ``K4_SKIPS`` (``phases_ms``)."""
+    from prodiff_tpu_torch.ops import cuda_build
+    from prodiff_tpu_torch.ops import ublock as ublock_ops
     from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
     from prodiff_tpu_torch.ops.ublock import (mono_block_supported, ublock_block,
                                               ublock_block_plain, ublock_layer, ublock_layer_plain)
@@ -365,19 +409,27 @@ def phase_fastdiff_kernels(dev, torch):
     def rand(*shape, scale=1.0):
         return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
 
+    def per_steps(fn):
+        return [lambda s=s: fn(s) for s in range(FD_STEPS)]
+
     c, n_layers, n_win = 32, FD_CONFIG["lvc_layers_each_block"], FD_T_MEL
     dilations = [3 ** i for i in range(n_layers)]
     out = {}
     for name in ("ublock_layer", "lvc", "ublock_block"):
-        out[name] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
+        out[name] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
+                     "by_block": []}
     out["ublock_block"]["k4_chain_ms"] = 0.0
-    for hop in FD_HOPS:
+    for blk, hop in enumerate(FD_HOPS):
         t = n_win * hop
         x, ad, y = rand(1, t, c), rand(1, t, c), rand(1, t, c)
         km = rand(FD_STEPS, 1, n_win, n_layers * 3 * c, 2 * c, scale=0.1)
         lb = rand(FD_STEPS, 1, n_win, n_layers * 2 * c, scale=0.1)
         window_bytes = 4 * n_win * (3 * c * 2 * c + 2 * c)  # one (step, layer)'s kernels
         cws, cbs = [], []
+        rows = {name: {"block": blk, "hop": hop, "T": t, "ms": 0.0, "plain_ms": 0.0,
+                       "layer_ms": [], "flops": 0, "bytes": 0} for name in ("ublock_layer", "lvc")}
+        if split:
+            rows["ublock_layer"]["phases_ms"] = dict.fromkeys(K4_SKIPS, 0.0)
         for i in range(n_layers):
             d = 3 ** i
             cw, cb = rand(c, c, 3, scale=0.2), rand(c, scale=0.1)
@@ -395,17 +447,48 @@ def phase_fastdiff_kernels(dev, torch):
                 got, want = call(kernel, i), call(plain, i)
                 res = compare(f"{name} hop={hop} dilation={d} T={t} (step {i}, layer {i})",
                               got, want, torch)
-                steps = itertools.cycle(range(FD_STEPS))
-                ms = timed_ms(lambda: call(kernel, next(steps)), 20, torch)
-                plain_ms = timed_ms(lambda: call(plain, next(steps)), 20, torch)
+                ms = graph_ms(per_steps(lambda s: call(kernel, s)), torch)
+                plain_ms = graph_ms(per_steps(lambda s: call(plain, s)), torch)
+                lim = bound(flops, nbytes)
                 log(f"{name} hop={hop} dilation={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound(flops, nbytes)['bound_ms']:.4f} ms")
-                acc = out[name]
+                    f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}), share of bound "
+                    f"{lim['bound_ms'] / ms:.3f}")
+                acc, row = out[name], rows[name]
                 acc["max_abs_err"] = max(acc["max_abs_err"], res["max_abs_err"])
-                acc["ms"] += ms
-                acc["plain_ms"] += plain_ms
-                acc["flops"] += flops
-                acc["bytes"] += nbytes
+                for rec in (acc, row):
+                    rec["ms"] += ms
+                    rec["plain_ms"] += plain_ms
+                    rec["flops"] += flops
+                    rec["bytes"] += nbytes
+                row["layer_ms"].append(ms)
+            if split:  # the same layer, built without some of its phases
+                buf, phases = torch.empty_like(x), rows["ublock_layer"]["phases_ms"]
+                for label, skip in K4_SKIPS.items():
+                    lib = ublock_ops.bind_layer_library(
+                        cuda_build.load("ublock", (f"LVCT_SKIP={skip}",)))
+
+                    def skipped(s):
+                        cuda_build.check(lib.ublock_layer_forward(
+                            x.data_ptr(), ad.data_ptr(), cw.data_ptr(), cb.data_ptr(),
+                            km.data_ptr(), lb.data_ptr(), buf.data_ptr(), 1, t, n_win, hop, d,
+                            n_layers, s, i, torch.cuda.current_stream().cuda_stream),
+                            f"ublock_layer_forward ({label})")
+                    phases[label] += graph_ms(per_steps(skipped), torch)
+        if split:
+            phases = rows["ublock_layer"]["phases_ms"]
+            phases["all"] = rows["ublock_layer"]["ms"]
+            log(f"ublock_layer block {blk} (hop {hop}) by phase, its {n_layers} layers: all "
+                f"{phases['all']:.4f} ms, without the conv {phases['no_conv']:.4f}, without the "
+                f"window product {phases['no_window_product']:.4f}, without both "
+                f"{phases['neither']:.4f}")
+        for name, row in rows.items():
+            row.update(bound(row.pop("flops"), row.pop("bytes")))
+            row["share"] = row["bound_ms"] / row["ms"]
+            out[name]["by_block"].append(row)
+            log(f"{name} block {blk} (hop {hop}, T={t}), its {n_layers} layers: kernel "
+                f"{row['ms']:.4f} ms ({' + '.join(f'{v:.4f}' for v in row['layer_ms'])}), plain "
+                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"share of bound {row['share']:.3f}")
         if mono_block_supported(hop, dilations):
             def block(fn, s):
                 return fn(x, ad, cws, cbs, km, lb, dilations, hop, s)
@@ -420,18 +503,21 @@ def phase_fastdiff_kernels(dev, torch):
             res = compare(f"K7 ublock_block hop={hop} T={t} (step 2, {n_layers} layers)", got, want,
                           torch)
             chain_err = float((k4_chain(2) - got).abs().max())
-            steps = itertools.cycle(range(FD_STEPS))
-            ms = timed_ms(lambda: block(ublock_block, next(steps)), 20, torch)
-            plain_ms = timed_ms(lambda: block(ublock_block_plain, next(steps)), 20, torch)
-            chain_ms = timed_ms(lambda: k4_chain(next(steps)), 20, torch)
-            ms2 = timed_ms(lambda: block(ublock_block, next(steps)), 20, torch)
-            flops = 18432 * t * n_layers  # useful work: the halo recompute is not counted
+            ms = graph_ms(per_steps(lambda s: block(ublock_block, s)), torch)
+            plain_ms = graph_ms(per_steps(lambda s: block(ublock_block_plain, s)), torch)
+            chain_ms = graph_ms(per_steps(k4_chain), torch)
+            ms2 = graph_ms(per_steps(lambda s: block(ublock_block, s)), torch)
+            flops = 18432 * t * n_layers
             nbytes = 4 * (3 * t * c + n_layers * (3 * c * c + c)) + n_layers * window_bytes
             lim = bound(flops, nbytes)
             log(f"K7 ublock_block hop={hop} T={t}: kernel {ms:.4f} ms (again after the K4 chain: "
                 f"{ms2:.4f}), plain {plain_ms:.4f} ms, the chain of {n_layers} K4 launches "
-                f"{chain_ms:.4f} ms (vs K7 max abs {chain_err:.3e}), bound {lim['bound_ms']:.4f} ms "
-                f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: {lim['bound_by']})")
+                f"{chain_ms:.4f} ms (vs K7 max abs {chain_err:.3e}; K7/chain {ms / chain_ms:.3f}), "
+                f"bound {lim['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: "
+                f"{lim['bound_by']}), share of bound {lim['bound_ms'] / ms:.3f}")
+            if hop == FD_HOPS[-1]:
+                graph_replay(f"K7 ublock_block hop={hop}", lambda: block(ublock_block, 2), want,
+                             torch)
             acc = out["ublock_block"]
             acc["max_abs_err"] = max(acc["max_abs_err"], res["max_abs_err"])
             acc["ms"] += ms
@@ -439,13 +525,18 @@ def phase_fastdiff_kernels(dev, torch):
             acc["k4_chain_ms"] += chain_ms
             acc["flops"] += flops
             acc["bytes"] += nbytes
+            acc["by_block"].append(dict(block=blk, hop=hop, T=t, ms=ms, plain_ms=plain_ms,
+                                        k4_chain_ms=chain_ms, **lim))
         del km, lb
     for name, acc in out.items():
         acc.update(bound(acc.pop("flops"), acc.pop("bytes")))
     for name in ("ublock_layer", "lvc"):
         acc = out[name]
-        log(f"{name}, the 12 layers of one FastDiff forward at T_mel={FD_T_MEL}: kernel {acc['ms']:.4f} ms, "
-            f"plain {acc['plain_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms ({acc['bound_by']})")
+        acc["bound_sum_of_blocks_ms"] = sum(r["bound_ms"] for r in acc["by_block"])
+        log(f"{name}, the 12 layers of one FastDiff forward at T_mel={FD_T_MEL}: kernel "
+            f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms "
+            f"(the forward's FLOP and bytes together: {acc['bound_by']}), sum of the blocks' "
+            f"bounds {acc['bound_sum_of_blocks_ms']:.4f} ms")
     acc = out["ublock_block"]
     log(f"K7 ublock_block, blocks 1 and 2 of one FastDiff forward at T_mel={FD_T_MEL}: kernel "
         f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, K4 chain {acc['k4_chain_ms']:.4f} ms, "
@@ -820,16 +911,25 @@ def phase_fastdiff(dev, torch):
     for _ in range(5):
         for mono_route in (False, True, True, False):
             times[mono_route].append(vocoder_ms(mono_route))
-    busy = {m: device_time(lambda m=m: vocoder_ms(m), 2, torch) for m in (False, True)}
+    ours = {"ublock_tiled_kernel": "K4 ublock_layer", "ublock_stream_kernel": "K4 ublock_layer",
+            "ublock_block_kernel": "K7 ublock_block"}
+    split = {m: kernel_split(lambda m=m: vocoder_ms(m), 2, ours, torch) for m in (False, True)}
+
     def idle(wall_ms, busy_ms):
         return f"{max(0.0, 1 - busy_ms / wall_ms):.3f}" if busy_ms > 0 else "not measured"
 
     log(f"FastDiff vocoder alone on the T_mel={FD_T_MEL} mel, 10 renders a route in turns (host "
         "clock, synchronised, with the wav's copy): " + "; ".join(
             f"{'mono-block (K7)' if m else 'layer (K4)'} median {sorted(v)[len(v) // 2]:.3f} ms, "
-            f"min {min(v):.3f}, max {max(v):.3f}, under torch.profiler {busy[m][0]:.3f} ms with "
-            f"{busy[m][1]:.3f} ms of kernel time (device idle share {idle(*busy[m])})"
-            for m, v in times.items()))
+            f"min {min(v):.3f}, max {max(v):.3f}" for m, v in times.items()))
+    for m, (wall_ms, busy_ms, sums, _) in split.items():
+        log(f"FastDiff vocoder, {'mono-block (K7)' if m else 'layer (K4)'} route, under "
+            f"torch.profiler (mean of 2 renders): {wall_ms:.3f} ms on the host clock, {busy_ms:.3f} "
+            f"ms of kernel time (device idle share {idle(wall_ms, busy_ms)}); by group (ms): "
+            + json.dumps({g: round(v, 4) for g, v in sums.items()}))
+        for group in ("K4 ublock_layer", "K7 ublock_block")[: 1 + m]:
+            if not sums[group] > 0:  # the profile lost a kernel's name
+                raise AssertionError(f"the FastDiff profile found no {group} time")
 
     # two renders on injected noise are bit-identical
     nrng = np.random.default_rng(SEED + 3)
@@ -1164,30 +1264,6 @@ def phase_train_kernels(dev, torch):
     return k5a, k5b
 
 
-def device_time(fn, n: int, torch):
-    """(host-clock ms, kernel ms) per call of ``fn`` over ``n`` calls under
-    torch.profiler, after one warm-up call; kernel ms is 0 where the profiler
-    saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3 / n
-    busy = 0.0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0 and e.device_type.name == "CUDA":
-            busy += dev_us / 1e3 / n
-    return wall_ms, busy
-
-
 # library kernels by substrings of their names
 LIBRARY_GROUPS = {"GEMM (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
                   "convolution (cuDNN)": ("conv", "cudnn", "implicit", "winograd", "fft"),
@@ -1465,8 +1541,15 @@ def phase_train(dev, torch):
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    parser.add_argument("--fastdiff-kernels", action="store_true",
+                        help="build the kernels and run only the FastDiff kernel phase (K4, K6, "
+                             "K7 vs their twins, timed), printing its JSON")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() is false)")
     from prodiff_tpu_torch import device as policy
@@ -1483,12 +1566,20 @@ def main() -> int:
 
     sources = ("wavenet_stack", "resblock", "ublock", "ublock_block", "lvc", "wavenet_train")
     t0 = time.time()
-    cuda_build.load_all(sources)  # one nvcc per source, all at once
+    skips = () if args.fastdiff_kernels else tuple(
+        ("ublock", (f"LVCT_SKIP={v}",)) for v in K4_SKIPS.values())
+    cuda_build.load_all(sources + skips)  # one nvcc per library, all at once
     log(f"kernel build (parallel nvcc) {time.time() - t0:.3f} s")
     for name in sources:
         regs = [ln.strip() for ln in cuda_build.build_log(name).splitlines() if "registers" in ln]
         log(f"ptxas {name}: {' | '.join(regs)}")
 
+    if args.fastdiff_kernels:
+        import prodiff_tpu_torch
+
+        log(f"package: {os.path.dirname(prodiff_tpu_torch.__file__)}")
+        print(json.dumps(phase_fastdiff_kernels(dev, torch, split=False)))
+        return 0
     k1, res = phase_kernels(dev, torch)
     fd = phase_fastdiff_kernels(dev, torch)
     k5a, k5b = phase_train_kernels(dev, torch)
@@ -1509,10 +1600,13 @@ def main() -> int:
              by_shape=k1["by_shape"]),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
                    launches["resblock_stage"], res), stages=res["stages"]),
-        entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
-              fd_launches["ublock_layer"], fd["ublock_layer"]),
-        entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",
-              fd_unfused_launches["lvc"], fd["lvc"]),
+        dict(entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
+                   fd_launches["ublock_layer"], fd["ublock_layer"]),
+             bound_sum_of_blocks_ms=fd["ublock_layer"]["bound_sum_of_blocks_ms"],
+             by_block=fd["ublock_layer"]["by_block"]),
+        dict(entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",
+                   fd_unfused_launches["lvc"], fd["lvc"]),
+             bound_sum_of_blocks_ms=fd["lvc"]["bound_sum_of_blocks_ms"], by_block=fd["lvc"]["by_block"]),
         entry("wavenet_stack_save_forward", "wavenet_train.cu",
               "prodiff_tpu/ops/pallas/wavenet_train.py:71",
               train_launches["residual_stack_save"], k5a),
@@ -1521,7 +1615,7 @@ def main() -> int:
               train_launches["residual_stack_chain"], k5b),
         dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
                    vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"]),
-             k4_chain_ms=fd["ublock_block"]["k4_chain_ms"]),
+             k4_chain_ms=fd["ublock_block"]["k4_chain_ms"], by_block=fd["ublock_block"]["by_block"]),
     ]
     if fd_mono_launches["ublock_block"] != vocode_launches["fastdiff"]["ublock_block"]:
         raise AssertionError("K7 launched a different number of times in the mono render and vocode")

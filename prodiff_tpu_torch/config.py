@@ -3,9 +3,10 @@
 
 A config is YAML with an optional ``base_config`` parent (one path, a list
 of paths merged in order, or ``base``/``builtin`` for the shipped defaults);
-the child's keys shallow-override the parent's. The shipped defaults are read
-as a data file from ``prodiff_tpu/assets/base_config.yaml``. Needs PyYAML,
-imported only here.
+the child's keys shallow-override the parent's. The shipped defaults are the
+port's own copy of the JAX package's ``assets/base_config.yaml``, read as a
+data file from ``prodiff_tpu_torch/assets/base_config.yaml`` (the tests hold
+the two files equal). Needs PyYAML, imported only here.
 """
 
 from __future__ import annotations
@@ -16,9 +17,7 @@ from typing import Any, Dict, Optional
 import yaml
 
 BASE_CONFIG_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "prodiff_tpu", "assets", "base_config.yaml",
-)
+    os.path.dirname(os.path.abspath(__file__)), "assets", "base_config.yaml")
 
 
 def _resolve_base_path(config_fn: str, base: str) -> str:

@@ -1,5 +1,6 @@
-// The location-variable convolution's window product, shared by the LVC
-// kernel (lvc.cu) and the fused LVC-layer kernel (ublock.cu).
+// The location-variable convolution's window product of the LVC kernel
+// (lvc.cu); its constants and the hoisted-stack view (Stack) also serve the
+// fused LVC-layer kernels' tiles (lvc_tiles.cuh).
 //
 // FastDiff's LVC: for output time t in hop window l,
 //   y[t, :] = bias[l, :] + sum_{d<3, c<C} y_in[t - 1 + d, c] * K[l][d*C + c, :]
@@ -7,7 +8,7 @@
 // t-1), as the KernelPredictor emits them. C = 32 input channels and
 // CO = 2C = 64 outputs (gate | filter) are fixed: FastDiff's inner width.
 //
-// Block geometry (both kernels): one block of NT = 256 threads owns a group of
+// Block geometry (lvc.cu): one block of NT = 256 threads owns a group of
 // G whole windows, R = G * hop rows. G = 32 / hop for hop 8 and 16 (so a
 // group has 32 rows), else 1. The G window kernels (24 KB each) are staged
 // into shared memory once; the rows are walked in chunks of 32 * M rows, M

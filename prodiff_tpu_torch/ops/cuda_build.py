@@ -3,8 +3,10 @@
 Each source file has a plain C interface (no PyTorch headers), so a build
 takes seconds. The shared library goes into ``build/cuda/`` at the checkout
 root (listed in ``.gitignore``; override with ``PRODIFF_TORCH_BUILD_DIR``),
-named by a hash of the source and the shared headers (``csrc/*.cuh``) so an
-edited kernel is rebuilt. Nothing is built or loaded at import time: the
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags so an edited kernel is rebuilt. A library may be built as a variant
+with preprocessor defines (``("ublock", ("LVCT_SKIP=1",))``): a library of
+its own, which only measurement code asks for. Nothing is built or loaded at import time: the
 first wrapper call on a CUDA tensor does it, or :func:`load_all`, which runs
 one nvcc per source at once. A missing compiler or a failed build raises;
 there is no fallback.
@@ -19,7 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -29,7 +31,12 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], Tuple[ctypes.CDLL, str]] = {}
+Spec = Union[str, Tuple[str, Sequence[str]]]  # a source's name, or (name, defines)
+
+
+def _key(spec: Spec) -> Tuple[str, Tuple[str, ...]]:
+    return (spec, ()) if isinstance(spec, str) else (spec[0], tuple(spec[1]))
 
 
 def build_dir() -> str:
@@ -50,32 +57,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def _paths(name: str) -> Tuple[str, str]:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _paths(name: str, defines: Tuple[str, ...]) -> Tuple[str, str]:
     """(source, library path named by the hash of the source, the shared
     headers and the flags)."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
         with open(path, "rb") as f:
             h.update(f.read())
     return src, os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def load_all(names: Sequence[str]) -> None:
+def load_all(names: Sequence[Spec]) -> None:
     """Build every missing library of ``names`` with one nvcc each, all
     started together, then load them."""
     with _lock:
-        todo = [n for n in names if n not in _loaded]
+        todo = list(dict.fromkeys(k for k in map(_key, names) if k not in _loaded))
         procs = []
         try:
-            for name in todo:
-                src, lib_path = _paths(name)
+            for name, defines in todo:
+                src, lib_path = _paths(name, defines)
                 if os.path.exists(lib_path):
                     continue
                 os.makedirs(os.path.dirname(lib_path), exist_ok=True)
                 tmp = f"{lib_path}.{os.getpid()}.tmp"
                 procs.append((src, lib_path, tmp, subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    [_nvcc(), *_flags(defines), "-o", tmp, src],
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 )))
             failed = []
@@ -94,22 +105,22 @@ def load_all(names: Sequence[str]) -> None:
                     proc.wait()
         if failed:
             raise RuntimeError("\n".join(failed))
-        for name in todo:
-            _, lib_path = _paths(name)
-            _loaded[name] = (ctypes.CDLL(lib_path), lib_path[: -len(".so")] + ".log")
+        for key in todo:
+            _, lib_path = _paths(*key)
+            _loaded[key] = (ctypes.CDLL(lib_path), lib_path[: -len(".so")] + ".log")
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (once per source version) and load ``csrc/{name}.cu``."""
-    load_all([name])
+    load_all([(name, defines)])
     with _lock:
-        return _loaded[name][0]
+        return _loaded[_key((name, defines))][0]
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Sequence[str] = ()) -> str:
     """The compiler's output (ptxas register/spill report) of a loaded library."""
     with _lock:
-        path = _loaded[name][1]
+        path = _loaded[_key((name, defines))][1]
     if not os.path.exists(path):
         return ""
     with open(path) as f:

@@ -20,15 +20,19 @@ hoisted stack read at ``(step_idx, layer_idx)``, as for ``ops/lvc.py``.
 
 :func:`ublock_block` (K7) is the port of ``ublock_block_packed``: all layers
 of one ``TimeAwareLVCBlock`` (layer i with conv dilation ``dilations[i]``)
-in one launch of ``csrc/ublock_block.cu``, reading layer i's windows from the
-hoisted stack at ``(step_idx, i)``. :func:`ublock_block_plain` is the chain
-of :func:`ublock_layer_plain`; :func:`mono_block_supported` is the static
-gate of the blocks the kernel takes.
+in one cooperative launch of ``csrc/ublock_block.cu`` (a grid barrier
+between layers, the activations ping-ponging through one scratch tensor),
+reading layer i's windows from the hoisted stack at ``(step_idx, i)``.
+:func:`ublock_block_plain` is the chain of :func:`ublock_layer_plain`;
+:func:`mono_block_supported` is the static gate of the blocks the kernel
+takes. Both kernels run ``csrc/lvc_tiles.cuh``'s work units, whose plan
+:func:`layer_plan` mirrors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -65,9 +69,16 @@ def ublock_layer_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("ublock")
+    return bind_layer_library(cuda_build.load("ublock"))
+
+
+def bind_layer_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K4's C entry points on ``lib`` (``csrc/ublock.cu``, or a
+    variant of it built with defines, which only measurement code loads)."""
     lib.ublock_layer_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.ublock_layer_forward.restype = ctypes.c_int
+    lib.ublock_layer_smem.argtypes = [ctypes.c_int] * 2
+    lib.ublock_layer_grid.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -91,8 +102,9 @@ def ublock_layer(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.Tensor
     if audio_down.shape != x.shape or conv_w.shape != (c, c, 3) or conv_b.shape != (c,):
         raise ValueError(f"ublock_layer: audio_down {tuple(audio_down.shape)}, conv "
                          f"{tuple(conv_w.shape)} / {tuple(conv_b.shape)} for x {tuple(x.shape)}")
-    if dilation < 1:
-        raise ValueError(f"ublock_layer: dilation must be >= 1, got {dilation}")
+    if dilation < 1 or layer_plan(hop, dilation)["smem"] > MAX_SMEM:
+        raise ValueError(f"ublock_layer: dilation {dilation} at hop {hop} is outside the kernel "
+                         f"(>= 1, its halo within {MAX_SMEM} bytes of shared memory)")
     out = torch.empty_like(x)
     lib = _library()
     with torch.cuda.device(x.device):
@@ -110,45 +122,53 @@ def ublock_layer(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.Tensor
 ublock_layer.launches = cuda_build.LaunchCounter()
 
 
-# csrc/ublock_block.cu's limits: at most MONO_MAX_LAYERS layers; one block of
-# the kernel stages hop + 2 * margin rows of x, audio_down and y, one window
-# kernel and one conv weight in its 227 KB of shared memory.
+# The work-unit plan of csrc/lvc_tiles.cuh, shared by K4 and K7 (the C side
+# computes the same numbers: ublock_layer_smem, ublock_block_smem).
 MONO_MIN_HOP = 64  # the JAX route's _FUSED_MIN_HOP: K7 runs on the audio-rate blocks only
 MONO_MAX_LAYERS = 8
-_MAX_SMEM = 232448
-_LD = KERNEL_C + 1
+TILED_MIN_HOP = 64  # hop >= 64: 256-row units of 8 x 8 register tiles; below, 32-row streaming units
+MAX_SMEM = 232448  # the H100's shared memory a block (227 KB)
+_KW = 3 * KERNEL_C * 2 * KERNEL_C + 2 * KERNEL_C  # one window's kernel and bias, floats
+_WS = 3 * KERNEL_C * KERNEL_C + KERNEL_C  # the staged conv weight and bias, floats
 
 
-def block_margins(dilations: Sequence[int]) -> list:
-    """Cumulative halo ``A[i]`` (rows each side) that layers i.. of a block
-    consume beyond their output: layer i reaches ``d_i`` (conv) + 1 (LVC
-    taps), so ``A[n] = 0`` and ``A[i] = A[i + 1] + d_i + 1``."""
-    margins = [0]
-    for d in reversed(list(dilations)):
-        margins.insert(0, margins[0] + d + 1)
-    return margins
+def layer_plan(hop: int, dilation: int) -> dict:
+    """One block's work unit for an LVC layer at (hop, dilation): ``rows`` (R),
+    ``rows_per_thread`` of the window product, the most ``windows`` a unit
+    touches (units start at multiples of R), whether it ``streams`` the
+    window kernels into registers (hop < 64: a warp 8 rows x 32 outputs, a
+    lane 8 rows x 4 outputs over a quarter of the channels) rather than
+    staging them in shared memory (a thread 8 rows x 8 outputs), and the
+    block's shared-memory bytes (staged window kernels, conv weight,
+    x + audio_down with a dilation + 1 halo, y k-major)."""
+    tiled = hop >= TILED_MIN_HOP
+    rows = 256 if tiled else 32
+    windows = (hop - math.gcd(rows, hop) + rows - 1) // hop + 1
+    floats = ((windows * _KW if tiled else 0) + _WS + (rows + 2 * (dilation + 1)) * KERNEL_C
+              + KERNEL_C * (rows + 8))
+    return {"rows": rows, "rows_per_thread": 8, "windows": windows, "streams": not tiled,
+            "smem": 4 * floats}
 
 
-def mono_block_smem(hop: int, dilations: Sequence[int]) -> int:
-    """Shared-memory bytes of one block of the kernel (one window, R = hop rows)."""
-    a = block_margins(dilations)
-    c = KERNEL_C
-    floats = (3 * c * 2 * c + 2 * c + 3 * c * c + c
-              + 2 * (hop + 2 * a[0]) * _LD + (hop + 2 * a[1] + 2) * _LD)
-    return 4 * floats
+def pingpong(n_layers: int) -> list:
+    """K7's buffers: ``(source, destination)`` of each layer among ``"x"``,
+    ``"out"`` and ``"scratch"``. Layer i reads what layer i - 1 wrote and
+    never writes what it reads; the last writes ``"out"``; the scratch (one
+    ``[B, T, C]`` tensor) is needed from two layers on."""
+    dst = ["out" if (n_layers - 1 - i) % 2 == 0 else "scratch" for i in range(n_layers)]
+    return list(zip(["x"] + dst[:-1], dst))
 
 
 def mono_block_supported(hop: int, dilations: Sequence[int]) -> bool:
     """Static gate of :func:`ublock_block`: the audio-rate blocks (hop a
-    multiple of 32, at least ``MONO_MIN_HOP``) whose inner layers' halo
-    ``A[1]`` lies inside one neighbouring window and whose rows fit in shared
-    memory. At the LJSpeech config that is blocks 1 and 2 (hops 64 and 256),
-    the blocks the JAX route runs ``ublock_block_packed`` on; no sequence
-    length is too short for the unpacked kernel."""
+    multiple of 32, at least ``MONO_MIN_HOP``, where the layers run the tiled
+    plan) of at most ``MONO_MAX_LAYERS`` layers whose largest dilation's halo
+    fits in shared memory. At the LJSpeech config that is blocks 1 and 2
+    (hops 64 and 256), the blocks the JAX route runs ``ublock_block_packed``
+    on; no sequence length is too short for the kernel."""
     dilations = list(dilations)
     return (hop >= MONO_MIN_HOP and hop % 32 == 0 and 1 <= len(dilations) <= MONO_MAX_LAYERS
-            and min(dilations) >= 1 and block_margins(dilations)[1] <= hop
-            and mono_block_smem(hop, dilations) <= _MAX_SMEM)
+            and min(dilations) >= 1 and layer_plan(hop, max(dilations))["smem"] <= MAX_SMEM)
 
 
 def ublock_block_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[torch.Tensor],
@@ -164,9 +184,12 @@ def ublock_block_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Seque
 
 def _block_library() -> ctypes.CDLL:
     lib = cuda_build.load("ublock_block")
-    lib.ublock_block_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ublock_block_forward.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 2
+                                         + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)]
                                          + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.ublock_block_forward.restype = ctypes.c_int
+    lib.ublock_block_smem.argtypes = [ctypes.c_int] * 2
+    lib.ublock_block_slots.argtypes = [ctypes.c_int] * 2
     return lib
 
 
@@ -197,18 +220,23 @@ def ublock_block(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[to
                          f"{tuple(cw.shape)} / {tuple(cb.shape)} for x {tuple(x.shape)}")
     if layers != n:
         raise ValueError(f"ublock_block: the stack holds {layers} layers, the block {n}")
-    out = torch.empty_like(x)
+    bufs = {"x": x, "out": torch.empty_like(x)}
+    if n > 1:
+        bufs["scratch"] = torch.empty_like(x)
+    plan = pingpong(n)
+    src = (ctypes.c_void_p * n)(*(bufs[s].data_ptr() for s, _ in plan))
+    dst = (ctypes.c_void_p * n)(*(bufs[d].data_ptr() for _, d in plan))
     lib = _block_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ublock_block_forward(
-            x.data_ptr(), audio_down.data_ptr(), cw.data_ptr(), cb.data_ptr(),
-            kmat.data_ptr(), bias.data_ptr(), out.data_ptr(), (ctypes.c_int * n)(*dilations),
+            src, dst, audio_down.data_ptr(), cw.data_ptr(), cb.data_ptr(),
+            kmat.data_ptr(), bias.data_ptr(), (ctypes.c_int * n)(*dilations),
             n, b, t, n_win, hop, layers, step, stream,
         )
     cuda_build.check(err, "ublock_block_forward")
     ublock_block.launches.add(1)
-    return out
+    return bufs["out"]
 
 
 ublock_block.launches = cuda_build.LaunchCounter()

@@ -21,7 +21,9 @@ import torch
 from prodiff_tpu_torch.ops import cuda_build
 from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
 from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
+from prodiff_tpu_torch.ops import ublock as ublock_ops
 from prodiff_tpu_torch.ops.ublock import (
+    layer_plan,
     ublock_block,
     ublock_block_plain,
     ublock_layer,
@@ -240,12 +242,14 @@ def _layer_operands(rng, b, n_win, hop, dev, stack=None):
 
 @pytest.mark.parametrize("hop,dilation,n_win", [
     (8, 27, 40), (8, 1, 3), (16, 3, 9), (32, 9, 5), (64, 9, 6), (256, 27, 3), (256, 1, 1),
-    (512, 3, 2),
+    (512, 3, 2), (8, 9, 41), (96, 27, 5), (8, 81, 12), (32, 27, 3),
 ])
 def test_ublock_layer_kernel_matches_plain(cuda, hop, dilation, n_win):
-    """Hop 8 runs 4 windows a block (n_win 3: one short group; 40: ten whole
-    ones) with the dilation-27 halo spanning 3 windows; one window puts the
-    LVC taps' zeros at both sequence ends into one block."""
+    """Hop 8 runs 4 windows a streaming unit (n_win 3: one short unit; 40:
+    ten whole ones; 41: a last unit of one window) with the dilation-27 halo
+    spanning 3 windows (81: x + audio_down staged in two batches); at hop 96
+    the 256-row units cut windows and the last is short; one window puts the
+    LVC taps' zeros at both sequence ends into one unit."""
     rng = np.random.default_rng(3)
     ops = _layer_operands(rng, 2, n_win, hop, cuda)
     before = ublock_layer.launches.count
@@ -253,6 +257,24 @@ def test_ublock_layer_kernel_matches_plain(cuda, hop, dilation, n_win):
     torch.cuda.synchronize()
     assert ublock_layer.launches.count - before == 1
     torch.testing.assert_close(got, ublock_layer_plain(*ops, dilation, hop), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hop,n_win", [(8, 2112), (64, 600), (256, 300)])
+def test_ublock_layer_grid_wraps(cuda, hop, n_win):
+    """B = 2 with more work units than the persistent grid holds, so each
+    block walks several units (and the L2 prefetch of its next one); the C
+    side's shared memory is the Python plan's."""
+    lib = ublock_ops._library()
+    t = n_win * hop
+    for d in (1, 27):
+        assert lib.ublock_layer_smem(hop, d) == layer_plan(hop, d)["smem"]
+        grid = lib.ublock_layer_grid(2, t, hop, d)
+        assert 0 < grid < 2 * -(-t // layer_plan(hop, d)["rows"])  # fewer blocks than units
+    rng = np.random.default_rng(9)
+    ops = _layer_operands(rng, 2, n_win, hop, cuda, stack=(2, 4))
+    got = ublock_layer(*ops, 27, hop, step_idx=1, layer_idx=3)
+    want = ublock_layer_plain(*ops, 27, hop, step_idx=1, layer_idx=3)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
 def test_ublock_layer_kernel_stepped_read(cuda):
@@ -280,11 +302,13 @@ def test_lvc_kernel_matches_plain(cuda, hop, n_win):
 
 
 @pytest.mark.parametrize("hop,n_win,step", [(64, 7, 2), (256, 3, 1), (256, 1, 0), (96, 5, 3),
-                                           (64, 1, 0)])
+                                           (64, 1, 0), (96, 1, 1), (64, 600, 3), (256, 300, 2)])
 def test_ublock_block_kernel_matches_plain(cuda, hop, n_win, step):
-    """K7: the 4 layers of a block (dilations 1, 3, 9, 27) in one launch,
-    step ``step`` of a [4, B, L, 4*96, 64] stack; one window puts both
-    sequence ends (the masked halo rows) into one block."""
+    """K7 at B = 2: the 4 layers of a block (dilations 1, 3, 9, 27) in one
+    cooperative launch, step ``step`` of a [4, B, L, 4*96, 64] stack; one
+    window puts both sequence ends into one unit; 600 windows at hop 64 and
+    300 at hop 256 give more units than the co-resident grid, so each block
+    walks several units between the grid barriers."""
     rng = np.random.default_rng(7)
     x, ad, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(4, 4))
     _, _, cw0, cb0, _, _ = _layer_operands(rng, 1, 1, hop, cuda)
@@ -297,6 +321,73 @@ def test_ublock_block_kernel_matches_plain(cuda, hop, n_win, step):
     assert ublock_block.launches.count - before == 1
     want = ublock_block_plain(x, ad, cws, cbs, km, lb, dil, hop, step)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hop,n_win,dil", [
+    (512, 3, [1, 3, 9, 27]),               # half a window a unit
+    (64, 5, [1, 3, 9, 27, 81]),            # five layers, a halo past the neighbour window
+    (256, 2, [1, 3, 9, 27, 81]),
+    (96, 4, [1, 3, 9, 27, 1, 3, 9, 27]),   # eight layers, the most the gate admits
+    (64, 9, [210, 1]),                     # the largest dilation the gate admits
+])
+def test_ublock_block_kernel_at_the_gates_edges(cuda, hop, n_win, dil):
+    """K7 at B = 2 on the shapes its gate admits beyond the LJSpeech blocks:
+    hop 512, dilations up to 210, five and eight layers."""
+    assert ublock_ops.mono_block_supported(hop, dil)
+    rng = np.random.default_rng(11)
+    x, ad, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(2, len(dil)))
+    _, _, cw0, cb0, _, _ = _layer_operands(rng, 1, 1, hop, cuda)
+    cws = [cw0 * (0.5 + i / 8) for i in range(len(dil))]
+    cbs = [cb0 + 0.05 * i for i in range(len(dil))]
+    before = ublock_block.launches.count
+    got = ublock_block(x, ad, cws, cbs, km, lb, dil, hop, 1)
+    torch.cuda.synchronize()
+    assert ublock_block.launches.count - before == 1
+    want = ublock_block_plain(x, ad, cws, cbs, km, lb, dil, hop, 1)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_ublock_block_grid_and_graph_replay(cuda):
+    """K7's grid is its co-resident slots (the C side's shared memory is the
+    Python plan's), and its cooperative launch captures into a CUDA graph
+    whose replay equals the twin."""
+    lib = ublock_ops._block_library()
+    for hop in (64, 256):
+        assert lib.ublock_block_smem(hop, 27) == layer_plan(hop, 27)["smem"]
+        assert lib.ublock_block_slots(hop, 27) > 0
+    rng = np.random.default_rng(10)
+    x, ad, _, _, km, lb = _layer_operands(rng, 2, 12, 256, cuda, stack=(4, 4))
+    _, _, cw0, cb0, _, _ = _layer_operands(rng, 1, 1, 256, cuda)
+    cws = [cw0 * (0.5 + i / 4) for i in range(4)]
+    cbs = [cb0 + 0.1 * i for i in range(4)]
+    dil = [1, 3, 9, 27]
+    want = ublock_block_plain(x, ad, cws, cbs, km, lb, dil, 256, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ublock_block(x, ad, cws, cbs, km, lb, dil, 256, 1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ublock_block(x, ad, cws, cbs, km, lb, dil, 256, 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_refused_block_launch_raises(cuda, monkeypatch):
+    """K7's refused cooperative launch (cudaErrorCooperativeLaunchTooLarge
+    from its C entry) raises; nothing falls back to the layer route."""
+    lib = types.SimpleNamespace(ublock_block_forward=lambda *args: 720,
+                                ublock_block_smem=lambda *args: 0,
+                                ublock_block_slots=lambda *args: 0)
+    monkeypatch.setattr(cuda_build, "load", lambda name: lib)
+    rng = np.random.default_rng(12)
+    x, ad, cw, cb, km, lb = _layer_operands(rng, 1, 2, 64, cuda, stack=(1, 4))
+    before = (ublock_block.launches.count, ublock_layer.launches.count)
+    with pytest.raises(RuntimeError, match="ublock_block_forward: CUDA error 720"):
+        ublock_block(x, ad, [cw] * 4, [cb] * 4, km, lb, [1, 3, 9, 27], 64, 0)
+    assert (ublock_block.launches.count, ublock_layer.launches.count) == before
 
 
 def test_ublock_block_rejects_what_it_does_not_take(cuda):

@@ -1,11 +1,14 @@
 """Host-side plans of the port's CUDA kernels, on the CPU: how the WaveNet
-stack (K1) groups its layers and picks its chain tile, and the resblock
-stage's contract on kernel sizes and halos. The kernels themselves are held
-against their plain twins in ``tests/test_torch_cuda.py`` (on the card)."""
+stack (K1) groups its layers and picks its chain tile, the resblock stage's
+contract on kernel sizes and halos, and the FastDiff LVC kernels' (K4, K7)
+work units, persistent grid, buffers and gate. The kernels themselves are
+held against their plain twins in ``tests/test_torch_cuda.py`` (on the
+card)."""
 
 import pytest
 
 from prodiff_tpu_torch.ops import resblock
+from prodiff_tpu_torch.ops import ublock
 from prodiff_tpu_torch.ops import wavenet_stack as wn
 
 H100_SLOTS = {32: 264, 24: 264, 16: 264}  # two co-resident chain blocks on each of 132 SMs
@@ -60,3 +63,107 @@ def test_resblock_configs_fit_the_kernel(ksizes, dsizes):
     assert len(layout) == 2 * sum(len(d) for d in dsizes)
     assert all(k in resblock.KERNEL_SIZES for k, _ in layout)
     assert max(resblock.get_padding(k, d) for k, d in layout) <= resblock.MAX_PAD
+
+
+@pytest.mark.parametrize("hop,rows,streams,windows", [
+    (8, 32, True, 4),      # block 0: a warp streams one window's kernel into registers
+    (16, 32, True, 2),
+    (32, 32, True, 1),
+    (64, 256, False, 4),   # block 1: 8 x 8 register tiles over 4 staged windows
+    (96, 256, False, 4),   # units cut windows: 256 rows from row 256 touch windows 2..5
+    (256, 256, False, 1),  # block 2: one window a unit
+    (512, 256, False, 1),  # half a window a unit
+])
+def test_lvc_layer_unit_per_hop(hop, rows, streams, windows):
+    """K4's (and K7's) work unit at the LJSpeech dilations: rows, 8 rows a
+    thread in the window product (tiled: 32 row groups x 8 output groups of
+    256 threads; streaming: 4 row groups of two warps), the most windows a
+    unit touches (counted over every unit of a long sequence) and shared
+    memory within the H100's 227 KB."""
+    for d in (1, 3, 9, 27):
+        plan = ublock.layer_plan(hop, d)
+        assert (plan["rows"], plan["streams"], plan["windows"]) == (rows, streams, windows)
+        assert plan["rows_per_thread"] == 8
+        assert plan["rows"] == (4 if streams else 32) * plan["rows_per_thread"]
+        assert plan["smem"] <= ublock.MAX_SMEM
+    t = 64 * max(hop, rows)
+    touched = [len({r // hop for r in range(t0, t0 + rows)}) for t0 in range(0, t, rows)]
+    assert max(touched) == windows
+
+
+@pytest.mark.parametrize("hop,smem", [(8, 28800), (64, 185472), (256, 110976)])
+def test_lvc_layer_smem_at_ljspeech_blocks(hop, smem):
+    """Shared memory at dilation 27 (csrc/lvc_tiles.cuh's numbers): the
+    streaming unit stages no window kernel (conv weight 12.4 KB, x +
+    audio_down 11.3 KB, y 5.1 KB), the tiled units 4 windows (hop 64: one
+    block an SM) or 1 (hop 256: two)."""
+    plan = ublock.layer_plan(hop, 27)
+    assert plan["smem"] == smem
+    staged = 0 if plan["streams"] else plan["windows"]
+    assert plan["smem"] - staged * 4 * (96 * 64 + 64) == 4 * (3 * 32 * 32 + 32 + 32 * (
+        2 * plan["rows"] + 8 + 2 * 28))
+    assert (2 * (plan["smem"] + 1024) <= 233472) == (hop == 256 or plan["streams"])
+
+
+def test_lvc_layer_smem_grows_with_the_halo():
+    """x + audio_down is staged with d + 1 rows each side: 256 bytes a unit
+    of dilation; the largest dilation a hop-64 layer takes is 210."""
+    base = ublock.layer_plan(64, 1)["smem"]
+    assert ublock.layer_plan(64, 27)["smem"] - base == 26 * 2 * 32 * 4
+    assert ublock.layer_plan(64, 210)["smem"] <= ublock.MAX_SMEM
+    assert ublock.layer_plan(64, 211)["smem"] > ublock.MAX_SMEM
+
+
+@pytest.mark.parametrize("b,t,hop,units", [
+    (1, 4096, 8, 128),       # block 0 at T_mel = 512: one unit for each of 128 SMs
+    (1, 32768, 64, 128),     # block 1: one block an SM (185 KB), one unit each
+    (1, 131072, 256, 512),   # block 2: two blocks an SM (264) walk 512 units
+    (2, 131072, 256, 1024),  # B = 2: each block walks ~4 units
+    (2, 480, 96, 4),         # a short last unit (480 = 256 + 224 rows)
+    (3, 328, 8, 33),         # n_win = 41: the last unit of a row has 8 rows
+])
+def test_lvc_units_per_layer(b, t, hop, units):
+    """A layer's work units (ceil(T / R) a batch row), which the persistent
+    grid (at most the co-resident blocks, csrc/ublock.cu:layer_grid) walks."""
+    assert b * -(-t // ublock.layer_plan(hop, 27)["rows"]) == units
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+def test_block_pingpong_buffers(n):
+    """K7's layers ping-pong between ``out`` and one scratch tensor: each
+    reads what the previous wrote, none writes what it reads, the last
+    writes ``out``; one layer needs no scratch."""
+    plan = ublock.pingpong(n)
+    assert len(plan) == n and plan[0][0] == "x" and plan[-1][1] == "out"
+    assert all(src != dst for src, dst in plan)
+    assert all(plan[i][0] == plan[i - 1][1] for i in range(1, n))
+    assert ("scratch" in {d for _, d in plan}) == (n > 1)
+
+
+def test_mono_gate_follows_the_plan():
+    """K7's gate: hop >= 64 and a multiple of 32 (the tiled plan), 1-8
+    layers of dilation >= 1, the largest dilation's halo within 227 KB."""
+    dil = [1, 3, 9, 27]
+    assert ublock.MONO_MIN_HOP == 64
+    assert [ublock.mono_block_supported(h, dil) for h in (8, 16, 32, 48, 64, 96, 160, 256)] == \
+        [False, False, False, False, True, True, True, True]
+    assert not ublock.mono_block_supported(64, [])
+    assert not ublock.mono_block_supported(64, [0, 1])
+    assert ublock.mono_block_supported(64, [1] * 8)
+    assert not ublock.mono_block_supported(64, [1] * 9)
+    assert ublock.mono_block_supported(64, [210])
+    assert not ublock.mono_block_supported(64, [211])
+
+
+def test_cuda_build_variants_are_libraries_of_their_own():
+    """A source built with defines (K4's LVCT_SKIP phase-skip variants, which
+    only chip_smoke.py times) is a library of its own, named by its flags;
+    the plain name is the library the port runs."""
+    from prodiff_tpu_torch.ops import cuda_build
+
+    src, plain = cuda_build._paths("ublock", ())
+    _, skip = cuda_build._paths("ublock", ("LVCT_SKIP=1",))
+    assert src.endswith("ublock.cu") and plain != skip
+    assert cuda_build._key("ublock") == cuda_build._key(("ublock", [])) == ("ublock", ())
+    assert cuda_build._flags(("LVCT_SKIP=1",))[-1] == "-DLVCT_SKIP=1"
+    assert cuda_build._flags(()) == cuda_build.NVCC_FLAGS

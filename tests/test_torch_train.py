@@ -311,6 +311,21 @@ def test_trainer_saves_and_stops_on_sigusr1(train_env, monkeypatch):
     assert signal.getsignal(signal.SIGUSR1) is not None
 
 
+def test_base_config_is_the_ports_own_copy(tmp_path):
+    """The shipped defaults live inside the port (it reads nothing of the JAX
+    package's tree) and parse to the JAX package's defaults; a ``builtin``
+    parent resolves to them in both packages."""
+    port_dir = os.path.dirname(os.path.abspath(port_config.__file__))
+    path = os.path.abspath(port_config.BASE_CONFIG_PATH)
+    assert os.path.commonpath([path, port_dir]) == port_dir
+    with open(jax_config.BASE_CONFIG_PATH) as f:
+        want = yaml.safe_load(f)
+    assert port_config.load_base_config() == want == jax_config.load_base_config()
+    child = tmp_path / "child.yaml"
+    child.write_text(yaml.dump({"base_config": "builtin", "lr": 0.5}))
+    assert port_config.load_config(str(child)) == jax_config.load_config(str(child))
+
+
 @pytest.mark.parametrize("multi", [False, True], ids=["one_parent", "two_parents"])
 def test_config_parents_and_work_dir_reload_match_jax(tmp_path, monkeypatch, multi):
     """``load_config`` as the JAX package's for one parent (the key kept) and

@@ -29,8 +29,8 @@ from prodiff_tpu.ops.pallas.ublock import ublock_block_packed
 from prodiff_tpu_torch.models.fastdiff import FastDiff, fastdiff_step_kernels, tap_major_state_dict
 from prodiff_tpu_torch.models.fastdiff import sampling_given_noise_schedule
 from prodiff_tpu_torch.ops.ublock import (
-    block_margins,
-    mono_block_smem,
+    MAX_SMEM,
+    layer_plan,
     mono_block_supported,
     ublock_block,
     ublock_block_plain,
@@ -110,14 +110,19 @@ def test_one_window_block_on_the_plain_twin():
 
 def test_mono_gate_and_margins():
     """The gate admits the LJSpeech net's audio-rate blocks (hops 64, 256),
-    not block 0 (hop 8); the halo margins and shared memory of the kernel."""
-    assert block_margins(DILATIONS) == [44, 42, 38, 28, 0]
+    not block 0 (hop 8); the kernel's shared memory per block (one 256-row
+    unit: its windows, the conv weight, x + audio_down with the largest
+    dilation's halo, y). With no halo recomputed, a hop of 512 and a fifth
+    layer of dilation 81 fit; a halo past 227 KB or a ninth layer does not."""
     assert [mono_block_supported(h, DILATIONS) for h in (8, 16, 32, 64, 96, 256)] == \
         [False, False, False, True, True, True]
-    assert not mono_block_supported(512, DILATIONS)  # rows exceed shared memory
-    assert not mono_block_supported(64, [1, 3, 9, 27, 81])  # halo beyond one window
-    assert mono_block_smem(256, DILATIONS) == 173208
-    assert mono_block_smem(64, DILATIONS) == 97176
+    assert mono_block_supported(512, DILATIONS)
+    assert mono_block_supported(64, [1, 3, 9, 27, 81])
+    assert not mono_block_supported(64, [1, 3, 9, 27, 243])  # 240,768 bytes
+    assert not mono_block_supported(256, [1] * 9)
+    assert layer_plan(256, 27)["smem"] == 110976  # two blocks an SM
+    assert layer_plan(64, 27)["smem"] == 185472
+    assert layer_plan(64, 243)["smem"] > MAX_SMEM
     # the JAX route's blocks at the LJSpeech config (T_mel = 512, P = 4)
     for hop in (64, 256):
         assert jax_mono_supported(512, hop, 4)
