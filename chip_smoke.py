@@ -5,10 +5,10 @@
     python3 chip_smoke.py --fastdiff-kernels
 
 The second form builds the kernels and runs only the FastDiff kernel phase
-(K4, K6, K7 against their twins, timed, without K4's phase split) and
-prints its JSON. It imports ``prodiff_tpu_torch`` from the script's own
-directory, so a copy of the script beside another checkout's package times
-that version's kernels.
+(K4, K6, K7 against their twins, timed, without the phase splits and K6's
+extra hops) and prints its JSON. It imports ``prodiff_tpu_torch`` from the
+script's own directory, so a copy of the script beside another checkout's
+package times that version's kernels.
 
 Phases, each printing its lines before the last:
   1. the card's name and power limit (nvidia-smi);
@@ -26,9 +26,14 @@ Phases, each printing its lines before the last:
      host time exceeds these kernels') with each block's time and bound,
      K4's split by phase (each block timed again with variants of
      ``ublock.cu`` built without the conv, without the window product, and
-     without both: ``LVCT_SKIP``), and the block kernel (K7 ``ublock_block``) at blocks 1 and 2 of that
-     net, timed so beside its twin and the chain of four K4 launches it
-     replaces, and replayed from a CUDA graph at block 2;
+     without both: ``LVCT_SKIP``), K6's (variants of ``lvc.cu`` built
+     without the window product, without the stores, and with the product
+     alone: ``LVC_SKIP``),
+     K6's library yardstick (``torch.baddbmm`` on a prebuilt tap tensor)
+     and K6 at hops 24, 40, 72 and 200 (B=2), and the block kernel (K7
+     ``ublock_block``) at blocks 1 and 2 of that net, timed so beside its
+     twin and the chain of four K4 launches it replaces, and replayed from
+     a CUDA graph at block 2;
   4. the slice at full width on seeded random weights: the base-config
      teacher (4 encoder layers, hidden 256, 20x256 WaveNet, 4 steps,
      voicing/breath embeds) and the default NSF-HiFiGAN generator behind the
@@ -360,12 +365,9 @@ def phase_kernels(dev, torch):
     return k1, res_total
 
 
-def graph_ms(calls, torch, reps: int = 10) -> float:
-    """Milliseconds a call of ``calls`` (zero-argument callables), captured
-    together into one CUDA graph (after a warm-up on a side stream) and
-    replayed ``reps`` times between CUDA events: the kernels' time with the
-    gaps between launches, without the host's (the wrappers' Python), which
-    at a few microseconds of kernel is longer than the kernel."""
+def capture_graph(calls, torch):
+    """``calls`` (zero-argument callables) captured together into one CUDA
+    graph, after a warm-up on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -376,13 +378,68 @@ def graph_ms(calls, torch, reps: int = 10) -> float:
     with torch.cuda.graph(graph):
         for call in calls:
             call()
+    return graph
+
+
+def graph_ms(calls, torch, reps: int = 10) -> float:
+    """Milliseconds a call of ``calls``, captured together into one CUDA graph
+    and replayed ``reps`` times between CUDA events: the kernels' time with
+    the gaps between launches, without the host's (the wrappers' Python),
+    which at a few microseconds of kernel is longer than the kernel."""
+    graph = capture_graph(calls, torch)
     ms = timed_ms(graph.replay, reps, torch) / len(calls)
     del graph
     return ms
 
 
+def clocks_under_load(calls, torch, seconds: float = 1.0) -> dict:
+    """The card's SM clock (MHz) and power draw (W), medians of nvidia-smi
+    samples taken while a CUDA graph of ``calls`` replays back to back for
+    about ``seconds``."""
+    graph = capture_graph(calls, torch)
+    samples, errors, stop = [], [], threading.Event()
+
+    def sample():
+        try:
+            while not stop.is_set():
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                     "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True, check=True, timeout=60).stdout
+                samples.append([float(v) for v in out.splitlines()[0].split(",")])
+        except Exception as e:  # raised again in the calling thread
+            errors.append(e)
+
+    graph.replay()
+    torch.cuda.synchronize()
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    end = time.time() + seconds
+    while thread.is_alive() and (time.time() < end or len(samples) < 3):
+        for _ in range(20):
+            graph.replay()
+        torch.cuda.synchronize()
+    stop.set()
+    thread.join()
+    del graph
+    if errors or len(samples) < 3:
+        raise RuntimeError(f"clocks_under_load: {len(samples)} nvidia-smi samples"
+                           + (f", sampler failed: {errors[0]!r}" if errors else ""))
+    mhz, watts = np.median(np.array(samples), axis=0)
+    return {"sm_clock_mhz": float(mhz), "power_w": float(watts), "samples": len(samples)}
+
+
 # K4's phase-skip variants (csrc/lvc_tiles.cuh: LVCT_SKIP), timed beside the kernel
 K4_SKIPS = {"no_conv": 1, "no_window_product": 2, "neither": 3}
+# K6's phase-skip variants (csrc/lvc.cu: LVC_SKIP): without the window
+# product or the stores, and, at the pipelined blocks only, the product alone
+# (neither staging nor stores)
+K6_VARIANTS = {"no_window_product": "LVC_SKIP=1", "no_stores": "LVC_SKIP=2",
+               "product_only": "LVC_SKIP=6"}
+K6_PIPELINED_ONLY = ("product_only",)
+# K6 at the hops of K6's contract that FastDiff's LJSpeech net does not run
+# (B = 2; L a multiple of neither a unit's windows nor the SM count)
+K6_EXTRA = ((24, 137), (40, 75), (72, 137), (200, 67))
 
 
 def phase_fastdiff_kernels(dev, torch, split: bool = True):
@@ -396,9 +453,17 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
     reading step 2, timed beside its twin and the chain of four K4 launches
     over the same block (the JAX package's ``_MONO_BLOCK`` A/B), and replayed
     from a CUDA graph at hop 256; ``ms``/``plain_ms``/``k4_chain_ms`` sum the
-    2 blocks of one forward. With ``split``, each K4 block is also timed
-    with the phase-skip variants of ``K4_SKIPS`` (``phases_ms``)."""
+    2 blocks of one forward. K6's row also gets the nearest library
+    yardstick, ``torch.baddbmm(bias, taps, km)`` (one cuBLAS call: the
+    window product and the bias, on a tap tensor built before the call, so
+    not the whole function), timed the same way. With ``split``, each K4
+    block is also timed with the phase-skip variants of ``K4_SKIPS`` and each
+    K6 block with those of ``K6_VARIANTS`` (``phases_ms``), and K6 is held
+    against its twin at the hops of ``K6_EXTRA``."""
+    import torch.nn.functional as F
+
     from prodiff_tpu_torch.ops import cuda_build
+    from prodiff_tpu_torch.ops import lvc as lvc_ops
     from prodiff_tpu_torch.ops import ublock as ublock_ops
     from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
     from prodiff_tpu_torch.ops.ublock import (mono_block_supported, ublock_block,
@@ -428,8 +493,11 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
         cws, cbs = [], []
         rows = {name: {"block": blk, "hop": hop, "T": t, "ms": 0.0, "plain_ms": 0.0,
                        "layer_ms": [], "flops": 0, "bytes": 0} for name in ("ublock_layer", "lvc")}
+        rows["lvc"]["baddbmm_ms"] = 0.0
         if split:
             rows["ublock_layer"]["phases_ms"] = dict.fromkeys(K4_SKIPS, 0.0)
+            rows["lvc"]["phases_ms"] = {k: 0.0 for k in K6_VARIANTS if k not in K6_PIPELINED_ONLY
+                                        or hop >= lvc_ops.STREAM_MAX_HOP}
         for i in range(n_layers):
             d = 3 ** i
             cw, cb = rand(c, c, 3, scale=0.2), rand(c, scale=0.1)
@@ -461,6 +529,29 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
                     rec["flops"] += flops
                     rec["bytes"] += nbytes
                 row["layer_ms"].append(ms)
+            # the library yardstick: the window product and the bias in one
+            # cuBLAS call, on taps built here, outside the timed call
+            taps = torch.cat([F.pad(y, (0, 0, 1, 1))[:, j: j + t] for j in range(3)], dim=2)
+            taps = taps.view(n_win, hop, 3 * c)
+
+            def baddbmm(s):
+                return torch.baddbmm(lb[s, 0, :, i * 2 * c:(i + 1) * 2 * c].unsqueeze(1), taps,
+                                     km[s, 0, :, i * 3 * c:(i + 1) * 3 * c])
+            compare(f"torch.baddbmm hop={hop} (step {i}, layer {i}) vs the LVC's twin",
+                    baddbmm(i).view(1, t, 2 * c), lvc_plain(y, km, lb, hop, i, i), torch)
+            rows["lvc"]["baddbmm_ms"] += graph_ms(per_steps(baddbmm), torch)
+            del taps
+            if split:  # K6 built without a phase
+                buf, phases = torch.empty(1, t, 2 * c, device=dev), rows["lvc"]["phases_ms"]
+                for label in phases:
+                    lib6 = lvc_ops.bind_library(cuda_build.load("lvc", (K6_VARIANTS[label],)))
+
+                    def variant(s):
+                        cuda_build.check(lib6.lvc_forward(
+                            y.data_ptr(), km.data_ptr(), lb.data_ptr(), buf.data_ptr(), 1, t,
+                            n_win, hop, n_layers, s, i, torch.cuda.current_stream().cuda_stream),
+                            f"lvc_forward ({label})")
+                    phases[label] += graph_ms(per_steps(variant), torch)
             if split:  # the same layer, built without some of its phases
                 buf, phases = torch.empty_like(x), rows["ublock_layer"]["phases_ms"]
                 for label, skip in K4_SKIPS.items():
@@ -474,6 +565,17 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
                             n_layers, s, i, torch.cuda.current_stream().cuda_stream),
                             f"ublock_layer_forward ({label})")
                     phases[label] += graph_ms(per_steps(skipped), torch)
+        if split and hop == FD_HOPS[-1]:  # the block bound by operations: the FMA rate's clock
+            row = rows["lvc"]
+            row.update(clocks_under_load(per_steps(lambda s: lvc(y, km, lb, hop, s, 0)), torch))
+            peak = torch.cuda.get_device_properties(0).multi_processor_count * 256 * \
+                row["sm_clock_mhz"] * 1e6
+            row["fp32_share_at_clock"] = row["flops"] / (row["ms"] * 1e-3) / peak
+            log(f"lvc block {blk} (hop {hop}) replayed back to back: SM clock "
+                f"{row['sm_clock_mhz']:.0f} MHz, power {row['power_w']:.1f} W (medians of "
+                f"{row['samples']} nvidia-smi samples); its {n_layers} layers ran the FMA pipe at "
+                f"{row['fp32_share_at_clock']:.3f} of its rate at that clock "
+                f"({peak / 1e12:.1f} TFLOP/s)")
         if split:
             phases = rows["ublock_layer"]["phases_ms"]
             phases["all"] = rows["ublock_layer"]["ms"]
@@ -481,6 +583,12 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
                 f"{phases['all']:.4f} ms, without the conv {phases['no_conv']:.4f}, without the "
                 f"window product {phases['no_window_product']:.4f}, without both "
                 f"{phases['neither']:.4f}")
+            row = rows["lvc"]
+            log(f"lvc block {blk} (hop {hop}) by phase, its {n_layers} layers: all "
+                f"{row['ms']:.4f} ms, " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                    row["phases_ms"].items()))
+        log(f"lvc block {blk} (hop {hop}): torch.baddbmm(bias, taps, km), taps built before "
+            f"the call, its {n_layers} layers {rows['lvc']['baddbmm_ms']:.4f} ms")
         for name, row in rows.items():
             row.update(bound(row.pop("flops"), row.pop("bytes")))
             row["share"] = row["bound_ms"] / row["ms"]
@@ -537,6 +645,16 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
             f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms "
             f"(the forward's FLOP and bytes together: {acc['bound_by']}), sum of the blocks' "
             f"bounds {acc['bound_sum_of_blocks_ms']:.4f} ms")
+    out["lvc"]["baddbmm_ms"] = sum(r["baddbmm_ms"] for r in out["lvc"]["by_block"])
+    if split:  # K6 at the hops of its contract beyond the LJSpeech net's
+        for hop, n in K6_EXTRA:
+            y = rand(2, n * hop, c)
+            km = rand(FD_STEPS, 2, n, n_layers * 3 * c, 2 * c, scale=0.1)
+            lb = rand(FD_STEPS, 2, n, n_layers * 2 * c, scale=0.1)
+            for s_, i in ((0, 0), (FD_STEPS - 1, n_layers - 1)):
+                res = compare(f"lvc hop={hop} B=2 L={n} (step {s_}, layer {i})",
+                              lvc(y, km, lb, hop, s_, i), lvc_plain(y, km, lb, hop, s_, i), torch)
+                out["lvc"]["max_abs_err"] = max(out["lvc"]["max_abs_err"], res["max_abs_err"])
     acc = out["ublock_block"]
     log(f"K7 ublock_block, blocks 1 and 2 of one FastDiff forward at T_mel={FD_T_MEL}: kernel "
         f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, K4 chain {acc['k4_chain_ms']:.4f} ms, "
@@ -1567,7 +1685,8 @@ def main() -> int:
     sources = ("wavenet_stack", "resblock", "ublock", "ublock_block", "lvc", "wavenet_train")
     t0 = time.time()
     skips = () if args.fastdiff_kernels else tuple(
-        ("ublock", (f"LVCT_SKIP={v}",)) for v in K4_SKIPS.values())
+        ("ublock", (f"LVCT_SKIP={v}",)) for v in K4_SKIPS.values()) + tuple(
+        ("lvc", (d,)) for d in K6_VARIANTS.values())
     cuda_build.load_all(sources + skips)  # one nvcc per library, all at once
     log(f"kernel build (parallel nvcc) {time.time() - t0:.3f} s")
     for name in sources:
@@ -1606,7 +1725,10 @@ def main() -> int:
              by_block=fd["ublock_layer"]["by_block"]),
         dict(entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",
                    fd_unfused_launches["lvc"], fd["lvc"]),
-             bound_sum_of_blocks_ms=fd["lvc"]["bound_sum_of_blocks_ms"], by_block=fd["lvc"]["by_block"]),
+             bound_sum_of_blocks_ms=fd["lvc"]["bound_sum_of_blocks_ms"], by_block=fd["lvc"]["by_block"],
+             baddbmm_ms=fd["lvc"]["baddbmm_ms"],
+             baddbmm_is="torch.baddbmm(bias, taps, km): the window product and the bias in one "
+                        "cuBLAS call on a tap tensor built before it, not the whole function"),
         entry("wavenet_stack_save_forward", "wavenet_train.cu",
               "prodiff_tpu/ops/pallas/wavenet_train.py:71",
               train_launches["residual_stack_save"], k5a),

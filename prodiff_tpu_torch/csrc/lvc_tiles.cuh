@@ -251,79 +251,69 @@ __device__ __forceinline__ void prefetch_unit(const Layer& a, int b, int t0) {
   }
 }
 
-// The streaming plan's kernel registers: warp w owns rows 8(w >> 1) .. + 7 of
-// the unit and output half oh = w & 1 (gate 16oh .. + 15, filter 32 + 16oh
-// .. + 15); lane (kq = lane >> 3, og = lane & 7) holds column quad col (og <
-// 4: gate quad og, else filter quad og - 4) of rows (tap q, channel kq + 4i)
-// of its window's kernel: channels 4 apart, so the 4 quarters' yT rows fall
-// in different banks. kb is the bias quad in the kq = 0 lanes, else 0 (the
+// A lane's share of one window's kernel for a streaming product (K4's
+// streaming plan, and K6 below hop 64): rows (tap q, channel kq + 4i) of
+// column quad col, channels 4 apart so that the 4 quarters' x rows fall in
+// different banks. kb is the bias quad in the kq = 0 lanes, else 0 (the
 // quarters' sum adds it once).
 struct StreamKernel {
   float4 k[C / 4][3];
   float4 kb;
 };
 
-__device__ __forceinline__ int stream_col(int tid) {
-  const int og = tid & 7;
-  return (og & 4 ? C : 0) + 16 * ((tid >> 5) & 1) + 4 * (og & 3);
-}
-
-// Issue the 24 + 1 loads of a lane's StreamKernel for unit (b, t0).
-__device__ __forceinline__ void load_stream_kernel(const Layer& a, int b, int t0, int tid,
-                                                   StreamKernel& sk) {
-  const int t = t0 + 8 * (tid >> 6), kq = (tid >> 3) & 3, col = stream_col(tid);
-  if (t >= a.T) return;  // the warp's rows are past the sequence end
-  const int l = t / a.hop;
-  const float* K = a.s.kernel(b, l) + col;
+// Issue the 24 + 1 loads of a lane's StreamKernel: K the window's kernel
+// [KC][CO], bias its [CO].
+__device__ __forceinline__ void load_stream_share(const float* K, const float* bias, int kq,
+                                                  int col, StreamKernel& sk) {
+  K += col;
 #pragma unroll
   for (int i = 0; i < C / 4; ++i)
 #pragma unroll
     for (int q = 0; q < 3; ++q) sk.k[i][q] = ld4_stream(K + (q * C + kq + 4 * i) * CO);
-  sk.kb = kq == 0 ? ld4_stream(a.s.bias(b, l) + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+  sk.kb = kq == 0 ? ld4_stream(bias + col) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// The streaming window product of unit (b, t0) (R rows; yT and xs staged):
-// lane (kq, og) sums its channel quarter into acc[row][p] for the warp's 8
-// rows, then the quarters are reduced (xor 16, then xor 8: rows halve each
-// step) and gate and filter quads meet (xor 4); each lane writes one row's
-// 4 outputs.
-template <int R>
-__device__ __forceinline__ void stream_product(const Layer& a, int b, int t0, const Tiles& tl,
-                                               int tid, const StreamKernel& sk) {
-  constexpr int LDY = R + 8;
-  const int T = a.T, h = a.dil + 1;
-  const int r0 = 8 * (tid >> 6), kq = (tid >> 3) & 3, og = tid & 7;
-  if (t0 + r0 >= T) return;  // past the sequence end (8 | hop)
+// A lane's channel quarter kq of the window product for 8 rows, from x
+// k-major (xT[c * ld + j] = x at time t - 1 + j, j < 10; xT + 1 16-byte
+// aligned): 4 shared loads per 96 FMAs, acc[row][p] starting from the
+// bias. The 4 quarters are then reduced by shuffles (xor 16, then xor 8:
+// rows halve each step), leaving r2[m] = row 2kq + m of the lane's column
+// quad. PRODUCT false (measurement only): r2 is the bias.
+template <bool PRODUCT = true>
+__device__ __forceinline__ void stream_quarters(const float* xT, int ld, int kq,
+                                                const StreamKernel& sk, float (&r2)[2][4]) {
   float acc[8][4];
 #pragma unroll
   for (int m = 0; m < 8; ++m) {
     acc[m][0] = sk.kb.x; acc[m][1] = sk.kb.y; acc[m][2] = sk.kb.z; acc[m][3] = sk.kb.w;
   }
+  if constexpr (PRODUCT) {
 #pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    const float* yr = tl.yT + (kq + 4 * i) * LDY + r0 + 3;  // time t0 + r0 - 1
-    float v[10];
-    v[0] = yr[0];
-    const float4 u0 = tile::ld4(yr + 1), u1 = tile::ld4(yr + 5);
-    v[1] = u0.x; v[2] = u0.y; v[3] = u0.z; v[4] = u0.w;
-    v[5] = u1.x; v[6] = u1.y; v[7] = u1.z; v[8] = u1.w;
-    v[9] = yr[9];
+    for (int i = 0; i < C / 4; ++i) {
+      const float* xr = xT + (kq + 4 * i) * ld;  // time t - 1
+      float v[10];
+      v[0] = xr[0];
+      const float4 u0 = tile::ld4(xr + 1), u1 = tile::ld4(xr + 5);
+      v[1] = u0.x; v[2] = u0.y; v[3] = u0.z; v[4] = u0.w;
+      v[5] = u1.x; v[6] = u1.y; v[7] = u1.z; v[8] = u1.w;
+      v[9] = xr[9];
 #pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const float4 k = sk.k[i][q];
+      for (int q = 0; q < 3; ++q) {
+        const float4 k = sk.k[i][q];
 #pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const float y = v[m + q];
-        acc[m][0] = fmaf(y, k.x, acc[m][0]);
-        acc[m][1] = fmaf(y, k.y, acc[m][1]);
-        acc[m][2] = fmaf(y, k.z, acc[m][2]);
-        acc[m][3] = fmaf(y, k.w, acc[m][3]);
+        for (int m = 0; m < 8; ++m) {
+          const float a = v[m + q];
+          acc[m][0] = fmaf(a, k.x, acc[m][0]);
+          acc[m][1] = fmaf(a, k.y, acc[m][1]);
+          acc[m][2] = fmaf(a, k.z, acc[m][2]);
+          acc[m][3] = fmaf(a, k.w, acc[m][3]);
+        }
       }
     }
   }
   constexpr unsigned ALL = 0xffffffffu;
-  const bool hi = kq & 2, lo = kq & 1, filt = og & 4;
-  float r4[4][4], r2[2][4], o[4];
+  const bool hi = kq & 2, lo = kq & 1;
+  float r4[4][4];
 #pragma unroll
   for (int m = 0; m < 4; ++m)  // keep rows 4hi .. 4hi + 3
 #pragma unroll
@@ -336,6 +326,40 @@ __device__ __forceinline__ void stream_product(const Layer& a, int b, int t0, co
     for (int p = 0; p < 4; ++p)
       r2[m][p] = (lo ? r4[m + 2][p] : r4[m][p]) +
                  __shfl_xor_sync(ALL, lo ? r4[m][p] : r4[m + 2][p], 8);
+}
+
+// K4's streaming plan: warp w owns rows 8(w >> 1) .. + 7 of the unit and
+// output half oh = w & 1 (gate 16oh .. + 15, filter 32 + 16oh .. + 15);
+// lane (kq = lane >> 3, og = lane & 7) holds column quad col (og < 4: gate
+// quad og, else filter quad og - 4) of its window's kernel.
+__device__ __forceinline__ int stream_col(int tid) {
+  const int og = tid & 7;
+  return (og & 4 ? C : 0) + 16 * ((tid >> 5) & 1) + 4 * (og & 3);
+}
+
+// Issue the loads of a lane's StreamKernel for unit (b, t0).
+__device__ __forceinline__ void load_stream_kernel(const Layer& a, int b, int t0, int tid,
+                                                   StreamKernel& sk) {
+  const int t = t0 + 8 * (tid >> 6);
+  if (t >= a.T) return;  // the warp's rows are past the sequence end
+  const int l = t / a.hop;
+  load_stream_share(a.s.kernel(b, l), a.s.bias(b, l), (tid >> 3) & 3, stream_col(tid), sk);
+}
+
+// The streaming window product of unit (b, t0) (R rows; yT and xs staged):
+// the lane's quarter sums (stream_quarters), then gate and filter quads meet
+// (xor 4); each lane writes one row's 4 outputs.
+template <int R>
+__device__ __forceinline__ void stream_product(const Layer& a, int b, int t0, const Tiles& tl,
+                                               int tid, const StreamKernel& sk) {
+  constexpr int LDY = R + 8;
+  const int T = a.T, h = a.dil + 1;
+  const int r0 = 8 * (tid >> 6), kq = (tid >> 3) & 3, og = tid & 7;
+  if (t0 + r0 >= T) return;  // past the sequence end (8 | hop)
+  float r2[2][4], o[4];
+  stream_quarters(tl.yT + r0 + 3, LDY, kq, sk, r2);  // time t0 + r0 - 1
+  constexpr unsigned ALL = 0xffffffffu;
+  const bool filt = og & 4;
 #pragma unroll
   for (int p = 0; p < 4; ++p)  // gate lanes keep row 2kq, filter lanes 2kq + 1
     o[p] = __shfl_xor_sync(ALL, filt ? r2[0][p] : r2[1][p], 4);
@@ -547,14 +571,15 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
   }
 }
 
-// Blocks of `kernel` (NT threads, `smem` bytes) that fit on one SM of the
-// current device, its shared-memory attribute raised as needed. Cached per
-// device, kernel (`variant` < VARIANTS, one per kernel of a library) and size;
-// static, so that two loaded libraries never share the cache.
+// Blocks of `kernel` (`threads` threads, `smem` bytes) that fit on one SM of
+// the current device, its shared-memory attribute raised as needed. Cached
+// per device, kernel (`variant` < VARIANTS, one per kernel of a library) and
+// size; static, so that two loaded libraries never share the cache.
 constexpr int VARIANTS = 3;
 
 template <class K>
-static cudaError_t blocks_per_sm(K kernel, int variant, int smem, int* per_sm) {
+static cudaError_t blocks_per_sm(K kernel, int variant, int smem, int* per_sm,
+                                 int threads = NT) {
   constexpr int MAX_DEVICES = 64, SIZES = 16;
   static int attr[MAX_DEVICES][VARIANTS] = {};
   static int key[MAX_DEVICES][VARIANTS][SIZES] = {}, val[MAX_DEVICES][VARIANTS][SIZES] = {};
@@ -573,7 +598,7 @@ static cudaError_t blocks_per_sm(K kernel, int variant, int smem, int* per_sm) {
     if (e != cudaSuccess) return e;
     attr[dev][variant] = smem;
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, NT, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
   for (int i = 0; i < SIZES; ++i)
     if (keys[i] == 0) {

@@ -5,8 +5,10 @@ Port of ``prodiff_tpu/ops/pallas/lvc.py`` (``lvc_pallas``) and of
 ``prodiff_tpu/models/fastdiff.py:location_variable_convolution``: per hop
 window ``l``, ``y[t] = bias[l] + taps(x)[t] @ kmat[l]`` with the k=3 taps
 tap-major (row ``d*Cin + ci``, d = 0 for time t-1), zero at the sequence ends
-and read across window edges. The kernel is ``csrc/lvc.cu``;
-:func:`lvc_plain` computes the same function with ``torch.matmul``.
+and read across window edges, at every hop that is a multiple of 8 (as
+``lvc_pallas``). The kernel is ``csrc/lvc.cu``, whose work units
+:func:`lvc_plan` mirrors; :func:`lvc_plain` computes the same function with
+``torch.matmul``.
 :func:`lvc` takes the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
 
@@ -19,7 +21,7 @@ read in place at ``(step_idx, layer_idx)``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,13 @@ from prodiff_tpu_torch import device
 from prodiff_tpu_torch.ops import cuda_build
 
 KERNEL_C = 32  # the kernels' fixed input width (FastDiff's inner channels)
+MAX_SMEM = 232448  # the H100's shared memory a block (227 KB)
+
+
+# A window-kernel launch's hop contract: its description and its test (T =
+# L * hop always). K6's is lvc_pallas's (prodiff_tpu/ops/pallas/lvc.py:90).
+HopRule = Tuple[str, Callable[[int], bool]]
+HOP_RULE: HopRule = ("a multiple of 8", lambda hop: hop >= 8 and hop % 8 == 0)
 
 
 def window_kernels(kmat: torch.Tensor, bias: torch.Tensor, cin: int,
@@ -56,10 +65,12 @@ def lvc_plain(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
     return y.reshape(b, t, cout)
 
 
-def check_kernel_operands(name: str, x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor,
-                          hop: int, step_idx: Optional[int], layer_idx: int, *extra: torch.Tensor):
-    """Validate the operands of a window-kernel launch; returns the stack's
-    ``(n_win, layers, step, layer)`` and the contiguous operands."""
+def check_kernel_operands(name: str, hop_rule: HopRule, x: torch.Tensor, kmat: torch.Tensor,
+                          bias: torch.Tensor, hop: int, step_idx: Optional[int], layer_idx: int,
+                          *extra: torch.Tensor):
+    """Validate the operands of a window-kernel launch, its hop against the
+    kernel's ``hop_rule``; returns the stack's ``(n_win, layers, step,
+    layer)`` and the contiguous operands."""
     b, t, c = x.shape
     dtype = device.compute_dtype()
     for a in (x, kmat, bias, *extra):
@@ -68,8 +79,9 @@ def check_kernel_operands(name: str, x: torch.Tensor, kmat: torch.Tensor, bias: 
                              f"got {a.dtype} on {a.device}")
     if c != KERNEL_C:
         raise ValueError(f"{name}: the kernel takes C = {KERNEL_C} channels, got {c}")
-    if not (hop in (8, 16) or (hop > 0 and hop % 32 == 0)) or t % hop:
-        raise ValueError(f"{name}: hop must be 8, 16 or a multiple of 32 dividing T={t}, got {hop}")
+    rule, hop_ok = hop_rule
+    if not hop_ok(hop) or t % hop:
+        raise ValueError(f"{name}: hop must be {rule} dividing T={t}, got {hop}")
     if kmat.ndim != (4 if step_idx is None else 5):
         raise ValueError(f"{name}: kmat {tuple(kmat.shape)}: 4-D per layer, 5-D with step_idx")
     if step_idx is None:
@@ -94,10 +106,55 @@ def check_kernel_operands(name: str, x: torch.Tensor, kmat: torch.Tensor, bias: 
     return (t // hop, layers, step, layer), ops
 
 
+# csrc/lvc.cu's plans (plan_for computes the same numbers)
+STREAM_MAX_HOP = 64  # hop < 64: a warp streams its window's kernel into registers
+UNIT_MAX = 128  # pipelined: rows a unit at most
+_CONSUMERS = 256  # pipelined: consumer threads a block, one a row of a unit
+MAX_STAGES = 8
+_STREAM_WARPS, _XLD = 8, 20
+_STAGE_FIXED = 4 * (3 * KERNEL_C * 2 * KERNEL_C + 2 * KERNEL_C)  # a window's kernel and bias
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lvc_plan(hop: int) -> dict:
+    """K6's work unit at ``hop`` (a multiple of 8). Streaming (hop < 64): a
+    unit is one warp's 8 ``rows`` of a window (``pieces``: the window's
+    8-row slices) x 32 outputs, ``groups`` = 8 warps a block, no ring;
+    ``smem`` is the warps' staged x. Pipelined (hop >= 64): a unit is
+    ``rows`` rows (a multiple of 8, at most 128) of one window, cut into
+    ``pieces`` (the last may be short); ``groups`` = 256 // rows units are
+    computed at once, by ``rows`` threads each (8 rows x 8 outputs a
+    thread); a ring of ``stages`` (a multiple of ``groups``) holds a unit's
+    kernel, bias and rows + 2 halo rows of x; ``smem`` counts the stages
+    and their two mbarriers."""
+    if hop < 8 or hop % 8:
+        raise ValueError(f"lvc_plan: hop must be a multiple of 8, got {hop}")
+    if hop < STREAM_MAX_HOP:
+        return {"streams": True, "rows": 8, "pieces": hop // 8, "groups": _STREAM_WARPS,
+                "stages": 0, "smem": _STREAM_WARPS * KERNEL_C * _XLD * 4}
+    share = _ceil_div(hop, UNIT_MAX)
+    rows = _ceil_div(_ceil_div(hop, share), 8) * 8
+    groups = _CONSUMERS // rows
+    per = _STAGE_FIXED + (rows + 2) * KERNEL_C * 4 + 16
+    stages = min(MAX_STAGES, MAX_SMEM // per) // groups * groups
+    return {"streams": False, "rows": rows, "pieces": _ceil_div(hop, rows), "groups": groups,
+            "stages": stages, "smem": stages * per}
+
+
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("lvc")
+    return bind_library(cuda_build.load("lvc"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K6's C entry points on ``lib`` (``csrc/lvc.cu``, or a variant
+    of it built with defines, which only measurement code loads)."""
     lib.lvc_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.lvc_forward.restype = ctypes.c_int
+    lib.lvc_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.lvc_grid.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -112,7 +169,7 @@ def lvc(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
     if x.device.type != "cuda":
         raise ValueError(f"lvc: unsupported device {x.device}")
     (n_win, layers, step, layer), (x, kmat, bias) = check_kernel_operands(
-        "lvc", x, kmat, bias, hop, step_idx, layer_idx)
+        "lvc", HOP_RULE, x, kmat, bias, hop, step_idx, layer_idx)
     b, t, c = x.shape
     y = torch.empty((b, t, 2 * c), device=x.device, dtype=x.dtype)
     lib = _library()

@@ -39,9 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from prodiff_tpu_torch.ops import cuda_build
-from prodiff_tpu_torch.ops.lvc import KERNEL_C, check_kernel_operands, lvc_plain
+from prodiff_tpu_torch.ops.lvc import KERNEL_C, MAX_SMEM, HopRule, check_kernel_operands, lvc_plain
 
 LRELU_SLOPE = 0.2
+# K4's and K7's hop contract: the hops of csrc/lvc_tiles.cuh's units
+# (csrc/lvc_window.cuh:hop_supported)
+HOP_RULE: HopRule = ("8, 16 or a multiple of 32",
+                     lambda hop: hop in (8, 16) or (hop > 0 and hop % 32 == 0))
 
 
 def gated_residual(xa: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -96,7 +100,7 @@ def ublock_layer(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.Tensor
     if x.device.type != "cuda":
         raise ValueError(f"ublock_layer: unsupported device {x.device}")
     (n_win, layers, step, layer), (x, kmat, bias, audio_down, conv_w, conv_b) = \
-        check_kernel_operands("ublock_layer", x, kmat, bias, hop, step_idx, layer_idx,
+        check_kernel_operands("ublock_layer", HOP_RULE, x, kmat, bias, hop, step_idx, layer_idx,
                               audio_down, conv_w, conv_b)
     b, t, c = x.shape
     if audio_down.shape != x.shape or conv_w.shape != (c, c, 3) or conv_b.shape != (c,):
@@ -127,7 +131,6 @@ ublock_layer.launches = cuda_build.LaunchCounter()
 MONO_MIN_HOP = 64  # the JAX route's _FUSED_MIN_HOP: K7 runs on the audio-rate blocks only
 MONO_MAX_LAYERS = 8
 TILED_MIN_HOP = 64  # hop >= 64: 256-row units of 8 x 8 register tiles; below, 32-row streaming units
-MAX_SMEM = 232448  # the H100's shared memory a block (227 KB)
 _KW = 3 * KERNEL_C * 2 * KERNEL_C + 2 * KERNEL_C  # one window's kernel and bias, floats
 _WS = 3 * KERNEL_C * KERNEL_C + KERNEL_C  # the staged conv weight and bias, floats
 
@@ -213,7 +216,7 @@ def ublock_block(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[to
                          f"{dilations} at hop {hop}: outside the kernel's gate")
     cw, cb = torch.stack(list(conv_ws)), torch.stack(list(conv_bs))
     (n_win, layers, step, _), (x, kmat, bias, audio_down, cw, cb) = check_kernel_operands(
-        "ublock_block", x, kmat, bias, hop, step_idx, 0, audio_down, cw, cb)
+        "ublock_block", HOP_RULE, x, kmat, bias, hop, step_idx, 0, audio_down, cw, cb)
     b, t, c = x.shape
     if audio_down.shape != x.shape or cw.shape != (n, c, c, 3) or cb.shape != (n, c):
         raise ValueError(f"ublock_block: audio_down {tuple(audio_down.shape)}, convs "

@@ -12,6 +12,7 @@ FastDiff forward: 1e-4 of its output's peak). Gradients, summed over every
 frame of the batch, are held at 1e-4 of each one's peak (rtol 1e-3).
 """
 
+import ctypes
 import types
 
 import numpy as np
@@ -19,7 +20,8 @@ import pytest
 import torch
 
 from prodiff_tpu_torch.ops import cuda_build
-from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain
+from prodiff_tpu_torch.ops import lvc as lvc_ops
+from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain, lvc_plan
 from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
 from prodiff_tpu_torch.ops import ublock as ublock_ops
 from prodiff_tpu_torch.ops.ublock import (
@@ -286,8 +288,18 @@ def test_ublock_layer_kernel_stepped_read(cuda):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("hop,n_win", [(8, 41), (16, 3), (64, 6), (256, 1), (256, 3)])
+@pytest.mark.parametrize("hop,n_win", [
+    (8, 41), (16, 3), (64, 6), (256, 1), (256, 3),
+    (24, 137), (40, 5), (72, 137), (200, 3), (512, 3),   # hops outside K4's contract
+    (8, 2112), (64, 600), (72, 1000), (200, 300),         # more units than the grid holds
+])
 def test_lvc_kernel_matches_plain(cuda, hop, n_win):
+    """K6 at B = 2 against its twin, per layer and read from a [4, B, L,
+    4*96, 64] stack at (step 3, layer 1) and at the last (step 3, layer 3).
+    Hops 8-56 stream (one warp an 8-row slice); from 64 a block's consumer
+    groups walk a ring of stages, which wraps where a block takes more units
+    than the ring holds (L = 600 ... 2112: more units than SMs); hop 72 runs
+    three groups of 72 threads, hop 512 two units a window."""
     rng = np.random.default_rng(5)
     x, _, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda)
     before = lvc.launches.count
@@ -296,9 +308,24 @@ def test_lvc_kernel_matches_plain(cuda, hop, n_win):
     assert lvc.launches.count - before == 1
     torch.testing.assert_close(got, lvc_plain(x, km, lb, hop), atol=ATOL, rtol=RTOL)
     x, _, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(4, 4))
-    torch.testing.assert_close(lvc(x, km, lb, hop, step_idx=3, layer_idx=1),
-                               lvc_plain(x, km, lb, hop, step_idx=3, layer_idx=1),
-                               atol=ATOL, rtol=RTOL)
+    for step, layer in ((3, 1), (3, 3)):
+        torch.testing.assert_close(lvc(x, km, lb, hop, step_idx=step, layer_idx=layer),
+                                   lvc_plain(x, km, lb, hop, step_idx=step, layer_idx=layer),
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hop", [8, 24, 56, 64, 72, 96, 200, 256, 512])
+def test_lvc_plan_matches_the_kernel(cuda, hop):
+    """The C side's plan (csrc/lvc.cu:plan_for) is ops/lvc.py:lvc_plan, and
+    the persistent grid holds at most the co-resident blocks."""
+    lib = lvc_ops._library()
+    out = (ctypes.c_int * 5)()
+    assert lib.lvc_plan(hop, out) == 0
+    plan = lvc_plan(hop)
+    assert list(out) == [plan[k] for k in ("rows", "pieces", "groups", "stages", "smem")]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = lib.lvc_grid(2, 4096 * hop, hop)
+    assert 0 < grid <= sms * (2 if plan["streams"] else 1)
 
 
 @pytest.mark.parametrize("hop,n_win,step", [(64, 7, 2), (256, 3, 1), (256, 1, 0), (96, 5, 3),

@@ -109,8 +109,12 @@ def test_ublock_layer_stepped_read_matches_pallas():
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5)
 
 
-@pytest.mark.parametrize("hop,n_win", [(64, 8), (256, 4), (64, 6), (256, 1)])
+@pytest.mark.parametrize("hop,n_win", [(64, 8), (256, 4), (64, 6), (256, 1),
+                                       (24, 7), (72, 30)])
 def test_lvc_matches_pallas(hop, n_win):
+    """Hops 24 and 72 lie outside K4's contract but inside lvc_pallas's (and
+    K6's); at hop 72 and L = 30, lvc_pallas's windows a grid step shrink from
+    28 to 15."""
     b, c = 2, 32
     x = RNG.normal(size=(b, n_win * hop, c)).astype(np.float32)
     km = RNG.normal(size=(b, n_win, 3 * c, 2 * c)).astype(np.float32) * 0.1

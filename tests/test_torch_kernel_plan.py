@@ -1,12 +1,15 @@
 """Host-side plans of the port's CUDA kernels, on the CPU: how the WaveNet
 stack (K1) groups its layers and picks its chain tile, the resblock stage's
-contract on kernel sizes and halos, and the FastDiff LVC kernels' (K4, K7)
-work units, persistent grid, buffers and gate. The kernels themselves are
+contract on kernel sizes and halos, the FastDiff LVC kernels' (K4, K7)
+work units, persistent grid, buffers and gate, and the LVC kernel's (K6)
+hop contract and work units. The kernels themselves are
 held against their plain twins in ``tests/test_torch_cuda.py`` (on the
 card)."""
 
 import pytest
+import torch
 
+from prodiff_tpu_torch.ops import lvc as lvc_ops
 from prodiff_tpu_torch.ops import resblock
 from prodiff_tpu_torch.ops import ublock
 from prodiff_tpu_torch.ops import wavenet_stack as wn
@@ -167,3 +170,75 @@ def test_cuda_build_variants_are_libraries_of_their_own():
     assert cuda_build._key("ublock") == cuda_build._key(("ublock", [])) == ("ublock", ())
     assert cuda_build._flags(("LVCT_SKIP=1",))[-1] == "-DLVCT_SKIP=1"
     assert cuda_build._flags(()) == cuda_build.NVCC_FLAGS
+
+
+def _lvc_operands(hop, n_win=3, b=2):
+    x = torch.zeros(b, n_win * hop, 32)
+    return x, torch.zeros(b, n_win, 96, 64), torch.zeros(b, n_win, 64)
+
+
+@pytest.mark.parametrize("hop", [8, 16, 24, 40, 56, 72, 200, 256])
+def test_lvc_hop_contract_is_lvc_pallas(hop):
+    """K6's operand check takes every hop lvc_pallas takes (a multiple of 8,
+    prodiff_tpu/ops/pallas/lvc.py:90), with T = L * hop."""
+    (n_win, layers, step, layer), ops = lvc_ops.check_kernel_operands(
+        "lvc", lvc_ops.HOP_RULE, *_lvc_operands(hop), hop, None, 0)
+    assert (n_win, layers, step, layer) == (3, 1, 0, 0) and len(ops) == 3
+
+
+@pytest.mark.parametrize("hop", [12, 4, 0, 20])
+def test_lvc_hop_contract_refuses_what_lvc_pallas_refuses(hop):
+    with pytest.raises(ValueError, match="hop must be"):
+        lvc_ops.check_kernel_operands("lvc", lvc_ops.HOP_RULE, *_lvc_operands(8), hop, None, 0)
+
+
+def test_lvc_layer_kernels_keep_their_hop_rule():
+    """K4 and K7 still take 8, 16 or a multiple of 32 (lvc_tiles.cuh's
+    units): hop 24 passes K6's check and not theirs."""
+    x, km, lb = _lvc_operands(24)
+    lvc_ops.check_kernel_operands("lvc", lvc_ops.HOP_RULE, x, km, lb, 24, None, 0)
+    for name in ("ublock_layer", "ublock_block"):
+        with pytest.raises(ValueError, match="8, 16 or a multiple of 32"):
+            lvc_ops.check_kernel_operands(name, ublock.HOP_RULE, x, km, lb, 24, None, 0)
+    for hop in (8, 16, 32, 64, 96, 256):
+        lvc_ops.check_kernel_operands("ublock_layer", ublock.HOP_RULE, *_lvc_operands(hop), hop,
+                                      None, 0)
+
+
+@pytest.mark.parametrize("hop,rows,pieces,groups,stages,smem", [
+    (8, 8, 1, 8, 0, 20480),          # block 0: a warp streams 8 rows of one window
+    (24, 8, 3, 8, 0, 20480),
+    (64, 64, 1, 4, 4, 133184),       # block 1: four 64-row groups, one stage each
+    (72, 72, 1, 3, 6, 205920),       # three groups of 72 threads, two stages each
+    (200, 104, 2, 2, 6, 230496),     # a window in 104 + 96 rows
+    (256, 128, 2, 2, 4, 165952),     # block 2: half a window a unit
+])
+def test_lvc_plan_per_hop(hop, rows, pieces, groups, stages, smem):
+    """K6's work unit (csrc/lvc.cu:plan_for): streaming below hop 64, else a
+    ring of stages (a multiple of the consumer groups, at least two), each a
+    window kernel and bias (24,832 bytes) and rows + 2 rows of x, within the
+    H100's 232,448 bytes of shared memory a block."""
+    plan = lvc_ops.lvc_plan(hop)
+    assert (plan["rows"], plan["pieces"], plan["groups"], plan["stages"], plan["smem"]) == \
+        (rows, pieces, groups, stages, smem)
+    assert plan["streams"] == (hop < 64) and plan["smem"] <= lvc_ops.MAX_SMEM
+    assert rows % 8 == 0 and pieces * rows >= hop > (pieces - 1) * rows
+    if not plan["streams"]:
+        assert stages >= 2 and stages % groups == 0 and groups * rows <= 256
+        assert smem == stages * (24832 + (rows + 2) * 128 + 16)
+
+
+@pytest.mark.parametrize("hop", [8, 24, 40, 64, 72, 96, 200, 256, 264, 512, 1000])
+def test_lvc_units_cover_each_window_in_8_row_slices(hop):
+    """A window's units (piece p: rows p * rows .. within the window) cover
+    it exactly once; every unit starts on an 8-row boundary and has a
+    multiple of 8 rows, so no unit splits an 8-row slice or crosses a
+    window."""
+    plan = lvc_ops.lvc_plan(hop)
+    rows, pieces = plan["rows"], plan["pieces"]
+    for l in range(3):
+        spans = [(l * hop + p * rows, min(rows, hop - p * rows)) for p in range(pieces)]
+        assert all(t0 % 8 == 0 and n % 8 == 0 and n > 0 for t0, n in spans)
+        covered = [t for t0, n in spans for t in range(t0, t0 + n)]
+        assert covered == list(range(l * hop, (l + 1) * hop))
+    assert plan["smem"] <= lvc_ops.MAX_SMEM
