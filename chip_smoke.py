@@ -29,8 +29,10 @@ Phases, each printing its lines before the last:
      without both: ``LVCT_SKIP``), K6's (variants of ``lvc.cu`` built
      without the window product, without the stores, and with the product
      alone: ``LVC_SKIP``),
-     K6's library yardstick (``torch.baddbmm`` on a prebuilt tap tensor)
-     and K6 at hops 24, 40, 72 and 200 (B=2), and the block kernel (K7
+     K6's library yardstick (``torch.baddbmm`` on a prebuilt tap tensor),
+     K6 at hops 24, 40, 72 and 200 (B=2), K4 at the hops its contract
+     gained, 24, 40, 48, 56, 72 and 80 (B=2, L=512, timed a layer beside
+     its bound), and the block kernel (K7
      ``ublock_block``) at blocks 1 and 2 of that net, timed so beside its
      twin and the chain of four K4 launches it replaces, and replayed from
      a CUDA graph at block 2;
@@ -80,6 +82,23 @@ Phases, each printing its lines before the last:
      losses, the checkpoints and their params read back, the median step
      time; then one training step on a short batch held against the same
      step on the CPU (loss, every gradient, the params after the update).
+  7. the variance stack at full width on seeded random weights, each model
+     written as a JAX-format checkpoint into a temporary experiment tree: the
+     duration predictor (conv 512), the pitch predictor (WaveNet 20 x 256 at
+     dilation cycle 5, repeat_bins 64, 20 euler steps of rectified flow), the
+     voicing and breath predictors (WaveNet 20 x 256 on K1, voicing, breath
+     and tension in 48 bins, 4 DDPM steps) and a ``diff_type: reflow``
+     flagship teacher (20 euler steps on K1); ``infer --pred_dur --pred_pitch
+     spk1 --pred_voicing --pred_breath`` (in-process) on ``samples/example.ds``
+     with its note fields made consistent (``variance_project``), and the
+     same project through ``SVSInferHandler.handle`` with the teacher read
+     as ``diff_type: prodiff``, the K1 and resblock launch counts of each
+     asserted; each predictor held against the CPU
+     (same weights, injected noise; atol 1e-3 + rtol 1e-3) and timed (CUDA
+     events, median of 5 after a warm-up); the reflow render and a predicted
+     render under torch.profiler (K1, the other kernels, the idle share); the
+     reflow teacher's mel held against the CPU; and the web server's
+     /api/pred_dur, /api/pred_pitch and an /api/infer of what they predicted.
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -440,6 +459,9 @@ K6_PIPELINED_ONLY = ("product_only",)
 # K6 at the hops of K6's contract that FastDiff's LJSpeech net does not run
 # (B = 2; L a multiple of neither a unit's windows nor the SM count)
 K6_EXTRA = ((24, 137), (40, 75), (72, 137), (200, 67))
+# K4 at the hops its contract gained (every multiple of 8, as K6's): B = 2,
+# 512 windows (the LJSpeech net's T_mel), layer 3 (dilation 27) of the stack
+K4_EXTRA_HOPS, K4_EXTRA_WINDOWS = (24, 40, 48, 56, 72, 80), 512
 
 
 def phase_fastdiff_kernels(dev, torch, split: bool = True):
@@ -655,6 +677,37 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
                 res = compare(f"lvc hop={hop} B=2 L={n} (step {s_}, layer {i})",
                               lvc(y, km, lb, hop, s_, i), lvc_plain(y, km, lb, hop, s_, i), torch)
                 out["lvc"]["max_abs_err"] = max(out["lvc"]["max_abs_err"], res["max_abs_err"])
+    if split:  # K4 at the hops its contract gained (operands drawn on the card)
+        out["ublock_layer"]["widened_hops"] = []
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+        def drand(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * scale
+        for hop in K4_EXTRA_HOPS:
+            b, n, i, d = 2, K4_EXTRA_WINDOWS, n_layers - 1, dilations[-1]
+            t = n * hop
+            x, ad = drand(b, t, c), drand(b, t, c)
+            cw, cb = drand(c, c, 3, scale=0.2), drand(c, scale=0.1)
+            km = drand(FD_STEPS, b, n, n_layers * 3 * c, 2 * c, scale=0.1)
+            lb = drand(FD_STEPS, b, n, n_layers * 2 * c, scale=0.1)
+
+            def call(fn, s):
+                return fn(x, ad, cw, cb, km, lb, d, hop, step_idx=s, layer_idx=i)
+            res = compare(f"ublock_layer hop={hop} B={b} L={n} dilation={d} (step 0, layer {i})",
+                          call(ublock_layer, 0), call(ublock_layer_plain, 0), torch)
+            ms = graph_ms(per_steps(lambda s: call(ublock_layer, s)), torch)
+            plain_ms = graph_ms(per_steps(lambda s: call(ublock_layer_plain, s)), torch)
+            lim = bound(18432 * b * t, 4 * (3 * b * t * c + 3 * c * c + c)
+                        + 4 * b * n * (3 * c * 2 * c + 2 * c))
+            row = dict(hop=hop, B=b, T=t, dilation=d, ms=ms, plain_ms=plain_ms,
+                       max_abs_err=res["max_abs_err"], **lim)
+            out["ublock_layer"]["widened_hops"].append(row)
+            out["ublock_layer"]["max_abs_err"] = max(out["ublock_layer"]["max_abs_err"],
+                                                     res["max_abs_err"])
+            log(f"ublock_layer hop={hop} B={b} T={t} dilation={d}: kernel {ms:.4f} ms a layer, "
+                f"plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}), "
+                f"share of bound {lim['bound_ms'] / ms:.3f}")
+            del km, lb
     acc = out["ublock_block"]
     log(f"K7 ublock_block, blocks 1 and 2 of one FastDiff forward at T_mel={FD_T_MEL}: kernel "
         f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, K4 chain {acc['k4_chain_ms']:.4f} ms, "
@@ -1658,6 +1711,410 @@ def phase_train(dev, torch):
     return launches
 
 
+# The variance phase: the predictors at the base config's widths (duration
+# conv 512; pitch WaveNet 20 x 256 at dilation cycle 5, repeat_bins 64,
+# euler reflow over sampling_steps 20; variance WaveNet 20 x 256 at dilation
+# cycle 1 over voicing, breath and tension, 48 bins, 4 DDPM steps) and a
+# diff_type: reflow teacher at the flagship width, on seeded random weights
+VAR_EXP, VAR_STYLE = "variance", "spk1"
+VAR_PHONES = dict(PHONE_SET, **{"a/zh": "a", "b/zh": "b"})  # + example.ds's phonemes
+VAR_WORDS = dict({"ba": "b a"}, **{f"w{i}": f"p{2 * i} p{2 * i + 1}" for i in range(30)})
+VAR_PHONE_KINDS = dict({"a": ("vowel", "vowel"), "b": ("consonant", "stop")},
+                       **{f"p{i}": ("vowel", "vowel") if i % 2 else ("consonant", f"c{i % 3}")
+                          for i in range(60)})
+VAR_CATEGORIES = ["AP", "SP", "vowel", "stop", "c0", "c1", "c2"]
+VAR_TOL = dict(atol=1e-3, rtol=1e-3)  # card vs CPU: durations (s), pitch (MIDI), curves (dB), mel
+VAR_REPS = 5
+
+
+def variance_project(proj: list) -> list:
+    """``samples/example.ds`` (``proj``) with word-level note fields made consistent
+    with its ``ph_num``: one note a word (``SP``/``AP`` words rest, the others
+    sing the example's notes in order), each lasting its phonemes' given
+    durations; ``ph_dur`` and ``f0_seq`` dropped, so the predictors make them.
+    (As written, the file has fewer notes than words, on which the JAX
+    package's predictors raise as the port's do.)"""
+    out = []
+    for seg in proj:
+        phones, ph_dur = seg["ph_seq"].split(), [float(x) for x in seg["ph_dur"].split()]
+        sung = iter(n for n in seg["note_seq"].split() if n != "rest")
+        notes, durs, i = [], [], 0
+        for n in (int(x) for x in seg["ph_num"].split()):
+            word = phones[i:i + n]
+            notes.append("rest" if set(word) <= {"SP", "AP"} else next(sung, "A3"))
+            durs.append(f"{sum(ph_dur[i:i + n]):.2f}")
+            i += n
+        out.append({"offset": seg["offset"], "ph_seq": seg["ph_seq"], "ph_num": seg["ph_num"],
+                    "note_seq": " ".join(notes), "note_dur": " ".join(durs),
+                    "note_dur_seq": " ".join(durs), "note_slur": " ".join(["0"] * len(notes))})
+    return out
+
+
+def write_variance_tree(tmp: str, torch) -> dict:
+    """``checkpoints/variance/{svs,dur,pitch,voicing,breath}`` under ``tmp``:
+    each model built by the port on seeded weights and written as a JAX
+    checkpoint (``*_flax_params``, ``utils/ckpt_utils.py``) with its
+    ``config.yaml`` and maps; the NSF-HiFiGAN generator and a dictionary
+    beside them. Returns the hparams by task."""
+    import yaml
+
+    from prodiff_tpu_torch.config import load_base_config
+    from prodiff_tpu_torch.infer.handler import phone_encoder
+    from prodiff_tpu_torch.models.duration import DurPredictor
+    from prodiff_tpu_torch.models.pitch_predictor import PitchPredictor
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.models.vari_predictor import VariPredictor
+    from prodiff_tpu_torch.utils import ckpt_utils, convert
+
+    dict_dir = os.path.join(tmp, "dictionary")
+    os.makedirs(dict_dir)
+    with open(os.path.join(dict_dir, "zh.txt"), "w") as f:
+        f.writelines(f"{w}\t{p}\n" for w, p in VAR_WORDS.items())
+    with open(os.path.join(dict_dir, "zh_phones.txt"), "w") as f:
+        f.writelines(f"{p} {k} {c}\n" for p, (k, c) in VAR_PHONE_KINDS.items())
+    voc_dir = os.path.join(tmp, "nsf_hifigan")
+    os.makedirs(voc_dir)
+    torch.manual_seed(SEED)
+    torch.save({"generator": seeded_generator(torch).state_dict()},
+               os.path.join(voc_dir, "model"))
+    with open(os.path.join(voc_dir, "config.json"), "w") as f:
+        json.dump(VOCODER_H, f)
+
+    base = load_base_config()
+    hp = dict(base, seed=SEED, num_spk=len(SPEAKERS), languages={"zh": 1},
+              datasets=[{"speaker": s} for s in SPEAKERS],
+              dictionary={"zh": {"word": os.path.join(dict_dir, "zh.txt"),
+                                 "phoneme": os.path.join(dict_dir, "zh_phones.txt")}},
+              vocoder_ckpt=os.path.join(voc_dir, "model"), precompile_buckets=[[64, 512]])
+    hps = {"svs": dict(hp, diff_type="reflow"), "dur": hp, "pitch": hp, "voicing": hp,
+           "breath": hp}
+    vocab = len(phone_encoder(VAR_PHONES))
+    models = {
+        "svs": (ProDiffTeacher(vocab, hps["svs"]), convert.teacher_flax_params),
+        "dur": (DurPredictor(vocab, hp), convert.dur_predictor_flax_params),
+        "pitch": (PitchPredictor(len(VAR_CATEGORIES) + 3, hp), convert.pitch_predictor_flax_params),
+        "voicing": (VariPredictor(vocab, hp), convert.vari_predictor_flax_params),
+        "breath": (VariPredictor(vocab, hp), convert.vari_predictor_flax_params),
+    }
+    maps = {"phone_set.json": VAR_PHONES, "spk_map.json": SPEAKERS, "lang_map.json": {"zh": 1},
+            "ph_category_list.json": VAR_CATEGORIES}
+    wanted = {"svs": ("phone_set.json", "spk_map.json", "lang_map.json"),
+              "dur": ("phone_set.json",), "pitch": ("ph_category_list.json", "spk_map.json"),
+              "voicing": ("phone_set.json",), "breath": ("phone_set.json",)}
+    for task, (model, to_flax) in models.items():
+        # the reference zero-inits each denoiser's output projection: seed it
+        if hasattr(model, "diffusion"):
+            out = model.diffusion.denoise_fn.output_projection
+            torch.nn.init.normal_(out.weight, std=0.02)
+        if isinstance(model, VariPredictor):
+            # the curves diffuse in dB: centre each one's x0 in its clamp range,
+            # so that a random net's curve is not pinned to the range's end
+            r = model.diffusion.repeat_bins
+            with torch.no_grad():
+                for f, (lo, hi) in enumerate(model.diffusion.clamp_ranges):
+                    out.bias[f * r:(f + 1) * r] = (lo + hi) / 2
+        work = os.path.join(tmp, "checkpoints", VAR_EXP, task)
+        os.makedirs(work)
+        with open(os.path.join(work, "config.yaml"), "w") as f:
+            yaml.dump(hps[task], f)
+        for name in wanted[task]:
+            with open(os.path.join(work, name), "w") as f:
+                json.dump(maps[name], f)
+        ckpt_utils.save_checkpoint(work, 1, {"state_dict": to_flax(model.state_dict(), hps[task]),
+                                             "global_step": 1})
+        n = sum(p.numel() for p in model.parameters())
+        log(f"variance tree: {task} {type(model).__name__} {n / 1e6:.2f}M params, written as a "
+            f"JAX checkpoint")
+    return hps
+
+
+def event_median_ms(fn, torch, reps: int = VAR_REPS) -> float:
+    """Median of ``reps`` CUDA-event times of ``fn`` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def hold(name: str, got, ref) -> float:
+    """Card vs CPU within ``VAR_TOL``; returns the largest error."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max())
+    ok = got.shape == ref.shape and np.isfinite(got).all() and np.allclose(got, ref, **VAR_TOL)
+    log(f"card vs CPU {name} {list(ref.shape)}: max_abs_err {err:.3e}, range "
+        f"[{ref.min():.3f}, {ref.max():.3f}], tol atol {VAR_TOL['atol']} + rtol {VAR_TOL['rtol']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the card's {name} disagrees with the CPU's")
+    return err
+
+
+def phase_variance(dev, torch):
+    """The variance stack through the port's entry points at full width:
+    ``infer --pred_dur --pred_pitch --pred_voicing --pred_breath`` on
+    ``variance_project()`` with a reflow teacher, and the same project
+    through ``SVSInferHandler.handle`` with the teacher read as prodiff
+    (launch counts asserted),
+    each predictor timed and held against the CPU on injected noise, the
+    reflow teacher's render profiled and held against the CPU, and the web
+    server's prediction routes. Returns the K1 launches of the render."""
+    import copy
+    import shutil
+    import tempfile
+
+    import yaml
+    from scipy.io import wavfile
+
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.infer.handler import SVSInferHandler
+    from prodiff_tpu_torch.serve.handler import WebHandler
+
+    t_phase = time.time()
+    marks = [t_phase]
+
+    def mark(label):
+        marks.append(time.time())
+        log(f"variance phase, {label}: {marks[-1] - marks[-2]:.3f} s")
+
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_variance_")
+    root = os.path.join(tmp, "checkpoints")
+    hps = write_variance_tree(tmp, torch)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
+                           "example.ds")) as f:
+        example = json.load(f)
+    proj = variance_project(example)
+    proj_fn = os.path.join(tmp, "example_pred.ds")
+    with open(proj_fn, "w") as f:
+        json.dump(proj, f)
+    log(f"variance tree written in {time.time() - t_phase:.3f} s; project: "
+        f"{[s['note_seq'] for s in proj]}")
+
+    # 1. the CLI, in-process: every predictor, the reflow teacher, the vocoder
+    acoustic_calls = []
+    acoustic = SVSInferHandler._acoustic
+
+    def counted(self, *args):
+        acoustic_calls.append(args[1].shape)
+        return acoustic(self, *args)
+
+    def expected(steps):  # 2 curves x segments x 4 steps, and the teacher's steps a batch
+        return {"residual_stack": K1_LAUNCHES * (2 * len(proj) * vari_steps
+                                                 + steps * len(acoustic_calls)),
+                "resblock_stage": len(acoustic_calls) * 5 * 18}
+
+    def check_wav(label, seconds):
+        out_wav = os.path.join(tmp, "infer_out", f"example_pred【{VAR_EXP}】.wav")
+        sr, wav = wavfile.read(out_wav)
+        os.remove(out_wav)
+        if sr != hps["svs"]["audio_sample_rate"] or wav.ndim != 1 or wav.size == 0:
+            raise AssertionError(f"{out_wav}: {sr} Hz, shape {wav.shape}")
+        log(f"{label}: {seconds:.3f} s, wrote {wav.size} samples ({wav.size / sr:.3f} s, peak "
+            f"{np.abs(wav).max()}), acoustic batches {[list(s) for s in acoustic_calls]}")
+
+    vari_steps = hps["voicing"]["vari_prediction_args"]["timesteps"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    SVSInferHandler._acoustic = counted
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port_cli(["infer", proj_fn, "--exp_name", VAR_EXP, "--spk_name", "spk0", "--lang", "zh",
+                  "--pred_dur", "--pred_pitch", VAR_STYLE, "--pred_voicing", "--pred_breath"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = check_counts("infer --pred_dur --pred_pitch --pred_voicing --pred_breath "
+                                "(reflow teacher)", expected(hps["svs"]["sampling_steps"]))
+    finally:
+        SVSInferHandler._acoustic = acoustic
+        os.chdir(cwd)
+    check_wav(f"infer --pred_dur --pred_pitch {VAR_STYLE} --pred_voicing --pred_breath, reflow "
+              f"teacher (in-process CLI, models loaded from JAX checkpoints)", cli_s)
+    mark("the tree and the CLI render")
+
+    # 2. the same render by the handler, the teacher read as diff_type
+    # prodiff (4 DDPM steps: the same parameters, the svs config rewritten);
+    # then each predictor held against the CPU and timed
+    svs_cfg = os.path.join(root, VAR_EXP, "svs", "config.yaml")
+    with open(svs_cfg, "w") as f:
+        yaml.dump(dict(hps["svs"], diff_type="prodiff"), f)
+    core = SVSInferHandler(VAR_EXP, checkpoints_root=root, pred_dur=True, pred_pitch=VAR_STYLE,
+                           pred_voicing=True, pred_breath=True, device=dev,
+                           out_dir=os.path.join(tmp, "infer_out"))
+    with open(svs_cfg, "w") as f:  # the web server below reads the reflow teacher
+        yaml.dump(hps["svs"], f)
+    acoustic_calls.clear()
+    SVSInferHandler._acoustic = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        core.handle(json.loads(json.dumps(proj)), proj_fn, "spk0", "zh")
+        torch.cuda.synchronize()
+        check_counts("SVSInferHandler(pred_dur, pred_pitch, pred_voicing, pred_breath).handle "
+                     "(prodiff teacher)", expected(hps["svs"]["timesteps"]))
+    finally:
+        SVSInferHandler._acoustic = acoustic
+    check_wav("the same project through SVSInferHandler.handle, prodiff teacher",
+              time.perf_counter() - t0)
+    seg = dict(proj[0], lang="zh", spk_name="spk0")
+    phones = [core.ph_map[core.get_ph_text(p, "zh")] for p in seg["ph_seq"].split()]
+    ph_num = [int(x) for x in seg["ph_num"].split()]
+    note_dur = [float(x) for x in seg["note_dur"].split()]
+    note_midi, note_rest = core._note_midi_seq(seg)
+    note_dur_sec = np.array(seg["note_dur_seq"].split(), np.float32)
+    prepared = core.prepare(dict(seg))
+    mel_len, f0 = prepared["mel_len"], prepared["f0_seq"]
+    timestep, t_pad = core.timestep, -(-mel_len // hps["pitch"]["length_bucket_step"]) * \
+        hps["pitch"]["length_bucket_step"]
+    tokens = core.dur_predictor.encode(phones)
+    spk = core.pred_pitch_spk_id
+    rng = np.random.default_rng(SEED + 7)
+    pitch_noise = rng.normal(size=(1, 1, t_pad, 64)).astype(np.float32)
+    n_feat = 3
+    bins = hps["voicing"]["vari_prediction_args"]["repeat_bins"] // n_feat
+    vari_init = rng.uniform(size=(1, n_feat, t_pad, bins)).astype(np.float32)
+    vari_steps = rng.normal(size=(4, 1, n_feat, t_pad, bins)).astype(np.float32)
+
+    def on(device, a):
+        return torch.as_tensor(a, device=device)
+
+    runs = {
+        "dur": lambda inf, d: inf.run(tokens, ph_num, note_dur),
+        "pitch": lambda inf, d: inf.run(note_midi, note_rest, note_dur_sec, mel_len, timestep,
+                                        spk_id=spk, init_noise=on(d, pitch_noise)),
+        "voicing": lambda inf, d: inf.run(note_midi, note_rest, note_dur_sec, mel_len, timestep,
+                                          f0, init_noise=on(d, vari_init),
+                                          step_noises=on(d, vari_steps)),
+        "breath": lambda inf, d: inf.run(note_midi, note_rest, note_dur_sec, mel_len, timestep,
+                                         f0, init_noise=on(d, vari_init),
+                                         step_noises=on(d, vari_steps)),
+    }
+    def on_cpu(inferer):  # the same inferer with a copy of its weights on the CPU
+        twin = copy.copy(inferer)
+        twin.model, twin.device = copy.deepcopy(inferer.model).cpu(), torch.device("cpu")
+        return twin
+
+    cpu = {name: on_cpu(getattr(core, f"{name}_predictor"))
+           for name in ("dur", "pitch", "voicing", "breath")}
+    units = {"dur": "s", "pitch": "MIDI", "voicing": "dB", "breath": "dB"}
+    times, errors = {}, {}
+    raw = [torch.as_tensor(a) for a in cpu["dur"].model_inputs(tokens, ph_num, note_dur)]
+    with torch.no_grad():
+        errors["dur_model"] = hold("duration model's own output (s, before the alignment)",
+                                   core.dur_predictor.model(*(a.to(dev) for a in raw)).cpu(),
+                                   cpu["dur"].model(*raw))
+    for name, run in runs.items():
+        card_inf = getattr(core, f"{name}_predictor")
+        got = run(card_inf, dev)
+        errors[name] = hold(f"{name} predictor ({units[name]})", got, run(cpu[name], "cpu"))
+        reset_counts()
+        times[name] = event_median_ms(lambda: run(card_inf, dev), torch)
+        n = counters()["residual_stack"].count
+        log(f"{name} predictor on the card: median {times[name]:.3f} ms of {VAR_REPS} (CUDA "
+            f"events around inferer.run: inputs to the card, the model, the result to the host; "
+            f"mel_len {mel_len}, padded {t_pad}); K1 launches {n} in {VAR_REPS + 1} runs")
+    del cpu
+    mark("the predictors timed and held against the CPU")
+
+    # 3. renders profiled: one predicted segment (every predictor, the prodiff
+    # teacher, the vocoder; warm from the runs above), and the reflow
+    # teacher's render of a segment with given durations and pitch on the web
+    # server's handler (no predictors), whose teacher is then held against the
+    # CPU
+    ours = {"step_proj_kernel": "K1 wavenet_stack", "cond_kernel": "K1 wavenet_stack",
+            "chain_kernel": "K1 wavenet_stack", "conv_kernel": "K2/K3 resblock_stage"}
+
+    def profiled(label, fn, n):
+        wall_ms, busy, sums, _ = kernel_split(fn, n, ours, torch)
+        log(f"{label} (torch.profiler, mean of {n}): {wall_ms:.3f} ms host clock, {busy:.3f} ms "
+            f"of kernel time (device idle share {max(0.0, 1 - busy / wall_ms):.3f}); by group "
+            f"(ms): " + json.dumps({g: round(v, 3) for g, v in sums.items()}))
+
+    profiled(f"predicted render of one segment (dur, pitch, voicing, breath, prodiff teacher, "
+             f"vocoder; mel_len {mel_len})", lambda: core.infer(dict(seg)), 1)
+    web = WebHandler(VAR_EXP, checkpoints_root=root, host="127.0.0.1", port=0, device=dev)
+    teacher = web.core
+    p = teacher.prepare(dict(example[1], lang="zh", spk_name="spk1"))  # given durations, f0
+    teacher.render_batch([p])  # warm-up
+    profiled(f"reflow render ({hps['svs']['sampling_steps']} euler steps + NSF-HiFiGAN, mel_len "
+             f"{p['mel_len']})", lambda: teacher.render_batch([p]), 2)
+    mark("the renders profiled")
+
+    # 4. the reflow teacher held against the CPU; the web server's prediction
+    # routes and a render of what they predict
+    args = (p["ph_tokens"][None], p["mel2ph"][None], p["f0_seq"][None],
+            np.full((1, p["t_ph"]), p["lang_id"]), p["spk_mix_embed"], None, p["voicing"][None],
+            p["breath"][None])
+    cpu_t = SVSInferHandler(hparams=teacher.hparams, maps={"phone_set": teacher.ph_map,
+                                                           "spk_map": teacher.spk_map,
+                                                           "lang_map": teacher.lang_map},
+                            state_dict={k: v.cpu() for k, v in teacher.model.state_dict().items()},
+                            vocoder=teacher.vocoder, deterministic=True, device="cpu")
+    teacher.deterministic = True
+    errors["reflow_mel"] = hold(f"reflow teacher mel (log10, {hps['svs']['sampling_steps']} "
+                                f"euler steps from a zero start)",
+                                teacher._acoustic(*args).cpu().numpy(), cpu_t._acoustic(*args))
+    teacher.deterministic = False
+    del cpu_t
+    server = web.make_server()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        info = post(f"{url}/api/basic_info")
+        if info["pitch_styles"] != list(SPEAKERS):
+            raise AssertionError(f"basic_info pitch_styles {info['pitch_styles']}")
+        words, word_dur = ["ba", "w3", "SP", "w7", "w11"], [0.45, 0.5, 0.2, 0.6, 0.55]
+        t0 = time.perf_counter()
+        dur = post(f"{url}/api/pred_dur", {"language": "zh", "word_list": words,
+                                           "word_dur_list": word_dur, "start_time": 1.0})
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        ph = [p for w in dur["note_ph_list"] for p in w]
+        if len(dur["note_ph_list"]) != len(words) or len(ph) != 1 + 2 * 4 + 1 or \
+                abs(ph[-1]["end_time"] - dur["start_time"] - 0.5 - sum(word_dur)) > 1e-4:
+            raise AssertionError(f"/api/pred_dur: {dur}")
+        phones = [p["ph"] for p in ph]
+        ph_dur = [p["end_time"] - p["start_time"] for p in ph]
+        ph_acc = np.round(np.cumsum(ph_dur) / web.timestep + 0.5).astype(np.int64)
+        mel_len = int(ph_acc[-1])
+        req = {"language": "zh", "ph_text_list": phones, "ph_dur_list": ph_dur,
+               "note_midi_list": [-1.0, 57.0, 59.0, -1.0, 62.0, 60.0],
+               "note_dur_list": [0.5] + word_dur, "style": VAR_STYLE}
+        t0 = time.perf_counter()
+        pitch = post(f"{url}/api/pred_pitch", req)["pitch"]
+        pitch_ms = (time.perf_counter() - t0) * 1e3
+        if len(pitch) != mel_len or not np.isfinite(pitch).all():
+            raise AssertionError(f"/api/pred_pitch: {len(pitch)} values, want {mel_len}")
+        t0 = time.perf_counter()
+        wav = post(f"{url}/api/infer", {"speaker": "spk0", "language": "zh",
+                                        "ph_text_list": phones, "ph_dur_list": ph_dur,
+                                        "pitch_list": pitch})["wav"]
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        if len(wav) != mel_len * web.hparams["hop_size"] or not np.isfinite(wav).all():
+            raise AssertionError(f"/api/infer: {len(wav)} samples, want {mel_len} frames")
+        log(f"web: /api/pred_dur {len(phones)} phonemes in {dur_ms:.3f} ms, /api/pred_pitch "
+            f"{mel_len} frames in {pitch_ms:.3f} ms, /api/infer {len(wav)} samples in "
+            f"{infer_ms:.3f} ms (HTTP 200 each, host clock at the client)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+    mark("the reflow teacher held against the CPU, and the web routes")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"variance phase: {time.time() - t_phase:.3f} s; predictor medians (ms) "
+        f"{json.dumps({k: round(v, 3) for k, v in times.items()})}; card vs CPU max errors "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errors.items()})}")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -1699,13 +2156,24 @@ def main() -> int:
         log(f"package: {os.path.dirname(prodiff_tpu_torch.__file__)}")
         print(json.dumps(phase_fastdiff_kernels(dev, torch, split=False)))
         return 0
-    k1, res = phase_kernels(dev, torch)
-    fd = phase_fastdiff_kernels(dev, torch)
-    k5a, k5b = phase_train_kernels(dev, torch)
-    launches = phase_slice(dev, torch)
-    fd_launches, fd_unfused_launches, fd_mono_launches = phase_fastdiff(dev, torch)
-    vocode_launches = phase_vocode(dev, torch)
-    train_launches = phase_train(dev, torch)
+    spent = {}
+
+    def timed_phase(name, fn):
+        t_start = time.time()
+        out = fn(dev, torch)
+        spent[name] = round(time.time() - t_start, 3)
+        log(f"phase {name}: {spent[name]:.3f} s")
+        return out
+
+    k1, res = timed_phase("kernels", phase_kernels)
+    fd = timed_phase("fastdiff_kernels", phase_fastdiff_kernels)
+    k5a, k5b = timed_phase("train_kernels", phase_train_kernels)
+    launches = timed_phase("slice", phase_slice)
+    fd_launches, fd_unfused_launches, fd_mono_launches = timed_phase("fastdiff", phase_fastdiff)
+    vocode_launches = timed_phase("vocode", phase_vocode)
+    train_launches = timed_phase("train", phase_train)
+    variance_launches = timed_phase("variance", phase_variance)
+    log(f"phase seconds: {json.dumps(spent)}")
 
     def entry(name, source, replaces, n, m):
         return dict(name=name, route="cuda", source=f"prodiff_tpu_torch/csrc/{source}",
@@ -1716,13 +2184,15 @@ def main() -> int:
     kernels = [
         dict(entry("wavenet_residual_stack", "wavenet_stack.cu",
                    "prodiff_tpu/ops/pallas/wavenet.py:177", launches["residual_stack"], k1),
-             by_shape=k1["by_shape"]),
+             by_shape=k1["by_shape"],
+             launches_variance_render=variance_launches["residual_stack"]),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
                    launches["resblock_stage"], res), stages=res["stages"]),
         dict(entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
                    fd_launches["ublock_layer"], fd["ublock_layer"]),
              bound_sum_of_blocks_ms=fd["ublock_layer"]["bound_sum_of_blocks_ms"],
-             by_block=fd["ublock_layer"]["by_block"]),
+             by_block=fd["ublock_layer"]["by_block"],
+             widened_hops=fd["ublock_layer"]["widened_hops"]),
         dict(entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",
                    fd_unfused_launches["lvc"], fd["lvc"]),
              bound_sum_of_blocks_ms=fd["lvc"]["bound_sum_of_blocks_ms"], by_block=fd["lvc"]["by_block"],

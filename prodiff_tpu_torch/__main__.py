@@ -73,6 +73,11 @@ def main(argv=None) -> None:
     infer.add_argument("--lang", default="zh")
     infer.add_argument("--keyshift", type=int, default=0)
     infer.add_argument("--gender", type=float, default=0.0)
+    infer.add_argument("--pred_dur", action="store_true", help="predict phoneme durations")
+    infer.add_argument("--pred_pitch", default="", metavar="STYLE",
+                       help="predict pitch in this speaker's style")
+    infer.add_argument("--pred_voicing", action="store_true", help="predict the voicing curve")
+    infer.add_argument("--pred_breath", action="store_true", help="predict the breath curve")
     infer.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
     vocode = sub.add_parser("vocode", help="run audio through a vocoder")
@@ -108,7 +113,9 @@ def main(argv=None) -> None:
     elif args.command == "infer":
         from prodiff_tpu_torch.infer.handler import SVSInferHandler
 
-        handler = SVSInferHandler(exp_name=args.exp_name, device=args.device)
+        handler = SVSInferHandler(exp_name=args.exp_name, pred_dur=args.pred_dur,
+                                  pred_pitch=args.pred_pitch, pred_voicing=args.pred_voicing,
+                                  pred_breath=args.pred_breath, device=args.device)
         for path in handler.handle(None, args.proj, args.spk_name, args.lang,
                                    args.keyshift, args.gender):
             print(f"| wrote {path}")

@@ -1,6 +1,9 @@
 """Experiment config loading (the port's copy of ``load_config``,
 ``load_base_config`` and ``set_hparams`` of ``prodiff_tpu/config.py``).
 
+:func:`predictor_hparams` resolves an auxiliary predictor's config as the
+JAX package's ``infer/inferers.py:_resolve_hparams`` does.
+
 A config is YAML with an optional ``base_config`` parent (one path, a list
 of paths merged in order, or ``base``/``builtin`` for the shipped defaults);
 the child's keys shallow-override the parent's. The shipped defaults are the
@@ -78,3 +81,12 @@ def set_hparams(exp_name: Optional[str] = None, task: Optional[str] = None,
         with open(os.path.join(work_dir, "config.yaml"), "w") as f:
             yaml.dump(hp, f)
     return hp
+
+
+def predictor_hparams(exp_name: str, task: str, checkpoints_root: str = "checkpoints"
+                      ) -> Dict[str, Any]:
+    """A predictor's hparams (``task``: ``dur``, ``pitch``, ``voicing`` or
+    ``breath``): the experiment's own ``{exp_name}/{task}/config.yaml``
+    where it exists, else the global ``checkpoints_root/{task}``."""
+    local = os.path.join(checkpoints_root, exp_name, task, "config.yaml")
+    return set_hparams(exp_name if os.path.exists(local) else None, task, checkpoints_root)

@@ -337,7 +337,7 @@ int lvc_grid_of(int B, int T, int hop, int* grid) {
 // window, groups, stages, shared-memory bytes a block. Returns 0, or
 // cudaErrorInvalidValue for a hop the kernel does not take.
 extern "C" int lvc_plan(int hop, int* out) {
-  if (hop < 8 || hop % 8) return (int)cudaErrorInvalidValue;
+  if (!lvcw::hop_supported(hop)) return (int)cudaErrorInvalidValue;
   const Plan p = plan_for(hop);
   out[0] = p.rows;
   out[1] = p.pieces;
@@ -350,7 +350,7 @@ extern "C" int lvc_plan(int hop, int* out) {
 // Blocks of the persistent grid for (B, T, hop) on the current device, or -1.
 extern "C" int lvc_grid(int B, int T, int hop) {
   int grid = 0;
-  return hop >= 8 && hop % 8 == 0 && lvc_grid_of(B, T, hop, &grid) == 0 ? grid : -1;
+  return lvcw::hop_supported(hop) && lvc_grid_of(B, T, hop, &grid) == 0 ? grid : -1;
 }
 
 // x [B, T, 32]; km [N, B, L, layers*96, 64], lb [N, B, L, layers*64] (a plain
@@ -360,7 +360,7 @@ extern "C" int lvc_grid(int B, int T, int hop) {
 extern "C" int lvc_forward(const float* x, const float* km, const float* lb, float* y, int B,
                            int T, int L, int hop, int layers, int step, int layer,
                            void* stream_ptr) {
-  if (B < 1 || L < 1 || hop < 8 || hop % 8 || T != L * hop || layers < 1 || step < 0 ||
+  if (B < 1 || L < 1 || !lvcw::hop_supported(hop) || T != L * hop || layers < 1 || step < 0 ||
       layer < 0 || layer >= layers)
     return (int)cudaErrorInvalidValue;
   const Plan p = plan_for(hop);

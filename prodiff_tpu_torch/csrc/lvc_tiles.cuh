@@ -11,7 +11,11 @@
 //
 // A unit is R rows t0 .. t0 + R - 1 of one batch row (t0 a multiple of R);
 // the last unit of a row may reach past T, and its rows there are neither
-// computed into y nor written. Two plans:
+// computed into y nor written. The hop is any multiple of 8
+// (lvc_window.cuh:hop_supported): the window product works on 8-row tiles
+// starting at multiples of 8, so each tile lies in one window, and a unit
+// may span windows of any such hop (5 at hop 72, the most a tiled unit
+// stages). Two plans:
 //   - tiled, hop >= 64 (FastDiff's audio-rate blocks, bound by FP32 FMAs):
 //     R = 256; the unit's window kernels (up to 4 windows at hop 64 and 96)
 //     are copied into shared memory; each thread computes 8 rows x 8 outputs

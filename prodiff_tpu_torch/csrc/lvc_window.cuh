@@ -21,11 +21,10 @@ constexpr int KC = 3 * C;
 constexpr int NT = 256;
 constexpr int MAX_SMEM = 232448;
 
-// The hops of K4 and K7 (lvc_tiles.cuh's units): 8, 16 or a multiple of 32.
-// K6 takes every multiple of 8 (lvc.cu).
-__host__ inline bool hop_supported(int hop) {
-  return hop == 8 || hop == 16 || (hop > 0 && hop % 32 == 0);
-}
+// The hops of K4 (lvc_tiles.cuh's units) and K6 (lvc.cu): every multiple of
+// 8, as lvc_pallas. Each 8-row tile of a unit then lies in one window. K7
+// keeps its own gate (hop >= 64 and a multiple of 32, ublock_block.cu).
+__host__ inline bool hop_supported(int hop) { return hop >= 8 && hop % 8 == 0; }
 
 // Window (step, b, l, layer)'s kernel [KC, CO] and bias [CO] in the hoisted
 // stacks km [N, B, L, layers*KC, CO] and lb [N, B, L, layers*CO].

@@ -1,11 +1,15 @@
 """SVS inference: .ds project -> segments -> stitched wav (port of
-``prodiff_tpu/infer/handler.py:SVSInferHandler``, without the predictors).
+``prodiff_tpu/infer/handler.py:SVSInferHandler``).
 
-Per segment: phoneme ids through the phone map, given durations -> mel2ph,
-given (resampled) pitch, keyshift, speaker/gender mix embeds (weighted sums
-of the embedding tables), voicing/breath curves (constant -10/-50 dB when a
-segment gives none), the 4-step acoustic model, the vocoder, then offset /
-cross-fade stitching into one track. Segments are grouped by padded
+Per segment: phoneme ids through the phone map, given or predicted
+(``pred_dur``) durations -> mel2ph, given (resampled) or predicted
+(``pred_pitch STYLE``) pitch, keyshift, speaker/gender mix embeds (weighted
+sums of the embedding tables), voicing/breath curves (given, predicted with
+``pred_voicing``/``pred_breath``, else constant -10/-50 dB), the acoustic
+model (4 DDPM steps, or ``sampling_steps`` of a ``diff_type: reflow``
+teacher's flow), the vocoder, then offset / cross-fade stitching into one
+track. The predictors (``infer/inferers.py``) load from the experiment
+directory. Segments are grouped by padded
 ``(T_ph, T_mel)`` bucket and each group runs as one batch; padded mel frames
 are filled with the log10 silence floor before vocoding and the wav is
 trimmed to the true length.
@@ -26,7 +30,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from prodiff_tpu_torch.data.collate import round_up
 from prodiff_tpu_torch.device import resolve_device
+from prodiff_tpu_torch.infer.inferers import (
+    DurPredictorInferer,
+    PitchPredictorInferer,
+    VariPredictorInferer,
+)
 from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
 from prodiff_tpu_torch.utils.audio import cross_fade, save_wav
 from prodiff_tpu_torch.utils.convert import (
@@ -34,7 +44,7 @@ from prodiff_tpu_torch.utils.convert import (
     load_flax_checkpoint,
     teacher_state_dict,
 )
-from prodiff_tpu_torch.utils.pitch_utils import resample_align_curve, shift_pitch
+from prodiff_tpu_torch.utils.pitch_utils import midi_to_hz, resample_align_curve, shift_pitch
 from prodiff_tpu_torch.utils.text_encoder import TokenTextEncoder
 from prodiff_tpu_torch.vocoders import get_vocoder_cls
 
@@ -42,13 +52,41 @@ MEL_PAD_LOG10 = -5.0  # log10 of the STFT clip floor (silence)
 MAP_FILES = {"phone_set": "phone_set.json", "spk_map": "spk_map.json", "lang_map": "lang_map.json"}
 
 
-def round_up(x: int, multiple: int) -> int:
-    return ((x + multiple - 1) // multiple) * multiple
-
-
 def phone_encoder(ph_map: Dict[str, str]) -> TokenTextEncoder:
     """Token encoder over the phone set's phonemes (``phone_set.json``)."""
     return TokenTextEncoder(sorted(set(ph_map.values())), replace_oov="SP")
+
+
+def note_to_midi(note: str) -> float:
+    """'C4'/'A#3'/'Db5' (+cents '+50') -> fractional midi (librosa-compatible)."""
+    import re
+
+    pitch_map = {"C": 0, "D": 2, "E": 4, "F": 5, "G": 7, "A": 9, "B": 11}
+    acc_map = {"#": 1, "": 0, "b": -1, "!": -1, "♯": 1, "♭": -1}
+    m = re.match(r"^(?P<note>[A-Ga-g])(?P<accidental>[#♯b!♭]*)(?P<octave>[+-]?\d+)?"
+                 r"(?P<cents>[+-]\d+)?$", note)
+    if not m:
+        raise ValueError(f"Improper note format: {note!r}")
+    pitch = pitch_map[m.group("note").upper()]
+    offset = sum(acc_map[ch] for ch in m.group("accidental"))
+    octave = int(m.group("octave")) if m.group("octave") else 0
+    cents = int(m.group("cents")) * 1e-2 if m.group("cents") else 0
+    return 12 * (octave + 1) + pitch + offset + cents
+
+
+def interp_rest_midi(note_midi: np.ndarray):
+    """-> (midi with rests (-1) nearest-interpolated from the sung notes, or
+    all 60 when every note rests; the rest mask)."""
+    note_rest = note_midi == -1
+    if np.all(note_rest):
+        return np.full_like(note_midi, 60.0), note_rest
+    from scipy import interpolate
+
+    interp_func = interpolate.interp1d(np.where(~note_rest)[0], note_midi[~note_rest],
+                                       kind="nearest", fill_value="extrapolate")
+    note_midi = note_midi.copy()
+    note_midi[note_rest] = interp_func(np.where(note_rest)[0])
+    return note_midi, note_rest
 
 
 def _unsupported(option: str, slice_name: str) -> NotImplementedError:
@@ -75,10 +113,6 @@ class SVSInferHandler:
         maps: Optional[Dict[str, dict]] = None,
         vocoder=None,
     ):
-        for option, on in (("pred_dur", pred_dur), ("pred_pitch", pred_pitch),
-                           ("pred_voicing", pred_voicing), ("pred_breath", pred_breath)):
-            if on:
-                raise _unsupported(option, "variance")
         for option, on in (("isolate_aspiration", isolate_aspiration),
                            ("isolate_base_harmonic", isolate_base_harmonic)):
             if on:
@@ -95,13 +129,15 @@ class SVSInferHandler:
         elif state_dict is None or maps is None:
             raise ValueError("an in-memory handler needs hparams, state_dict and maps")
         self.hparams = hparams
-        if hparams.get("diff_type", "prodiff") != "prodiff":
-            raise _unsupported("diff_type reflow", "variance")
         self.hop_size = hparams["hop_size"]
         self.audio_sample_rate = hparams["audio_sample_rate"]
         self.timestep = self.hop_size / self.audio_sample_rate
         self.mel_bucket = hparams.get("length_bucket_step", 128)
-        self.infer_step = int(hparams.get("timesteps", 4))
+        # a DDPM teacher samples `timesteps` posterior steps, a reflow
+        # teacher integrates `sampling_steps` ODE steps
+        self.reflow = hparams.get("diff_type", "prodiff") == "reflow"
+        self.infer_step = int(hparams.get("sampling_steps", 20) if self.reflow
+                              else hparams.get("timesteps", 4))
 
         self.ph_map = maps["phone_set"]
         self.ph_encoder = phone_encoder(self.ph_map)
@@ -114,6 +150,27 @@ class SVSInferHandler:
             for name in ("spk_embed", "gender_embed") if hasattr(self.model, name)
         }
         self.vocoder = vocoder or get_vocoder_cls(hparams["vocoder"])(hparams, device=self.device)
+        self._load_predictors(exp_name, checkpoints_root, pred_dur, pred_pitch, pred_voicing,
+                              pred_breath)
+
+    def _load_predictors(self, exp_name, checkpoints_root, pred_dur, pred_pitch, pred_voicing,
+                         pred_breath) -> None:
+        self.pred_dur, self.pred_pitch = bool(pred_dur), bool(pred_pitch)
+        if not (pred_dur or pred_pitch or pred_voicing or pred_breath):
+            return
+        if exp_name is None:
+            raise ValueError("the predictors load from an experiment directory: give exp_name")
+        if pred_dur:
+            self.dur_predictor = DurPredictorInferer.from_workdir(
+                exp_name, checkpoints_root, self.ph_encoder, self.device)
+        if pred_pitch:
+            self.pred_pitch_spk_id = self.spk_map[pred_pitch]
+            self.pitch_predictor = PitchPredictorInferer.from_workdir(
+                exp_name, checkpoints_root, self.device)
+        for feature, on in (("voicing", pred_voicing), ("breath", pred_breath)):
+            if on:
+                setattr(self, f"{feature}_predictor", VariPredictorInferer.from_workdir(
+                    exp_name, checkpoints_root, feature, self.device))
 
     # ---- assets -------------------------------------------------------------
 
@@ -174,7 +231,8 @@ class SVSInferHandler:
         if self.deterministic:
             shape = (b, 1, t_mel, self.hparams["audio_num_mel_bins"])
             init_noise = torch.zeros(shape, device=self.device)
-            step_noises = torch.zeros((self.infer_step, *shape), device=self.device)
+            if not self.reflow:  # the flow's start point is its only noise
+                step_noises = torch.zeros((self.infer_step, *shape), device=self.device)
         else:
             generator = torch.Generator(self.device).manual_seed(int(self.hparams.get("seed", 1234)))
         return self.model.infer(
@@ -231,11 +289,35 @@ class SVSInferHandler:
             return ph
         return f"{ph}/{lang}" if "/" not in ph else ph
 
-    def _variance_curve(self, segment: dict, key: str, mel_len: int, default_db: float) -> np.ndarray:
+    @staticmethod
+    def get_note_dur(note_dur: List[float], note_slur: List[int]) -> List[float]:
+        """Merge slurred notes into their word's note."""
+        out: List[float] = []
+        for d, s in zip(note_dur, note_slur):
+            if s == 0 or not out:
+                out.append(d)
+            else:
+                out[-1] += d
+        return out
+
+    @staticmethod
+    def _note_midi_seq(segment: dict):
+        """-> (note midi with rests interpolated, rest mask) of ``note_seq``."""
+        return interp_rest_midi(np.array([note_to_midi(n) if n != "rest" else -1.0
+                                          for n in segment["note_seq"].split()], np.float32))
+
+    def _variance_curve(self, segment: dict, key: str, mel_len: int, f0_seq: np.ndarray,
+                        default_db: float) -> np.ndarray:
         if key in segment:
             curve = np.array([float(x) for x in segment[key].split()], np.float32)
             ts = float(segment.get(f"{key}_timestep", self.timestep))
             return resample_align_curve(curve, ts, self.timestep, mel_len)
+        predictor = getattr(self, f"{key}_predictor", None)
+        if predictor is not None:
+            note_midi, note_rest = self._note_midi_seq(segment)
+            note_dur_sec = np.array(segment["note_dur_seq"].split(), np.float32)
+            return predictor.run(note_midi, note_rest, note_dur_sec, mel_len, self.timestep,
+                                 f0_seq)
         return np.full(mel_len, default_db, np.float32)
 
     def prepare(self, segment: dict) -> dict:
@@ -245,17 +327,31 @@ class SVSInferHandler:
         lang = segment.get("lang", None)
         ph_text_seq = [self.ph_map[self.get_ph_text(ph, lang)] for ph in segment["ph_seq"].split()]
         ph_tokens = np.asarray(self.ph_encoder.encode(ph_text_seq), np.int64)
-        ph_dur = np.array(segment["ph_dur"].split(), np.float32)
+        if self.pred_dur:
+            note_dur = self.get_note_dur([float(x) for x in segment["note_dur"].split()],
+                                         [int(x) for x in segment["note_slur"].split()])
+            ph_dur = self.dur_predictor.run(self.dur_predictor.encode(ph_text_seq),
+                                            [int(x) for x in segment["ph_num"].split()], note_dur)
+        else:
+            ph_dur = np.array(segment["ph_dur"].split(), np.float32)
         # mel2ph via the cumsum-round trick (reference handler.py:238-240)
         ph_acc = np.round(np.cumsum(ph_dur) / self.timestep + 0.5).astype(np.int64)
         durations = np.diff(ph_acc, prepend=0)
         mel_len = int(durations.sum())
         mel2ph = np.repeat(np.arange(1, len(ph_tokens) + 1), durations).astype(np.int64)
-        f0_seq = resample_align_curve(
-            np.array(segment["f0_seq"].split(), np.float32),
-            original_timestep=float(segment["f0_timestep"]),
-            target_timestep=self.timestep, align_length=mel_len,
-        )
+        if self.pred_pitch:
+            note_midi, note_rest = self._note_midi_seq(segment)
+            f0_midi = self.pitch_predictor.run(
+                note_midi, note_rest, np.array(segment["note_dur_seq"].split(), np.float32),
+                mel_len, self.timestep, spk_id=self.pred_pitch_spk_id,
+                pitch_expr=float(segment.get("pitch_expr", 1.0)))
+            f0_seq = midi_to_hz(f0_midi).astype(np.float32)
+        else:
+            f0_seq = resample_align_curve(
+                np.array(segment["f0_seq"].split(), np.float32),
+                original_timestep=float(segment["f0_timestep"]),
+                target_timestep=self.timestep, align_length=mel_len,
+            )
         if segment.get("keyshift", 0):
             f0_seq = shift_pitch(f0_seq, segment["keyshift"]).astype(np.float32)
         return {
@@ -269,9 +365,9 @@ class SVSInferHandler:
             if hp["use_spk_id"] else None,
             "gender_mix_embed": self.gender_mix_embed(float(segment.get("gender", 0)))
             if hp.get("use_gender_id", False) else None,
-            "voicing": self._variance_curve(segment, "voicing", mel_len, -10.0)
+            "voicing": self._variance_curve(segment, "voicing", mel_len, f0_seq, -10.0)
             if hp.get("use_voicing_embed", False) else None,
-            "breath": self._variance_curve(segment, "breath", mel_len, -50.0)
+            "breath": self._variance_curve(segment, "breath", mel_len, f0_seq, -50.0)
             if hp.get("use_breath_embed", False) else None,
         }
 

@@ -1,12 +1,14 @@
 """ProDiffTeacher, the SVS acoustic model (port of
-``prodiff_tpu/models/prodiff.py``, ``diff_type: prodiff``).
+``prodiff_tpu/models/prodiff.py``).
 
 Phoneme encoder with duration/language extra embeds -> length-regulate to
 frames through mel2ph -> add pitch/speaker/gender/voicing/breath
-conditioning -> zero padded frames -> 4-step x0-prediction diffusion over
-the mel. :meth:`ProDiffTeacher.forward` is the training call (``gt_spec``
--> ``(x0_pred, x0)``), :meth:`ProDiffTeacher.infer` samples. Rectified flow
-(``diff_type: reflow``) waits for a later slice.
+conditioning -> zero padded frames -> the mel's diffusion: the 4-step
+x0-prediction DDPM (``diff_type: prodiff``) or a rectified flow integrated
+over ``sampling_steps`` (``diff_type: reflow``, the mel min-max normalised
+by ``spec_min``/``spec_max``; its start point is its only noise).
+:meth:`ProDiffTeacher.forward` is the training call of the DDPM (``gt_spec``
+-> ``(x0_pred, x0)``), :meth:`ProDiffTeacher.infer` samples either.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn as nn
 from prodiff_tpu_torch.models.common import Embedding, Linear
 from prodiff_tpu_torch.models.diffusion import GaussianDiffusion
 from prodiff_tpu_torch.models.encoder import FastspeechEncoder
+from prodiff_tpu_torch.models.reflow import RectifiedFlow
 from prodiff_tpu_torch.models.wavenet import WaveNet
 from prodiff_tpu_torch.ops.seq import mel2ph_to_dur, regulate_hidden
 
@@ -27,11 +30,9 @@ class ProDiffTeacher(nn.Module):
     def __init__(self, vocab_size: int, hparams: Dict[str, Any]):
         super().__init__()
         hp = hparams
-        diff_type = hp.get("diff_type", "prodiff")
-        if diff_type != "prodiff":
-            raise NotImplementedError(
-                f"diff_type {diff_type!r}: rectified flow lands with the variance slice"
-            )
+        self.diff_type = hp.get("diff_type", "prodiff")
+        if self.diff_type not in ("prodiff", "reflow"):
+            raise NotImplementedError(f"diff_type {self.diff_type!r}")
         hidden = hp["hidden_size"]
         self.mel_bins = hp["audio_num_mel_bins"]
         self.encoder = FastspeechEncoder(
@@ -63,11 +64,18 @@ class ProDiffTeacher(nn.Module):
             residual_channels=hp["residual_channels"],
             dilation_cycle_length=hp["dilation_cycle_length"],
         )
-        self.diffusion = GaussianDiffusion(
-            denoise_fn=denoiser, out_dims=self.mel_bins, timesteps=hp["timesteps"],
-            schedule_type=hp["schedule_type"], max_beta=hp.get("max_beta", 0.06),
-            noise_init=hp.get("diff_noise_init", "uniform"),
-        )
+        if self.diff_type == "prodiff":
+            self.diffusion = GaussianDiffusion(
+                denoise_fn=denoiser, out_dims=self.mel_bins, timesteps=hp["timesteps"],
+                schedule_type=hp["schedule_type"], max_beta=hp.get("max_beta", 0.06),
+                noise_init=hp.get("diff_noise_init", "uniform"),
+            )
+        else:
+            self.diffusion = RectifiedFlow(
+                denoise_fn=denoiser, out_dims=self.mel_bins, time_scale=hp["timescale"],
+                sampling_algorithm=hp.get("sampling_algorithm", "euler"),
+                spec_min=tuple(hp["spec_min"]), spec_max=tuple(hp["spec_max"]),
+            )
 
     def forward_condition(
         self,
@@ -117,7 +125,10 @@ class ProDiffTeacher(nn.Module):
                 generator: Optional[torch.Generator] = None, **cond_kw):
         """Training: ``gt_spec`` [B, T_mel, M] -> (x0_pred, x0), both
         [B, 1, T_mel, M]. ``t``/``noise``/``generator`` as
-        :meth:`GaussianDiffusion.forward`; ``cond_kw`` as :meth:`infer`."""
+        :meth:`GaussianDiffusion.forward`; ``cond_kw`` as :meth:`infer`.
+        (Training a reflow teacher is not ported yet.)"""
+        if self.diff_type != "prodiff":
+            raise NotImplementedError("training a diff_type reflow teacher is not ported yet")
         condition = self.forward_condition(txt_tokens, mel2ph, f0, **cond_kw)
         return self.diffusion(condition, gt_spec[:, None], t=t, noise=noise, generator=generator)
 
@@ -127,10 +138,15 @@ class ProDiffTeacher(nn.Module):
               step_noises: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None, **cond_kw) -> torch.Tensor:
         """Sample a mel [B, T_mel, M]; ``cond_kw`` are the optional inputs of
-        :meth:`forward_condition`."""
+        :meth:`forward_condition`. A reflow teacher integrates ``infer_step``
+        steps from ``init_noise`` and takes no ``step_noises``."""
         condition = self.forward_condition(txt_tokens, mel2ph, f0, **cond_kw)
-        mel = self.diffusion.infer(
-            condition, infer_step=infer_step, init_noise=init_noise,
-            step_noises=step_noises, generator=generator,
-        )
+        if self.diff_type == "reflow":
+            mel = self.diffusion.infer(condition, infer_step=infer_step, init_noise=init_noise,
+                                       generator=generator)
+        else:
+            mel = self.diffusion.infer(
+                condition, infer_step=infer_step, init_noise=init_noise,
+                step_noises=step_noises, generator=generator,
+            )
         return mel[:, 0]

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,3 +29,22 @@ def regulate_hidden(encoder_out: torch.Tensor, mel2ph: torch.Tensor) -> torch.Te
     padded = F.pad(encoder_out, (0, 0, 1, 0))
     idx = mel2ph.long()[..., None].expand(-1, -1, encoder_out.shape[-1])
     return torch.gather(padded, 1, idx)
+
+
+def dur_to_mel2ph_host(ph_dur_sec, timestep: float, length: int) -> np.ndarray:
+    """Host-side durations in seconds -> mel2ph ``[length]`` (int64), by the
+    cumsum + round(+0.5) rule; frames past the durations' end repeat the last
+    token."""
+    ph_acc = np.round(np.cumsum(np.asarray(ph_dur_sec, dtype=np.float64)) / timestep
+                      + 0.5).astype(np.int64)
+    ph_dur = np.diff(ph_acc, prepend=0)
+    cumsum = np.cumsum(ph_dur)
+    total = int(cumsum[-1]) if len(cumsum) else 0
+    mel2ph = np.zeros(max(length, total), dtype=np.int64)
+    prev = 0
+    for i, c in enumerate(cumsum):
+        mel2ph[prev:c] = i + 1
+        prev = c
+    if total < length:
+        mel2ph[total:length] = mel2ph[total - 1] if total > 0 else 0
+    return mel2ph[:length]

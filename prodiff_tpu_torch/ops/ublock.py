@@ -39,13 +39,14 @@ import torch
 import torch.nn.functional as F
 
 from prodiff_tpu_torch.ops import cuda_build
-from prodiff_tpu_torch.ops.lvc import KERNEL_C, MAX_SMEM, HopRule, check_kernel_operands, lvc_plain
+# HOP_RULE: K4's hop contract is K6's, every multiple of 8
+# (csrc/lvc_window.cuh:hop_supported; each 8-row tile of csrc/lvc_tiles.cuh's
+# units lies in one window). K7 checks its operands by it too, behind its
+# own gate (mono_block_supported).
+from prodiff_tpu_torch.ops.lvc import (HOP_RULE, KERNEL_C, MAX_SMEM, check_kernel_operands,
+                                       lvc_plain)
 
 LRELU_SLOPE = 0.2
-# K4's and K7's hop contract: the hops of csrc/lvc_tiles.cuh's units
-# (csrc/lvc_window.cuh:hop_supported)
-HOP_RULE: HopRule = ("8, 16 or a multiple of 32",
-                     lambda hop: hop in (8, 16) or (hop > 0 and hop % 32 == 0))
 
 
 def gated_residual(xa: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,16 @@
 """Web serving on a stdlib HTTP server (port of ``prodiff_tpu/serve/handler.py``).
 
-- ``GET  /api/basic_info`` -> languages / speakers / hop / sample rate / pitch styles
+- ``GET  /api/basic_info`` -> languages / speakers / hop / sample rate /
+  pitch styles (the pitch predictor's ``spk_map.json``)
+- ``POST /api/pred_dur``   -> words + word durations -> per-phoneme timings
+  (words to phonemes through ``hparams["dictionary"]``)
+- ``POST /api/pred_pitch`` -> notes + phonemes -> pitch curve (MIDI)
 - ``POST /api/infer``      -> phonemes, durations, pitch -> wav samples
-- ``POST /api/pred_dur``, ``/api/pred_pitch`` -> a JSON error (501): the
-  predictors land with the variance slice.
 
-Requests render one at a time: the device work is serialised by a lock,
+The duration and pitch predictors load with the server where the
+experiment has them (its own, or the global ``checkpoints/{task}``); a
+route whose predictor did not load answers 400, as the JAX server's assert
+does. Requests run one at a time: the device work is serialised by a lock,
 while the HTTP threads parse and encode concurrently. A malformed request
 (``BadRequest``) answers 400; any other failure, a kernel's own contract
 check included, answers 500.
@@ -14,14 +19,17 @@ check included, answers 500.
 from __future__ import annotations
 
 import json
+import os
 import threading
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from itertools import chain
+from typing import List, Optional
 
 import numpy as np
 
-from prodiff_tpu_torch.infer.handler import SVSInferHandler
+from prodiff_tpu_torch.infer.handler import SVSInferHandler, interp_rest_midi
+from prodiff_tpu_torch.infer.inferers import DurPredictorInferer, PitchPredictorInferer
 from prodiff_tpu_torch.utils.pitch_utils import midi_to_hz
 
 
@@ -48,10 +56,69 @@ class WebHandler:
         self.hparams = self.core.hparams
         self.timestep = self.core.timestep
         self._render_lock = threading.Lock()
+        self.dur_predictor = self.pitch_predictor = None
+        self.pitch_pred_spk_map = {}
+        if exp_name is not None:
+            self._load_predictors(exp_name, checkpoints_root)
+        self._build_word_dictionary()
         # warm start (opt out with `precompile: false`): build the kernels and
         # run one bucket before accepting requests
         if self.hparams.get("precompile", True):
             print(f"| web: warmed up {self.core.warmup()}")
+
+    def _load_predictors(self, exp_name: str, checkpoints_root: str) -> None:
+        """The optional predictors: one the experiment does not have (no
+        config, phone set or checkpoint) is left out."""
+        core = self.core
+        try:
+            self.dur_predictor = DurPredictorInferer.from_workdir(
+                exp_name, checkpoints_root, core.ph_encoder, core.device)
+        except FileNotFoundError as e:
+            print(f"| web: dur predictor unavailable ({e})")
+        try:
+            self.pitch_predictor = PitchPredictorInferer.from_workdir(
+                exp_name, checkpoints_root, core.device)
+        except FileNotFoundError as e:
+            print(f"| web: pitch predictor unavailable ({e})")
+            return
+        spk_map = os.path.join(self.pitch_predictor.hparams["work_dir"], "spk_map.json")
+        if os.path.exists(spk_map):
+            with open(spk_map) as f:
+                self.pitch_pred_spk_map = json.load(f)
+
+    def _build_word_dictionary(self) -> None:
+        """Per language: word -> phonemes (``AP``/``SP`` and ``.{phoneme}``
+        included) and the consonants, from ``hparams["dictionary"]``."""
+        hp = self.hparams
+        self.word_dictionary, self.consonant_set = {}, {}
+        for lang in hp.get("languages", {}):
+            self.word_dictionary[lang] = {"AP": ["AP"], "SP": ["SP"]}
+            self.consonant_set[lang] = set()
+            try:
+                with open(hp["dictionary"][lang]["word"]) as f:
+                    for x in f.readlines():
+                        line = x.split("\n")[0].split("\t")
+                        self.word_dictionary[lang][line[0]] = line[1].split(" ")
+                with open(hp["dictionary"][lang]["phoneme"]) as f:
+                    for x in f.readlines():
+                        line = x.split("\n")[0].split(" ")
+                        if line[1] == "consonant":
+                            self.consonant_set[lang].add(line[0])
+                        self.word_dictionary[lang][f".{line[0]}"] = [line[0]]
+            except (FileNotFoundError, KeyError):
+                print(f"| web: dictionary for {lang!r} unavailable")
+
+    def get_ph_num_list(self, lang: str, word_ph_text_list: List[List[str]]) -> List[int]:
+        """Phonemes a word; a word's leading consonant belongs to the word
+        before it."""
+        ph_num = [0] * len(word_ph_text_list)
+        for i, ph_list in enumerate(word_ph_text_list):
+            for ph_idx, ph in enumerate(ph_list):
+                if ph_idx == 0 and ph in self.consonant_set.get(lang, set()) and i > 0:
+                    ph_num[i - 1] += 1
+                else:
+                    ph_num[i] += 1
+        return ph_num
 
     def api_basic_info(self, _req=None) -> dict:
         return {
@@ -59,14 +126,80 @@ class WebHandler:
             "speakers": list(self.core.spk_map.keys()),
             "hop_size": self.hparams["hop_size"],
             "samplerate": self.hparams["audio_sample_rate"],
-            "pitch_styles": [],
+            "pitch_styles": list(self.pitch_pred_spk_map.keys()),
         }
 
-    def api_pred_dur(self, _req: dict) -> dict:
-        raise NotImplementedError("/api/pred_dur: the duration predictor lands with the variance slice")
+    @staticmethod
+    def _require(req: dict, keys) -> None:
+        if not isinstance(req, dict):
+            raise BadRequest("the request body must be a JSON object")
+        for key in keys:
+            if key not in req:
+                raise BadRequest(f"{key} is required")
 
-    def api_pred_pitch(self, _req: dict) -> dict:
-        raise NotImplementedError("/api/pred_pitch: the pitch predictor lands with the variance slice")
+    def api_pred_dur(self, req: dict) -> dict:
+        """Words (a padding ``SP`` of ``padding_note_time`` s first) -> each
+        word's phonemes with start and end times."""
+        self._require(req, ("language", "word_list", "word_dur_list", "start_time"))
+        if self.dur_predictor is None:
+            raise BadRequest("dur predictor not loaded")
+        if not isinstance(req["word_list"], list) or \
+                len(_numbers(req, "word_dur_list")) != len(req["word_list"]):
+            raise BadRequest("word_dur_list must give one duration per word of word_list")
+        core, lang, words = self.core, req["language"], self.word_dictionary.get(req["language"], {})
+        word_list = ["SP"] + req["word_list"]
+        word_ph_text_list = [words.get(w, ["SP"]) for w in word_list]
+        ph_text_list = list(chain.from_iterable(
+            [core.ph_map.get(core.get_ph_text(ph, lang), "SP") for ph in ph_list]
+            for ph_list in word_ph_text_list))
+        padding_note_time = req.get("padding_note_time", 0.5)
+        with self._render_lock:
+            ph_dur = self.dur_predictor.run(
+                self.dur_predictor.encode(ph_text_list),
+                self.get_ph_num_list(lang, word_ph_text_list),
+                [padding_note_time] + req["word_dur_list"])
+        start_time = req["start_time"] - padding_note_time
+        ph_dur_list = [float(x) for x in ph_dur]
+        note_ph_list, idx, ph_start = [], 0, start_time
+        for i, word in enumerate(word_list[1:]):
+            word_ph_num = len(words.get(word, ["SP"])) + (1 if i == 0 else 0)  # + the padding SP
+            note_ph_list.append([])
+            for j in range(idx, idx + word_ph_num):
+                note_ph_list[-1].append({"ph": ph_text_list[j], "start_time": ph_start,
+                                         "end_time": ph_start + ph_dur_list[j]})
+                ph_start += ph_dur_list[j]
+            idx += word_ph_num
+        return {"start_time": start_time, "note_ph_list": note_ph_list}
+
+    def api_pred_pitch(self, req: dict) -> dict:
+        """Phonemes with durations and notes (midi, -1 a rest) -> the pitch
+        curve in MIDI, one value a frame; ``style`` picks the pitch
+        predictor's speaker."""
+        self._require(req, ("language", "ph_text_list", "ph_dur_list", "note_midi_list",
+                            "note_dur_list"))
+        if self.pitch_predictor is None:
+            raise BadRequest("pitch predictor not loaded")
+        ph_dur, note_dur = _numbers(req, "ph_dur_list"), _numbers(req, "note_dur_list")
+        if not isinstance(req["ph_text_list"], list) or len(ph_dur) != len(req["ph_text_list"]):
+            raise BadRequest("ph_dur_list must give one duration per phoneme of ph_text_list")
+        note_midi, note_rest = interp_rest_midi(_numbers(req, "note_midi_list"))
+        if len(note_dur) != len(note_midi):
+            raise BadRequest("note_dur_list must give one duration per note of note_midi_list")
+        ph_tokens = self.pitch_predictor.encode_ph_categories(req["ph_text_list"],
+                                                              req["language"])
+        ph_acc = np.round(np.cumsum(ph_dur) / self.timestep + 0.5).astype(np.int64)
+        durations = np.diff(ph_acc, prepend=0)
+        mel_len = int(durations.sum())
+        if mel_len < 1:
+            raise BadRequest("ph_dur_list covers no mel frame")
+        mel2ph = np.repeat(np.arange(1, len(ph_tokens) + 1), durations)
+        with self._render_lock:
+            pitch = self.pitch_predictor.run(
+                note_midi, note_rest, note_dur, mel_len, self.timestep,
+                spk_id=self.pitch_pred_spk_map.get(req.get("style", ""), 0),
+                pitch_expr=float(req.get("pitch_expr", 1.0)), ph_tokens=ph_tokens,
+                mel2ph=mel2ph)
+        return {"pitch": [float(x) for x in pitch]}
 
     def _validate_infer(self, req: dict):
         """-> (phonemes, durations [s], f0 [Hz] over mel_len frames); raises

@@ -5,7 +5,10 @@
   returns under ``state_dict``) into this port's ``state_dict``. It inverts
   ``prodiff_tpu/utils/teacher_convert.py:convert_prodiff_teacher``.
   :func:`teacher_flax_params` goes the other way, for the checkpoints the
-  port's trainer writes (``utils/ckpt_utils.py``).
+  port's trainer writes (``utils/ckpt_utils.py``). The variance stack's
+  models (``DurPredictor``, ``PitchPredictor``, ``VariPredictor``) have a
+  pair each (``*_state_dict``, ``*_flax_params``). All are tables of
+  ``(kind, port name, flax path)`` entries read both ways.
 - :func:`nsf_hifigan_state_dict` does the same for the NSF-HiFiGAN
   generator, inverting ``prodiff_tpu/utils/torch_convert.py:convert_nsf_hifigan``.
 - :func:`fastdiff_state_dict` does the same for the FastDiff vocoder,
@@ -77,55 +80,6 @@ def _params(tree: Dict[str, Any]) -> Dict[str, Any]:
     return tree["params"] if "params" in tree else tree
 
 
-def encoder_state_dict(enc: Dict[str, Any], n_layers: int, prefix: str = "encoder.") -> StateDict:
-    """JAX ``FastspeechEncoder`` params -> port ``FastspeechEncoder`` entries
-    (names start with ``prefix``)."""
-    sd: StateDict = {}
-    _embedding(sd, f"{prefix}embed_tokens", enc["embed_tokens"])
-    blocks = enc["fft_blocks"]
-    for i in range(n_layers):
-        src, dst = blocks[f"layers_{i}"], f"{prefix}layers.{i}.op"
-        _layer_norm(sd, f"{dst}.layer_norm1", src["layer_norm1"])
-        sd[f"{dst}.self_attn.in_proj_weight"] = _t(np.asarray(src["self_attn"]["in_proj"]["kernel"]).T)
-        _dense(sd, f"{dst}.self_attn.out_proj", src["self_attn"]["out_proj"])
-        _layer_norm(sd, f"{dst}.layer_norm2", src["layer_norm2"])
-        _conv(sd, f"{dst}.ffn.ffn_1", src["ffn"]["ffn_1"])
-        _linear(sd, f"{dst}.ffn.ffn_2", src["ffn"]["ffn_2"])
-    _layer_norm(sd, f"{prefix}layer_norm", blocks["layer_norm"])
-    return sd
-
-
-def wavenet_state_dict(net: Dict[str, Any], n_layers: int,
-                       prefix: str = "diffusion.denoise_fn.") -> StateDict:
-    """JAX ``WaveNet`` params -> port ``WaveNet`` entries (names start with ``prefix``)."""
-    sd: StateDict = {}
-    for name in ("input_projection", "skip_projection", "output_projection"):
-        _conv(sd, f"{prefix}{name}", net[name])
-    _linear(sd, f"{prefix}mlp.0", net["mlp_0"])
-    _linear(sd, f"{prefix}mlp.2", net["mlp_1"])
-    for i in range(n_layers):
-        layer, dst = net[f"layers_{i}"], f"{prefix}residual_layers.{i}"
-        _conv(sd, f"{dst}.dilated_conv", layer["dilated_conv"])
-        _linear(sd, f"{dst}.diffusion_projection", layer["diffusion_projection"])
-        _conv(sd, f"{dst}.output_projection", layer["output_projection"])
-        _conv(sd, f"{dst}.conditioner_projection", net[f"layers_{i}_conditioner_projection"])
-    return sd
-
-
-def teacher_state_dict(flax_params: Dict[str, Any], hparams: dict) -> StateDict:
-    """JAX ``ProDiffTeacher`` params -> this port's ``ProDiffTeacher`` state dict."""
-    p = _params(flax_params)
-    sd = encoder_state_dict(p["encoder"], hparams["enc_layers"])
-    for name in ("dur_embed", "pitch_embed", "voicing_embed", "breath_embed"):
-        if name in p:
-            _linear(sd, name, p[name])
-    for name in ("spk_embed", "gender_embed", "lang_embed"):
-        if name in p:
-            _embedding(sd, name, p[name])
-    sd.update(wavenet_state_dict(p["diffusion"]["denoise_fn"], hparams["residual_layers"]))
-    return sd
-
-
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float32)
 
@@ -146,45 +100,190 @@ def _layer_norm_params(sd: StateDict, src: str) -> dict:
     return {"scale": _np(sd[f"{src}.weight"]), "bias": _np(sd[f"{src}.bias"])}
 
 
+def _in_proj(sd: StateDict, dst: str, node: dict) -> None:
+    sd[dst] = _t(np.asarray(node["kernel"]).T)
+
+
+# How one port parameter group maps to one flax node, each way, by kind:
+# "dense" (nn.Dense), "linear" (the JAX Linear: a Dense named Dense_0),
+# "conv", "ln" (LayerNorm), "emb" (Embedding) and "in_proj" (the attention's
+# bias-free input projection, a port parameter of its own name).
+_TO_PORT = {"dense": _dense, "linear": _linear, "conv": _conv, "ln": _layer_norm,
+            "emb": _embedding, "in_proj": _in_proj}
+_TO_FLAX = {"dense": _dense_params,
+            "linear": lambda sd, src: {"Dense_0": _dense_params(sd, src)},
+            "conv": _conv_params, "ln": _layer_norm_params,
+            "emb": lambda sd, src: {"embedding": _np(sd[f"{src}.weight"])},
+            "in_proj": lambda sd, src: {"kernel": _np(sd[src]).T.copy()}}
+# (kind, port name, flax path)
+Entry = Tuple[str, str, Tuple[str, ...]]
+
+
+def _fft_entries(prefix: str, path: Tuple[str, ...], n_layers: int) -> List[Entry]:
+    """A block stack: the JAX ``FFTBlocks`` (``fft_blocks``) under ``path``,
+    the port's ``layers.{i}.op`` / ``layer_norm`` under ``prefix``."""
+    blocks = path + ("fft_blocks",)
+    out: List[Entry] = []
+    for i in range(n_layers):
+        src, dst = blocks + (f"layers_{i}",), f"{prefix}layers.{i}.op."
+        out += [("ln", dst + "layer_norm1", src + ("layer_norm1",)),
+                ("in_proj", dst + "self_attn.in_proj_weight", src + ("self_attn", "in_proj")),
+                ("dense", dst + "self_attn.out_proj", src + ("self_attn", "out_proj")),
+                ("ln", dst + "layer_norm2", src + ("layer_norm2",)),
+                ("conv", dst + "ffn.ffn_1", src + ("ffn", "ffn_1")),
+                ("linear", dst + "ffn.ffn_2", src + ("ffn", "ffn_2"))]
+    return out + [("ln", f"{prefix}layer_norm", blocks + ("layer_norm",))]
+
+
+def _encoder_entries(n_layers: int, name: str = "encoder") -> List[Entry]:
+    return ([("emb", f"{name}.embed_tokens", (name, "embed_tokens"))]
+            + _fft_entries(f"{name}.", (name,), n_layers))
+
+
+def _note_encoder_entries(n_layers: int, name: str = "note_encoder") -> List[Entry]:
+    return ([("linear", f"{name}.{e}", (name, e)) for e in ("note_midi_embed", "note_dur_embed")]
+            + _fft_entries(f"{name}.", (name,), n_layers))
+
+
+def _wavenet_entries(n_layers: int) -> List[Entry]:
+    """The denoiser at ``diffusion.denoise_fn`` (its conditioner projections
+    are siblings of the layers in the JAX tree)."""
+    path, pre = ("diffusion", "denoise_fn"), "diffusion.denoise_fn."
+    out: List[Entry] = [("conv", pre + n, path + (n,))
+                        for n in ("input_projection", "skip_projection", "output_projection")]
+    out += [("linear", pre + "mlp.0", path + ("mlp_0",)), ("linear", pre + "mlp.2", path + ("mlp_1",))]
+    for i in range(n_layers):
+        src, dst = path + (f"layers_{i}",), f"{pre}residual_layers.{i}."
+        out += [("conv", dst + "dilated_conv", src + ("dilated_conv",)),
+                ("linear", dst + "diffusion_projection", src + ("diffusion_projection",)),
+                ("conv", dst + "output_projection", src + ("output_projection",)),
+                ("conv", dst + "conditioner_projection",
+                 path + (f"layers_{i}_conditioner_projection",))]
+    return out
+
+
+def _top(kind: str, *names: str) -> List[Entry]:
+    return [(kind, n, (n,)) for n in names]
+
+
+def _state_dict(entries: List[Entry], flax_params: Dict[str, Any]) -> StateDict:
+    """Flax params -> port state dict; an entry whose node the tree lacks is
+    left out (an embed the hparams turn off)."""
+    sd: StateDict = {}
+    for kind, name, path in entries:
+        node = _params(flax_params)
+        for key in path:
+            node = node.get(key) if isinstance(node, dict) else None
+        if node is not None:
+            _TO_PORT[kind](sd, name, node)
+    return sd
+
+
+def _flax_params(entries: List[Entry], sd: StateDict) -> Dict[str, Any]:
+    """Port state dict -> flax params ``{"params": ...}``; an entry whose
+    parameters the state dict lacks is left out."""
+    tree: Dict[str, Any] = {}
+    for kind, name, path in entries:
+        if (name if kind == "in_proj" else f"{name}.weight") in sd:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = _TO_FLAX[kind](sd, name)
+    return {"params": tree}
+
+
+def _teacher_entries(hp: dict) -> List[Entry]:
+    return (_encoder_entries(hp["enc_layers"])
+            + _top("linear", "dur_embed", "pitch_embed", "voicing_embed", "breath_embed")
+            + _top("emb", "spk_embed", "gender_embed", "lang_embed")
+            + _wavenet_entries(hp["residual_layers"]))
+
+
+def _dur_entries(hp: dict) -> List[Entry]:
+    out = (_encoder_entries(hp["enc_layers"]) + _top("emb", "onset_embed")
+           + _top("linear", "word_dur_embed"))
+    for i in range(hp["dur_prediction_args"]["num_layers"]):
+        out += [("conv", f"dur_pred.conv.{i}.0", ("dur_pred", f"conv_{i}")),
+                ("ln", f"dur_pred.conv.{i}.2", ("dur_pred", f"norm_{i}"))]
+    return out + [("dense", "dur_pred.linear", ("dur_pred", "linear"))]
+
+
+def _note_predictor_entries(hp: dict, args_key: str, embeds: List[Entry]) -> List[Entry]:
+    args = hp[args_key]
+    return (_encoder_entries(hp["enc_layers"]) + _top("linear", "dur_embed")
+            + _note_encoder_entries(args["encoder_args"]["num_layers"])
+            + _top("linear", "note_encode_out_linear") + embeds
+            + _wavenet_entries(args["denoise_args"]["residual_layers"]))
+
+
+def _pitch_entries(hp: dict) -> List[Entry]:
+    return _note_predictor_entries(hp, "f0_prediction_args", _top("emb", "spk_embed")
+                                   + _top("linear", "delta_pitch_embed")
+                                   + _top("emb", "pitch_retake_embed"))
+
+
+def _vari_entries(hp: dict) -> List[Entry]:
+    return _note_predictor_entries(hp, "vari_prediction_args", _top("emb", "spk_embed")
+                                   + _top("linear", "pitch_embed"))
+
+
+def _rebase(entries: List[Entry], prefix: str, new_prefix: str, depth: int) -> List[Entry]:
+    """The entries of a submodule read on its own: port names re-prefixed,
+    the first ``depth`` keys of the flax paths dropped."""
+    return [(k, new_prefix + n[len(prefix):], p[depth:]) for k, n, p in entries]
+
+
+def encoder_state_dict(enc: Dict[str, Any], n_layers: int, prefix: str = "encoder.") -> StateDict:
+    """JAX ``FastspeechEncoder`` params -> port ``FastspeechEncoder`` entries
+    (names start with ``prefix``)."""
+    return _state_dict(_rebase(_encoder_entries(n_layers), "encoder.", prefix, 1), enc)
+
+
+def wavenet_state_dict(net: Dict[str, Any], n_layers: int,
+                       prefix: str = "diffusion.denoise_fn.") -> StateDict:
+    """JAX ``WaveNet`` params -> port ``WaveNet`` entries (names start with ``prefix``)."""
+    return _state_dict(_rebase(_wavenet_entries(n_layers), "diffusion.denoise_fn.", prefix, 2),
+                       net)
+
+
+def teacher_state_dict(flax_params: Dict[str, Any], hparams: dict) -> StateDict:
+    """JAX ``ProDiffTeacher`` params (``diff_type`` prodiff or reflow: the
+    rectified flow has no parameters of its own) -> this port's
+    ``ProDiffTeacher`` state dict."""
+    return _state_dict(_teacher_entries(hparams), flax_params)
+
+
 def teacher_flax_params(state_dict: StateDict, hparams: dict) -> Dict[str, Any]:
     """This port's ``ProDiffTeacher`` state dict -> the JAX package's param
     tree ``{"params": ...}`` (the inverse of :func:`teacher_state_dict`)."""
-    sd = state_dict
-    blocks = {}
-    for i in range(hparams["enc_layers"]):
-        src = f"encoder.layers.{i}.op"
-        blocks[f"layers_{i}"] = {
-            "layer_norm1": _layer_norm_params(sd, f"{src}.layer_norm1"),
-            "self_attn": {"in_proj": {"kernel": _np(sd[f"{src}.self_attn.in_proj_weight"]).T.copy()},
-                          "out_proj": _dense_params(sd, f"{src}.self_attn.out_proj")},
-            "layer_norm2": _layer_norm_params(sd, f"{src}.layer_norm2"),
-            "ffn": {"ffn_1": _conv_params(sd, f"{src}.ffn.ffn_1"),
-                    "ffn_2": {"Dense_0": _dense_params(sd, f"{src}.ffn.ffn_2")}},
-        }
-    blocks["layer_norm"] = _layer_norm_params(sd, "encoder.layer_norm")
-    p: Dict[str, Any] = {"encoder": {"embed_tokens": {"embedding": _np(sd["encoder.embed_tokens.weight"])},
-                                     "fft_blocks": blocks}}
-    for name in ("dur_embed", "pitch_embed", "voicing_embed", "breath_embed"):
-        if f"{name}.weight" in sd:
-            p[name] = {"Dense_0": _dense_params(sd, name)}
-    for name in ("spk_embed", "gender_embed", "lang_embed"):
-        if f"{name}.weight" in sd:
-            p[name] = {"embedding": _np(sd[f"{name}.weight"])}
-    pre = "diffusion.denoise_fn."
-    net = {name: _conv_params(sd, pre + name)
-           for name in ("input_projection", "skip_projection", "output_projection")}
-    net["mlp_0"] = {"Dense_0": _dense_params(sd, pre + "mlp.0")}
-    net["mlp_1"] = {"Dense_0": _dense_params(sd, pre + "mlp.2")}
-    for i in range(hparams["residual_layers"]):
-        src = f"{pre}residual_layers.{i}"
-        net[f"layers_{i}"] = {
-            "dilated_conv": _conv_params(sd, f"{src}.dilated_conv"),
-            "diffusion_projection": {"Dense_0": _dense_params(sd, f"{src}.diffusion_projection")},
-            "output_projection": _conv_params(sd, f"{src}.output_projection"),
-        }
-        net[f"layers_{i}_conditioner_projection"] = _conv_params(sd, f"{src}.conditioner_projection")
-    p["diffusion"] = {"denoise_fn": net}
-    return {"params": p}
+    return _flax_params(_teacher_entries(hparams), state_dict)
+
+
+def dur_predictor_state_dict(flax_params: Dict[str, Any], hparams: dict) -> StateDict:
+    """JAX ``DurPredictor`` params -> this port's ``DurPredictor`` state dict."""
+    return _state_dict(_dur_entries(hparams), flax_params)
+
+
+def dur_predictor_flax_params(state_dict: StateDict, hparams: dict) -> Dict[str, Any]:
+    return _flax_params(_dur_entries(hparams), state_dict)
+
+
+def pitch_predictor_state_dict(flax_params: Dict[str, Any], hparams: dict) -> StateDict:
+    """JAX ``PitchPredictor`` params -> this port's ``PitchPredictor`` state dict."""
+    return _state_dict(_pitch_entries(hparams), flax_params)
+
+
+def pitch_predictor_flax_params(state_dict: StateDict, hparams: dict) -> Dict[str, Any]:
+    return _flax_params(_pitch_entries(hparams), state_dict)
+
+
+def vari_predictor_state_dict(flax_params: Dict[str, Any], hparams: dict) -> StateDict:
+    """JAX ``VariPredictor`` params -> this port's ``VariPredictor`` state dict."""
+    return _state_dict(_vari_entries(hparams), flax_params)
+
+
+def vari_predictor_flax_params(state_dict: StateDict, hparams: dict) -> Dict[str, Any]:
+    return _flax_params(_vari_entries(hparams), state_dict)
 
 
 def nsf_hifigan_state_dict(flax_params: Dict[str, Any], h: dict) -> StateDict:

@@ -28,3 +28,6 @@ class TokenTextEncoder:
         if self._replace_oov is not None:
             sentence = [t if t in self._token_to_id else self._replace_oov for t in sentence]
         return [self._token_to_id[t] for t in sentence]
+
+    def id(self, token: str) -> int:
+        return self._token_to_id[token]

@@ -261,6 +261,24 @@ def test_ublock_layer_kernel_matches_plain(cuda, hop, dilation, n_win):
     torch.testing.assert_close(got, ublock_layer_plain(*ops, dilation, hop), atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("hop,n_win", [(24, 37), (40, 9), (48, 21), (56, 5), (72, 11),
+                                       (80, 7), (72, 300)])
+def test_ublock_layer_kernel_at_widened_hops(cuda, hop, n_win):
+    """K4 at the hops that are multiples of 8 but not 8, 16 or of 32: below
+    64 the streaming units (a 32-row unit spans two windows), above the
+    256-row tiled units (hop 72: up to 5 windows a unit; 300 windows: more
+    units than the grid); B = 2, per layer and from a stack at (step 1,
+    layer 3), dilation 27."""
+    rng = np.random.default_rng(hop)
+    ops = _layer_operands(rng, 2, n_win, hop, cuda)
+    torch.testing.assert_close(ublock_layer(*ops, 27, hop), ublock_layer_plain(*ops, 27, hop),
+                               atol=ATOL, rtol=RTOL)
+    ops = _layer_operands(rng, 2, n_win, hop, cuda, stack=(2, 4))
+    torch.testing.assert_close(ublock_layer(*ops, 27, hop, step_idx=1, layer_idx=3),
+                               ublock_layer_plain(*ops, 27, hop, step_idx=1, layer_idx=3),
+                               atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("hop,n_win", [(8, 2112), (64, 600), (256, 300)])
 def test_ublock_layer_grid_wraps(cuda, hop, n_win):
     """B = 2 with more work units than the persistent grid holds, so each
@@ -290,7 +308,7 @@ def test_ublock_layer_kernel_stepped_read(cuda):
 
 @pytest.mark.parametrize("hop,n_win", [
     (8, 41), (16, 3), (64, 6), (256, 1), (256, 3),
-    (24, 137), (40, 5), (72, 137), (200, 3), (512, 3),   # hops outside K4's contract
+    (24, 137), (40, 5), (72, 137), (200, 3), (512, 3),   # multiples of 8, not of 32
     (8, 2112), (64, 600), (72, 1000), (200, 300),         # more units than the grid holds
 ])
 def test_lvc_kernel_matches_plain(cuda, hop, n_win):
@@ -617,3 +635,86 @@ def test_teacher_grads_on_card_match_cpu(cuda):
         want = cpu_params[name].grad
         assert p.grad is not None and want is not None, name
         assert_grad_close(p.grad.cpu(), want, name)
+
+
+def _small_variance_hp():
+    from prodiff_tpu_torch.config import load_base_config
+
+    hp = load_base_config()
+    enc = {"hidden_size": 32, "num_layers": 2, "ffn_kernel_size": 9, "num_heads": 2}
+    den = {"residual_layers": 4, "residual_channels": 64}
+    hp.update(hidden_size=64, enc_layers=2, num_spk=2, languages={"zh": 1},
+              datasets=[{}, {}], residual_layers=4, residual_channels=64, audio_num_mel_bins=32,
+              diff_type="reflow", spec_min=[-12.0], spec_max=[0.0],
+              dur_prediction_args=dict(hp["dur_prediction_args"], num_layers=2, hidden_size=64),
+              f0_prediction_args=dict(hp["f0_prediction_args"], repeat_bins=8, encoder_args=enc,
+                                      denoise_args=dict(den, dilation_cycle_length=5)),
+              vari_prediction_args=dict(hp["vari_prediction_args"], repeat_bins=6,
+                                        encoder_args=enc,
+                                        denoise_args=dict(den, dilation_cycle_length=1)))
+    return hp
+
+
+@pytest.mark.parametrize("name", ["dur", "pitch", "vari", "reflow_teacher"])
+def test_variance_models_on_card_match_cpu(cuda, name):
+    """Each predictor and a reflow teacher on the card (the variance
+    denoiser and the teacher through K1; the pitch denoiser, dilation cycle
+    5, by its plain loop) against the same weights on the CPU, on injected
+    noise, within atol 1e-3 + rtol 1e-3."""
+    from prodiff_tpu_torch.models.duration import DurPredictor
+    from prodiff_tpu_torch.models.pitch_predictor import PitchPredictor
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.models.vari_predictor import VariPredictor
+
+    hp, rng = _small_variance_hp(), np.random.default_rng(21)
+    torch.manual_seed(21)
+    b, t_ph, t_note, t_mel = 2, 7, 5, 96
+    tokens = torch.as_tensor(rng.integers(3, 10, (b, t_ph)))
+    mel2ph = torch.as_tensor(np.repeat(np.arange(1, t_ph + 1), t_mel // t_ph + 1)[:t_mel])[None]
+    mel2ph = mel2ph.repeat(b, 1)
+    notes = (torch.as_tensor(rng.uniform(50, 70, (b, t_note)), dtype=torch.float32),
+             torch.as_tensor(rng.random((b, t_note)) < 0.3),
+             torch.as_tensor(np.repeat(np.arange(1, t_note + 1), t_mel // t_note + 1)[:t_mel])[
+                 None].repeat(b, 1))
+    f0 = torch.as_tensor(rng.uniform(100, 400, (b, t_mel)), dtype=torch.float32)
+    if name == "dur":
+        model = DurPredictor(10, hp)
+        args = (tokens, tokens % 2, torch.rand(b, t_ph))
+        kw = {}
+    elif name == "pitch":
+        model = PitchPredictor(10, hp)
+        args = (tokens, mel2ph, *notes, 60 + f0 / 100)
+        kw = dict(infer_step=4, spk_id=torch.tensor([0, 1]),
+                  init_noise=torch.as_tensor(rng.normal(size=(b, 1, t_mel, 8)),
+                                             dtype=torch.float32))
+    elif name == "vari":
+        model = VariPredictor(10, hp)
+        args = (tokens, mel2ph, *notes, f0)
+        kw = dict(spk_embed_id=torch.tensor([1, 0]),
+                  init_noise=torch.rand(b, 3, t_mel, 2),
+                  step_noises=torch.as_tensor(rng.normal(size=(4, b, 3, t_mel, 2)),
+                                              dtype=torch.float32))
+    else:
+        model = ProDiffTeacher(10, hp)
+        args = (tokens, mel2ph, f0)
+        kw = dict(infer_step=5, lang_seq=torch.ones_like(tokens), spk_embed_id=torch.tensor([0, 1]),
+                  voicing=torch.full((b, t_mel), -30.0), breath=torch.full((b, t_mel), -60.0),
+                  init_noise=torch.as_tensor(rng.normal(size=(b, 1, t_mel, 32)),
+                                             dtype=torch.float32))
+    if hasattr(model, "diffusion"):
+        torch.nn.init.normal_(model.diffusion.denoise_fn.output_projection.weight, std=0.02)
+    model.eval()
+    run = model if name == "dur" else model.infer
+    with torch.no_grad():
+        want = run(*args, **kw)
+        model.to(cuda)
+        before = residual_stack.launches.count
+        got = run(*(a.to(cuda) for a in args), **{k: v.to(cuda) for k, v in kw.items()
+                                                   if isinstance(v, torch.Tensor)},
+                  **{k: v for k, v in kw.items() if not isinstance(v, torch.Tensor)})
+        torch.cuda.synchronize()
+    k1 = residual_stack.launches.count - before
+    assert k1 == {"dur": 0, "pitch": 0, "vari": 4 * 3, "reflow_teacher": 5 * 3}[name]
+    pairs = [(got[k], want[k]) for k in want] if isinstance(want, dict) else [(got, want)]
+    for g, w in pairs:
+        torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)

@@ -193,16 +193,46 @@ def test_lvc_hop_contract_refuses_what_lvc_pallas_refuses(hop):
 
 
 def test_lvc_layer_kernels_keep_their_hop_rule():
-    """K4 and K7 still take 8, 16 or a multiple of 32 (lvc_tiles.cuh's
-    units): hop 24 passes K6's check and not theirs."""
+    """K4 takes K6's hops (every multiple of 8: each 8-row tile of
+    lvc_tiles.cuh's units lies in one window), hop 24 and 72 among them;
+    K7 keeps its own gate (hop >= 64 and a multiple of 32), which refuses
+    both."""
     x, km, lb = _lvc_operands(24)
     lvc_ops.check_kernel_operands("lvc", lvc_ops.HOP_RULE, x, km, lb, 24, None, 0)
-    for name in ("ublock_layer", "ublock_block"):
-        with pytest.raises(ValueError, match="8, 16 or a multiple of 32"):
-            lvc_ops.check_kernel_operands(name, ublock.HOP_RULE, x, km, lb, 24, None, 0)
-    for hop in (8, 16, 32, 64, 96, 256):
+    for hop in (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 96, 256):
         lvc_ops.check_kernel_operands("ublock_layer", ublock.HOP_RULE, *_lvc_operands(hop), hop,
                                       None, 0)
+    for hop in (12, 4, 20):
+        with pytest.raises(ValueError, match="a multiple of 8"):
+            lvc_ops.check_kernel_operands("ublock_layer", ublock.HOP_RULE, *_lvc_operands(8),
+                                          hop, None, 0)
+    assert not any(ublock.mono_block_supported(h, [1, 3, 9, 27]) for h in (24, 48, 72, 80))
+
+
+def test_k4_hop_rule_is_k6s():
+    """ops/ublock.py:HOP_RULE accepts exactly what ops/lvc.py:HOP_RULE does."""
+    for hop in range(-8, 1025):
+        assert ublock.HOP_RULE[1](hop) == lvc_ops.HOP_RULE[1](hop), hop
+
+
+@pytest.mark.parametrize("hop,windows,smem", [
+    (24, 2, 28800),     # streaming: no window staged
+    (56, 2, 28800),
+    (72, 5, 210304),    # a 256-row unit at an offset of 64 in a window spans 5
+    (80, 4, 185472),
+    (88, 4, 185472),
+])
+def test_lvc_layer_plan_at_the_widened_hops(hop, windows, smem):
+    """K4's units at hops outside its old contract: the streaming plan below
+    64, the tiled plan staging every window a 256-row unit can touch above,
+    within shared memory at the largest LJSpeech dilation (27)."""
+    plan = ublock.layer_plan(hop, 27)
+    assert plan["streams"] == (hop < 64) and plan["windows"] == windows
+    assert plan["smem"] == smem <= ublock.MAX_SMEM
+    # the most windows any unit start (a multiple of R) touches
+    r = plan["rows"]
+    most = max((t0 % hop + r - 1) // hop + 1 for t0 in range(0, r * hop, r))
+    assert plan["windows"] == most
 
 
 @pytest.mark.parametrize("hop,rows,pieces,groups,stages,smem", [

@@ -289,7 +289,7 @@ def test_teacher_condition_matches_jax():
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule (the vocode slice's mel and
-    pitch-extractor modules among them) leaves jax/flax and the JAX package
+    pitch-extractor modules and the variance stack's among them) leaves jax/flax and the JAX package
     (``prodiff_tpu``, ``prodiff_tpu.*``) out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -299,7 +299,10 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'prodiff_tpu'))\n"
         "assert not bad, bad\n"
-        "for name in ('ops.mel', 'ops.ublock', 'pe', 'pe.acf', 'pe.parselmouth_pe'):\n"
+        "for name in ('ops.mel', 'ops.ublock', 'pe', 'pe.acf', 'pe.parselmouth_pe',\n"
+        "             'infer.inferers', 'models.duration', 'models.reflow',\n"
+        "             'models.pitch_predictor', 'models.vari_predictor', 'binarize.utils',\n"
+        "             'binarize.pitch_predictor'):\n"
         "    assert 'prodiff_tpu_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

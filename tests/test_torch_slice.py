@@ -51,6 +51,12 @@ SEGMENTS = [
 def experiment(tmp_path, monkeypatch):
     """checkpoints/port/svs under a fresh cwd; returns the hparams."""
     monkeypatch.chdir(tmp_path)
+    return make_experiment(tmp_path)
+
+
+def make_experiment(tmp_path):
+    """Write checkpoints/port/svs and the vocoder under ``tmp_path``; returns
+    the hparams."""
     work = tmp_path / "checkpoints" / EXP / "svs"
     work.mkdir(parents=True)
     voc_dir = tmp_path / "nsf_hifigan"
@@ -164,7 +170,10 @@ def test_web_api_and_cli(experiment):
         core.infer = render
         assert code == 500 and "kernel operand dtype" in err["error"]
         code, err = _request(f"{base}/api/pred_dur", {})
-        assert code == 501 and "variance slice" in err["error"]
+        assert code == 400 and "required" in err["error"]
+        code, err = _request(f"{base}/api/pred_dur", {  # this experiment has no dur predictor
+            "language": "zh", "word_list": ["a"], "word_dur_list": [0.5], "start_time": 0.0})
+        assert code == 400 and "not loaded" in err["error"]
         code, err = _request(f"{base}/api/nope", {})
         assert code == 404
     finally:
@@ -177,7 +186,7 @@ def test_web_api_and_cli(experiment):
         json.dump(SEGMENTS, f)
     port_cli(["infer", "song.ds", "--exp_name", EXP, "--spk_name", "spk0", "--device", "cpu"])
     assert os.path.exists(os.path.join("infer_out", f"song【{EXP}】.wav"))
-    with pytest.raises(NotImplementedError, match="variance slice"):
+    with pytest.raises(FileNotFoundError, match="dur"):  # no dur predictor in the experiment
         SVSInferHandler(EXP, pred_dur=True, device="cpu")
 
 
