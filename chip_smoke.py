@@ -31,8 +31,8 @@ Phases, each printing its lines before the last:
      alone: ``LVC_SKIP``),
      K6's library yardstick (``torch.baddbmm`` on a prebuilt tap tensor),
      K6 at hops 24, 40, 72 and 200 (B=2), K4 at the hops its contract
-     gained, 24, 40, 48, 56, 72 and 80 (B=2, L=512, timed a layer beside
-     its bound), and the block kernel (K7
+     gained, 24, 40, 48, 56, 72 and 80, and 68, 100 and 260 (split tiles)
+     (B=2, L=512, timed a layer beside its bound), and the block kernel (K7
      ``ublock_block``) at blocks 1 and 2 of that net, timed so beside its
      twin and the chain of four K4 launches it replaces, and replayed from
      a CUDA graph at block 2;
@@ -57,8 +57,12 @@ Phases, each printing its lines before the last:
      blocks 1 and 2, K4 16 on block 0; within 1e-4 of the layer route's
      peak), the vocoder alone by each route in turns and under
      torch.profiler (kernel time, K4's and K7's shares, the device's idle
-     share), a bit-identity check of two renders on injected noise, and a
-     32-frame render held against the same weights on the CPU;
+     share), a bit-identity check of two renders on injected noise, a
+     32-frame render held against the same weights on the CPU, and one
+     forward at upsample ratios [5, 5, 4] (hops 5, 25, 100, none a multiple
+     of 8) by each layer: the unfused layer's 12 window products counted on
+     the matmul route, the fused layer's 8 (hops 5 and 25) and 4 K4
+     launches (hop 100), held against the CPU;
   5b. ``python -m prodiff_tpu_torch vocode wav2wav`` (in-process,
      ``__main__.main``) at full width on seeded random vocoder checkpoints:
      NSF-HiFiGAN (the openvpi 44.1 kHz generator, base-config audio, ACF
@@ -98,7 +102,20 @@ Phases, each printing its lines before the last:
      events, median of 5 after a warm-up); the reflow render and a predicted
      render under torch.profiler (K1, the other kernels, the idle share); the
      reflow teacher's mel held against the CPU; and the web server's
-     /api/pred_dur, /api/pred_pitch and an /api/infer of what they predicted.
+     /api/pred_dur, /api/pred_pitch and an /api/infer of what they predicted;
+  8. the variance stack's training at full width: one training step of the
+     dur (conv 512), pitch (WaveNet 20 x 256, cycle 5), vari (20 x 256 on K5)
+     tasks and of a diff_type: reflow flagship teacher (``svs``, on K5) on a
+     short batch (B=2, T_mel=128), held against the CPU (loss, every
+     gradient, the params after one AdamW step; K5 on the vari and teacher
+     steps only); then ``binarize dur|pitch`` and ``train dur|pitch|vari``
+     (3 steps and one validation each, in-process CLI) on a synthetic corpus
+     of seeded tones and seeded vari shards, the launch counts of that run
+     (K5a 41 and K5b 40 a vari step, none on dur and pitch; K1 3 in vari's
+     validation and 12 in the vari inferer), each trained checkpoint read by
+     its inferer for one segment, the step times, and the vari trainer's
+     step at the training cell's batch (B=16, T=1536) under torch.profiler
+     (K5a, K5b, cuBLAS, the rest, the device's idle share).
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -459,9 +476,10 @@ K6_PIPELINED_ONLY = ("product_only",)
 # K6 at the hops of K6's contract that FastDiff's LJSpeech net does not run
 # (B = 2; L a multiple of neither a unit's windows nor the SM count)
 K6_EXTRA = ((24, 137), (40, 75), (72, 137), (200, 67))
-# K4 at the hops its contract gained (every multiple of 8, as K6's): B = 2,
-# 512 windows (the LJSpeech net's T_mel), layer 3 (dilation 27) of the stack
-K4_EXTRA_HOPS, K4_EXTRA_WINDOWS = (24, 40, 48, 56, 72, 80), 512
+# K4 at the hops its contract gained (every multiple of 8, as K6's, and the
+# multiples of 4 from 64 on, as ublock_layer_packed's): B = 2, 512 windows
+# (the LJSpeech net's T_mel), layer 3 (dilation 27) of the stack
+K4_EXTRA_HOPS, K4_EXTRA_WINDOWS = (24, 40, 48, 56, 72, 80, 68, 100, 260), 512
 
 
 def phase_fastdiff_kernels(dev, torch, split: bool = True):
@@ -1144,7 +1162,55 @@ def phase_fastdiff(dev, torch):
             f"{err:.3e}, peak {peak:.4f}, std {float(ref.std()):.4f}, tol {CPU_TOL} x peak")
         if not (np.isfinite(g).all() and err <= CPU_TOL * peak):
             raise AssertionError(f"FastDiff path: the card's {name} disagrees with the CPU reference")
+    fastdiff_hops_off_8(dev, torch)
     return launches, launches_u, launches_m
+
+
+FD_OFF_RATIOS, FD_OFF_FRAMES = (5, 5, 4), 32  # hops 5, 25, 100: none a multiple of 8
+
+
+def fastdiff_hops_off_8(dev, torch) -> None:
+    """One FastDiff forward at upsample ratios whose hops are not multiples
+    of 8, routed by ``ops/lvc.py:on_kernels``: the unfused layer takes the
+    matmul product on every layer and launches no K6; the fused layer takes
+    it at hops 5 and 25 and launches K4 (split tiles) at hop 100; held
+    against the CPU."""
+    from prodiff_tpu_torch.models.fastdiff import FastDiff as FastDiffNet
+    from prodiff_tpu_torch.ops.lvc import lvc_matmul
+
+    cfg = dict(FD_CONFIG, upsample_ratios=list(FD_OFF_RATIOS))
+    torch.manual_seed(SEED + 12)
+    net = FastDiffNet.from_config(cfg).eval()  # seeded: the resamplers' shapes follow the ratios
+    n = FD_OFF_FRAMES * int(np.prod(FD_OFF_RATIOS))
+    rng = np.random.default_rng(SEED + 11)
+    args = [torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+            for shape in ((1, n, 1), (1, FD_OFF_FRAMES, cfg["cond_channels"]))]
+    args.append(torch.tensor([[37.0]]))
+    with torch.no_grad():
+        want = net(*args)
+    net = net.to(dev)
+    hops = [int(h) for h in np.cumprod(FD_OFF_RATIOS)]
+    layers = cfg["lvc_layers_each_block"]
+    for fused in (True, False):
+        net.fused_layer = fused
+        reset_counts()
+        before = lvc_matmul.launches.count
+        with torch.no_grad():
+            got = net(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        routed = lvc_matmul.launches.count - before
+        k4 = layers * sum(h >= 64 and h % 4 == 0 for h in hops) if fused else 0
+        check_counts(f"a FastDiff forward at hops {hops} "
+                     f"({'fused' if fused else 'unfused'} layer)", {"ublock_layer": k4})
+        err, peak = float((got.cpu() - want).abs().max()), float(want.abs().max())
+        log(f"FastDiff at hops {hops} (T_mel {FD_OFF_FRAMES}, "
+            f"{n} samples), {'fused' if fused else 'unfused'} layer: {routed} window products on "
+            f"the matmul route, {k4} K4 launches; card vs CPU max_abs_err {err:.3e}, peak "
+            f"{peak:.4f}, tol {CPU_TOL} x peak")
+        want_routed = len(hops) * layers - k4
+        if routed != want_routed or not (torch.isfinite(got).all() and err <= CPU_TOL * peak):
+            raise AssertionError("FastDiff at hops off the multiples of 8: wrong route or "
+                                 "disagreement")
 
 
 def vibrato_tone(n_samples: int, sr: int, seed: int) -> np.ndarray:
@@ -1494,11 +1560,11 @@ def profile_render(core, segment, mel_len: int, torch) -> None:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key[:110]}")
 
 
-def profile_train_step(trainer, batch, torch) -> None:
+def profile_train_step(trainer, batch, torch, label: str = "") -> dict:
     """Where one training step's device time goes: torch.profiler over two
     steps of the live trainer on one batch; the device time of every kernel
     by name, grouped, against the host-clock time of the window (the rest is
-    the device's idle share)."""
+    the device's idle share). Returns the groups' ms a step."""
     for _ in range(2):  # warm-up
         trainer.train_step(batch)
     n = 2
@@ -1507,15 +1573,17 @@ def profile_train_step(trainer, batch, torch) -> None:
             "step_proj_kernel": "K5a save-forward", "chain_gate_kernel": "K5b backward chain",
             "chain_dy_kernel": "K5b backward chain"}
     wall_ms, busy, sums, rows = kernel_split(lambda: trainer.train_step(batch), n, ours, torch)
+    label = label or f"training step (B={TRAIN_B} x T={TRAIN_T})"
     if not rows:
-        log("training step profile: the profiler saw no device time (not measured)")
-        return
-    log(f"training step profile (torch.profiler, mean of {n} steps on one B={TRAIN_B} x "
-        f"T={TRAIN_T} batch): {wall_ms:.3f} ms on the host clock, {busy:.3f} ms of kernel time "
-        f"(device idle share {max(0.0, 1 - busy / wall_ms):.3f}); by group (ms): "
+        log(f"{label} profile: the profiler saw no device time (not measured)")
+        return {}
+    log(f"{label} profile (torch.profiler, mean of {n} steps on one batch): {wall_ms:.3f} ms on "
+        f"the host clock, {busy:.3f} ms of kernel time (device idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.3f}); by group (ms): "
         + json.dumps({g: round(v, 3) for g, v in sums.items()}))
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+    return sums
 
 
 def train_config(data_dir: str) -> dict:
@@ -1526,13 +1594,69 @@ def train_config(data_dir: str) -> dict:
     return hp
 
 
+def step_vs_cpu(label, task, make_model, batch, draws, dev, torch) -> dict:
+    """One training step of ``make_model()``'s seeded weights (its denoiser's
+    output projection seeded too: the reference zero-inits it) on a short
+    numpy ``batch``, the same injected ``draws`` (t and noise, where the task
+    takes them), dropout off: card (kernels + cuBLAS) vs CPU (the plain
+    module loop). The loss, every parameter's gradient and the params after
+    one AdamW step are held within ``STEP_TOL`` of each one's peak. Returns
+    the kernel launches of the card's step."""
+    from prodiff_tpu_torch.training.optim import Optimizer
+    from prodiff_tpu_torch.training.trainer import host_tensors
+
+    torch.manual_seed(SEED)
+    sd = make_model().state_dict()
+    key = "diffusion.denoise_fn.output_projection.weight"
+    if key in sd:
+        sd[key].normal_(std=0.02)
+    out, launched = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = make_model()
+        model.load_state_dict(sd)
+        model.to(d).eval()  # dropout off; grad mode on, so the card runs K5
+        opt = Optimizer(model.named_parameters(), task.hparams)
+        lr = opt.lr()
+        b = {k: v.to(d) for k, v in host_tensors(batch, pin=False).items()}
+        before = {k: c.count for k, c in counters().items()}
+        losses = task.compute_losses(model, b, **{k: torch.as_tensor(v, device=d)
+                                                  for k, v in draws.items()})
+        total = sum(losses.values())
+        total.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+            launched = {k: c.count - before[k] for k, c in counters().items()
+                        if c.count != before[k]}
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        opt.step()
+        params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        out[where] = (total.detach().cpu(), grads, params)
+    loss_err = grad_compare(f"{label}, one training step, card vs CPU: loss", out["card"][0],
+                            out["cpu"][0], STEP_TOL, torch)
+    worst = ("", 0.0)
+    for n in out["cpu"][1]:
+        got, ref = out["card"][1][n], out["cpu"][1][n]
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-12)
+        if not (torch.isfinite(got).all() and rel <= STEP_TOL):
+            raise AssertionError(f"{label}: gradient of {n}: card vs CPU {rel:.3e} x its peak")
+        worst = max(worst, (n, rel), key=lambda x: x[1])
+        # an element whose gradient is ~0 may take Adam's first step (at most ~lr)
+        # either way, so the params also get twice the step's learning rate
+        pg, pr = out["card"][2][n], out["cpu"][2][n]
+        if float((pg - pr).abs().max()) > STEP_TOL * float(pr.abs().max()) + 2 * lr:
+            raise AssertionError(f"{label}: {n} after the update: card vs CPU beyond tolerance")
+    log(f"{label}, one training step, card vs CPU: {len(out['cpu'][1])} parameter gradients "
+        f"within {STEP_TOL} x their peaks (worst {worst[0]}: {worst[1]:.3e}), loss "
+        f"{float(out['cpu'][0]):.6f} (err {loss_err:.3e}), params after one AdamW step (lr "
+        f"{lr:.1e}) within {STEP_TOL} x their peaks + 2 lr; the card's step launched {launched}")
+    return launched
+
+
 def train_step_vs_cpu(trainer_hp, dev, torch):
     """One training step of a seeded full-width teacher on a short batch
     (B=2, T=128 of the synthetic set), same injected t and noise, dropout
     off: card (K5 + cuBLAS) vs CPU (the plain module loop)."""
     from prodiff_tpu_torch.tasks.svs import SVSTask
-    from prodiff_tpu_torch.training.optim import Optimizer
-    from prodiff_tpu_torch.training.trainer import host_tensors
 
     task = SVSTask(trainer_hp)
     ds = task.train_iterator().dataset
@@ -1540,46 +1664,9 @@ def train_step_vs_cpu(trainer_hp, dev, torch):
     batch.pop("nsamples")
     batch = {k: v[:, :128] if k in ds.time_keys else v for k, v in batch.items()}
     rng = np.random.default_rng(SEED + 7)
-    t = np.array([1, 4])
-    noise = rng.normal(size=(2, 1, *batch["mel"].shape[1:])).astype(np.float32)
-    torch.manual_seed(SEED)
-    sd = task.build_model().state_dict()
-    sd["diffusion.denoise_fn.output_projection.weight"].normal_(std=0.02)
-    out = {}
-    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        model = task.build_model()
-        model.load_state_dict(sd)
-        model.to(d).eval()  # dropout off; grad mode on, so the card runs K5
-        opt = Optimizer(model.named_parameters(), trainer_hp)
-        lr = opt.lr()
-        b = host_tensors(batch, pin=False)
-        b = {k: v.to(d) for k, v in b.items()}
-        losses = task.compute_losses(model, b, t=torch.as_tensor(t, device=d),
-                                     noise=torch.as_tensor(noise, device=d))
-        total = sum(losses.values())
-        total.backward()
-        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
-        opt.step()
-        params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-        out[where] = (total.detach().cpu(), grads, params)
-    loss_err = grad_compare("one training step, card vs CPU: loss", out["card"][0], out["cpu"][0],
-                            STEP_TOL, torch)
-    worst = ("", 0.0)
-    for n in out["cpu"][1]:
-        got, ref = out["card"][1][n], out["cpu"][1][n]
-        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-12)
-        if not (torch.isfinite(got).all() and rel <= STEP_TOL):
-            raise AssertionError(f"gradient of {n}: card vs CPU {rel:.3e} x its peak")
-        worst = max(worst, (n, rel), key=lambda x: x[1])
-        # an element whose gradient is ~0 may take Adam's first step (at most ~lr)
-        # either way, so the params also get twice the step's learning rate
-        pg, pr = out["card"][2][n], out["cpu"][2][n]
-        if float((pg - pr).abs().max()) > STEP_TOL * float(pr.abs().max()) + 2 * lr:
-            raise AssertionError(f"{n} after the update: card vs CPU beyond tolerance")
-    log(f"one training step, card vs CPU: {len(out['cpu'][1])} parameter gradients within "
-        f"{STEP_TOL} x their peaks (worst {worst[0]}: {worst[1]:.3e}), loss {float(out['cpu'][0]):.6f} "
-        f"(err {loss_err:.3e}), params after one AdamW step (lr {lr:.1e}) within {STEP_TOL} x their "
-        f"peaks + 2 lr")
+    draws = {"t": np.array([1, 4]),
+             "noise": rng.normal(size=(2, 1, *batch["mel"].shape[1:])).astype(np.float32)}
+    step_vs_cpu("SVS teacher", task, task.build_model, batch, draws, dev, torch)
 
 
 def phase_train(dev, torch):
@@ -2115,6 +2202,287 @@ def phase_variance(dev, torch):
     return launches
 
 
+# The variance-training phase: the dur, pitch and vari tasks and a reflow
+# teacher at the base config's widths; the CLI route on a synthetic corpus of
+# seeded tones (0.7 s at 44.1 kHz, 60 frames) and seeded vari shards
+VT_EXP, VT_ITEMS, VT_STEPS = "vtrain", 8, 3
+VT_B, VT_T_PH, VT_T_NOTE, VT_T_MEL = 2, 24, 12, 128  # the card-vs-CPU step's batch
+VT_PHONES = {"a": ("vowel", "vowel"), "b": ("consonant", "stop"), "c": ("consonant", "fric")}
+
+
+def variance_train_batches(hp: dict, rng, b: int = VT_B, t_ph: int = VT_T_PH,
+                           t_note: int = VT_T_NOTE, t_mel: int = VT_T_MEL,
+                           vocab: int = 10) -> dict:
+    """A seeded batch (by default the short one, B=2, T_mel=128; the second
+    item padded) for each task, with its injected draws; phoneme ids below
+    ``vocab``."""
+    from prodiff_tpu_torch.models.vari_predictor import variance_list
+
+    tokens = rng.integers(3, vocab, (b, t_ph))
+    tokens[1, t_ph - 4:] = 0
+    mel2ph = np.repeat(np.arange(1, t_ph + 1), t_mel // t_ph + 1)[:t_mel][None].repeat(b, 0)
+    mel2note = np.repeat(np.arange(1, t_note + 1), t_mel // t_note + 1)[:t_mel][None].repeat(b, 0)
+    mel2ph[1, t_mel * 25 // 32:] = mel2note[1, t_mel * 25 // 32:] = 0
+    notes = {"note_midi": rng.uniform(50, 70, (b, t_note)).astype(np.float32),
+             "note_rest": rng.random((b, t_note)) < 0.3, "mel2note": mel2note}
+    f0 = rng.uniform(100, 400, (b, t_mel)).astype(np.float32)
+    base = rng.uniform(55, 65, (b, t_mel)).astype(np.float32)
+    n_var = len(variance_list(hp))
+    bins = hp["vari_prediction_args"]["repeat_bins"]
+
+    def normal(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    return {
+        "dur": ({"ph_seq": tokens, "onset": ((tokens > 0) & (np.arange(t_ph) % 3 == 0)) * 1,
+                 "word_dur": rng.uniform(0.2, 0.6, (b, t_ph)).astype(np.float32),
+                 "ph_dur": rng.uniform(0.05, 0.3, (b, t_ph)).astype(np.float32) * (tokens > 0)},
+                {}),
+        "pitch": (dict(notes, ph_seq=tokens, mel2ph=mel2ph, base_pitch=base,
+                       pitch=base + normal(b, t_mel), spk_id=np.zeros(b, np.int64),
+                       pitch_retake=(rng.random((b, t_mel)) < 0.5).astype(np.int32)),
+                  {"t": np.resize(np.array([0.3, 0.8], np.float32), b),
+                   "noise": normal(b, 1, t_mel, hp["f0_prediction_args"]["repeat_bins"])}),
+        "vari": (dict(notes, ph_seq=tokens, mel2ph=mel2ph, f0=f0, spk_id=np.zeros(b, np.int64),
+                      **{k: rng.uniform(-90, -15, (b, t_mel)).astype(np.float32)
+                         for k in variance_list(hp)}),
+                 {"t": np.resize(np.array([3, 0]), b),
+                  "noise": normal(b, n_var, t_mel, bins // n_var)}),
+        "svs": ({"ph_seq": tokens, "mel2ph": mel2ph, "f0": f0, "lang_seq": (tokens > 0) * 1,
+                 "spk_id": np.zeros(b, np.int64),
+                 "voicing": np.full((b, t_mel), -30.0, np.float32),
+                 "breath": np.full((b, t_mel), -60.0, np.float32),
+                 "mel": rng.uniform(-10, -2, (b, t_mel, hp["audio_num_mel_bins"])).astype(
+                     np.float32)},
+                {"t": np.resize(np.array([0.05, 0.6], np.float32), b),
+                 "noise": normal(b, 1, t_mel, hp["audio_num_mel_bins"])}),
+    }
+
+
+def write_variance_corpus(tmp: str) -> str:
+    """Seeded tones with labels (two words a phrase, one sung note and a
+    rest) and a phoneme dictionary under ``tmp``; returns the corpus dir."""
+    from scipy.io import wavfile
+
+    raw = os.path.join(tmp, "raw")
+    os.makedirs(os.path.join(raw, "wav"))
+    rng = np.random.default_rng(SEED + 8)
+    sr, labels = 44100, {}
+    for i in range(VT_ITEMS):
+        t = np.arange(int(sr * 0.7)) / sr
+        wav = 0.4 * np.sin(2 * np.pi * 196.0 * 2 ** (rng.uniform(-4, 4) / 12) * t) * np.hanning(len(t))
+        wavfile.write(os.path.join(raw, "wav", f"it{i}.wav"), sr, (wav * 32767).astype(np.int16))
+        labels[f"it{i}"] = {"ph_seq": "SP b a c a", "ph_num": "1 2 2",
+                            "ph_dur": f"0.1 0.08 {0.2 + 0.01 * i:.2f} 0.1 {0.22 - 0.01 * i:.2f}",
+                            "note_seq": "rest G3 A3", "note_dur": "0.1 0.3 0.3"}
+    with open(os.path.join(raw, "label.json"), "w") as f:
+        json.dump(labels, f)
+    with open(os.path.join(tmp, "zh_phones.txt"), "w") as f:
+        f.writelines(f"{p} {k} {c}\n" for p, (k, c) in VT_PHONES.items())
+    return raw
+
+
+def write_vari_shards(data_dir: str, hp: dict, phone_set: dict) -> None:
+    """The vari task's shards from seeded arrays (its binarizer lands with the
+    data-pipeline slice): one phrase an item, 60-128 frames."""
+    from prodiff_tpu_torch.models.vari_predictor import variance_list
+    from prodiff_tpu_torch.utils.indexed_datasets import IndexedDatasetBuilder
+
+    os.makedirs(data_dir)
+    with open(os.path.join(data_dir, "phone_set.json"), "w") as f:
+        json.dump(phone_set, f)
+    vocab = len(set(phone_set.values())) + 3
+    rng = np.random.default_rng(SEED + 9)
+    for prefix, n in (("valid", 1), ("train", VT_ITEMS)):
+        builder, lengths = IndexedDatasetBuilder(data_dir, prefix), []
+        for _ in range(n):
+            t_mel, t_ph, t_note = int(rng.integers(60, 129)), 6, 3
+            item = {"ph_seq": rng.integers(3, vocab, t_ph), "spk_id": 0,
+                    "mel2ph": np.sort(rng.integers(1, t_ph + 1, t_mel)),
+                    "mel2note": np.sort(rng.integers(1, t_note + 1, t_mel)),
+                    "note_midi": rng.uniform(50, 70, t_note), "note_rest": np.zeros(t_note, bool),
+                    "f0": rng.uniform(150, 300, t_mel).astype(np.float32), "length": t_mel}
+            for name in variance_list(hp):
+                item[name] = rng.uniform(-80, -20, t_mel).astype(np.float32)
+            builder.add_item(item)
+            lengths.append(t_mel)
+        builder.finalize()
+        np.save(os.path.join(data_dir, f"{prefix}_lengths.npy"), lengths)
+
+
+def phase_variance_train(dev, torch):
+    """The variance stack's training at full width: one training step of each
+    task (and of a reflow teacher) held against the CPU; then ``binarize
+    dur|pitch`` and ``train dur|pitch|vari`` through the CLI (in-process) on
+    a synthetic corpus, each run ending in one validation, the launch counts
+    of that run asserted (K5 on every vari step and K1 in vari's
+    validation, none on dur and pitch), and each trained checkpoint read by
+    its inferer for one segment; last, the live vari trainer's step profiled
+    at the training cell's batch (B=16 x T=1536). Returns the launches of
+    the run."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.config import load_base_config, set_hparams
+    from prodiff_tpu_torch.infer.inferers import (DurPredictorInferer, PitchPredictorInferer,
+                                                  VariPredictorInferer)
+    from prodiff_tpu_torch.models.duration import DurPredictor
+    from prodiff_tpu_torch.models.pitch_predictor import PitchPredictor
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.models.vari_predictor import VariPredictor
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer, host_tensors
+
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_vtrain_")
+    raw = write_variance_corpus(tmp)
+    hp = dict(load_base_config(), seed=SEED, data_dir=os.path.join(tmp, "data"),
+              datasets=[{"data_dir": raw, "speaker": "s0", "language": "zh"}],
+              dictionary={"zh": {"phoneme": os.path.join(tmp, "zh_phones.txt")}},
+              languages={"zh": 1}, num_spk=1, test_num=1, valid_num=1, pitch_extractor="acf",
+              max_updates=VT_STEPS, val_check_interval=VT_STEPS, num_sanity_val_steps=0,
+              tb_log_interval=1, max_sentences=4, max_tokens=4000, mel_loss="l1:0.5|ssim:0.5")
+
+    # 1. one step of each task, card vs CPU, on a short batch
+    rng = np.random.default_rng(SEED + 10)
+    batches = variance_train_batches(hp, rng)
+    teacher_hp = dict(hp, diff_type="reflow")  # the base config is the flagship's width
+    models = {"dur": lambda: DurPredictor(10, hp), "pitch": lambda: PitchPredictor(10, hp),
+              "vari": lambda: VariPredictor(10, hp), "svs": lambda: ProDiffTeacher(10, teacher_hp)}
+    n_layers = hp["vari_prediction_args"]["denoise_args"]["residual_layers"]
+    per_k5 = {"residual_stack_save": 1 + 2 * n_layers, "residual_stack_chain": 2 * n_layers}
+    for name, make in models.items():
+        task = get_task_cls(name)(dict(teacher_hp if name == "svs" else hp, task=name))
+        launched = step_vs_cpu(f"{name} task ({'reflow teacher' if name == 'svs' else 'full width'}"
+                               f", B={VT_B}, T_mel={VT_T_MEL})", task, make, *batches[name], dev,
+                               torch)
+        if launched != (per_k5 if name in ("vari", "svs") else {}):
+            raise AssertionError(f"{name}: the card's training step launched {launched}")
+    t_steps = time.time()
+
+    # 2. binarize dur|pitch, vari shards, train dur|pitch|vari, the inferers
+    cfg = os.path.join(tmp, "vtrain.yaml")
+    with open(cfg, "w") as f:
+        yaml.dump(hp, f)
+    calls, evals = [], []  # (task, launch deltas, ms)
+    orig, orig_eval = Trainer.train_step, Trainer.evaluate
+    live = {}
+
+    def launched_by(fn, self, *args):
+        torch.cuda.synchronize()
+        before = {k: c.count for k, c in counters().items()}
+        start = time.perf_counter()
+        out = fn(self, *args)
+        torch.cuda.synchronize()
+        return out, {k: c.count - before[k] for k, c in counters().items()
+                     if c.count != before[k]}, (time.perf_counter() - start) * 1e3
+
+    def counted(self, batch):
+        live[self.hparams["task"]] = self
+        out, delta, ms = launched_by(orig, self, batch)
+        calls.append((self.hparams["task"], delta, ms))
+        return out
+
+    def counted_eval(self, task, *args, **kw):
+        out, delta, ms = launched_by(lambda s, t: orig_eval(s, t, *args, **kw), self, task)
+        evals.append((self.hparams["task"], delta, ms))
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    Trainer.train_step, Trainer.evaluate = counted, counted_eval
+    marks = {}
+    try:
+        reset_counts()
+        t0 = time.time()
+        for task in ("dur", "pitch"):
+            port_cli(["binarize", task, "--config", cfg, "--exp_name", VT_EXP])
+        marks["binarize"] = time.time() - t0
+        with open(os.path.join(hp["data_dir"], "dur", "phone_set.json")) as f:
+            write_vari_shards(os.path.join(hp["data_dir"], "vari"), hp, json.load(f))
+        for task in ("dur", "pitch", "vari"):
+            t0 = time.time()
+            port_cli(["train", task, "--config", cfg, "--exp_name", VT_EXP])
+            marks[f"train {task}"] = time.time() - t0
+        t0 = time.time()
+        dur_inf = DurPredictorInferer.from_workdir(VT_EXP, "checkpoints", None, device=dev)
+        ph_dur = dur_inf.run(dur_inf.encode(["SP", "b", "a", "c", "a"]), [1, 2, 2], [0.1, 0.3, 0.3])
+        pitch_inf = PitchPredictorInferer.from_workdir(VT_EXP, "checkpoints", device=dev)
+        note_args = (np.array([57.0, 55.0, 57.0]), np.array([True, False, False]),
+                     np.array([0.1, 0.3, 0.3]), 60, hp["hop_size"] / hp["audio_sample_rate"])
+        f0_midi = pitch_inf.run(*note_args, spk_id=0)
+        vari_inf = VariPredictorInferer(set_hparams(VT_EXP, "vari"), "voicing", device=dev)
+        voicing = vari_inf.run(*note_args, 440.0 * 2 ** ((f0_midi - 69) / 12))
+        torch.cuda.synchronize()
+        marks["inferers"] = time.time() - t0
+        vari_steps = sum(c[0] == "vari" for c in calls)
+        launches = check_counts(
+            "binarize dur|pitch, train dur|pitch|vari and the inferers on the trained checkpoints",
+            {k: vari_steps * v for k, v in per_k5.items()}
+            | {"residual_stack": (hp["vari_prediction_args"]["timesteps"] + 1) * K1_LAUNCHES})
+    finally:
+        Trainer.train_step, Trainer.evaluate = orig, orig_eval
+        os.chdir(cwd)
+    for task, delta, _ in calls:
+        if delta != (per_k5 if task == "vari" else {}):
+            raise AssertionError(f"a {task} training step launched {delta}")
+    if [c[0] for c in calls] != [t for t in ("dur", "pitch", "vari") for _ in range(VT_STEPS)]:
+        raise AssertionError(f"training steps ran as {[c[0] for c in calls]}")
+    # one validation a run (the valid set is one item): K1 once in vari's
+    want_evals = [(t, {"residual_stack": K1_LAUNCHES} if t == "vari" else {})
+                  for t in ("dur", "pitch", "vari")]
+    if [(t, d) for t, d, _ in evals] != want_evals:
+        raise AssertionError(f"validations ran as {evals}, expected {want_evals}")
+    if not (np.isfinite(ph_dur).all() and abs(ph_dur[1:3].sum() - 0.3) < 1e-4
+            and f0_midi.shape == voicing.shape == (60,) and np.isfinite(f0_midi).all()
+            and np.isfinite(voicing).all()):
+        raise AssertionError(f"inferers from the trained checkpoints: durations {ph_dur}, "
+                             f"f0 {f0_midi.shape}, voicing {voicing.shape}")
+    for task in ("dur", "pitch", "vari"):
+        work = os.path.join(tmp, "checkpoints", VT_EXP, task)
+        records = [json.loads(line) for line in open(os.path.join(work, "metrics.jsonl"))]
+        losses = [r["tr/total_loss"] for r in records if "tr/total_loss" in r]
+        val = [r["val/total_loss"] for r in records if "val/total_loss" in r]
+        if (len(losses) != VT_STEPS or not np.isfinite(losses).all() or len(val) != 1
+                or not np.isfinite(val).all() or not os.path.exists(
+                    os.path.join(work, f"model_ckpt_steps_{VT_STEPS}.ckpt"))):
+            raise AssertionError(f"train {task}: logged losses {losses}, validation {val}, files "
+                                 f"{os.listdir(work)}")
+        ms = sorted(c[2] for c in calls if c[0] == task)
+        val_ms = [e[2] for e in evals if e[0] == task][0]
+        log(f"train {task} (CLI, in-process; smoke batches B <= 4 x T <= 128): losses "
+            f"{[round(v, 4) for v in losses]}, validation {val[0]:.4f}; step times (host clock, "
+            f"synchronised) median {ms[len(ms) // 2]:.3f} ms, min {ms[0]:.3f}, max "
+            f"{ms[-1]:.3f}; validation {val_ms:.3f} ms; K5 launches a step "
+            f"{per_k5 if task == 'vari' else 0}")
+    log(f"inferers from the trained checkpoints: durations {np.round(ph_dur, 4).tolist()} s, f0 "
+        f"{f0_midi.min():.2f}-{f0_midi.max():.2f} MIDI, voicing {voicing.min():.2f}-"
+        f"{voicing.max():.2f} dB; seconds: " + json.dumps({k: round(v, 3) for k, v in marks.items()}))
+    # the live vari trainer's step at the training cell's batch (the smoke
+    # corpus's batches are 1/50 of its frames): where its time goes
+    trainer = live["vari"]
+    big = variance_train_batches(hp, np.random.default_rng(SEED + 13), TRAIN_B,
+                                 TRAIN_T * VT_T_PH // VT_T_MEL, TRAIN_T * VT_T_NOTE // VT_T_MEL,
+                                 TRAIN_T, vocab=len(trainer.task.ph_encoder))["vari"][0]
+    batch = {k: v.to(dev) for k, v in host_tensors(big, pin=False).items()}
+    reset_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    check_counts(f"one vari training step at B={TRAIN_B} x T={TRAIN_T}", per_k5)
+    sums = profile_train_step(trainer, batch, torch,
+                              label=f"vari training step (B={TRAIN_B} x T={TRAIN_T})")
+    if sums and not sums.get("K5a save-forward", 0) > 0:
+        raise AssertionError("the vari step's profile found no K5 time")
+    del trainer, batch, live
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"variance-training phase: {time.time() - t_phase:.3f} s (card-vs-CPU steps "
+        f"{t_steps - t_phase:.3f} s)")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2173,6 +2541,7 @@ def main() -> int:
     vocode_launches = timed_phase("vocode", phase_vocode)
     train_launches = timed_phase("train", phase_train)
     variance_launches = timed_phase("variance", phase_variance)
+    vt_launches = timed_phase("variance_train", phase_variance_train)
     log(f"phase seconds: {json.dumps(spent)}")
 
     def entry(name, source, replaces, n, m):
@@ -2185,7 +2554,8 @@ def main() -> int:
         dict(entry("wavenet_residual_stack", "wavenet_stack.cu",
                    "prodiff_tpu/ops/pallas/wavenet.py:177", launches["residual_stack"], k1),
              by_shape=k1["by_shape"],
-             launches_variance_render=variance_launches["residual_stack"]),
+             launches_variance_render=variance_launches["residual_stack"],
+             launches_variance_train=vt_launches["residual_stack"]),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
                    launches["resblock_stage"], res), stages=res["stages"]),
         dict(entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
@@ -2199,12 +2569,14 @@ def main() -> int:
              baddbmm_ms=fd["lvc"]["baddbmm_ms"],
              baddbmm_is="torch.baddbmm(bias, taps, km): the window product and the bias in one "
                         "cuBLAS call on a tap tensor built before it, not the whole function"),
-        entry("wavenet_stack_save_forward", "wavenet_train.cu",
-              "prodiff_tpu/ops/pallas/wavenet_train.py:71",
-              train_launches["residual_stack_save"], k5a),
-        entry("wavenet_stack_backward_chain", "wavenet_train.cu",
-              "prodiff_tpu/ops/pallas/wavenet_train.py:161",
-              train_launches["residual_stack_chain"], k5b),
+        dict(entry("wavenet_stack_save_forward", "wavenet_train.cu",
+                   "prodiff_tpu/ops/pallas/wavenet_train.py:71",
+                   train_launches["residual_stack_save"], k5a),
+             launches_variance_train=vt_launches["residual_stack_save"]),
+        dict(entry("wavenet_stack_backward_chain", "wavenet_train.cu",
+                   "prodiff_tpu/ops/pallas/wavenet_train.py:161",
+                   train_launches["residual_stack_chain"], k5b),
+             launches_variance_train=vt_launches["residual_stack_chain"]),
         dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
                    vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"]),
              k4_chain_ms=fd["ublock_block"]["k4_chain_ms"], by_block=fd["ublock_block"]["by_block"]),

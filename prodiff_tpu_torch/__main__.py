@@ -1,11 +1,13 @@
-"""Command line of the port: ``python -m prodiff_tpu_torch train|infer|vocode|web ...``.
+"""Command line of the port: ``python -m prodiff_tpu_torch binarize|train|infer|vocode|web ...``.
 
-The flags are those of the JAX package's ``main.py train`` / ``main.py
-infer`` / ``main.py vocode wav2wav`` / ``main.py web`` that the port
-supports, plus ``--device``. The experiment directory
-(``checkpoints/{exp_name}/{task}``: ``config.yaml``, the maps and the
-checkpoints, written by either package) is read without JAX. ``train``
-needs PyYAML and msgpack.
+The flags are those of the JAX package's ``main.py binarize`` / ``main.py
+train`` / ``main.py infer`` / ``main.py vocode wav2wav`` / ``main.py web``
+that the port supports, plus ``--device``. ``binarize`` takes the ``dur``
+and ``pitch`` tasks (``svs`` and ``vari`` land with the data-pipeline
+slice); ``train`` takes ``svs``, ``dur``, ``pitch`` and ``vari``. The
+experiment directory (``checkpoints/{exp_name}/{task}``: ``config.yaml``,
+the maps and the checkpoints, written by either package) is read without
+JAX. ``binarize`` and ``train`` need PyYAML, ``train`` msgpack too.
 """
 
 from __future__ import annotations
@@ -59,7 +61,14 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m prodiff_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    train = sub.add_parser("train", help="train a task (svs)")
+    binarize = sub.add_parser("binarize", help="binarize a labelled corpus (dur, pitch)")
+    binarize.add_argument("task")
+    binarize.add_argument("--config", required=True)
+    binarize.add_argument("--exp_name", required=True)
+    binarize.add_argument("--device", default="cuda",
+                          help="where the pitch extractor runs; default: cuda (cpu only when named)")
+
+    train = sub.add_parser("train", help="train a task (svs, dur, pitch, vari)")
     train.add_argument("train_task")
     train.add_argument("--config", required=True)
     train.add_argument("--exp_name", required=True)
@@ -95,7 +104,15 @@ def main(argv=None) -> None:
     web.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
     args = parser.parse_args(argv)
-    if args.command == "train":
+    if args.command == "binarize":
+        from prodiff_tpu_torch.binarize import BinarizeHandler
+        from prodiff_tpu_torch.config import set_hparams
+        from prodiff_tpu_torch.device import resolve_device
+
+        device = resolve_device(args.device)  # no card: stop before any file is written
+        hparams = set_hparams(args.exp_name, args.task, config_fn=args.config)
+        BinarizeHandler(hparams, device=device).handle()
+    elif args.command == "train":
         from prodiff_tpu_torch.config import set_hparams
         from prodiff_tpu_torch.device import resolve_device
         from prodiff_tpu_torch.tasks import get_task_cls

@@ -15,7 +15,10 @@
 // (lvc_window.cuh:hop_supported): the window product works on 8-row tiles
 // starting at multiples of 8, so each tile lies in one window, and a unit
 // may span windows of any such hop (5 at hop 72, the most a tiled unit
-// stages). Two plans:
+// stages). The tiled plan also takes every multiple of 4 from hop 64 on
+// (layer_hop_supported, as ublock_layer_packed's hop % 4 at C = 32): its
+// SPLIT build gives the last 4 rows of a tile the next window's kernel
+// where the window edge falls inside it. Two plans:
 //   - tiled, hop >= 64 (FastDiff's audio-rate blocks, bound by FP32 FMAs):
 //     R = 256; the unit's window kernels (up to 4 windows at hop 64 and 96)
 //     are copied into shared memory; each thread computes 8 rows x 8 outputs
@@ -100,6 +103,16 @@ constexpr bool RUN_CONV = !(LVCT_SKIP & 1), RUN_WINDOWS = !(LVCT_SKIP & 2);
 __host__ __device__ inline int unit_rows(int hop) {
   return hop >= TILED_MIN_HOP ? TILED_ROWS : STREAM_ROWS;
 }
+
+// K4's hops (K7 keeps its own gate): K6's, and from the tiled plan on every
+// multiple of 4, which run_unit's SPLIT build takes (an 8-row tile then lies
+// in one window or 4 + 4 rows in two).
+__host__ inline bool layer_hop_supported(int hop) {
+  return lvcw::hop_supported(hop) || (hop >= TILED_MIN_HOP && hop % 4 == 0);
+}
+
+// Whether hop needs run_unit's SPLIT build (a window edge inside a tile).
+__host__ inline bool split_tiles(int hop) { return hop % 8 != 0; }
 
 __host__ __device__ inline int gcd(int a, int b) {
   while (b) {
@@ -382,17 +395,20 @@ __device__ __forceinline__ void stream_product(const Layer& a, int b, int t0, co
 
 // Unit (b, t0) of layer a; STREAM: the streaming plan (R = 32, the window
 // kernels loaded into registers while the conv runs), else the tiled plan,
-// whose window copies are in flight when `kernels_issued`, else started here.
+// whose window copies are in flight when `kernels_issued`, else started here;
+// SPLIT (tiled, hop = 4 mod 8): a tile's last 4 rows read the window of its
+// row 4 and are not written past T.
 // Starts with a barrier (the block's previous unit is done with the tiles);
 // the conv weight of this layer is staged before the call. The block's next
 // unit of the layer, (nb, nt0) unless nb < 0, is prefetched into L2 as the
 // window product starts.
-template <int R, int M, int CM, int CN, bool STREAM = false>
+template <int R, int M, int CM, int CN, bool STREAM = false, bool SPLIT = false>
 __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Tiles& tl, int tid,
                                          bool kernels_issued, int nb, int nt0) {
   static_assert(R == (NT / (C / CN)) * CM, "the conv is one pass of the block");
   static_assert(STREAM ? R == 8 * (NT / 64) : R == 32 * M && M % 4 == 0,
                 "streaming: a warp pair a row group of 8; tiled: 32 row groups of M rows");
+  static_assert(!SPLIT || (!STREAM && M == 8), "SPLIT: tiled 8-row tiles in halves of 4");
   const int T = a.T, d = a.dil, h = d + 1;
   const size_t off = (size_t)b * T * C;
   std::conditional_t<STREAM, StreamKernel, char> sk;  // the tiled plan holds none
@@ -525,16 +541,26 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
   }
   // tiled: rows r0 .. r0 + M - 1, output pairs (4pg + p, 32 + 4pg + p)
   const int rg = tid >> 3, pg = tid & 7, r0 = rg * M;
-  if (t0 + r0 >= T) return;  // past the sequence end (a whole row group: 8 | hop)
+  if (t0 + r0 >= T) return;  // past the sequence end (a whole row group: 8 | hop; SPLIT: 4 | T)
   const int w = (t0 + r0) / a.hop - t0 / a.hop;
   const float* K = tl.Kb + w * KW;
+  // SPLIT: rows M/2 .. M - 1 read K2, the window of row M/2 (K where that row
+  // is past T: those rows are not written)
+  const float* K2 = K;
+  if constexpr (SPLIT) K2 = tl.Kb + (min(t0 + r0 + M / 2, T - 1) / a.hop - t0 / a.hop) * KW;
   float ag[M][4], af[M][4];
   {
     const float4 bg = tile::ld4(K + KC * CO + 4 * pg), bf = tile::ld4(K + KC * CO + C + 4 * pg);
+    float4 bg2 = bg, bf2 = bf;
+    if constexpr (SPLIT) {
+      bg2 = tile::ld4(K2 + KC * CO + 4 * pg);
+      bf2 = tile::ld4(K2 + KC * CO + C + 4 * pg);
+    }
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      ag[m][0] = bg.x; ag[m][1] = bg.y; ag[m][2] = bg.z; ag[m][3] = bg.w;
-      af[m][0] = bf.x; af[m][1] = bf.y; af[m][2] = bf.z; af[m][3] = bf.w;
+      const float4 g = m < M / 2 ? bg : bg2, f = m < M / 2 ? bf : bf2;
+      ag[m][0] = g.x; ag[m][1] = g.y; ag[m][2] = g.z; ag[m][3] = g.w;
+      af[m][0] = f.x; af[m][1] = f.y; af[m][2] = f.z; af[m][3] = f.w;
     }
   }
 #pragma unroll 2
@@ -551,10 +577,17 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const float* kr = K + (q * C + c) * CO + 4 * pg;
-      const float4 kg = tile::ld4(kr), kf = tile::ld4(kr + C);
+      const float4 kg1 = tile::ld4(kr), kf1 = tile::ld4(kr + C);
+      float4 kg2 = kg1, kf2 = kf1;
+      if constexpr (SPLIT) {
+        const float* kr2 = K2 + (q * C + c) * CO + 4 * pg;
+        kg2 = tile::ld4(kr2);
+        kf2 = tile::ld4(kr2 + C);
+      }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         const float y = v[m + q];
+        const float4 kg = m < M / 2 ? kg1 : kg2, kf = m < M / 2 ? kf1 : kf2;
         ag[m][0] = fmaf(y, kg.x, ag[m][0]);
         ag[m][1] = fmaf(y, kg.y, ag[m][1]);
         ag[m][2] = fmaf(y, kg.z, ag[m][2]);
@@ -568,6 +601,7 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
   }
 #pragma unroll
   for (int m = 0; m < M; ++m) {
+    if (SPLIT && t0 + r0 + m >= T) break;
     const float4 xa = tile::ld4(tl.xs + xs_at(r0 + m + h, pg));
     const float o[4] = {gated(xa.x, ag[m][0], af[m][0]), gated(xa.y, ag[m][1], af[m][1]),
                         gated(xa.z, ag[m][2], af[m][2]), gated(xa.w, ag[m][3], af[m][3])};
@@ -579,7 +613,7 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
 // the current device, its shared-memory attribute raised as needed. Cached
 // per device, kernel (`variant` < VARIANTS, one per kernel of a library) and
 // size; static, so that two loaded libraries never share the cache.
-constexpr int VARIANTS = 3;
+constexpr int VARIANTS = 4;
 
 template <class K>
 static cudaError_t blocks_per_sm(K kernel, int variant, int smem, int* per_sm,

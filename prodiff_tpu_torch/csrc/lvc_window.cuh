@@ -21,9 +21,11 @@ constexpr int KC = 3 * C;
 constexpr int NT = 256;
 constexpr int MAX_SMEM = 232448;
 
-// The hops of K4 (lvc_tiles.cuh's units) and K6 (lvc.cu): every multiple of
-// 8, as lvc_pallas. Each 8-row tile of a unit then lies in one window. K7
-// keeps its own gate (hop >= 64 and a multiple of 32, ublock_block.cu).
+// The hops of K6 (lvc.cu) and of K4 (lvc_tiles.cuh's units): every multiple
+// of 8, as lvc_pallas. Each 8-row tile of a unit then lies in one window.
+// K4 also takes the multiples of 4 from hop 64 on
+// (lvc_tiles.cuh:layer_hop_supported); K7 keeps its own gate (hop >= 64 and
+// a multiple of 32, ublock_block.cu).
 __host__ inline bool hop_supported(int hop) { return hop >= 8 && hop % 8 == 0; }
 
 // Window (step, b, l, layer)'s kernel [KC, CO] and bias [CO] in the hoisted

@@ -26,7 +26,10 @@
 // kernels are copied by cp.async while x + audio_down is staged and the conv
 // runs, and the window product runs from 8 x 8 register tiles; below (block
 // 0, bound by the kernels' bytes) each warp streams its window's kernel from
-// HBM into registers, the loads in flight from the unit's start.
+// HBM into registers, the loads in flight from the unit's start. At hops
+// from 64 that are 4 mod 8 (ublock_layer_packed takes every multiple of 4)
+// an 8-row tile may straddle a window edge: the tiled plan's SPLIT build
+// reads a second window's kernel for the tile's last 4 rows.
 
 #include "lvc_tiles.cuh"
 
@@ -34,8 +37,9 @@ using namespace lvct;
 
 namespace {
 
-// hop >= 64: the tiled plan, MINB blocks an SM (two_per_sm)
-template <int MINB>
+// hop >= 64: the tiled plan, MINB blocks an SM (two_per_sm); SPLIT at hops
+// that are 4 mod 8 (one block an SM: such a unit stages at least 2 windows)
+template <int MINB, bool SPLIT = false>
 __global__ void __launch_bounds__(NT, MINB) ublock_tiled_kernel(Layer a, int B) {
   extern __shared__ float4 smem4[];
   constexpr int R = TILED_ROWS;
@@ -45,8 +49,8 @@ __global__ void __launch_bounds__(NT, MINB) ublock_tiled_kernel(Layer a, int B) 
   stage_conv(a, tl, tid);  // made visible by run_unit's barriers
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int n = u + gridDim.x < units ? u + gridDim.x : -1;
-    run_unit<LVCT_TILED>(a, u / per_b, u % per_b * R, tl, tid, false, n < 0 ? -1 : n / per_b,
-                         n % per_b * R);
+    run_unit<LVCT_TILED, SPLIT>(a, u / per_b, u % per_b * R, tl, tid, false,
+                                n < 0 ? -1 : n / per_b, n % per_b * R);
   }
 }
 
@@ -71,6 +75,7 @@ int layer_grid(int B, int T, int hop, int dil, int* grid) {
   int per_sm = 0, sms = 0;
   cudaError_t e =
       hop < TILED_MIN_HOP    ? blocks_per_sm(ublock_stream_kernel, 0, smem, &per_sm)
+      : split_tiles(hop)     ? blocks_per_sm(ublock_tiled_kernel<1, true>, 3, smem, &per_sm)
       : two_per_sm(hop, dil) ? blocks_per_sm(ublock_tiled_kernel<2>, 1, smem, &per_sm)
                              : blocks_per_sm(ublock_tiled_kernel<1>, 2, smem, &per_sm);
   if (e == cudaSuccess) e = sm_count(&sms);
@@ -103,7 +108,7 @@ extern "C" int ublock_layer_forward(const float* x, const float* ad, const float
                                     const float* cb, const float* km, const float* lb,
                                     float* out, int B, int T, int L, int hop, int dil,
                                     int layers, int step, int layer, void* stream_ptr) {
-  if (B < 1 || L < 1 || !lvcw::hop_supported(hop) || T != L * hop || dil < 1 || layers < 1 ||
+  if (B < 1 || L < 1 || !layer_hop_supported(hop) || T != L * hop || dil < 1 || layers < 1 ||
       step < 0 || layer < 0 || layer >= layers)
     return (int)cudaErrorInvalidValue;
   const size_t smem = ublock_layer_smem(hop, dil);
@@ -115,6 +120,8 @@ extern "C" int ublock_layer_forward(const float* x, const float* ad, const float
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (hop < TILED_MIN_HOP)
     ublock_stream_kernel<<<grid, NT, smem, stream>>>(a, B);
+  else if (split_tiles(hop))
+    ublock_tiled_kernel<1, true><<<grid, NT, smem, stream>>>(a, B);
   else if (two_per_sm(hop, dil))
     ublock_tiled_kernel<2><<<grid, NT, smem, stream>>>(a, B);
   else

@@ -23,8 +23,12 @@ block that :func:`~prodiff_tpu_torch.ops.ublock.mono_block_supported` admits
 layers in one launch of ``ops/ublock.py:ublock_block`` (port of the Pallas
 ``ublock_block_packed``); the others keep the layer route.
 
-On CUDA tensors the wrappers launch their kernels; on CPU tensors they run
-their plain twins. Per forward that is blocks x layers = 12 launches of the
+A block whose hop its route's kernel does not take (``ops/lvc.py:on_kernels``,
+decided from the hop before any launch: K6 takes the multiples of 8, K4
+those and the multiples of 4 from hop 64 on, as ``ublock_layer_packed``)
+runs the unfused layer, its window product through ``ops/lvc.py:lvc_matmul``,
+as the JAX package's XLA einsum computes it there. On CUDA tensors the wrappers launch their kernels; on CPU tensors
+they run their plain twins. Per forward that is blocks x layers = 12 launches of the
 route's layer kernel, or with ``MONO_BLOCK`` 4 layer launches (block 0) and
 2 block launches. The JAX package's packed space-to-depth trunk
 (``_packed_forward``, ``ops/packed.py``) is a TPU lane layout and is not
@@ -54,7 +58,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from prodiff_tpu_torch.ops.lvc import lvc
+from prodiff_tpu_torch.ops.lvc import lvc, lvc_matmul, on_kernels
 from prodiff_tpu_torch.ops.ublock import (
     LRELU_SLOPE,
     dilated_conv,
@@ -196,20 +200,22 @@ class TimeAwareLVCBlock(nn.Module):
         hop = self.cond_hop_length
         x = self.upsample(F.leaky_relu(x, 0.2)).transpose(1, 2).contiguous()
         dilations = [conv.dilation[0] for conv in self.convs]
-        if MONO_BLOCK and fused_layer and mono_block_supported(hop, dilations):
+        kernels = on_kernels(hop, fused_layer)
+        if MONO_BLOCK and fused_layer and kernels and mono_block_supported(hop, dilations):
             return ublock_block(x, audio_down, [conv.weight for conv in self.convs],
                                 [conv.bias for conv in self.convs], km, lb, dilations, hop,
                                 step_idx)
         for i, conv in enumerate(self.convs):
             d = conv.dilation[0]
-            if fused_layer:
+            if fused_layer and kernels:
                 x = ublock_layer(x, audio_down, conv.weight, conv.bias, km, lb, d, hop,
                                  step_idx, i)
             else:
                 xa = x + audio_down
                 y = F.leaky_relu(dilated_conv(F.leaky_relu(xa, LRELU_SLOPE), conv.weight,
                                               conv.bias, d), LRELU_SLOPE)
-                x = gated_residual(xa, lvc(y, km, lb, hop, step_idx, i))
+                product = lvc if kernels else lvc_matmul
+                x = gated_residual(xa, product(y, km, lb, hop, step_idx, i))
         return x
 
 

@@ -109,6 +109,20 @@ class PitchPredictor(nn.Module):
             delta_pitch = torch.zeros_like(base_pitch)
         return condition + self.delta_pitch_embed(delta_pitch[:, :, None])
 
+    def forward(self, txt_tokens, mel2ph, note_midi, note_rest, mel2note, base_pitch,
+                pitch: torch.Tensor, t: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, **cond_kw):
+        """Training: the flow's (v_pred, v_gt, t) for the target delta
+        ``pitch - base_pitch`` [B, T_mel] (MIDI) as a one-feature curve;
+        ``cond_kw`` (``pitch_retake``, ``pitch_expr``, ``spk_id``) as
+        :meth:`forward_condition`; ``t``/``noise``/``generator`` as
+        :meth:`RectifiedFlow.forward`."""
+        condition = self.forward_condition(txt_tokens, mel2ph, note_midi, note_rest, mel2note,
+                                           base_pitch, pitch=pitch, **cond_kw)
+        return self.diffusion(condition, (pitch - base_pitch)[:, None, :], t=t, noise=noise,
+                              generator=generator)
+
     @torch.no_grad()
     def infer(self, txt_tokens, mel2ph, note_midi, note_rest, mel2note, base_pitch,
               infer_step: int = 20, init_noise: Optional[torch.Tensor] = None,

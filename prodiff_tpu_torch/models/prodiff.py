@@ -7,8 +7,9 @@ conditioning -> zero padded frames -> the mel's diffusion: the 4-step
 x0-prediction DDPM (``diff_type: prodiff``) or a rectified flow integrated
 over ``sampling_steps`` (``diff_type: reflow``, the mel min-max normalised
 by ``spec_min``/``spec_max``; its start point is its only noise).
-:meth:`ProDiffTeacher.forward` is the training call of the DDPM (``gt_spec``
--> ``(x0_pred, x0)``), :meth:`ProDiffTeacher.infer` samples either.
+:meth:`ProDiffTeacher.forward` is the training call (``gt_spec`` -> the
+DDPM's ``(x0_pred, x0)`` or the flow's ``(v_pred, v_gt, t)``),
+:meth:`ProDiffTeacher.infer` samples either.
 """
 
 from __future__ import annotations
@@ -124,11 +125,10 @@ class ProDiffTeacher(nn.Module):
                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, **cond_kw):
         """Training: ``gt_spec`` [B, T_mel, M] -> (x0_pred, x0), both
-        [B, 1, T_mel, M]. ``t``/``noise``/``generator`` as
-        :meth:`GaussianDiffusion.forward`; ``cond_kw`` as :meth:`infer`.
-        (Training a reflow teacher is not ported yet.)"""
-        if self.diff_type != "prodiff":
-            raise NotImplementedError("training a diff_type reflow teacher is not ported yet")
+        [B, 1, T_mel, M], or with ``diff_type: reflow`` (v_pred, v_gt, t).
+        ``t``/``noise``/``generator`` as :meth:`GaussianDiffusion.forward`
+        (:meth:`RectifiedFlow.forward`: t in [0, 1], noise the start point);
+        ``cond_kw`` as :meth:`infer`."""
         condition = self.forward_condition(txt_tokens, mel2ph, f0, **cond_kw)
         return self.diffusion(condition, gt_spec[:, None], t=t, noise=noise, generator=generator)
 

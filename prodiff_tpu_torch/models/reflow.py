@@ -3,15 +3,17 @@
 
 Sampling integrates the learned velocity from the start point x0 ~ N(0, 1)
 to t = 1 with the euler, rk2, rk4 or rk5 stepper (an unknown name falls back to euler, as in
-the JAX module). Specs are min-max normalised to [-1, 1]. (Training,
-the velocity loss on x_t = x0 + t (x1 - x0), is not ported yet.) Tensors are
-``[B, F, T, M]``; the denoiser sees ``[B, T, F*M]``.
+the JAX module). Specs are min-max normalised to [-1, 1]. Training
+(:meth:`RectifiedFlow.forward`) predicts the velocity at x_t = x0 + t (x1 -
+x0), x1 the normalised target, x0 ~ N(0, 1), t ~ U(0, 1); the loss lives in
+``ops/losses.py:spec_loss_reflow``. Tensors are ``[B, F, T, M]``; the
+denoiser sees ``[B, T, F*M]``.
 
 Curve mode (``repeat_bins``, the pitch predictor's): a 1-D curve ``[B, F,
 T]`` is clamped to ``[clamp_min, clamp_max]``, repeated to ``repeat_bins``
 and normalised by per-feature bounds; a sample is mean-decoded and clamped
 again. The start point is ``init_noise`` when given, else drawn from the
-caller's ``torch.Generator``.
+caller's ``torch.Generator``; so are a training call's t and x0.
 """
 
 from __future__ import annotations
@@ -62,6 +64,24 @@ class RectifiedFlow(nn.Module):
         flat = x.permute(0, 2, 1, 3).reshape(b, tt, f * m)
         out = self.denoise_fn(flat, t_scaled, cond)
         return out.reshape(b, tt, f, m).permute(0, 2, 1, 3)
+
+    def forward(self, cond: torch.Tensor, gt_spec: torch.Tensor, t: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training: cond [B, T, H], gt_spec [B, F, T, M] (``[B, F, T]`` in
+        curve mode) -> (v_pred, v_gt, t): the predicted and the true
+        velocity, both [B, F, T, M or R], and t [B]. ``t`` (float in [0, 1])
+        and ``noise`` (the start point x0, the normalised target's shape)
+        are drawn from ``generator`` where not given."""
+        x_end = self.norm_spec(gt_spec)
+        if t is None:
+            t = torch.rand(x_end.shape[0], generator=generator, device=x_end.device)
+        if noise is None:
+            noise = torch.randn(x_end.shape, generator=generator, device=x_end.device,
+                                dtype=x_end.dtype)
+        x_t = noise + t[:, None, None, None] * (x_end - noise)
+        v_pred = self._velocity(x_t, t * self.time_scale, cond)
+        return v_pred, x_end - noise, t
 
     @torch.no_grad()
     def infer(self, cond: torch.Tensor, infer_step: int = 20,

@@ -78,6 +78,18 @@ class VariPredictor(nn.Module):
             condition = condition + self.spk_embed(spk_embed_id)[:, None, :]
         return condition
 
+    def forward(self, txt_tokens, mel2ph, note_midi, note_rest, mel2note, f0,
+                gt_curves: torch.Tensor, spk_embed_id: Optional[torch.Tensor] = None,
+                t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training: ``gt_curves`` [B, F, T_mel] (the curves of
+        :func:`variance_list`, in that order) -> the diffusion's (x0_pred,
+        x0), both [B, F, T_mel, repeat_bins]; ``t``/``noise``/``generator``
+        as :meth:`GaussianDiffusion.forward`."""
+        condition = self.forward_condition(txt_tokens, mel2ph, note_midi, note_rest, mel2note,
+                                           f0, spk_embed_id)
+        return self.diffusion(condition, gt_curves, t=t, noise=noise, generator=generator)
+
     @torch.no_grad()
     def infer(self, txt_tokens, mel2ph, note_midi, note_rest, mel2note, f0,
               spk_embed_id=None, infer_step: int = 4, init_noise=None, step_noises=None,

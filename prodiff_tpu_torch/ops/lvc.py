@@ -10,7 +10,8 @@ and read across window edges, at every hop that is a multiple of 8 (as
 :func:`lvc_plan` mirrors; :func:`lvc_plain` computes the same function with
 ``torch.matmul``.
 :func:`lvc` takes the plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. At a hop outside the kernels' contract the
+caller takes :func:`lvc_matmul` instead, as :func:`on_kernels` decides.
 
 Window kernels come either per layer (``kmat [B, L, 3Cin, Cout]``, ``bias
 [B, L, Cout]``, ``step_idx=None``) or as the hoisted KernelPredictor stack
@@ -30,13 +31,32 @@ from prodiff_tpu_torch import device
 from prodiff_tpu_torch.ops import cuda_build
 
 KERNEL_C = 32  # the kernels' fixed input width (FastDiff's inner channels)
+STREAM_MAX_HOP = 64  # hop < 64: K4 and K6 stream a window's kernel into registers
 MAX_SMEM = 232448  # the H100's shared memory a block (227 KB)
 
 
 # A window-kernel launch's hop contract: its description and its test (T =
-# L * hop always). K6's is lvc_pallas's (prodiff_tpu/ops/pallas/lvc.py:90).
+# L * hop always). K6's is lvc_pallas's (prodiff_tpu/ops/pallas/lvc.py:90);
+# K4's adds the multiples of 4 from hop 64 on, which ublock_layer_packed
+# takes (hop % (128 // C), prodiff_tpu/ops/pallas/ublock.py:291) and which
+# csrc/lvc_tiles.cuh's tiled plan (hop >= 64) splits a tile for.
 HopRule = Tuple[str, Callable[[int], bool]]
 HOP_RULE: HopRule = ("a multiple of 8", lambda hop: hop >= 8 and hop % 8 == 0)
+LAYER_HOP_RULE: HopRule = (
+    "a multiple of 8, or of 4 from 64 on",
+    lambda hop: HOP_RULE[1](hop) or (hop >= STREAM_MAX_HOP and hop % 4 == 0))
+
+
+def on_kernels(hop: int, fused_layer: bool) -> bool:
+    """Whether FastDiff's window product at ``hop`` runs on this package's
+    kernels, decided before any launch: the fused layer (K4, K7 behind its
+    own gate) where :data:`LAYER_HOP_RULE` admits the hop, the unfused one
+    (K6) where :data:`HOP_RULE` does. Elsewhere the caller takes
+    :func:`lvc_matmul`, the ``torch.matmul`` product that the JAX package
+    computes with its XLA einsum there: on its linen route at every hop
+    (``use_pallas_lvc`` off), on its packed route below hop 64
+    (``_FUSED_MIN_HOP``)."""
+    return (LAYER_HOP_RULE if fused_layer else HOP_RULE)[1](hop)
 
 
 def window_kernels(kmat: torch.Tensor, bias: torch.Tensor, cin: int,
@@ -63,6 +83,15 @@ def lvc_plain(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
     taps = torch.cat([xp[:, i: i + t] for i in range(3)], dim=2)  # [B, T, 3Cin]
     y = torch.matmul(taps.view(b, n_win, hop, kc), km) + lb[:, :, None, :]
     return y.reshape(b, t, cout)
+
+
+def lvc_matmul(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
+               step_idx: Optional[int] = None, layer_idx: int = 0) -> torch.Tensor:
+    """The window product off the kernels (:func:`on_kernels` false):
+    :func:`lvc_plain` on any device, each call counted in
+    ``lvc_matmul.launches`` (library launches, no kernel of this package)."""
+    lvc_matmul.launches.add(1)
+    return lvc_plain(x, kmat, bias, hop, step_idx, layer_idx)
 
 
 def check_kernel_operands(name: str, hop_rule: HopRule, x: torch.Tensor, kmat: torch.Tensor,
@@ -107,7 +136,6 @@ def check_kernel_operands(name: str, hop_rule: HopRule, x: torch.Tensor, kmat: t
 
 
 # csrc/lvc.cu's plans (plan_for computes the same numbers)
-STREAM_MAX_HOP = 64  # hop < 64: a warp streams its window's kernel into registers
 UNIT_MAX = 128  # pipelined: rows a unit at most
 _CONSUMERS = 256  # pipelined: consumer threads a block, one a row of a unit
 MAX_STAGES = 8
@@ -183,3 +211,4 @@ def lvc(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
 
 
 lvc.launches = cuda_build.LaunchCounter()
+lvc_matmul.launches = cuda_build.LaunchCounter()

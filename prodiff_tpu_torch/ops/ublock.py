@@ -39,12 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from prodiff_tpu_torch.ops import cuda_build
-# HOP_RULE: K4's hop contract is K6's, every multiple of 8
-# (csrc/lvc_window.cuh:hop_supported; each 8-row tile of csrc/lvc_tiles.cuh's
-# units lies in one window). K7 checks its operands by it too, behind its
-# own gate (mono_block_supported).
-from prodiff_tpu_torch.ops.lvc import (HOP_RULE, KERNEL_C, MAX_SMEM, check_kernel_operands,
-                                       lvc_plain)
+# HOP_RULE: K4's hop contract, every multiple of 8 as K6 and from hop 64 on
+# every multiple of 4 (csrc/lvc_tiles.cuh:layer_hop_supported; an 8-row tile
+# of its units lies in one window, or in two at a hop of 4 mod 8). K7 checks
+# its operands by it too, behind its own gate (mono_block_supported).
+from prodiff_tpu_torch.ops.lvc import LAYER_HOP_RULE as HOP_RULE
+from prodiff_tpu_torch.ops.lvc import KERNEL_C, MAX_SMEM, check_kernel_operands, lvc_plain
 
 LRELU_SLOPE = 0.2
 

@@ -209,10 +209,6 @@ class WebHandler:
         for key in ("speaker", "language", "ph_text_list", "ph_dur_list", "pitch_list"):
             if key not in req:
                 raise BadRequest(f"{key} is required")
-        if "voicing_list" in req or "breath_list" in req:
-            raise NotImplementedError(
-                "voicing_list/breath_list: the VR gain path lands with the data-pipeline slice"
-            )
         core, lang = self.core, req["language"]
         if core.hparams["use_lang_id"] and lang not in core.lang_map:
             raise BadRequest(f"unknown language {lang!r}")
@@ -250,6 +246,12 @@ class WebHandler:
         }
         with self._render_lock:
             wav = self.core.infer(segment)
+        if "voicing_list" in req and "breath_list" in req:
+            # the JAX server scales the VR model's harmonic and aperiodic parts
+            # by these curves; without a VR model it logs and answers the raw
+            # wav, as here, where the VR model is not ported yet (one key alone
+            # is ignored by both)
+            print("| web: VR gain path unavailable (no VR model in the port); returning raw wav")
         return {"wav": [float(x) for x in wav]}
 
     def make_server(self) -> ThreadingHTTPServer:

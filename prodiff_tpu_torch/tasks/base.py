@@ -3,8 +3,10 @@ definition, the datasets and the loss.
 
 A task exposes ``build_model()`` (an ``nn.Module``), ``compute_losses(model,
 batch, generator, ...)`` (a dict of scalar tensors whose sum is the loss, as
-the reference sums every loss term, ``base_task.py:202-229``) and the train
-and validation batch iterators.
+the reference sums every loss term, ``base_task.py:202-229``),
+``params_tree``/``load_params_tree`` (the weights as the JAX package's param
+tree, the checkpoints' format) and the train and validation batch
+iterators.
 """
 
 from __future__ import annotations
@@ -43,6 +45,10 @@ class BaseTask:
 
     def compute_losses(self, model, batch, generator=None, **kwargs):
         raise NotImplementedError
+
+    def validation_plots(self, *args, **kwargs):
+        raise NotImplementedError(
+            "validation plots (matplotlib figures) land with the serving-extras slice")
 
     def train_iterator(self) -> BatchIterator:
         ds: BaseDataset = self.dataset_cls(

@@ -1,9 +1,11 @@
 """The SVS acoustic-model train task (port of ``svs`` in
 ``prodiff_tpu/tasks/svs.py``): trains the ProDiffTeacher
-(``component/train_task/svs/task.py:13-100``) with ``diff_type: prodiff``.
+(``component/train_task/svs/task.py:13-100``), ``diff_type: prodiff`` (the
+x0 losses of ``mel_loss``) or ``reflow`` (the velocity loss of its first
+term, logit-normal weighted).
 
-``svs_rectified``, ``diff_type: reflow`` and the validation plots land with
-later slices and raise ``NotImplementedError`` saying which.
+``svs_rectified``, bf16 training and the validation plots land with later
+slices and raise ``NotImplementedError`` saying which.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from prodiff_tpu_torch.data.collate import collate_1d, collate_2d
 from prodiff_tpu_torch.data.dataset import BaseDataset
 from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
-from prodiff_tpu_torch.ops.losses import parse_loss_spec, spec_loss_prodiff
+from prodiff_tpu_torch.ops.losses import parse_loss_spec, spec_loss_prodiff, spec_loss_reflow
 from prodiff_tpu_torch.tasks import register_task
 from prodiff_tpu_torch.tasks.base import BaseTask
 from prodiff_tpu_torch.utils.convert import teacher_flax_params, teacher_state_dict
@@ -66,15 +68,12 @@ class SVSTask(BaseTask):
     def __init__(self, hparams):
         super().__init__(hparams)
         self.diffusion_type = hparams.get("diff_type", "prodiff")
-        if self.diffusion_type != "prodiff":
-            raise NotImplementedError(
-                f"diff_type {self.diffusion_type!r}: rectified-flow training lands with the "
-                "variance slice")
         if hparams.get("bf16") or hparams.get("amp"):
             raise NotImplementedError(
                 "bf16/amp training: the port trains in parity mode (float32, TF32 off); "
                 "a fast mode lands with a performance slice")
         self.loss_type = parse_loss_spec(hparams["mel_loss"])
+        self.loss_type_list = list(self.loss_type)
 
     def build_model(self) -> ProDiffTeacher:
         self.build_phone_encoder()
@@ -91,14 +90,20 @@ class SVSTask(BaseTask):
     def compute_losses(self, model, batch, generator: Optional[torch.Generator] = None,
                        t: Optional[torch.Tensor] = None,
                        noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """``{"mel_l1", "mel_ssim"}`` (the configured ``mel_loss`` terms) of
-        one training forward; ``t``/``noise`` are drawn from ``generator``
-        where not given."""
+        """The losses of one training forward: ``{"mel_l1", "mel_ssim"}``
+        (the configured ``mel_loss`` terms) for ``diff_type: prodiff``, ``{"mel"}``
+        for ``reflow``; ``t``/``noise`` are drawn from ``generator`` where not
+        given."""
         args, kwargs = self.model_inputs(batch)
-        spec_pred, spec_gt = model(*args, gt_spec=batch["mel"], t=t, noise=noise,
-                                   generator=generator, **kwargs)
-        return spec_loss_prodiff(spec_pred, spec_gt, batch["mel2ph"] > 0, self.loss_type,
-                                 name="mel")
+        output = model(*args, gt_spec=batch["mel"], t=t, noise=noise, generator=generator,
+                       **kwargs)
+        non_padding = batch["mel2ph"] > 0
+        if self.diffusion_type == "prodiff":
+            spec_pred, spec_gt = output
+            return spec_loss_prodiff(spec_pred, spec_gt, non_padding, self.loss_type, name="mel")
+        v_pred, v_gt, t = output
+        return spec_loss_reflow(v_pred, v_gt, t, non_padding, self.loss_type_list[0],
+                                log_norm=True, name="mel")
 
     def params_tree(self, model) -> dict:
         """The model's weights as the JAX package's param tree (checkpoints)."""
@@ -106,10 +111,6 @@ class SVSTask(BaseTask):
 
     def load_params_tree(self, model, tree: dict) -> None:
         model.load_state_dict(teacher_state_dict(tree, self.hparams))
-
-    def validation_plots(self, *args, **kwargs):
-        raise NotImplementedError(
-            "validation plots (matplotlib mel figures) land with the serving-extras slice")
 
 
 @register_task("svs_rectified")

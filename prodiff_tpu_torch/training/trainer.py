@@ -78,11 +78,12 @@ class MetricsWriter:
 
 
 def host_tensors(batch: Dict[str, np.ndarray], pin: bool) -> Dict[str, torch.Tensor]:
-    """numpy batch -> torch tensors (integers as int64), pinned if asked."""
+    """numpy batch -> torch tensors (integers as int64, masks stay bool),
+    pinned if asked."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
-        if not t.is_floating_point():
+        if not t.is_floating_point() and t.dtype != torch.bool:
             t = t.long()
         out[k] = t.pin_memory() if pin else t
     return out

@@ -61,3 +61,21 @@ def shift_pitch(f0, n_semitones):
 def midi_to_hz(midi):
     midi = np.asarray(midi, dtype=np.float64)
     return 440.0 * 2 ** ((midi - 69) / 12)
+
+
+def hz_to_midi(hz):
+    hz = np.asarray(hz, dtype=np.float64)
+    return 69.0 + 12.0 * np.log2(np.maximum(hz, 1e-5) / 440.0)
+
+
+def random_continuous_masks(rng: np.random.Generator, *shape: int, dim: int) -> np.ndarray:
+    """Random ``[start, end)`` span masks along ``dim``, independent per
+    leading index: one ``rng.integers(0, shape[dim] + 1)`` draw of the
+    (start, end) pairs, sorted, as the JAX package draws them."""
+    bounds = np.sort(
+        rng.integers(0, shape[dim] + 1, size=(*shape[:dim], 2, *((1,) * (len(shape) - dim - 1)))),
+        axis=dim)
+    start = np.take(bounds, [0], axis=dim)
+    end = np.take(bounds, [1], axis=dim)
+    idx = np.arange(shape[dim]).reshape(*((1,) * dim), shape[dim], *((1,) * (len(shape) - dim - 1)))
+    return (idx >= start) & (idx < end)

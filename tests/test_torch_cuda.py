@@ -262,13 +262,15 @@ def test_ublock_layer_kernel_matches_plain(cuda, hop, dilation, n_win):
 
 
 @pytest.mark.parametrize("hop,n_win", [(24, 37), (40, 9), (48, 21), (56, 5), (72, 11),
-                                       (80, 7), (72, 300)])
+                                       (80, 7), (72, 300), (68, 9), (100, 7), (100, 300),
+                                       (260, 5)])
 def test_ublock_layer_kernel_at_widened_hops(cuda, hop, n_win):
     """K4 at the hops that are multiples of 8 but not 8, 16 or of 32: below
     64 the streaming units (a 32-row unit spans two windows), above the
     256-row tiled units (hop 72: up to 5 windows a unit; 300 windows: more
-    units than the grid); B = 2, per layer and from a stack at (step 1,
-    layer 3), dilation 27."""
+    units than the grid); and at hops of 4 mod 8 from 64 on, the split
+    tiles (an odd window count ends half a tile past T); B = 2, per layer
+    and from a stack at (step 1, layer 3), dilation 27."""
     rng = np.random.default_rng(hop)
     ops = _layer_operands(rng, 2, n_win, hop, cuda)
     torch.testing.assert_close(ublock_layer(*ops, 27, hop), ublock_layer_plain(*ops, 27, hop),
@@ -718,3 +720,119 @@ def test_variance_models_on_card_match_cpu(cuda, name):
     pairs = [(got[k], want[k]) for k in want] if isinstance(want, dict) else [(got, want)]
     for g, w in pairs:
         torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["dur", "pitch", "vari", "svs"])
+def test_variance_training_steps_on_card_match_cpu(cuda, name):
+    """One training loss of each variance task (and of a ``diff_type:
+    reflow`` teacher, the ``svs`` task) on the card against the same
+    weights on the CPU, t and noise injected, dropout off: the loss and
+    every parameter's gradient. The variance denoiser and the teacher
+    (dilation cycle 1) train through K5, 1 + 2L save-forward and 2L chain
+    launches; the pitch denoiser (cycle 5) and the duration predictor
+    launch no kernel."""
+    import copy
+
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import host_tensors
+
+    hp = dict(_small_variance_hp(), task=name, data_dir="unused", max_tokens=1000,
+              max_sentences=4, mel_loss="l1:0.5|ssim:0.5")
+    task = get_task_cls(name)(hp)
+    rng = np.random.default_rng(22)
+    torch.manual_seed(22)
+    b, t_ph, t_note, t_mel = 2, 7, 5, 96
+    tokens = rng.integers(3, 10, (b, t_ph))
+    tokens[1, 5:] = 0
+    mel2ph = np.repeat(np.arange(1, t_ph + 1), t_mel // t_ph + 1)[:t_mel][None].repeat(b, 0)
+    mel2ph[1, 70:] = 0
+    mel2note = np.repeat(np.arange(1, t_note + 1), t_mel // t_note + 1)[:t_mel][None].repeat(b, 0)
+    mel2note[1, 70:] = 0
+    notes = {"note_midi": rng.uniform(50, 70, (b, t_note)).astype(np.float32),
+             "note_rest": rng.random((b, t_note)) < 0.3, "mel2note": mel2note}
+    f0 = rng.uniform(100, 400, (b, t_mel)).astype(np.float32)
+    if name == "dur":
+        from prodiff_tpu_torch.models.duration import DurPredictor
+        model = DurPredictor(10, hp)
+        batch = {"ph_seq": tokens, "onset": ((tokens > 0) & (np.arange(t_ph) % 2 == 0)).astype(np.int64),
+                 "word_dur": rng.uniform(0.1, 0.5, (b, t_ph)).astype(np.float32),
+                 "ph_dur": rng.uniform(0.05, 0.3, (b, t_ph)).astype(np.float32) * (tokens > 0)}
+        draws = {}
+    elif name == "pitch":
+        from prodiff_tpu_torch.models.pitch_predictor import PitchPredictor
+        model = PitchPredictor(10, hp)
+        base = rng.uniform(55, 65, (b, t_mel)).astype(np.float32)
+        batch = dict(notes, ph_seq=tokens, mel2ph=mel2ph, base_pitch=base,
+                     pitch=base + rng.normal(size=base.shape).astype(np.float32),
+                     spk_id=np.array([1, 0]),
+                     pitch_retake=(rng.random((b, t_mel)) < 0.5).astype(np.int32))
+        draws = {"t": np.array([0.3, 0.8], np.float32),
+                 "noise": rng.normal(size=(b, 1, t_mel, 8)).astype(np.float32)}
+    elif name == "vari":
+        from prodiff_tpu_torch.models.vari_predictor import VariPredictor
+        model = VariPredictor(10, hp)
+        batch = dict(notes, ph_seq=tokens, mel2ph=mel2ph, f0=f0, spk_id=np.array([0, 1]),
+                     **{k: rng.uniform(-90, -10, (b, t_mel)).astype(np.float32)
+                        for k in ("voicing", "breath", "tension")})
+        draws = {"t": np.array([3, 0]), "noise": rng.normal(size=(b, 3, t_mel, 2)).astype(np.float32)}
+    else:
+        from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+        model = ProDiffTeacher(10, hp)
+        batch = {"ph_seq": tokens, "mel2ph": mel2ph, "f0": f0, "lang_seq": (tokens > 0).astype(np.int64),
+                 "spk_id": np.array([1, 0]), "voicing": np.full((b, t_mel), -30.0, np.float32),
+                 "breath": np.full((b, t_mel), -60.0, np.float32),
+                 "mel": rng.uniform(-10, -2, (b, t_mel, 32)).astype(np.float32)}
+        draws = {"t": np.array([0.05, 0.6], np.float32),
+                 "noise": rng.normal(size=(b, 1, t_mel, 32)).astype(np.float32)}
+    if hasattr(model, "diffusion"):
+        torch.nn.init.normal_(model.diffusion.denoise_fn.output_projection.weight, std=0.02)
+    ref = model.eval()  # dropout off; grad mode stays on
+    card = copy.deepcopy(ref).to(cuda)
+    before = (residual_stack_save.launches.count, residual_stack_chain.launches.count)
+    totals = []
+    for net, dev in ((card, cuda), (ref, torch.device("cpu"))):
+        a = {k: v.to(dev) for k, v in host_tensors(batch, pin=False).items()}
+        losses = task.compute_losses(net, a, **{k: torch.as_tensor(v, device=dev)
+                                                for k, v in draws.items()})
+        total = sum(losses.values())
+        total.backward()
+        totals.append(total.detach().cpu())
+    torch.cuda.synchronize()
+    n = 4 if name in ("vari", "svs") else 0  # the residual layers that run K5
+    assert (residual_stack_save.launches.count - before[0],
+            residual_stack_chain.launches.count - before[1]) == ((1 + 2 * n) if n else 0, 2 * n)
+    torch.testing.assert_close(totals[0], totals[1], atol=1e-4, rtol=1e-4)
+    cpu_params = dict(ref.named_parameters())
+    for pname, p in card.named_parameters():
+        assert p.grad is not None and cpu_params[pname].grad is not None, pname
+        assert_grad_close(p.grad.cpu(), cpu_params[pname].grad, pname)
+
+
+def test_fastdiff_hops_off_8_route_by_layer(cuda):
+    """Upsample ratios [5, 5, 4] (hops 5, 25, 100): on CUDA tensors the
+    unfused layer takes the matmul product on all 12 layers and launches no
+    K6; the fused layer takes it at hops 5 and 25 (8 calls) and launches K4
+    on hop 100's 4 layers; no K7; the forward agrees with a CPU copy."""
+    import copy
+
+    from prodiff_tpu_torch.models import fastdiff as fd
+
+    torch.manual_seed(1)
+    ref = fd.FastDiff(cond_channels=16, upsample_ratios=(5, 5, 4)).eval()
+    n_win, hop = 6, 100
+    audio, cond = torch.randn(2, n_win * hop, 1), torch.randn(2, n_win, 16)
+    steps = torch.tensor([[2.5], [40.0]])
+    with torch.no_grad():
+        want = ref(audio, cond, steps)
+    for fused, launched in ((True, [8, 4, 0, 0]), (False, [12, 0, 0, 0])):
+        net = copy.deepcopy(ref).to(cuda)
+        net.fused_layer = fused
+        counters = (lvc_ops.lvc_matmul.launches, ublock_layer.launches, lvc.launches,
+                    ublock_block.launches)
+        before = [c.count for c in counters]
+        with torch.no_grad():
+            got = net(audio.to(cuda), cond.to(cuda), steps.to(cuda))
+        torch.cuda.synchronize()
+        assert [c.count - b for c, b in zip(counters, before)] == launched
+        peak = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4 * peak, rtol=RTOL)

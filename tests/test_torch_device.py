@@ -30,6 +30,11 @@ def test_resolve_device_defaults_to_the_card(no_cuda):
     ["infer", "song.ds", "--exp_name", "exp", "--spk_name", "spk0"],
     ["web", "--exp_name", "exp"],
     ["train", "svs", "--config", "train.yaml", "--exp_name", "exp"],
+    ["train", "dur", "--config", "train.yaml", "--exp_name", "exp"],
+    ["train", "pitch", "--config", "train.yaml", "--exp_name", "exp"],
+    ["train", "vari", "--config", "train.yaml", "--exp_name", "exp"],
+    ["binarize", "dur", "--config", "data.yaml", "--exp_name", "exp"],
+    ["binarize", "pitch", "--config", "data.yaml", "--exp_name", "exp"],
     ["vocode", "wav2wav", "in.wav", "--config", "vocoder.yaml"],
 ])
 def test_cli_defaults_to_the_card(no_cuda, argv, tmp_path, monkeypatch):

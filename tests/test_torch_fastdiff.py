@@ -39,7 +39,8 @@ from prodiff_tpu_torch.models.fastdiff import (
     sampling_given_noise_schedule,
     tap_major_state_dict,
 )
-from prodiff_tpu_torch.ops.lvc import lvc
+from prodiff_tpu_torch.ops.lvc import (HOP_RULE, LAYER_HOP_RULE, lvc, lvc_matmul,
+                                      on_kernels)
 from prodiff_tpu_torch.ops.ublock import ublock_layer
 from prodiff_tpu_torch.utils.convert import fastdiff_state_dict
 from prodiff_tpu_torch.vocoders import get_vocoder_cls
@@ -181,6 +182,93 @@ def test_forward_matches_jax():
             assert got.shape == want.shape == (1, L * HOP, 1)
             np.testing.assert_allclose(got, want, atol=5e-5)
             np.testing.assert_allclose(got, packed, atol=5e-5)
+
+
+@pytest.mark.parametrize("hop,fused,unfused", [
+    (20, False, False), (50, False, False), (64, True, True), (256, True, True),
+    (5, False, False), (8, True, True), (36, False, False), (68, True, False),
+    (100, True, False), (200, True, True)])
+def test_window_route_by_hop(hop, fused, unfused):
+    """The window product's route follows from the hop and the layer alone:
+    the unfused layer's K6 at every multiple of 8, the fused layer's K4 also
+    at the multiples of 4 from hop 64 on (where the JAX packed route runs
+    ``ublock_layer_packed``); ``torch.matmul`` at the others, where the JAX
+    package computes its XLA einsum."""
+    assert on_kernels(hop, True) == fused == LAYER_HOP_RULE[1](hop)
+    assert on_kernels(hop, False) == unfused == HOP_RULE[1](hop)
+
+
+def _carried(ratios, n_frames, seed):
+    """JAX FastDiff params at ``ratios`` (seeded init, biases perturbed) and
+    the port's state dict carrying them."""
+    cfg = dict(CFG, upsample_ratios=list(ratios))
+    jnet = JaxFastDiff(cond_channels=16, upsample_ratios=tuple(ratios), use_packed=False)
+    hop = int(np.prod(ratios))
+    params = jax.jit(jnet.init)(jax.random.PRNGKey(seed), jnp.zeros((1, n_frames * hop, 1)),
+                                jnp.zeros((1, n_frames, 16)), jnp.zeros((1, 1)))
+    rng = np.random.default_rng(seed + 5)
+    params = jax.tree.map(
+        lambda a: a + rng.normal(size=a.shape).astype(np.float32) * 0.05 if a.ndim == 1 else a,
+        params)
+    audio = rng.normal(size=(2, n_frames * hop, 1)).astype(np.float32)
+    cond = rng.normal(size=(2, n_frames, 16)).astype(np.float32)
+    steps = np.array([[3.0], [40.0]], np.float32)
+    return cfg, params, tap_major_state_dict(fastdiff_state_dict(params, cfg), cfg), \
+        (audio, cond, steps)
+
+
+def _port_forward(cfg, sd, inputs, fused):
+    """The port's forward on the CPU and its ``lvc_matmul`` calls (the CPU
+    twins of K4 and K6 count nothing)."""
+    net = FastDiff.from_config(cfg, fused_layer=fused).eval()
+    net.load_state_dict(sd)
+    before = (lvc_matmul.launches.count, ublock_layer.launches.count, lvc.launches.count)
+    with torch.no_grad():
+        got = net(*(_t(a) for a in inputs)).numpy()
+    after = (lvc_matmul.launches.count, ublock_layer.launches.count, lvc.launches.count)
+    assert after[1:] == before[1:]
+    return got, after[0] - before[0]
+
+
+def test_forward_matches_jax_at_hops_off_the_kernels():
+    """Upsample ratios [5, 5, 4] (hops 5, 25, 100: none a multiple of 8): the
+    unfused layer takes the matmul product on every layer (12 calls a
+    forward), the fused layer on blocks 0-1 (8; hop 100 is K4's), and both
+    match the JAX linen model (odd ratios: the JAX packed route does not
+    take them)."""
+    n_frames = 4
+    cfg, params, sd, inputs = _carried((5, 5, 4), n_frames, 3)
+    jnet = JaxFastDiff(cond_channels=16, upsample_ratios=(5, 5, 4), use_packed=True)
+    assert not jnet.packed_active(n_frames)
+    want = np.asarray(jnet.apply(params, *(jnp.asarray(a) for a in inputs)))
+    for fused, routed in ((True, 8), (False, 12)):
+        got, n = _port_forward(cfg, sd, inputs, fused)
+        assert n == routed
+        assert got.shape == want.shape == (2, n_frames * 100, 1)
+        np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+def test_forward_matches_jax_packed_route_at_hop_100():
+    """Upsample ratios [10, 10, 2] (hops 10, 100, 200), T_mel = 8 (at hop 100
+    ``ublock_layer_packed``'s blocks need 8 | T_mel): the JAX packed route
+    runs hop 10 by its einsum and hops 100 and 200 by
+    ``ublock_layer_packed`` (interpret mode here); the port's fused layer
+    takes the matmul product at hop 10 only (4 calls), its unfused layer at
+    hops 10 and 100 (8), and both match the packed and the linen model."""
+    n_frames = 8
+    cfg, params, sd, inputs = _carried((10, 10, 2), n_frames, 4)
+    ja = [jnp.asarray(a) for a in inputs]
+    packed_net = JaxFastDiff(cond_channels=16, upsample_ratios=(10, 10, 2), use_packed=True)
+    assert packed_net.packed_active(n_frames)
+    packed = np.asarray(packed_net.apply(params, *ja))
+    linen = np.asarray(JaxFastDiff(cond_channels=16, upsample_ratios=(10, 10, 2),
+                                   use_packed=False).apply(params, *ja))
+    np.testing.assert_allclose(packed, linen, atol=5e-5)
+    for fused, routed in ((True, 4), (False, 8)):
+        got, n = _port_forward(cfg, sd, inputs, fused)
+        assert n == routed
+        assert got.shape == packed.shape == (2, n_frames * 200, 1)
+        np.testing.assert_allclose(got, packed, atol=5e-5)
 
 
 def _schedule():

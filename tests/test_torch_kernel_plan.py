@@ -210,9 +210,15 @@ def test_lvc_layer_kernels_keep_their_hop_rule():
 
 
 def test_k4_hop_rule_is_k6s():
-    """ops/ublock.py:HOP_RULE accepts exactly what ops/lvc.py:HOP_RULE does."""
+    """ops/ublock.py:HOP_RULE accepts what ops/lvc.py:HOP_RULE does, and
+    besides only the multiples of 4 from hop 64 on (ublock_layer_packed's
+    hop % 4 at C = 32, where the JAX packed route runs it): the hops of the
+    tiled plan whose 8-row tiles may split 4 + 4 across a window edge."""
     for hop in range(-8, 1025):
-        assert ublock.HOP_RULE[1](hop) == lvc_ops.HOP_RULE[1](hop), hop
+        extra = hop >= 64 and hop % 8 == 4
+        assert ublock.HOP_RULE[1](hop) == (lvc_ops.HOP_RULE[1](hop) or extra), hop
+        if extra:
+            assert not ublock.layer_plan(hop, 1)["streams"]
 
 
 @pytest.mark.parametrize("hop,windows,smem", [
@@ -221,6 +227,9 @@ def test_k4_hop_rule_is_k6s():
     (72, 5, 210304),    # a 256-row unit at an offset of 64 in a window spans 5
     (80, 4, 185472),
     (88, 4, 185472),
+    (68, 5, 210304),    # hops of 4 mod 8 (split tiles)
+    (100, 4, 185472),
+    (260, 2, 135808),
 ])
 def test_lvc_layer_plan_at_the_widened_hops(hop, windows, smem):
     """K4's units at hops outside its old contract: the streaming plan below

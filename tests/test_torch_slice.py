@@ -28,6 +28,7 @@ import yaml
 from prodiff_tpu.config import load_base_config
 from prodiff_tpu.infer.handler import SVSInferHandler as JaxHandler
 from prodiff_tpu.models.prodiff import ProDiffTeacher as JaxTeacher
+from prodiff_tpu.serve.handler import WebHandler as JaxWebHandler
 from prodiff_tpu.utils import ckpt_utils
 from prodiff_tpu.utils.text_encoder import TokenTextEncoder
 from prodiff_tpu_torch.__main__ import main as port_cli
@@ -188,6 +189,50 @@ def test_web_api_and_cli(experiment):
     assert os.path.exists(os.path.join("infer_out", f"song【{EXP}】.wav"))
     with pytest.raises(FileNotFoundError, match="dur"):  # no dur predictor in the experiment
         SVSInferHandler(EXP, pred_dur=True, device="cpu")
+
+
+def _serve(web):
+    """Start ``web``'s server on a free port; returns (base url, stop)."""
+    server = web.make_server()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        assert not thread.is_alive()
+    return f"http://127.0.0.1:{server.server_address[1]}", stop
+
+
+def test_web_infer_takes_vr_keys_as_jax(experiment):
+    """``voicing_list`` alone, ``breath_list`` alone, and both: the port's
+    ``/api/infer`` answers 200 with the wav of the request without them
+    (one key alone is ignored; both ask for the VR gain, and without a VR
+    model the raw wav is returned), as the JAX server's route answers."""
+    core = SVSInferHandler(EXP, deterministic=True, device="cpu")
+    jax_web = JaxWebHandler.__new__(JaxWebHandler)  # its route code, without the warm-up compile
+    jax_web.core = JaxHandler(EXP, deterministic=True)
+    jax_web.hparams, jax_web.timestep = jax_web.core.hparams, jax_web.core.timestep
+    jax_web.host, jax_web.port = "127.0.0.1", 0
+    req = {"speaker": "spk0", "language": "zh", "ph_text_list": ["a", "c", "SP"],
+           "ph_dur_list": [0.15, 0.2, 0.05], "pitch_list": [60.0] * 40}
+    curves = {"voicing_list": [-30.0] * 40, "breath_list": [-60.0] * 40}
+    keyed = [{"voicing_list": curves["voicing_list"]}, {"breath_list": curves["breath_list"]},
+             curves]
+    for web in (WebHandler(core=core, host="127.0.0.1", port=0), jax_web):
+        url, stop = _serve(web)
+        try:
+            code, out = _request(f"{url}/api/infer", req)
+            assert code == 200, out
+            raw = np.asarray(out["wav"])
+            assert raw.size > 0 and np.abs(raw).max() > 1e-4
+            for extra in keyed:
+                code, out = _request(f"{url}/api/infer", dict(req, **extra))
+                assert code == 200, (sorted(extra), out)
+                np.testing.assert_array_equal(np.asarray(out["wav"]), raw, err_msg=str(sorted(extra)))
+        finally:
+            stop()
 
 
 def test_chip_smoke_mirrors_base_config():

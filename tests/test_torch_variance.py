@@ -305,7 +305,8 @@ def test_vari_predictor_matches_jax(inject):
 
 def test_reflow_teacher_matches_jax():
     """A ``diff_type: reflow`` teacher: spec_min/spec_max normalisation, 3
-    euler steps from the injected start point (its only noise)."""
+    euler steps from the injected start point (its only noise); its
+    training call returns the velocity pair."""
     hp = dict(TEACHER_HP, diff_type="reflow", spec_min=[-12.0], spec_max=[0.0],
               sampling_algorithm="euler")
     rng = np.random.default_rng(6)
@@ -325,8 +326,14 @@ def test_reflow_teacher_matches_jax():
     got = model.infer(T(tokens), T(mel2ph), T(f0), infer_step=3, init_noise=T(noise),
                       **{k: T(v) for k, v in cond.items()})
     close(got, want)
-    with pytest.raises(NotImplementedError, match="reflow"):
-        model(T(tokens), T(mel2ph), T(f0), gt_spec=torch.zeros(2, 24, 16))
+    # training takes the flow's branch: the velocity target from the
+    # normalised mel and the start point (the loss tests live beside the
+    # training slice's)
+    gt = rng.uniform(-11, -1, (2, 24, 16)).astype(np.float32)
+    v_pred, v_gt, t = model(T(tokens), T(mel2ph), T(f0), gt_spec=T(gt), t=T([0.2, 0.6]),
+                            noise=T(noise), **{k: T(v) for k, v in cond.items()})
+    assert v_pred.shape == v_gt.shape == (2, 1, 24, 16) and t.tolist() == pytest.approx([0.2, 0.6])
+    close(v_gt, (gt[:, None] + 12) / 12 * 2 - 1 - noise, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["dur", "pitch", "vari"])
