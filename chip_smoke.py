@@ -116,6 +116,21 @@ Phases, each printing its lines before the last:
      its inferer for one segment, the step times, and the vari trainer's
      step at the training cell's batch (B=16, T=1536) under torch.profiler
      (K5a, K5b, cuBLAS, the rest, the device's idle share).
+  9. the data pipeline at full width on seeded RMVPE (``E2E0(4, 1, (2, 2))``,
+     its output bias peaked at one bin) and VR (``CascadedNet`` at nout 32,
+     nout_lstm 128, n_fft 2048, hop 512) checkpoints, written where the base
+     config's ``pe_ckpt``/``vr_ckpt``/``vocoder_ckpt`` point, in a temporary
+     directory: ``preprocess`` of a TextGrid corpus (8 seeded 2-6 s tones at
+     44.1 kHz), ``binarize svs`` with RMVPE and the VR model's voicing,
+     breath and tension, ``train svs`` 2 steps on those shards (K5 41 + 40 a
+     step), ``binarize svs_rectified`` with that flagship teacher (K1 12 an
+     item), ``vocode wav2wav`` under the base config's ``pitch_extractor:
+     rmvpe`` (K2/K3 90 a render), ``infer --isolate_aspiration
+     --isolate_base_harmonic`` of ``samples/example.ds`` and ``/api/infer``
+     with the VR gain (K1 12 and K2/K3 90 a render); each step's launches
+     asserted, the shortest item's mel, f0, salience, harmonic part, voicing,
+     breath and tension and the written wavs held against the CPU, RMVPE and
+     VR timed by CUDA events, one binarized item under torch.profiler.
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -1501,9 +1516,11 @@ def phase_train_kernels(dev, torch):
     return k5a, k5b
 
 
-# library kernels by substrings of their names
-LIBRARY_GROUPS = {"GEMM (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
-                  "convolution (cuDNN)": ("conv", "cudnn", "implicit", "winograd", "fft"),
+# library kernels by substrings of their names, the first group that matches;
+# cuDNN's implicit-GEMM convolutions (``sm80_xmma_fprop_implicit_gemm...``)
+# also match "gemm", so the convolutions are looked for first
+LIBRARY_GROUPS = {"convolution (cuDNN)": ("conv", "cudnn", "implicit", "winograd", "fft"),
+                  "GEMM (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
                   "memcpy/memset": ("Memcpy", "Memset", "memcpy", "memset")}
 
 
@@ -2283,8 +2300,8 @@ def write_variance_corpus(tmp: str) -> str:
 
 
 def write_vari_shards(data_dir: str, hp: dict, phone_set: dict) -> None:
-    """The vari task's shards from seeded arrays (its binarizer lands with the
-    data-pipeline slice): one phrase an item, 60-128 frames."""
+    """The vari task's shards from seeded arrays (the data-pipeline phase
+    runs the binarizers): one phrase an item, 60-128 frames."""
     from prodiff_tpu_torch.models.vari_predictor import variance_list
     from prodiff_tpu_torch.utils.indexed_datasets import IndexedDatasetBuilder
 
@@ -2483,6 +2500,421 @@ def phase_variance_train(dev, torch):
     return launches
 
 
+# The data-pipeline phase: preprocess -> binarize svs (RMVPE, VR voicing,
+# breath and tension) -> train svs -> binarize svs_rectified -> vocode
+# wav2wav under the base config's RMVPE -> infer --isolate_* -> /api/infer
+# with the VR gain, on seeded full-width RMVPE (E2E0(4, 1, (2, 2))) and VR
+# weights. VR has no config in the repository: the JAX constructor's defaults
+# (nout 32, nout_lstm 128) at the base config's STFT (n_fft 2048, hop 512, mono)
+DP_EXP = "datapipe"
+DP_SECONDS = tuple(float(s) for s in np.linspace(2.0, 6.0, 8))  # the corpus: 8 tones at 44.1 kHz
+DP_VR_CONFIG = {"n_fft": 2048, "hop_length": 512, "n_out": 32, "n_out_lstm": 128, "is_mono": True}
+DP_PEAK_BIN = 150  # the seeded RMVPE's output bias peaks here (~179 Hz), as a trained salience would
+DP_TRAIN_STEPS = 2
+DP_WAV_TOL = 1e-4  # card vs CPU: the separated and harmonic wavs (float, peak ~0.4)
+DP_PHONES = {"a": ("vowel", "vowel"), "b": ("consonant", "stop")}
+
+
+def dp_seed_batch_norms(model, seed: int, torch):
+    """Seeded BatchNorm statistics and affine parameters (eval mode would
+    otherwise be the identity)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                n = mod.num_features
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+                mod.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=g))
+    return model.eval()
+
+
+def write_dp_checkpoints(tmp: str, torch) -> None:
+    """The base config's checkpoint paths under ``tmp`` (the cwd of the
+    phase): ``checkpoints/rmvpe/model.pt`` (``pe_ckpt``),
+    ``checkpoints/vr/model.pt`` + ``config.yaml`` (``vr_ckpt``) and
+    ``checkpoints/nsf_hifigan/model`` + ``config.json`` (``vocoder_ckpt``), all
+    seeded torch state dicts under the reference's names."""
+    import yaml
+
+    from prodiff_tpu_torch.models.rmvpe import E2E0
+    from prodiff_tpu_torch.models.vr import CascadedNet
+
+    for sub in ("rmvpe", "vr", "nsf_hifigan"):
+        os.makedirs(os.path.join(tmp, "checkpoints", sub))
+    torch.manual_seed(SEED + 20)
+    rmvpe = dp_seed_batch_norms(E2E0(4, 1, (2, 2)), SEED + 21, torch)
+    with torch.no_grad():
+        bias = rmvpe.fc[1].bias
+        bias.fill_(-3.0)
+        bias[DP_PEAK_BIN - 2:DP_PEAK_BIN + 3] = torch.tensor([0.5, 2.0, 4.0, 2.5, 1.0])
+    torch.save(rmvpe.state_dict(), os.path.join(tmp, "checkpoints", "rmvpe", "model.pt"))
+    torch.manual_seed(SEED + 22)
+    vr = dp_seed_batch_norms(CascadedNet(DP_VR_CONFIG["n_fft"], DP_VR_CONFIG["hop_length"],
+                                         DP_VR_CONFIG["n_out"], DP_VR_CONFIG["n_out_lstm"]),
+                             SEED + 23, torch)
+    torch.save(vr.state_dict(), os.path.join(tmp, "checkpoints", "vr", "model.pt"))
+    with open(os.path.join(tmp, "checkpoints", "vr", "config.yaml"), "w") as f:
+        yaml.dump(DP_VR_CONFIG, f)
+    torch.manual_seed(SEED + 24)
+    torch.save({"generator": seeded_generator(torch).state_dict()},
+               os.path.join(tmp, "checkpoints", "nsf_hifigan", "model"))
+    with open(os.path.join(tmp, "checkpoints", "nsf_hifigan", "config.json"), "w") as f:
+        json.dump(VOCODER_H, f)
+    n_r, n_v = (sum(p.numel() for p in m.parameters()) for m in (rmvpe, vr))
+    log(f"data pipeline: seeded RMVPE E2E0 {n_r / 1e6:.2f}M params, VR CascadedNet "
+        f"{n_v / 1e6:.2f}M params ({json.dumps(DP_VR_CONFIG)})")
+
+
+def write_textgrid_corpus(tmp: str) -> str:
+    """8 seeded vibrato tones (2-6 s, three partials and a breath of noise)
+    with a TextGrid ``phone`` tier and ``.rawmid`` notes each, and
+    ``dictionary/zh_phones.txt``; returns the corpus dir (no label.json)."""
+    import pickle
+
+    from scipy.io import wavfile
+
+    raw = os.path.join(tmp, "raw")
+    for sub in ("wav", "TextGrid", "midi"):
+        os.makedirs(os.path.join(raw, sub))
+    os.makedirs(os.path.join(tmp, "dictionary"))
+    with open(os.path.join(tmp, "dictionary", "zh_phones.txt"), "w") as f:
+        f.writelines(f"{p} {k} {c}\n" for p, (k, c) in DP_PHONES.items())
+    rng = np.random.default_rng(SEED + 25)
+    sr = 44100
+    for i, seconds in enumerate(DP_SECONDS):
+        n = int(round(seconds * sr))
+        t = np.arange(n) / sr
+        f0 = 196.0 * 2 ** (rng.uniform(-4, 4) / 12)
+        phase = 2 * np.pi * np.cumsum(f0 * 2 ** (0.5 * np.sin(2 * np.pi * 5 * t) / 12)) / sr
+        y = np.sin(phase) + 0.5 * np.sin(2 * phase) + 0.25 * np.sin(3 * phase)
+        y = 0.3 * y / np.abs(y).max() + 0.01 * rng.normal(size=n)
+        y = y * np.minimum(1.0, np.minimum(t, t[-1] - t) / 0.05)  # 50 ms fades
+        wavfile.write(os.path.join(raw, "wav", f"it{i}.wav"), sr, (y * 32767).astype(np.int16))
+        n_words = int((seconds - 0.4) / 0.4)
+        word = (seconds - 0.4) / n_words
+        marks = [("SP", 0.2)] + [p for _ in range(n_words) for p in (("b", 0.08), ("a", word - 0.08))] \
+            + [("SP", seconds - 0.2 - n_words * word)]
+        edges = np.concatenate([[0.0], np.cumsum([d for _, d in marks])])
+        lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+                 "xmin = 0", f"xmax = {seconds}", "tiers? <exists>", "size = 1", "item []:",
+                 "    item [1]:", '        class = "IntervalTier"', '        name = "phone"',
+                 "        xmin = 0", f"        xmax = {seconds}",
+                 f"        intervals: size = {len(marks)}"]
+        for j, (mark, _) in enumerate(marks):
+            lines += [f"        intervals [{j + 1}]:", f"            xmin = {edges[j]:.6f}",
+                      f"            xmax = {edges[j + 1]:.6f}", f'            text = "{mark}"']
+        with open(os.path.join(raw, "TextGrid", f"it{i}.TextGrid"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        notes = [float(np.round(69 + 12 * np.log2(f0 / 440), 2))] * n_words
+        with open(os.path.join(raw, "midi", f"it{i}.rawmid"), "wb") as f:
+            pickle.dump({"note_midi": [60.0] + notes + [60.0],
+                         "note_rest": [True] + [False] * n_words + [True],
+                         "note_dur": [0.2] + [word] * n_words + [marks[-1][1]]}, f)
+    return raw
+
+
+def phase_data_pipeline(dev, torch):
+    """The data pipeline through the port's entry points at full width, in a
+    temporary directory that holds the base config's checkpoint paths:
+    ``preprocess`` of a TextGrid corpus, ``binarize svs`` with the base
+    config's RMVPE and the VR model's voicing, breath and tension, ``train
+    svs`` for 2 steps on those shards, ``binarize svs_rectified`` with the
+    trained flagship teacher, ``vocode wav2wav`` under the unmodified base
+    config's ``pitch_extractor: rmvpe``, ``infer --isolate_aspiration
+    --isolate_base_harmonic`` of ``samples/example.ds`` and one ``/api/infer``
+    with the VR gain; each step's launches counted, the features held against
+    the CPU, RMVPE and VR timed by CUDA events, one binarized item profiled.
+    Returns the launches of the phase's main path, by kernel."""
+    import shutil
+    import tempfile
+
+    import yaml
+    from scipy.io import wavfile
+    from scipy.signal import resample_poly
+
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.binarize import get_binarizer_cls
+    from prodiff_tpu_torch.config import load_base_config
+    from prodiff_tpu_torch.infer.handler import SVSInferHandler
+    from prodiff_tpu_torch.models.vr import load_sep_model
+    from prodiff_tpu_torch.separation import extract_harmonic_aperiodic
+    from prodiff_tpu_torch.serve.handler import WebHandler
+    from prodiff_tpu_torch.training.trainer import Trainer
+    from prodiff_tpu_torch.utils.audio import load_wav
+    from prodiff_tpu_torch.utils.indexed_datasets import IndexedDataset
+
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_datapipe_")
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the base config's relative checkpoint and dictionary paths resolve here
+    spans, totals = {}, {k: 0 for k in COUNTED}
+
+    def step(label, want, fn):
+        """Run one step of the main path with the counts at 0, check them."""
+        torch.cuda.synchronize()
+        reset_counts()
+        start = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        spans[label] = round(time.time() - start, 3)
+        for k, v in check_counts(f"data pipeline: {label}", want).items():
+            totals[k] += v
+        return out
+
+    try:
+        write_dp_checkpoints(tmp, torch)
+        raw = write_textgrid_corpus(tmp)
+        per_render = {"residual_stack": BASE_HPARAMS["timesteps"] * K1_LAUNCHES,
+                      "resblock_stage": 5 * 18}
+
+        # 1. preprocess (host only)
+        step("preprocess", {}, lambda: port_cli(["preprocess", raw, "--extract_note",
+                                                 "--override_ori_label"]))
+        with open(os.path.join(raw, "label.json")) as f:
+            labels = json.load(f)
+        for name, seconds in zip(sorted(labels), DP_SECONDS):
+            lab = labels[name]
+            if not (abs(sum(map(float, lab["ph_dur"].split())) - seconds) < 1e-3
+                    and sum(map(int, lab["ph_num"].split())) == len(lab["ph_seq"].split())
+                    and len(lab["note_seq"].split()) == len(lab["note_dur"].split())):
+                raise AssertionError(f"preprocess {name}: {lab}")
+
+        # 2. binarize svs: RMVPE f0, VR voicing/breath/tension, on the card
+        hp = dict(load_base_config(), seed=SEED, data_dir=os.path.join(tmp, "data"),
+                  datasets=[{"data_dir": raw, "speaker": "s0", "language": "zh"}],
+                  dictionary={"zh": {"phoneme": os.path.join(tmp, "dictionary", "zh_phones.txt")}},
+                  languages={"zh": 1}, num_spk=1, test_num=1, valid_num=1,
+                  val_check_interval=1000, num_sanity_val_steps=0, tb_log_interval=1,
+                  vocoder_deterministic=True)
+        hp["binarization_args"] = dict(hp["binarization_args"], with_voicing=True,
+                                       with_breath=True, with_tension=True)
+        cfg = os.path.join(tmp, "datapipe.yaml")
+        with open(cfg, "w") as f:
+            yaml.dump(hp, f)
+        step("binarize svs", {}, lambda: port_cli(["binarize", "svs", "--config", cfg,
+                                                   "--exp_name", DP_EXP]))
+        shards = IndexedDataset(os.path.join(tmp, "data", "svs"), "train")
+        items = [shards[i] for i in range(len(shards))]
+        for it in items:
+            for key in ("mel", "f0", "voicing", "breath", "tension", "mel2ph"):
+                if len(it[key]) != it["length"] or not np.isfinite(it[key]).all():
+                    raise AssertionError(f"binarized {key}: {np.shape(it[key])}, {it['length']}")
+        log(f"binarize svs: {len(items)} train items, {sum(it['length'] for it in items)} frames; "
+            f"f0 {min(it['f0'].min() for it in items):.2f}-{max(it['f0'].max() for it in items):.2f}"
+            f" Hz, voicing {min(it['voicing'].min() for it in items):.2f}-"
+            f"{max(it['voicing'].max() for it in items):.2f} dB, tension "
+            f"{min(it['tension'].min() for it in items):.3f}-"
+            f"{max(it['tension'].max() for it in items):.3f}")
+
+        # the shortest item's features, card vs CPU (the same binarizer on
+        # each): mel (log10), f0 (Hz), the curves (dB, logit) and the
+        # salience within VAR_TOL
+        svs_cls = get_binarizer_cls("svs")
+        binarizers = {d: svs_cls(dict(hp, data_dir=os.path.join(tmp, f"check_{d}")), device=d)
+                      for d in (dev, "cpu")}
+        meta = {m["item_name"]: m for m in binarizers["cpu"].load_meta_data()}
+        short = meta["it0"]
+        got, ref = (binarizers[d].process_item(short) for d in (dev, "cpu"))
+        errors = {k: hold(k, got[k], ref[k]) for k in ("mel", "f0", "voicing", "breath", "tension")}
+        wav0, _ = load_wav(short["wav_fn"], sr=44100)
+        audio16k = resample_poly(wav0, 160, 441)
+        pes = {d: binarizers[d].pe for d in (dev, "cpu")}
+        errors["salience"] = hold("RMVPE salience", pes[dev].salience(audio16k),
+                                  pes["cpu"].salience(audio16k))
+        vr_path = os.path.join(tmp, "checkpoints", "vr", "model.pt")
+        parts = {d: extract_harmonic_aperiodic(wav0, vr_path, device=d) for d in (dev, "cpu")}
+        err = float(np.abs(parts[dev][0] - parts["cpu"][0]).max())
+        log(f"card vs CPU harmonic part {list(parts['cpu'][0].shape)}: max_abs_err {err:.3e}, peak "
+            f"{np.abs(parts['cpu'][0]).max():.4f}, tol {DP_WAV_TOL}")
+        if not err <= DP_WAV_TOL:
+            raise AssertionError("the card's harmonic part disagrees with the CPU's")
+        errors["harmonic"] = err
+
+        # RMVPE and VR on the longest item, timed by CUDA events
+        wav6, _ = load_wav(meta[f"it{len(DP_SECONDS) - 1}"]["wav_fn"], sr=44100)
+        a16 = resample_poly(wav6, 160, 441)
+        sep = load_sep_model(vr_path, dev)
+        n_fft, hop = DP_VR_CONFIG["n_fft"], DP_VR_CONFIG["hop_length"]
+        n_blocks = (len(wav6) // hop + 1) // 32 + 1
+        x = torch.zeros(1, (32 * n_blocks - 1) * hop, device=dev)
+        x[0, :len(wav6)] = torch.from_numpy(wav6).to(dev)
+        with torch.no_grad():
+            t_rmvpe = event_median_ms(lambda: pes[dev].salience(a16), torch)
+            t_vr = event_median_ms(lambda: sep.separate(x), torch)
+            t_model = event_median_ms(lambda: sep.model(torch.zeros(
+                1, 2, n_fft // 2 + 1, 32 * n_blocks, device=dev)), torch)
+        log(f"RMVPE on a {len(wav6) / 44100:.2f} s item ({len(a16)} samples at 16 kHz, "
+            f"{len(a16) // 160 + 1} frames): salience {t_rmvpe:.3f} ms (CUDA events, median of "
+            f"{VAR_REPS}, mel + E2E0 + copy to the host); VR separation {t_vr:.3f} ms (STFT + "
+            f"CascadedNet + iSTFT, {32 * n_blocks} frames), CascadedNet alone {t_model:.3f} ms")
+        binarizers[dev].process_item(meta[f"it{len(DP_SECONDS) - 1}"])  # warm-up
+        wall_ms, busy, sums, rows = kernel_split(
+            lambda: binarizers[dev].process_item(meta[f"it{len(DP_SECONDS) - 1}"]), 1, {}, torch)
+        if rows:
+            log(f"binarize svs, one {len(wav6) / 44100:.2f} s item profiled (torch.profiler): "
+                f"{wall_ms:.3f} ms on the host clock, {busy:.3f} ms of kernel time (device idle "
+                f"share {max(0.0, 1 - busy / wall_ms):.3f}); by group (ms): "
+                + json.dumps({g: round(v, 3) for g, v in sums.items()}))
+            for ms, count, key in sorted(rows, reverse=True)[:8]:
+                log(f"  {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+        else:
+            log("binarize svs item profile: the profiler saw no device time (not measured)")
+        del binarizers, pes, sep
+
+        # 3. train svs, 2 steps on the port's shards (K5 on each step)
+        n_layers = hp["residual_layers"]
+        per_step = {"residual_stack_save": 1 + 2 * n_layers, "residual_stack_chain": 2 * n_layers}
+        steps_ms = []
+        orig = Trainer.train_step
+
+        def timed_step(self, batch):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = orig(self, batch)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - start) * 1e3)
+            return out
+
+        Trainer.train_step = timed_step
+        try:
+            step("train svs", {k: DP_TRAIN_STEPS * v for k, v in per_step.items()},
+                 lambda: port_cli(["train", "svs", "--config", cfg, "--exp_name", DP_EXP,
+                                   "--max_steps", str(DP_TRAIN_STEPS)]))
+        finally:
+            Trainer.train_step = orig
+        work = os.path.join(tmp, "checkpoints", DP_EXP, "svs")
+        losses = [json.loads(ln)["tr/total_loss"] for ln in open(os.path.join(work, "metrics.jsonl"))
+                  if "tr/total_loss" in ln]
+        if len(losses) != DP_TRAIN_STEPS or not np.isfinite(losses).all() or not os.path.exists(
+                os.path.join(work, f"model_ckpt_steps_{DP_TRAIN_STEPS}.ckpt")):
+            raise AssertionError(f"train svs: losses {losses}, files {os.listdir(work)}")
+        log(f"train svs on the port's shards: losses {[round(v, 4) for v in losses]}, step times "
+            f"{[round(v, 3) for v in steps_ms]} ms (host clock, synchronised)")
+
+        # 4. binarize svs_rectified with the trained flagship teacher (K1 4 steps an item)
+        n_items = 2 * hp["test_num"] + hp["valid_num"] + len(items)  # valid + test + train
+        rect_cfg = os.path.join(tmp, "rectified.yaml")
+        with open(rect_cfg, "w") as f:
+            yaml.dump(dict(hp, teacher_ckpt=work), f)
+        step("binarize svs_rectified", {"residual_stack": n_items * per_render["residual_stack"]},
+             lambda: port_cli(["binarize", "svs_rectified", "--config", rect_cfg,
+                               "--exp_name", DP_EXP]))
+        rect = IndexedDataset(os.path.join(tmp, "data", "svs_rectified"), "train")[0]
+        if not (rect["x_0"].shape == rect["x_T"].shape == (rect["length"], 128)
+                and rect["condition"].shape == (rect["length"], hp["hidden_size"])
+                and np.isfinite(rect["x_0"]).all()):
+            raise AssertionError(f"svs_rectified item: {[(k, np.shape(v)) for k, v in rect.items()]}")
+
+        # 5. vocode wav2wav under the base config (pitch_extractor: rmvpe)
+        voc_cfg = os.path.join(tmp, "vocode.yaml")
+        with open(voc_cfg, "w") as f:
+            yaml.dump({"base_config": "base", "vocoder_deterministic": True}, f)
+        written = {}
+        for name in ("it0", f"it{len(DP_SECONDS) - 1}"):
+            wav_fn = meta[name]["wav_fn"]
+            step(f"vocode wav2wav {name}", {"resblock_stage": per_render["resblock_stage"]},
+                 lambda: port_cli(["vocode", "wav2wav", wav_fn, "--config", voc_cfg,
+                                   "--output_dir", os.path.join(tmp, "voc_cuda")]))
+            written[name] = wavfile.read(os.path.join(tmp, "voc_cuda", f"{name}.wav"))[1]
+        port_cli(["vocode", "wav2wav", meta["it0"]["wav_fn"], "--config", voc_cfg,
+                  "--output_dir", os.path.join(tmp, "voc_cpu"), "--device", "cpu"])
+        wav_cpu = wavfile.read(os.path.join(tmp, "voc_cpu", "it0.wav"))[1].astype(np.float64)
+        err, peak = float(np.abs(written["it0"] - wav_cpu).max()), float(np.abs(wav_cpu).max())
+        log(f"vocode wav2wav (base config, RMVPE f0) card vs CPU written wav {list(wav_cpu.shape)}: "
+            f"max_abs_err {err:.0f} (int16 steps), peak {peak:.0f}, tol {CPU_TOL} x peak")
+        if not (0 < peak < 32767 and err <= CPU_TOL * peak):
+            raise AssertionError("vocode wav2wav: the card's wav disagrees with the CPU's")
+
+        # 6. infer --isolate_aspiration --isolate_base_harmonic of samples/example.ds
+        example = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples", "example.ds")
+        shutil.copy(example, os.path.join(tmp, "example.ds"))
+        acoustic_calls = []
+        acoustic = SVSInferHandler._acoustic
+
+        def counted(self, *args):
+            acoustic_calls.append(args[1].shape)
+            return acoustic(self, *args)
+
+        SVSInferHandler._acoustic = counted
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            start = time.time()
+            port_cli(["infer", "example.ds", "--exp_name", DP_EXP, "--spk_name", "s0",
+                      "--isolate_aspiration", "--isolate_base_harmonic"])
+            torch.cuda.synchronize()
+            spans["infer --isolate_*"] = round(time.time() - start, 3)
+            n_batches = len(acoustic_calls)
+            for k, v in check_counts("data pipeline: infer --isolate_aspiration "
+                                     "--isolate_base_harmonic",
+                                     {k: n_batches * v for k, v in per_render.items()}).items():
+                totals[k] += v
+        finally:
+            SVSInferHandler._acoustic = acoustic
+        tracks = {}
+        for suffix in ("sp", "ap", "bh"):
+            sr, tracks[suffix] = wavfile.read(os.path.join(tmp, "infer_out",
+                                                           f"example_{suffix}【{DP_EXP}】.wav"))
+        if len({t.shape for t in tracks.values()}) != 1 or sr != 44100:
+            raise AssertionError(f"isolate tracks: {[t.shape for t in tracks.values()]}")
+        det = {d: SVSInferHandler(DP_EXP, deterministic=True, device=d, isolate_aspiration=True,
+                                  isolate_base_harmonic=True, out_dir=os.path.join(tmp, f"iso_{d}"))
+               for d in (dev, "cpu")}
+        paths = {d: h.handle(None, "example.ds", "s0", "zh") for d, h in det.items()}
+        for g, w in zip(paths[dev], paths["cpu"]):
+            a, b = (wavfile.read(p)[1].astype(np.float64) for p in (g, w))
+            err, peak = float(np.abs(a - b).max()), float(np.abs(b).max())
+            log(f"isolate track {os.path.basename(w)} card vs CPU (deterministic): max_abs_err "
+                f"{err:.0f} (int16 steps), peak {peak:.0f}, tol {CPU_TOL} x peak + 1")
+            if not (a.shape == b.shape and 0 < peak and err <= CPU_TOL * peak + 1):
+                raise AssertionError(f"isolate {os.path.basename(w)}: the card's track disagrees")
+
+        # 7. /api/infer with the VR gain
+        web = WebHandler(core=det[dev], host="127.0.0.1", port=0)
+        del det
+        server = web.make_server()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/api/infer"
+        try:
+            rng = np.random.default_rng(SEED + 26)
+            req = {"speaker": "s0", "language": "zh", "ph_text_list": ["SP", "b", "a", "b", "a", "SP"],
+                   "ph_dur_list": [0.2, 0.08, 0.9, 0.08, 0.9, 0.2], "pitch_list": [57.0] * 200}
+            curves = {"voicing_list": [float(v) for v in rng.uniform(-12, 6, 200)],
+                      "breath_list": [float(v) for v in rng.uniform(-30, 0, 200)]}
+            raw_wav = np.asarray(step("/api/infer", per_render, lambda: post(url, req))["wav"])
+            gained = np.asarray(step("/api/infer with the VR gain", per_render,
+                                     lambda: post(url, dict(req, **curves)))["wav"])
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        from prodiff_tpu_torch.utils.pitch_utils import resample_align_curve
+
+        sp, ap = extract_harmonic_aperiodic(raw_wav, vr_path, device="cpu")
+        ts = hp["hop_size"] / hp["audio_sample_rate"]
+        want = (sp * 10 ** (resample_align_curve(np.asarray(curves["voicing_list"]), ts,
+                                                 1 / 44100, len(raw_wav)) * 0.05)
+                + ap * 10 ** (resample_align_curve(np.asarray(curves["breath_list"]), ts,
+                                                   1 / 44100, len(raw_wav)) * 0.05))
+        err, peak = float(np.abs(gained - want).max()), float(np.abs(want).max())
+        log(f"/api/infer with the VR gain vs the CPU's gain of the raw wav {list(want.shape)}: "
+            f"max_abs_err {err:.3e}, peak {peak:.4f}, tol {CPU_TOL} x peak; raw peak "
+            f"{np.abs(raw_wav).max():.4f}")
+        if not (gained.shape == raw_wav.shape and err <= CPU_TOL * peak
+                and np.abs(gained - raw_wav).max() > CPU_TOL * peak):
+            raise AssertionError("/api/infer: the VR gain disagrees with the CPU's")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"data-pipeline phase: {time.time() - t_phase:.3f} s; spans (s): {json.dumps(spans)}; "
+        f"card vs CPU max errors {json.dumps({k: float(f'{v:.3e}') for k, v in errors.items()})}; "
+        f"launches {json.dumps(totals)}")
+    return totals
+
+
 def main() -> int:
     import argparse
 
@@ -2493,6 +2925,7 @@ def main() -> int:
                         help="build the kernels and run only the FastDiff kernel phase (K4, K6, "
                              "K7 vs their twins, timed), printing its JSON")
     args = parser.parse_args()
+    t_script = time.time()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() is false)")
     from prodiff_tpu_torch import device as policy
@@ -2542,7 +2975,8 @@ def main() -> int:
     train_launches = timed_phase("train", phase_train)
     variance_launches = timed_phase("variance", phase_variance)
     vt_launches = timed_phase("variance_train", phase_variance_train)
-    log(f"phase seconds: {json.dumps(spent)}")
+    dp_launches = timed_phase("data_pipeline", phase_data_pipeline)
+    log(f"phase seconds: {json.dumps(spent)}; script total {time.time() - t_script:.3f} s")
 
     def entry(name, source, replaces, n, m):
         return dict(name=name, route="cuda", source=f"prodiff_tpu_torch/csrc/{source}",
@@ -2555,9 +2989,11 @@ def main() -> int:
                    "prodiff_tpu/ops/pallas/wavenet.py:177", launches["residual_stack"], k1),
              by_shape=k1["by_shape"],
              launches_variance_render=variance_launches["residual_stack"],
-             launches_variance_train=vt_launches["residual_stack"]),
+             launches_variance_train=vt_launches["residual_stack"],
+             launches_data_pipeline=dp_launches["residual_stack"]),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
-                   launches["resblock_stage"], res), stages=res["stages"]),
+                   launches["resblock_stage"], res), stages=res["stages"],
+             launches_data_pipeline=dp_launches["resblock_stage"]),
         dict(entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
                    fd_launches["ublock_layer"], fd["ublock_layer"]),
              bound_sum_of_blocks_ms=fd["ublock_layer"]["bound_sum_of_blocks_ms"],
@@ -2572,11 +3008,13 @@ def main() -> int:
         dict(entry("wavenet_stack_save_forward", "wavenet_train.cu",
                    "prodiff_tpu/ops/pallas/wavenet_train.py:71",
                    train_launches["residual_stack_save"], k5a),
-             launches_variance_train=vt_launches["residual_stack_save"]),
+             launches_variance_train=vt_launches["residual_stack_save"],
+             launches_data_pipeline=dp_launches["residual_stack_save"]),
         dict(entry("wavenet_stack_backward_chain", "wavenet_train.cu",
                    "prodiff_tpu/ops/pallas/wavenet_train.py:161",
                    train_launches["residual_stack_chain"], k5b),
-             launches_variance_train=vt_launches["residual_stack_chain"]),
+             launches_variance_train=vt_launches["residual_stack_chain"],
+             launches_data_pipeline=dp_launches["residual_stack_chain"]),
         dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
                    vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"]),
              k4_chain_ms=fd["ublock_block"]["k4_chain_ms"], by_block=fd["ublock_block"]["by_block"]),

@@ -1,10 +1,12 @@
-"""Command line of the port: ``python -m prodiff_tpu_torch binarize|train|infer|vocode|web ...``.
+"""Command line of the port:
+``python -m prodiff_tpu_torch preprocess|binarize|train|infer|vocode|web ...``.
 
-The flags are those of the JAX package's ``main.py binarize`` / ``main.py
-train`` / ``main.py infer`` / ``main.py vocode wav2wav`` / ``main.py web``
-that the port supports, plus ``--device``. ``binarize`` takes the ``dur``
-and ``pitch`` tasks (``svs`` and ``vari`` land with the data-pipeline
-slice); ``train`` takes ``svs``, ``dur``, ``pitch`` and ``vari``. The
+The flags are those of the JAX package's ``main.py preprocess`` / ``main.py
+binarize`` / ``main.py train`` / ``main.py infer`` / ``main.py vocode
+wav2wav`` / ``main.py web`` that the port supports, plus ``--device`` on
+every command with device work (``preprocess`` has none). ``binarize``
+takes ``svs``, ``svs_rectified``, ``vari``, ``dur`` and ``pitch``; ``train``
+takes ``svs``, ``dur``, ``pitch`` and ``vari``. The
 experiment directory (``checkpoints/{exp_name}/{task}``: ``config.yaml``,
 the maps and the checkpoints, written by either package) is read without
 JAX. ``binarize`` and ``train`` need PyYAML, ``train`` msgpack too.
@@ -61,12 +63,22 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m prodiff_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    binarize = sub.add_parser("binarize", help="binarize a labelled corpus (dur, pitch)")
+    prep = sub.add_parser("preprocess", help="TextGrid alignments (+ .rawmid notes) -> label.json")
+    prep.add_argument("data_dir")
+    prep.add_argument("--lang", default="zh")
+    prep.add_argument("--override_ph_num", action="store_true")
+    prep.add_argument("--override_note_midi", action="store_true")
+    prep.add_argument("--extract_note", action="store_true")
+    prep.add_argument("--override_ori_label", action="store_true")
+
+    binarize = sub.add_parser("binarize", help="binarize a labelled corpus "
+                                               "(svs, svs_rectified, vari, dur, pitch)")
     binarize.add_argument("task")
     binarize.add_argument("--config", required=True)
     binarize.add_argument("--exp_name", required=True)
     binarize.add_argument("--device", default="cuda",
-                          help="where the pitch extractor runs; default: cuda (cpu only when named)")
+                          help="where the feature extractors run; default: cuda "
+                               "(cpu only when named)")
 
     train = sub.add_parser("train", help="train a task (svs, dur, pitch, vari)")
     train.add_argument("train_task")
@@ -87,6 +99,10 @@ def main(argv=None) -> None:
                        help="predict pitch in this speaker's style")
     infer.add_argument("--pred_voicing", action="store_true", help="predict the voicing curve")
     infer.add_argument("--pred_breath", action="store_true", help="predict the breath curve")
+    infer.add_argument("--isolate_aspiration", action="store_true",
+                       help="write the harmonic (sp) and aperiodic (ap) parts apart (VR model)")
+    infer.add_argument("--isolate_base_harmonic", action="store_true",
+                       help="with --isolate_aspiration, also the first harmonic (bh) apart")
     infer.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
     vocode = sub.add_parser("vocode", help="run audio through a vocoder")
@@ -104,7 +120,14 @@ def main(argv=None) -> None:
     web.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
     args = parser.parse_args(argv)
-    if args.command == "binarize":
+    if args.command == "preprocess":
+        from prodiff_tpu_torch.preprocess import PreprocessHandler
+
+        PreprocessHandler(data_dir=args.data_dir, lang=args.lang).handle(
+            extract_note=args.extract_note, override_ph_num=args.override_ph_num,
+            override_note_midi=args.override_note_midi,
+            override_ori_label=args.override_ori_label)
+    elif args.command == "binarize":
         from prodiff_tpu_torch.binarize import BinarizeHandler
         from prodiff_tpu_torch.config import set_hparams
         from prodiff_tpu_torch.device import resolve_device
@@ -132,7 +155,10 @@ def main(argv=None) -> None:
 
         handler = SVSInferHandler(exp_name=args.exp_name, pred_dur=args.pred_dur,
                                   pred_pitch=args.pred_pitch, pred_voicing=args.pred_voicing,
-                                  pred_breath=args.pred_breath, device=args.device)
+                                  pred_breath=args.pred_breath,
+                                  isolate_aspiration=args.isolate_aspiration,
+                                  isolate_base_harmonic=args.isolate_base_harmonic,
+                                  device=args.device)
         for path in handler.handle(None, args.proj, args.spk_name, args.lang,
                                    args.keyshift, args.gender):
             print(f"| wrote {path}")

@@ -7,11 +7,10 @@ split into valid / test / train by slices of the item list, each item
 processed by the task's binarizer, written with
 ``utils/indexed_datasets.py``'s builder, with the sidecars the JAX package
 writes: ``{prefix}_lengths.npy``, ``{prefix}_item_lengths.npz`` (each key's
-leading length per item) and ``{prefix}_f0s_mean_std.npy``. The ``dur`` and
-``pitch`` binarizers are ported; ``svs`` and ``vari`` (mel, energy, the VR
-model's voicing and breath) land with the data-pipeline slice. The module
-also keeps the helpers that inference uses (``utils.py``,
-``pitch_predictor.py:base_pitch_curve``).
+leading length per item) and ``{prefix}_f0s_mean_std.npy``. The tasks:
+``svs`` and ``svs_rectified`` (``svs.py``), ``vari`` (``vari_predictor.py``),
+``dur`` and ``pitch``. The module also keeps the helpers that inference uses
+(``utils.py``, ``pitch_predictor.py:base_pitch_curve``).
 """
 
 from __future__ import annotations
@@ -32,11 +31,8 @@ def register_binarizer(cls):
 
 
 def get_binarizer_cls(task: str):
-    if task in ("svs", "vari"):
-        raise NotImplementedError(
-            f"binarize {task}: its features (mel, energy, the VR model's voicing and breath) "
-            "land with the data-pipeline slice of the port")
-    from prodiff_tpu_torch.binarize import dur_predictor, pitch_predictor  # noqa: F401
+    from prodiff_tpu_torch.binarize import (dur_predictor, pitch_predictor, svs,  # noqa: F401
+                                            vari_predictor)
 
     if task not in BINARIZERS:
         raise ValueError(f"Binarizer {task} not found in {sorted(BINARIZERS)}")
@@ -45,8 +41,9 @@ def get_binarizer_cls(task: str):
 
 class Binarizer:
     def __init__(self, hparams: dict, device=None):
-        """``device``: where a feature extractor with a device part runs
-        (the pitch binarizer's ACF); the others ignore it."""
+        """``device``: where the feature extractors with a device part run
+        (the pitch extractor, the mel, the VR split, the k-th harmonic, the
+        distillation teacher)."""
         self.hparams = hparams
         self.datasets: List[dict] = hparams["datasets"]
         self.data_dir = os.path.join(hparams["data_dir"], self.category())

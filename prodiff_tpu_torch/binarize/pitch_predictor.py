@@ -2,7 +2,7 @@
 ``prodiff_tpu/binarize/pitch_predictor.py``): phonemes as articulatory
 categories, mel2ph and mel2note from the label's durations, the f0 from
 the configured pitch extractor (``pe/``: ``acf``, or ``parselmouth``, which
-falls back to ACF without its library; ``rmvpe`` raises) in MIDI, the notes
+falls back to ACF without its library, or ``rmvpe``) in MIDI, the notes
 with rests nearest-interpolated, and the smoothed base melody
 (:func:`base_pitch_curve`, which the pitch inferer uses too)."""
 

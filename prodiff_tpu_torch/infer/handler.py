@@ -8,8 +8,13 @@ sums of the embedding tables), voicing/breath curves (given, predicted with
 ``pred_voicing``/``pred_breath``, else constant -10/-50 dB), the acoustic
 model (4 DDPM steps, or ``sampling_steps`` of a ``diff_type: reflow``
 teacher's flow), the vocoder, then offset / cross-fade stitching into one
-track. The predictors (``infer/inferers.py``) load from the experiment
-directory. Segments are grouped by padded
+track. ``isolate_aspiration`` splits each segment's wav with the VR model
+(``vr_ckpt``, on the handler's device) into harmonic (``sp``) and aperiodic
+(``ap``) tracks, and ``isolate_base_harmonic`` also takes the first
+harmonic (``bh``) out of the harmonic track; each track is stitched and
+written as ``{title}_{sp|ap|bh}【{exp}】.wav``. The predictors
+(``infer/inferers.py``) load from the experiment directory. Segments are
+grouped by padded
 ``(T_ph, T_mel)`` bucket and each group runs as one batch; padded mel frames
 are filled with the log10 silence floor before vocoding and the wav is
 trimmed to the true length.
@@ -89,10 +94,6 @@ def interp_rest_midi(note_midi: np.ndarray):
     return note_midi, note_rest
 
 
-def _unsupported(option: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet: it lands with the {slice_name} slice")
-
-
 class SVSInferHandler:
     def __init__(
         self,
@@ -113,10 +114,8 @@ class SVSInferHandler:
         maps: Optional[Dict[str, dict]] = None,
         vocoder=None,
     ):
-        for option, on in (("isolate_aspiration", isolate_aspiration),
-                           ("isolate_base_harmonic", isolate_base_harmonic)):
-            if on:
-                raise _unsupported(option, "data-pipeline (VR separation)")
+        self.isolate_aspiration = isolate_aspiration
+        self.isolate_base_harmonic = isolate_base_harmonic
         # deterministic=True renders reproducibly: zero diffusion init/step
         # noise and a zero-phase, noise-free vocoder sine source
         self.deterministic = deterministic
@@ -425,6 +424,22 @@ class SVSInferHandler:
     def infer(self, segment: dict) -> np.ndarray:
         return self.render_batch([self.prepare(segment)])[0]
 
+    def _postprocess(self, wav: np.ndarray, f0_seq: np.ndarray) -> List[np.ndarray]:
+        """One rendered wav -> its tracks: ``[wav]``, or with
+        ``isolate_aspiration`` the VR split ``[sp, ap]``, or with
+        ``isolate_base_harmonic`` too ``[sp - base, ap, base]``."""
+        if not self.isolate_aspiration:
+            return [wav]
+        from prodiff_tpu_torch.separation import extract_harmonic_aperiodic, get_kth_harmonic
+
+        hp = self.hparams
+        sp, ap = extract_harmonic_aperiodic(wav, hp["vr_ckpt"], device=self.device)
+        if self.isolate_base_harmonic:
+            base = get_kth_harmonic(0, sp, f0_seq, self.hop_size, hp["win_size"],
+                                    self.audio_sample_rate, device=self.device)
+            return [sp - base, ap, base]
+        return [sp, ap]
+
     # ---- project level -------------------------------------------------------
 
     def handle(self, proj: Optional[List[dict]] = None, proj_fn: Optional[str] = None,
@@ -439,21 +454,29 @@ class SVSInferHandler:
             segment.setdefault("keyshift", int(keyshift))
             segment.setdefault("spk_name", spk_name)
             segment["gender"] = float(gender)
+        prepared = [self.prepare(seg) for seg in proj]
         if self.hparams.get("batch_segments", True):
-            outs = self.render_batch([self.prepare(seg) for seg in proj])
+            rendered = self.render_batch(prepared)
         else:
-            outs = [self.infer(seg) for seg in proj]
-        result = np.zeros(0)
-        total_length = 0
-        for segment, part in zip(proj, outs):
+            rendered = [self.render_batch([p])[0] for p in prepared]
+        outs = [self._postprocess(wav, p["f0_seq"]) for wav, p in zip(rendered, prepared)]
+        n_tracks = len(outs[0]) if outs else 1
+        tracks, total_length = [np.zeros(0)] * n_tracks, 0
+        for segment, parts in zip(proj, outs):
             offset = round(segment.get("offset", 0) * self.audio_sample_rate) - total_length
-            if offset >= 0:
-                result = np.concatenate([result, np.zeros(offset), part])
-            else:
-                result = cross_fade(result, part, total_length + offset)
-            total_length += offset + part.shape[0]
+            for i, part in enumerate(parts):
+                if offset >= 0:
+                    tracks[i] = np.concatenate([tracks[i], np.zeros(offset), part])
+                else:
+                    tracks[i] = cross_fade(tracks[i], part, total_length + offset)
+            total_length += offset + parts[0].shape[0]
         os.makedirs(self.out_dir, exist_ok=True)
         title = os.path.splitext(os.path.basename(proj_fn or "out"))[0]
-        out_fn = os.path.join(self.out_dir, f"{title}【{self.hparams.get('exp_name', 'exp')}】.wav")
-        save_wav(result, out_fn, self.audio_sample_rate)
-        return [out_fn]
+        exp = self.hparams.get("exp_name", "exp")
+        names = [f"{title}【{exp}】.wav"] if n_tracks == 1 else [
+            f"{title}_{suffix}【{exp}】.wav" for suffix in ("sp", "ap", "bh")[:n_tracks]]
+        paths = []
+        for name, track in zip(names, tracks):
+            paths.append(os.path.join(self.out_dir, name))
+            save_wav(track, paths[-1], self.audio_sample_rate)
+        return paths

@@ -2,8 +2,9 @@
 
 ``acf`` is the built-in autocorrelation extractor; ``parselmouth`` wraps the
 praat-parselmouth library and falls back to ACF where that library is
-absent, as in the JAX package. ``rmvpe`` (a DeepUnet + BiGRU model) lands
-with a later slice of the port.
+absent, as in the JAX package; ``rmvpe`` (``pe/rmvpe.py``, a DeepUnet +
+BiGRU model, the base config's extractor) reads its checkpoint from
+``pe_ckpt`` and raises where that names no file, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,11 +21,9 @@ def register_pe(cls):
 
 
 def get_pe_cls(name: str):
-    from prodiff_tpu_torch.pe import acf, parselmouth_pe  # noqa: F401
+    from prodiff_tpu_torch.pe import acf, parselmouth_pe, rmvpe  # noqa: F401
 
     key = name.lower()
-    if key == "rmvpe":
-        raise NotImplementedError("the RMVPE pitch extractor lands with a later slice of the port")
     if key == "parselmouth" and importlib.util.find_spec("parselmouth") is None:
         # the library is absent: the built-in autocorrelation extractor keeps
         # the pipeline usable
@@ -37,8 +36,8 @@ def get_pe_cls(name: str):
 
 class BasePitchExtractor:
     def __init__(self, hparams: dict, device=None):
-        """``device``: where an extractor with a device part runs (ACF); a
-        host-only extractor ignores it."""
+        """``device``: where an extractor with a device part runs (ACF,
+        RMVPE); a host-only extractor ignores it."""
         self.hparams = hparams
 
     def get_pitch(self, waveform, samplerate, length, *, hop_size,

@@ -5,7 +5,10 @@
 - ``POST /api/pred_dur``   -> words + word durations -> per-phoneme timings
   (words to phonemes through ``hparams["dictionary"]``)
 - ``POST /api/pred_pitch`` -> notes + phonemes -> pitch curve (MIDI)
-- ``POST /api/infer``      -> phonemes, durations, pitch -> wav samples
+- ``POST /api/infer``      -> phonemes, durations, pitch -> wav samples; with
+  both ``voicing_list`` and ``breath_list`` (dB gains on the frame grid),
+  the VR model's harmonic part scaled by ``10**(voicing * 0.05)`` and its
+  aperiodic part by ``10**(breath * 0.05)``, summed
 
 The duration and pitch predictors load with the server where the
 experiment has them (its own, or the global ``checkpoints/{task}``); a
@@ -13,7 +16,10 @@ route whose predictor did not load answers 400, as the JAX server's assert
 does. Requests run one at a time: the device work is serialised by a lock,
 while the HTTP threads parse and encode concurrently. A malformed request
 (``BadRequest``) answers 400; any other failure, a kernel's own contract
-check included, answers 500.
+check included, answers 500. The VR gain is skipped, with a log line and
+the raw wav, only where ``vr_ckpt`` names no file, as the JAX server does
+without a VR model; where the gain fails the JAX server answers the raw
+wav, the port 500.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import numpy as np
 
 from prodiff_tpu_torch.infer.handler import SVSInferHandler, interp_rest_midi
 from prodiff_tpu_torch.infer.inferers import DurPredictorInferer, PitchPredictorInferer
-from prodiff_tpu_torch.utils.pitch_utils import midi_to_hz
+from prodiff_tpu_torch.utils.pitch_utils import midi_to_hz, resample_align_curve
 
 
 class BadRequest(Exception):
@@ -246,13 +252,26 @@ class WebHandler:
         }
         with self._render_lock:
             wav = self.core.infer(segment)
-        if "voicing_list" in req and "breath_list" in req:
-            # the JAX server scales the VR model's harmonic and aperiodic parts
-            # by these curves; without a VR model it logs and answers the raw
-            # wav, as here, where the VR model is not ported yet (one key alone
-            # is ignored by both)
-            print("| web: VR gain path unavailable (no VR model in the port); returning raw wav")
+            if "voicing_list" in req and "breath_list" in req:  # one key alone is ignored
+                wav = self._vr_gain(req, wav)
         return {"wav": [float(x) for x in wav]}
+
+    def _vr_gain(self, req: dict, wav: np.ndarray) -> np.ndarray:
+        """``sp * 10**(voicing / 20) + ap * 10**(breath / 20)``, each curve
+        resampled from the frame grid to the samples."""
+        vr_ckpt = self.hparams.get("vr_ckpt")
+        if not vr_ckpt or not os.path.isfile(vr_ckpt):
+            print(f"| web: VR gain path unavailable (vr_ckpt {vr_ckpt!r} names no file); "
+                  "returning raw wav")
+            return wav
+        from prodiff_tpu_torch.separation import extract_harmonic_aperiodic
+
+        voicing, breath = _numbers(req, "voicing_list"), _numbers(req, "breath_list")
+        sp, ap = extract_harmonic_aperiodic(wav, vr_ckpt, device=self.core.device)
+        step = 1 / self.hparams["audio_sample_rate"]
+        sp = sp * 10 ** (resample_align_curve(voicing, self.timestep, step, len(wav)) * 0.05)
+        ap = ap * 10 ** (resample_align_curve(breath, self.timestep, step, len(wav)) * 0.05)
+        return sp + ap
 
     def make_server(self) -> ThreadingHTTPServer:
         routes_get = {"/api/basic_info": self.api_basic_info}

@@ -15,6 +15,13 @@
   inverting ``prodiff_tpu/models/fastdiff.py:convert_fastdiff``: the result is
   a torch-reference state dict (``kernel_conv`` rows in the reference's
   ``[layers, Cin, Cout, k]`` order), as a released checkpoint holds it.
+- :func:`rmvpe_state_dict` and :func:`vr_state_dict` carry the JAX RMVPE
+  (``E2E0``) and VR (``CascadedNet``) params into the port's, the reference
+  torch names, inverting ``prodiff_tpu/models/rmvpe.py:convert_rmvpe`` and
+  ``prodiff_tpu/models/vr.py:convert_vr``. The flax GRU and LSTM cells fold
+  torch's input-side gate biases into one bias each (the GRU keeps its
+  candidate gate's hidden-side bias apart); the inverse puts each folded
+  bias on the input side and zeros the rest, which computes the same.
 - :func:`load_flax_checkpoint` reads the JAX package's checkpoint files
   (flax msgpack: arrays as msgpack ext type 1 holding ``(shape, dtype name,
   bytes)``, numpy scalars as ext type 3, arrays over 1 GiB split into
@@ -349,6 +356,111 @@ def fastdiff_state_dict(flax_params: Dict[str, Any], config: dict) -> StateDict:
             ref = torch.empty_like(tap_major)
             ref[torch.from_numpy(perm)] = tap_major
             sd[f"{kdst}.kernel_conv.{name}"] = ref
+    return sd
+
+
+def _conv2d(sd: StateDict, dst: str, node: dict) -> None:
+    """flax ``[kh, kw, Cin, Cout]`` -> torch ``[Cout, Cin, kh, kw]``."""
+    sd[f"{dst}.weight"] = _t(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+    if "bias" in node:
+        sd[f"{dst}.bias"] = _t(node["bias"])
+
+
+def _batch_norm(sd: StateDict, dst: str, node: dict) -> None:
+    for name, key in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                      ("running_var", "var")):
+        sd[f"{dst}.{name}"] = _t(node[key])
+    sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _recurrent(sd: StateDict, dst: str, cells: Tuple[dict, dict], gates_i: Tuple[str, ...],
+               gates_h: Tuple[str, ...], bias_i: Tuple[str, ...], bias_h: Tuple[str, ...]) -> None:
+    """A bidirectional one-layer ``nn.GRU``/``nn.LSTM`` from its two flax
+    cells: torch's gate rows stacked in ``gates_*`` order; each bias row from
+    the cell's node named in ``bias_*`` (None: zero)."""
+    for sfx, cell in zip(("", "_reverse"), cells):
+        hidden = np.asarray(cell[gates_h[0]]["kernel"]).shape[0]
+
+        def bias(names):
+            return np.concatenate([np.asarray(cell[n]["bias"]) if n else np.zeros(hidden)
+                                   for n in names])
+        sd[f"{dst}.weight_ih_l0{sfx}"] = _t(np.concatenate(
+            [np.asarray(cell[g]["kernel"]).T for g in gates_i]))
+        sd[f"{dst}.weight_hh_l0{sfx}"] = _t(np.concatenate(
+            [np.asarray(cell[g]["kernel"]).T for g in gates_h]))
+        sd[f"{dst}.bias_ih_l0{sfx}"] = _t(bias(bias_i))
+        sd[f"{dst}.bias_hh_l0{sfx}"] = _t(bias(bias_h))
+
+
+def _conv_block_res(sd: StateDict, dst: str, node: dict) -> None:
+    _conv2d(sd, f"{dst}.conv.0", node["conv1"])
+    _batch_norm(sd, f"{dst}.conv.1", node["bn1"])
+    _conv2d(sd, f"{dst}.conv.3", node["conv2"])
+    _batch_norm(sd, f"{dst}.conv.4", node["bn2"])
+    if "shortcut" in node:
+        _conv2d(sd, f"{dst}.shortcut", node["shortcut"])
+
+
+def rmvpe_state_dict(flax_params: Dict[str, Any]) -> StateDict:
+    """JAX ``E2E0`` params -> this port's ``models/rmvpe.py:E2E0`` state dict."""
+    p = _params(flax_params)
+    u, sd = p["unet"], {}
+    _batch_norm(sd, "unet.encoder.bn", u["encoder_bn"])
+    for part, name, n in (("encoder", "enc", 5), ("intermediate", "inter", 4)):
+        for i in range(n):
+            for j, key in enumerate(sorted(k for k in u[f"{name}_{i}"] if k.startswith("conv_"))):
+                _conv_block_res(sd, f"unet.{part}.layers.{i}.conv.{j}", u[f"{name}_{i}"][key])
+    for i in range(5):
+        dec = u[f"dec_{i}"]
+        k = np.asarray(dec["convt"]["kernel"])  # pre-flipped [kh, kw, Cin, Cout]
+        sd[f"unet.decoder.layers.{i}.conv1.0.weight"] = _t(
+            np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+        _batch_norm(sd, f"unet.decoder.layers.{i}.conv1.1", dec["bn1"])
+        for j, key in enumerate(sorted(k for k in dec if k.startswith("conv2_"))):
+            _conv_block_res(sd, f"unet.decoder.layers.{i}.conv2.{j}", dec[key])
+    _conv2d(sd, "cnn", p["cnn"])
+    _recurrent(sd, "fc.0.gru", (p["gru"]["fwd_cell"], p["gru"]["bwd_cell"]),
+               ("ir", "iz", "in"), ("hr", "hz", "hn"), ("ir", "iz", "in"), (None, None, "hn"))
+    _dense(sd, "fc.1", p["fc"])
+    return sd
+
+
+def _conv_bn(sd: StateDict, dst: str, node: dict) -> None:
+    _conv2d(sd, f"{dst}.conv.0", node["conv"])
+    _batch_norm(sd, f"{dst}.conv.1", node["bn"])
+
+
+def _vr_basenet(sd: StateDict, dst: str, p: dict) -> None:
+    _conv_bn(sd, f"{dst}.enc1", p["enc1"])
+    for i in range(2, 6):
+        for conv in ("conv1", "conv2"):
+            _conv_bn(sd, f"{dst}.enc{i}.{conv}", p[f"enc{i}"][conv])
+    _conv_bn(sd, f"{dst}.aspp.conv1.1", p["aspp"]["conv1"])
+    for name in ("conv2", "conv3", "conv4", "conv5", "bottleneck"):
+        _conv_bn(sd, f"{dst}.aspp.{name}", p["aspp"][name])
+    for i in (4, 3, 2, 1):
+        _conv_bn(sd, f"{dst}.dec{i}.conv1", p[f"dec{i}"]["conv1"])
+    lstm = p["lstm_dec2"]
+    _conv_bn(sd, f"{dst}.lstm_dec2.conv", lstm["conv"])
+    gates = ("i", "f", "g", "o")
+    _recurrent(sd, f"{dst}.lstm_dec2.lstm", (lstm["lstm"]["fwd_cell"], lstm["lstm"]["bwd_cell"]),
+               tuple(f"i{g}" for g in gates), tuple(f"h{g}" for g in gates),
+               tuple(f"h{g}" for g in gates), (None,) * 4)
+    _dense(sd, f"{dst}.lstm_dec2.dense.0", lstm["dense"])
+    _batch_norm(sd, f"{dst}.lstm_dec2.dense.1", lstm["dense_bn"])
+
+
+def vr_state_dict(flax_params: Dict[str, Any]) -> StateDict:
+    """JAX ``CascadedNet`` params -> this port's ``models/vr.py:CascadedNet`` state dict."""
+    p, sd = _params(flax_params), {}
+    _vr_basenet(sd, "stg1_low_band_net.0", p["stg1_low"])
+    _conv_bn(sd, "stg1_low_band_net.1", p["stg1_low_out"])
+    _vr_basenet(sd, "stg1_high_band_net", p["stg1_high"])
+    _vr_basenet(sd, "stg2_low_band_net.0", p["stg2_low"])
+    _conv_bn(sd, "stg2_low_band_net.1", p["stg2_low_out"])
+    _vr_basenet(sd, "stg2_high_band_net", p["stg2_high"])
+    _vr_basenet(sd, "stg3_full_band_net", p["stg3_full"])
+    _conv2d(sd, "out", p["out"])
     return sd
 
 

@@ -836,3 +836,68 @@ def test_fastdiff_hops_off_8_route_by_layer(cuda):
         assert [c.count - b for c, b in zip(counters, before)] == launched
         peak = float(want.abs().max())
         torch.testing.assert_close(got.cpu(), want, atol=1e-4 * peak, rtol=RTOL)
+
+
+def _seeded_batch_norms(model, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                n = mod.num_features
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    return model.eval()
+
+
+def _tone(seconds, f0=220.0, sr=44100):
+    t = np.arange(int(seconds * sr)) / sr
+    return (0.3 * (np.sin(2 * np.pi * f0 * t) + 0.5 * np.sin(4 * np.pi * f0 * t))
+            * np.hanning(len(t))).astype(np.float32)
+
+
+@pytest.mark.parametrize("model", ["rmvpe", "vr", "kth_harmonic"])
+def test_data_pipeline_models_on_card_match_cpu(cuda, model, tmp_path):
+    """RMVPE's salience (full width, a 0.7 s tone), the VR separation
+    (n_fft 256, nout 8, nout_lstm 16) and the k-th harmonic on the card
+    against the same weights and input on the CPU: salience atol 5e-4 /
+    rtol 1e-3 (the JAX-vs-torch bound of ``E2E0``), the separated and the
+    harmonic wavs atol 1e-5 / rtol 1e-3 (cuDNN's and the CPU's float32
+    convolution and FFT sum orders)."""
+    import yaml
+
+    torch.manual_seed(31)
+    wav = _tone(0.7)
+    if model == "rmvpe":
+        from scipy.signal import resample_poly
+
+        from prodiff_tpu_torch.models.rmvpe import E2E0
+        from prodiff_tpu_torch.pe.rmvpe import RMVPE
+
+        path = str(tmp_path / "rmvpe.pt")
+        torch.save(_seeded_batch_norms(E2E0(4, 1, (2, 2)), 32).state_dict(), path)
+        audio = resample_poly(wav, 160, 441)
+        got = RMVPE({"pe_ckpt": path}, device=cuda).salience(audio)
+        want = RMVPE({"pe_ckpt": path}, device="cpu").salience(audio)
+        assert got.shape == want.shape == (71, 360)
+        np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+        return
+    if model == "vr":
+        from prodiff_tpu_torch.models.vr import CascadedNet
+        from prodiff_tpu_torch.separation import extract_harmonic_aperiodic
+
+        path = str(tmp_path / "model.pt")
+        torch.save(_seeded_batch_norms(CascadedNet(256, 128, 8, 16), 33).state_dict(), path)
+        with open(tmp_path / "config.yaml", "w") as f:
+            yaml.dump({"n_fft": 256, "hop_length": 128, "n_out": 8, "n_out_lstm": 16}, f)
+        got = extract_harmonic_aperiodic(wav, path, device=cuda)
+        want = extract_harmonic_aperiodic(wav, path, device="cpu")
+    else:
+        from prodiff_tpu_torch.binarize.utils import get_kth_harmonic
+
+        f0 = np.full(len(wav) // 256 - 3, 220.0)
+        f0[[5, 6]] = 0
+        got = [get_kth_harmonic(k, wav, f0, 256, 1024, 44100, device=cuda) for k in (0, 1)]
+        want = [get_kth_harmonic(k, wav, f0, 256, 1024, 44100, device="cpu") for k in (0, 1)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == wav.shape and np.abs(w).max() > 1e-3
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-3)

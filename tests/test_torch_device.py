@@ -35,6 +35,12 @@ def test_resolve_device_defaults_to_the_card(no_cuda):
     ["train", "vari", "--config", "train.yaml", "--exp_name", "exp"],
     ["binarize", "dur", "--config", "data.yaml", "--exp_name", "exp"],
     ["binarize", "pitch", "--config", "data.yaml", "--exp_name", "exp"],
+    ["binarize", "svs", "--config", "data.yaml", "--exp_name", "exp"],
+    ["binarize", "vari", "--config", "data.yaml", "--exp_name", "exp"],
+    ["binarize", "svs_rectified", "--config", "data.yaml", "--exp_name", "exp"],
+    ["infer", "song.ds", "--exp_name", "exp", "--spk_name", "spk0", "--isolate_aspiration"],
+    ["infer", "song.ds", "--exp_name", "exp", "--spk_name", "spk0", "--isolate_aspiration",
+     "--isolate_base_harmonic"],
     ["vocode", "wav2wav", "in.wav", "--config", "vocoder.yaml"],
 ])
 def test_cli_defaults_to_the_card(no_cuda, argv, tmp_path, monkeypatch):
@@ -77,6 +83,32 @@ def test_trainer_defaults_to_the_card(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             Trainer(hp, device=asked)
     assert Trainer(hp, device="cpu").device == torch.device("cpu")
+
+
+def test_data_pipeline_defaults_to_the_card(no_cuda, tmp_path):
+    """RMVPE, the VR separation, the k-th harmonic and the binarizers' mel run
+    on the card unless given the CPU; given the CPU, they go on (to the
+    missing checkpoint, or to the result)."""
+    from prodiff_tpu_torch.binarize.utils import get_kth_harmonic, get_mel_spec
+    from prodiff_tpu_torch.pe.rmvpe import RMVPE
+    from prodiff_tpu_torch.separation import extract_harmonic_aperiodic
+
+    absent = str(tmp_path / "absent" / "model.pt")
+    wav = np.sin(np.arange(8192) * 0.05).astype(np.float32)
+    for call in (lambda **kw: RMVPE({"pe_ckpt": absent}, **kw),
+                 lambda **kw: extract_harmonic_aperiodic(wav, absent, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+        with pytest.raises(FileNotFoundError):
+            call(device="cpu")
+    args = (0, wav, np.full(40, 220.0), 256, 1024, 44100)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        get_kth_harmonic(*args)
+    assert get_kth_harmonic(*args, device="cpu").shape == wav.shape
+    mel_args = (wav, 44100, 16, 1024, 1024, 256, 40, 16000)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        get_mel_spec(*mel_args)
+    assert get_mel_spec(*mel_args, device="cpu").shape == (32, 16)
 
 
 def test_train_cli_stops_before_writing_without_a_card(no_cuda, tmp_path, monkeypatch):

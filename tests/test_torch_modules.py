@@ -290,7 +290,8 @@ def test_teacher_condition_matches_jax():
 def test_port_imports_no_jax():
     """Importing the port and every submodule (the vocode slice's mel and
     pitch-extractor modules, the variance stack's and its training tasks and
-    binarizers among them) leaves jax/flax and the JAX package
+    binarizers, the data pipeline's RMVPE, VR, STFT, separation, preprocess
+    and svs/vari binarizers among them) leaves jax/flax and the JAX package
     (``prodiff_tpu``, ``prodiff_tpu.*``) out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -304,7 +305,9 @@ def test_port_imports_no_jax():
         "             'infer.inferers', 'models.duration', 'models.reflow',\n"
         "             'models.pitch_predictor', 'models.vari_predictor', 'binarize.utils',\n"
         "             'binarize.pitch_predictor', 'binarize.dur_predictor',\n"
-        "             'tasks.dur_predictor', 'tasks.pitch_predictor', 'tasks.vari_predictor'):\n"
+        "             'tasks.dur_predictor', 'tasks.pitch_predictor', 'tasks.vari_predictor',\n"
+        "             'ops.stft_extras', 'models.rmvpe', 'models.vr', 'pe.rmvpe', 'separation',\n"
+        "             'preprocess', 'binarize.svs', 'binarize.vari_predictor'):\n"
         "    assert 'prodiff_tpu_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

@@ -490,8 +490,8 @@ def _assert_same_items(got_dir, want_dir, prefix):
 
 
 def _vari_shards(data_dir, rng):
-    """The vari task's shards from seeded arrays (its binarizer lands with
-    the data-pipeline slice), with its phone set."""
+    """The vari task's shards from seeded arrays (its binarizer needs a VR
+    checkpoint), with its phone set."""
     phone_set = {"AP/zh": "AP", "SP/zh": "SP", "a/zh": "a", "b/zh": "b"}
     os.makedirs(data_dir)
     with open(os.path.join(data_dir, "phone_set.json"), "w") as f:
@@ -508,7 +508,8 @@ def test_binarize_train_and_infer_through_the_cli(tmp_path, monkeypatch, inject)
     """``binarize dur|pitch`` (shards, sidecars and maps equal to the JAX
     binarizer's on the same corpus), ``train dur|pitch|vari`` for 3 steps,
     then both packages' inferers read the port-trained checkpoints and
-    agree (the pitch curve on injected noise); ``binarize svs`` raises."""
+    agree (the pitch curve on injected noise); ``binarize svs`` runs on the
+    same corpus."""
     monkeypatch.chdir(tmp_path)
     raw = _raw_corpus(tmp_path)
     cfg = _config(tmp_path, raw)
@@ -525,8 +526,8 @@ def test_binarize_train_and_infer_through_the_cli(tmp_path, monkeypatch, inject)
         for m in maps:
             with open(os.path.join(got_dir, m)) as a, open(os.path.join(want_dir, m)) as b:
                 assert json.load(a) == json.load(b), m
-    with pytest.raises(NotImplementedError, match="data-pipeline"):
-        port_cli(["binarize", "svs", "--config", cfg, "--exp_name", "v", "--device", "cpu"])
+    port_cli(["binarize", "svs", "--config", cfg, "--exp_name", "v", "--device", "cpu"])
+    assert len(IndexedDataset(str(tmp_path / "data" / "svs"), "train")) == 6
 
     _vari_shards(str(tmp_path / "data" / "vari"), np.random.default_rng(51))
     vari_cfg = _config(tmp_path, raw, use_spk_id=False)  # the JAX vari inferer passes no speaker

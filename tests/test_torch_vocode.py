@@ -130,13 +130,14 @@ def test_acf_matches_jax(interp_uv):
 
 def test_pe_registry():
     """``parselmouth`` without its library falls back to ACF, as in the JAX
-    package; ``rmvpe`` waits for a later slice; an unknown name raises."""
+    package; ``rmvpe`` is the port's RMVPE; an unknown name raises."""
     assert get_pe_cls("acf") is ACF and get_pe_cls("ACF") is ACF
     if importlib.util.find_spec("parselmouth") is None:
         assert jax_get_pe_cls("parselmouth") is JaxACF
         assert get_pe_cls("parselmouth") is ACF
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_pe_cls("rmvpe")
+    from prodiff_tpu_torch.pe.rmvpe import RMVPE
+
+    assert get_pe_cls("rmvpe") is RMVPE
     with pytest.raises(ValueError, match="Unknown pitch extractor"):
         get_pe_cls("crepe")
     with pytest.raises(NotImplementedError):
