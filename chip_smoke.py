@@ -131,6 +131,19 @@ Phases, each printing its lines before the last:
      asserted, the shortest item's mel, f0, salience, harmonic part, voicing,
      breath and tension and the written wavs held against the CPU, RMVPE and
      VR timed by CUDA events, one binarized item under torch.profiler.
+ 10. distillation on the data pipeline's tree (its teacher trained 2 steps
+     and its ``svs_rectified`` shards): ``train svs_rectified`` 3 steps with
+     ``async_save`` (K5 41 + 40 a step, K1 in its validation), one student
+     step held against the CPU (loss and every gradient within 1e-4 of each
+     peak) and the step under torch.profiler, ``merge_rectified`` (the merged
+     ``diffusion`` equal to the student's), ``infer`` of
+     ``samples/example.ds`` from the merged teacher at ``timesteps: 1`` (K1
+     3 and K2/K3 90 a batch; its mel held against the CPU),
+     ``SVSTask.infer_mels`` on the card vs the CPU (injected noise), ``train
+     svs`` resumed from an optax-layout checkpoint vs an unbroken run under
+     deterministic algorithms (within 1e-5 of each tensor's peak), and
+     ``train svs`` with ``profile_steps: 2`` (the trace names K5's kernels).
+     Every kernel's entry of the JSON line gains ``launches_distillation``.
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -1611,22 +1624,22 @@ def train_config(data_dir: str) -> dict:
     return hp
 
 
-def step_vs_cpu(label, task, make_model, batch, draws, dev, torch) -> dict:
+def step_vs_cpu(label, task, make_model, batch, draws, dev, torch, tol=STEP_TOL) -> dict:
     """One training step of ``make_model()``'s seeded weights (its denoiser's
     output projection seeded too: the reference zero-inits it) on a short
     numpy ``batch``, the same injected ``draws`` (t and noise, where the task
     takes them), dropout off: card (kernels + cuBLAS) vs CPU (the plain
     module loop). The loss, every parameter's gradient and the params after
-    one AdamW step are held within ``STEP_TOL`` of each one's peak. Returns
+    one AdamW step are held within ``tol`` of each one's peak. Returns
     the kernel launches of the card's step."""
     from prodiff_tpu_torch.training.optim import Optimizer
     from prodiff_tpu_torch.training.trainer import host_tensors
 
     torch.manual_seed(SEED)
     sd = make_model().state_dict()
-    key = "diffusion.denoise_fn.output_projection.weight"
-    if key in sd:
-        sd[key].normal_(std=0.02)
+    for key in sd:  # the teacher's, or a bare student's at denoise_fn
+        if key.endswith("denoise_fn.output_projection.weight"):
+            sd[key].normal_(std=0.02)
     out, launched = {}, {}
     for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
         model = make_model()
@@ -1649,23 +1662,23 @@ def step_vs_cpu(label, task, make_model, batch, draws, dev, torch) -> dict:
         params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
         out[where] = (total.detach().cpu(), grads, params)
     loss_err = grad_compare(f"{label}, one training step, card vs CPU: loss", out["card"][0],
-                            out["cpu"][0], STEP_TOL, torch)
+                            out["cpu"][0], tol, torch)
     worst = ("", 0.0)
     for n in out["cpu"][1]:
         got, ref = out["card"][1][n], out["cpu"][1][n]
         rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-12)
-        if not (torch.isfinite(got).all() and rel <= STEP_TOL):
+        if not (torch.isfinite(got).all() and rel <= tol):
             raise AssertionError(f"{label}: gradient of {n}: card vs CPU {rel:.3e} x its peak")
         worst = max(worst, (n, rel), key=lambda x: x[1])
         # an element whose gradient is ~0 may take Adam's first step (at most ~lr)
         # either way, so the params also get twice the step's learning rate
         pg, pr = out["card"][2][n], out["cpu"][2][n]
-        if float((pg - pr).abs().max()) > STEP_TOL * float(pr.abs().max()) + 2 * lr:
+        if float((pg - pr).abs().max()) > tol * float(pr.abs().max()) + 2 * lr:
             raise AssertionError(f"{label}: {n} after the update: card vs CPU beyond tolerance")
     log(f"{label}, one training step, card vs CPU: {len(out['cpu'][1])} parameter gradients "
-        f"within {STEP_TOL} x their peaks (worst {worst[0]}: {worst[1]:.3e}), loss "
+        f"within {tol} x their peaks (worst {worst[0]}: {worst[1]:.3e}), loss "
         f"{float(out['cpu'][0]):.6f} (err {loss_err:.3e}), params after one AdamW step (lr "
-        f"{lr:.1e}) within {STEP_TOL} x their peaks + 2 lr; the card's step launched {launched}")
+        f"{lr:.1e}) within {tol} x their peaks + 2 lr; the card's step launched {launched}")
     return launched
 
 
@@ -2626,7 +2639,10 @@ def phase_data_pipeline(dev, torch):
     --isolate_base_harmonic`` of ``samples/example.ds`` and one ``/api/infer``
     with the VR gain; each step's launches counted, the features held against
     the CPU, RMVPE and VR timed by CUDA events, one binarized item profiled.
-    Returns the launches of the phase's main path, by kernel."""
+    Returns the launches of the phase's main path, by kernel, and the tree it
+    built (``tmp``, the config ``hp``, the trained teacher's work dir), which
+    the distillation phase reuses and removes; on a failure it is removed
+    here."""
     import shutil
     import tempfile
 
@@ -2906,10 +2922,318 @@ def phase_data_pipeline(dev, torch):
         if not (gained.shape == raw_wav.shape and err <= CPU_TOL * peak
                 and np.abs(gained - raw_wav).max() > CPU_TOL * peak):
             raise AssertionError("/api/infer: the VR gain disagrees with the CPU's")
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    finally:
+        os.chdir(cwd)
+    log(f"data-pipeline phase: {time.time() - t_phase:.3f} s; spans (s): {json.dumps(spans)}; "
+        f"card vs CPU max errors {json.dumps({k: float(f'{v:.3e}') for k, v in errors.items()})}; "
+        f"launches {json.dumps(totals)}")
+    return totals, {"tmp": tmp, "hp": hp, "teacher_work": work}
+
+
+# The distillation phase: on the data-pipeline phase's tree (the base config,
+# its teacher trained DP_TRAIN_STEPS steps, the port-binarized svs_rectified
+# shards) train svs_rectified -> merge_rectified -> infer of the merged
+# teacher at timesteps 1, plus validation sampling, a resumed run against an
+# unbroken one and a profiled run
+DISTILL_EXP = "distilled"
+DISTILL_STEPS = 3  # svs_rectified steps; async checkpoints every 2
+DISTILL_GRAD_TOL = 1e-4  # the student's step, card vs CPU: loss and gradients, of each one's peak
+RESUME_TOL = 1e-5  # resumed vs unbroken params, of each tensor's peak
+PROFILED_STEPS = 2  # profile_steps of the profiled run (its steps 11-12)
+
+
+def check_trace_names_k5(path: str) -> None:
+    """The Chrome trace holds K5's kernels (save-forward and backward chain)."""
+    with open(path) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in ("save_gate_kernel", "chain_gate_kernel")}
+    log(f"profile trace {os.path.basename(path)} ({len(text) / 1e6:.2f} MB): K5 kernel "
+        f"events {named}")
+    if not all(named.values()):
+        raise AssertionError("profile_steps: the trace names no K5 kernel")
+
+
+def phase_distillation(dev, torch, tree):
+    """The distillation loop through the port's entry points at full width,
+    on the data-pipeline phase's tree (removed at the end): ``train
+    svs_rectified`` (3 steps, ``async_save``) with one step held against the
+    CPU, ``merge_rectified``, ``infer`` of ``samples/example.ds`` from the
+    merged teacher at ``timesteps: 1`` (its mel held against the CPU),
+    ``SVSTask.infer_mels`` on the card vs the CPU, ``train svs`` resumed from
+    an optax-layout checkpoint against an unbroken run, and ``train svs``
+    with ``profile_steps``. Returns the launches of the phase's path."""
+    import shutil
+
+    import yaml
+
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.infer.handler import SVSInferHandler
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer, host_tensors
+    from prodiff_tpu_torch.utils import ckpt_utils
+
+    t_phase = time.time()
+    tmp, hp, teacher_work = tree["tmp"], tree["hp"], tree["teacher_work"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    spans, totals, errors = {}, {k: 0 for k in COUNTED}, {}
+    n_layers = hp["residual_layers"]
+    per_step = {"residual_stack_save": 1 + 2 * n_layers, "residual_stack_chain": 2 * n_layers}
+
+    def step(label, want, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        start = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        spans[label] = round(time.time() - start, 3)
+        for k, v in check_counts(f"distillation: {label}", want).items():
+            totals[k] += v
+        return out
+
+    def train_cli(task, cfg, exp, steps, want, label=None):
+        """``train`` through the CLI; returns the host-clock ms of each step."""
+        times = []
+        orig = Trainer.train_step
+
+        def timed(self, batch):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = orig(self, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            return out
+
+        Trainer.train_step = timed
+        try:
+            step(label or f"train {task} ({exp})", want,
+                 lambda: port_cli(["train", task, "--config", cfg, "--exp_name", exp,
+                                   "--max_steps", str(steps), "--device", str(dev)]))
+        finally:
+            Trainer.train_step = orig
+        return times
+
+    def write_cfg(name, **kw):
+        path = os.path.join(tmp, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.dump(dict(hp, **kw), f)
+        return path
+
+    try:
+        # 1. train svs_rectified on the port's triplets, 3 steps, async checkpoints
+        rect_cfg = write_cfg("distill", teacher_ckpt=teacher_work, async_save=True,
+                             val_check_interval=2)
+        rect_hp = dict(hp, task="svs_rectified", teacher_ckpt=teacher_work)
+        rect_task = get_task_cls("svs_rectified")(rect_hp)
+        n_val = len(rect_task.val_iterator())  # a validation runs K1 3 times a batch
+        rect_ms = train_cli("svs_rectified", rect_cfg, DP_EXP, DISTILL_STEPS,
+                            {k: DISTILL_STEPS * v for k, v in per_step.items()}
+                            | {"residual_stack": n_val * K1_LAUNCHES})
+        student_work = os.path.join(tmp, "checkpoints", DP_EXP, "svs_rectified")
+        files = sorted(f for f in os.listdir(student_work) if f.endswith(".ckpt"))
+        losses = [json.loads(ln)["tr/total_loss"]
+                  for ln in open(os.path.join(student_work, "metrics.jsonl"))
+                  if "tr/total_loss" in ln]
+        if files != ["model_ckpt_steps_2.ckpt", "model_ckpt_steps_3.ckpt"] or len(
+                losses) != DISTILL_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"train svs_rectified: files {files}, losses {losses}")
+        log(f"train svs_rectified (async_save, {n_val} validation batch): losses "
+            f"{[round(v, 4) for v in losses]}, step times {[round(v, 3) for v in rect_ms]} ms "
+            f"(host clock, synchronised); checkpoints {files}")
+
+        # one student step, card vs CPU, on the shortest triplet (t injected;
+        # the DDPM student noises with the item's own x_T)
+        ds = rect_task.train_iterator().dataset
+        short = min(range(len(ds)), key=ds.size)
+        batch = ds.collater([ds[short]])
+        batch.pop("nsamples")
+        step_launches = step_vs_cpu("svs_rectified student", rect_task, rect_task.build_model,
+                                    batch, {"t": np.array([1])}, dev, torch,
+                                    tol=DISTILL_GRAD_TOL)
+        if step_launches != per_step:
+            raise AssertionError(f"the student's step launched {step_launches}, not {per_step}")
+
+        # the student's step under torch.profiler, at the training batch
+        trainer = Trainer(dict(rect_hp, work_dir=os.path.join(tmp, "profiled_student")),
+                          device=dev)
+        trainer.build(rect_task)
+        full = next(iter(rect_task.train_iterator()))
+        full.pop("nsamples")
+        full = {k: v.to(dev) for k, v in host_tensors(full, pin=False).items()}
+        shape = tuple(full["x_0"].shape)
+        profile_train_step(trainer, full, torch,
+                           label=f"svs_rectified step (B={shape[0]} x T={shape[1]})")
+        del trainer, full
+
+        # 2. merge_rectified: the teacher's diffusion becomes the student's
+        teacher_ckpt = os.path.join(teacher_work, f"model_ckpt_steps_{DP_TRAIN_STEPS}.ckpt")
+        student_ckpt = os.path.join(student_work, f"model_ckpt_steps_{DISTILL_STEPS}.ckpt")
+        step("merge_rectified", {}, lambda: port_cli(["merge_rectified", teacher_ckpt,
+                                                      student_ckpt]))
+        merged = ckpt_utils.load_checkpoint_file(teacher_ckpt + ".merged.ckpt")
+        student = ckpt_utils.load_checkpoint_file(student_ckpt)["state_dict"]["params"]
+        got_tree = merged["state_dict"]["params"]["diffusion"]
+
+        def leaves(tree, path=""):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}") if isinstance(v, dict) else [(f"{path}/{k}", v)]
+
+        want_leaves, got_leaves = dict(leaves(student)), dict(leaves(got_tree))
+        if set(want_leaves) != set(got_leaves) or not all(
+                got_leaves[k].dtype == v.dtype and np.array_equal(got_leaves[k], v)
+                for k, v in want_leaves.items()):
+            raise AssertionError("merge_rectified: the merged diffusion is not the student's")
+        log(f"merge_rectified: the merged teacher's diffusion equals the student's bit for bit "
+            f"({len(want_leaves)} arrays)")
+
+        # 3. infer of samples/example.ds from the merged teacher at timesteps 1
+        exp_dir = os.path.join(tmp, "checkpoints", DISTILL_EXP, "svs")
+        os.makedirs(exp_dir)
+        with open(os.path.join(teacher_work, "config.yaml")) as f:
+            exp_hp = yaml.safe_load(f)
+        with open(os.path.join(exp_dir, "config.yaml"), "w") as f:
+            yaml.dump(dict(exp_hp, timesteps=1), f)
+        shutil.copy(teacher_ckpt + ".merged.ckpt",  # a name the handler finds
+                    os.path.join(exp_dir, f"model_ckpt_steps_{DP_TRAIN_STEPS}.ckpt"))
+        example = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples", "example.ds")
+        shutil.copy(example, os.path.join(tmp, "example.ds"))
+        batches = []
+        acoustic = SVSInferHandler._acoustic
+
+        def counted(self, *args):
+            batches.append(args[1].shape)
+            return acoustic(self, *args)
+
+        SVSInferHandler._acoustic = counted
+        try:
+            t0 = time.perf_counter()
+            # counts as the render of 1 DDPM step and 5 vocoder stages a batch,
+            # known only after the call: checked just below
+            torch.cuda.synchronize()
+            reset_counts()
+            port_cli(["infer", "example.ds", "--exp_name", DISTILL_EXP, "--spk_name", "s0",
+                      "--device", str(dev)])
+            torch.cuda.synchronize()
+            render_s = time.perf_counter() - t0
+            spans["infer (merged teacher)"] = round(render_s, 3)
+            want = {"residual_stack": len(batches) * K1_LAUNCHES,
+                    "resblock_stage": len(batches) * 5 * 18}
+            for k, v in check_counts("distillation: infer of the merged teacher (timesteps 1)",
+                                     want).items():
+                totals[k] += v
+        finally:
+            SVSInferHandler._acoustic = acoustic
+        log(f"infer of example.ds from the merged teacher (timesteps 1): {len(batches)} batches "
+            f"{batches}, {render_s:.3f} s (host clock, CLI in-process, models loaded included)")
+        mels = {}
+        for d in (dev, "cpu"):
+            handler = SVSInferHandler(DISTILL_EXP, deterministic=True, device=d,
+                                      out_dir=os.path.join(tmp, f"merged_{d}"))
+            seen = capture_mel(handler)
+            handler.handle(None, "example.ds", "s0", "zh")
+            mels[str(d)] = seen["mel"]
+        ref = mels["cpu"]
+        err = float(np.abs(mels[str(dev)] - ref).max())
+        log(f"merged teacher's mel into the vocoder (last batch {list(ref.shape)}), card vs CPU: "
+            f"max_abs_err {err:.3e}, peak {np.abs(ref).max():.4f}, tol {CPU_TOL} x peak")
+        if not (mels[str(dev)].shape == ref.shape and err <= CPU_TOL * np.abs(ref).max()):
+            raise AssertionError("the merged teacher's mel disagrees with the CPU's")
+        errors["merged mel"] = err
+
+        # 4. validation sampling: SVSTask.infer_mels on the card vs the CPU
+        svs_hp = dict(hp, task="svs")
+        svs_task = get_task_cls("svs")(svs_hp)
+        payload = ckpt_utils.load_checkpoint_file(teacher_ckpt)
+        vb = next(iter(svs_task.val_iterator()))
+        vb.pop("nsamples")
+        rng = np.random.default_rng(SEED + 30)
+        b, t_mel, m = vb["mel"].shape
+        noise = {"init_noise": rng.uniform(size=(b, 1, t_mel, m)).astype(np.float32),
+                 "step_noises": rng.normal(size=(hp["timesteps"], b, 1, t_mel, m)
+                                           ).astype(np.float32)}
+        sampled = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = svs_task.build_model()
+            svs_task.load_params_tree(model, payload["state_dict"])
+            model.to(d).eval()
+            tb = {k: v.to(d) for k, v in host_tensors(vb, pin=False).items()}
+            tn = {k: torch.from_numpy(v).to(d) for k, v in noise.items()}
+            run = lambda: svs_task.infer_mels(model, tb, **tn)  # noqa: E731
+            out = step("infer_mels (validation sampling)",
+                       {"residual_stack": hp["timesteps"] * K1_LAUNCHES}, run) if where == "card" \
+                else run()
+            sampled[where] = out.cpu().numpy()
+        err = float(np.abs(sampled["card"] - sampled["cpu"]).max())
+        peak = float(np.abs(sampled["cpu"]).max())
+        log(f"SVSTask.infer_mels {list(sampled['cpu'].shape)} on injected noise, card vs CPU: "
+            f"max_abs_err {err:.3e}, peak {peak:.4f}, tol {CPU_TOL} x peak")
+        if not err <= CPU_TOL * peak:
+            raise AssertionError("infer_mels: the card disagrees with the CPU")
+        errors["infer_mels"] = err
+
+        # 5. train svs resumed from a step-N checkpoint (optax's layout) vs
+        # unbroken, with deterministic algorithms: by default the embedding
+        # and gather backward add with atomics, so two runs of the same steps
+        # differ in the last bits (2.6e-5 of the zero-initialised output
+        # projection's peak after 3 steps on an H100)
+        n = len(svs_task.train_iterator())  # one epoch: a resumed epoch starts over
+        svs_cfg = write_cfg("resume", val_check_interval=1000)
+
+        def resume_vs_unbroken(mode):
+            ms = train_cli("svs", svs_cfg, f"unbroken_{mode}", n + 2,
+                           {k: (n + 2) * v for k, v in per_step.items()})
+            train_cli("svs", svs_cfg, f"broken_{mode}", n, {k: n * v for k, v in per_step.items()})
+            opt_tree = ckpt_utils.load_checkpoint_file(os.path.join(
+                tmp, "checkpoints", f"broken_{mode}", "svs", f"model_ckpt_steps_{n}.ckpt"))[
+                "optimizer_state"]
+            if sorted(opt_tree) != ["0", "1"] or int(opt_tree["1"]["0"]["count"]) != n:
+                raise AssertionError(f"the step-{n} optimizer state is not optax's tree: "
+                                     f"{sorted(opt_tree)}")
+            train_cli("svs", svs_cfg, f"broken_{mode}", n + 2,
+                      {k: 2 * v for k, v in per_step.items()}, label=f"train svs (resumed, {mode})")
+            finals = [dict(leaves(ckpt_utils.load_checkpoint_file(os.path.join(
+                tmp, "checkpoints", f"{e}_{mode}", "svs", f"model_ckpt_steps_{n + 2}.ckpt"))[
+                "state_dict"])) for e in ("unbroken", "broken")]
+            if set(finals[0]) != set(finals[1]):
+                raise AssertionError("the resumed run's params differ in their names")
+            worst = max((float(np.abs(finals[1][k] - v).max()) / max(float(np.abs(v).max()),
+                                                                     1e-12), k)
+                        for k, v in finals[0].items())
+            log(f"train svs resumed at step {n} (optax-layout checkpoint) vs unbroken, {mode} "
+                f"algorithms, params after step {n + 2}: worst {worst[0]:.3e} of a tensor's peak "
+                f"({worst[1]}; {len(finals[0])} tensors)")
+            return worst[0], ms
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            errors["resume"], svs_ms = resume_vs_unbroken("deterministic")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not errors["resume"] <= RESUME_TOL:
+            raise AssertionError(f"the resumed run does not repeat the unbroken one (tol "
+                                 f"{RESUME_TOL} of each tensor's peak)")
+
+        # 6. train svs with profile_steps: a trace of steps 11-12 naming K5's kernels
+        prof_cfg = write_cfg("profiled", val_check_interval=1000, profile_steps=PROFILED_STEPS)
+        n_prof = 10 + PROFILED_STEPS
+        train_cli("svs", prof_cfg, "profiled", n_prof, {k: n_prof * v for k, v in per_step.items()})
+        prof_dir = os.path.join(tmp, "checkpoints", "profiled", "svs", "profile")
+        traces = os.listdir(prof_dir)
+        if traces != [f"trace_steps_10-{n_prof}.json"]:
+            raise AssertionError(f"profile_steps: traces {traces}")
+        check_trace_names_k5(os.path.join(prof_dir, traces[0]))
+
+        rect_med, svs_med = float(np.median(rect_ms)), float(np.median(svs_ms))
+        log(f"step times (host clock, median): svs_rectified {rect_med:.3f} ms, train svs "
+            f"{svs_med:.3f} ms (deterministic algorithms) on the same items (the student skips "
+            f"the encoder and embeds)")
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"data-pipeline phase: {time.time() - t_phase:.3f} s; spans (s): {json.dumps(spans)}; "
+    log(f"distillation phase: {time.time() - t_phase:.3f} s; spans (s): {json.dumps(spans)}; "
         f"card vs CPU max errors {json.dumps({k: float(f'{v:.3e}') for k, v in errors.items()})}; "
         f"launches {json.dumps(totals)}")
     return totals
@@ -2975,48 +3299,51 @@ def main() -> int:
     train_launches = timed_phase("train", phase_train)
     variance_launches = timed_phase("variance", phase_variance)
     vt_launches = timed_phase("variance_train", phase_variance_train)
-    dp_launches = timed_phase("data_pipeline", phase_data_pipeline)
+    dp_launches, dp_tree = timed_phase("data_pipeline", phase_data_pipeline)
+    distill_launches = timed_phase("distillation", lambda d, t: phase_distillation(d, t, dp_tree))
     log(f"phase seconds: {json.dumps(spent)}; script total {time.time() - t_script:.3f} s")
 
-    def entry(name, source, replaces, n, m):
+    def entry(name, source, replaces, n, m, counter):
         return dict(name=name, route="cuda", source=f"prodiff_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=n, max_abs_err=m["max_abs_err"], ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-                    library_ms=None)  # no single PyTorch call computes any of these
+                    library_ms=None,  # no single PyTorch call computes any of these
+                    launches_distillation=distill_launches[counter])
 
     kernels = [
         dict(entry("wavenet_residual_stack", "wavenet_stack.cu",
-                   "prodiff_tpu/ops/pallas/wavenet.py:177", launches["residual_stack"], k1),
+                   "prodiff_tpu/ops/pallas/wavenet.py:177", launches["residual_stack"], k1,
+                   "residual_stack"),
              by_shape=k1["by_shape"],
              launches_variance_render=variance_launches["residual_stack"],
              launches_variance_train=vt_launches["residual_stack"],
              launches_data_pipeline=dp_launches["residual_stack"]),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
-                   launches["resblock_stage"], res), stages=res["stages"],
+                   launches["resblock_stage"], res, "resblock_stage"), stages=res["stages"],
              launches_data_pipeline=dp_launches["resblock_stage"]),
         dict(entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
-                   fd_launches["ublock_layer"], fd["ublock_layer"]),
+                   fd_launches["ublock_layer"], fd["ublock_layer"], "ublock_layer"),
              bound_sum_of_blocks_ms=fd["ublock_layer"]["bound_sum_of_blocks_ms"],
              by_block=fd["ublock_layer"]["by_block"],
              widened_hops=fd["ublock_layer"]["widened_hops"]),
         dict(entry("lvc", "lvc.cu", "prodiff_tpu/ops/pallas/lvc.py:28",
-                   fd_unfused_launches["lvc"], fd["lvc"]),
+                   fd_unfused_launches["lvc"], fd["lvc"], "lvc"),
              bound_sum_of_blocks_ms=fd["lvc"]["bound_sum_of_blocks_ms"], by_block=fd["lvc"]["by_block"],
              baddbmm_ms=fd["lvc"]["baddbmm_ms"],
              baddbmm_is="torch.baddbmm(bias, taps, km): the window product and the bias in one "
                         "cuBLAS call on a tap tensor built before it, not the whole function"),
         dict(entry("wavenet_stack_save_forward", "wavenet_train.cu",
                    "prodiff_tpu/ops/pallas/wavenet_train.py:71",
-                   train_launches["residual_stack_save"], k5a),
+                   train_launches["residual_stack_save"], k5a, "residual_stack_save"),
              launches_variance_train=vt_launches["residual_stack_save"],
              launches_data_pipeline=dp_launches["residual_stack_save"]),
         dict(entry("wavenet_stack_backward_chain", "wavenet_train.cu",
                    "prodiff_tpu/ops/pallas/wavenet_train.py:161",
-                   train_launches["residual_stack_chain"], k5b),
+                   train_launches["residual_stack_chain"], k5b, "residual_stack_chain"),
              launches_variance_train=vt_launches["residual_stack_chain"],
              launches_data_pipeline=dp_launches["residual_stack_chain"]),
         dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
-                   vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"]),
+                   vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"], "ublock_block"),
              k4_chain_ms=fd["ublock_block"]["k4_chain_ms"], by_block=fd["ublock_block"]["by_block"]),
     ]
     if fd_mono_launches["ublock_block"] != vocode_launches["fastdiff"]["ublock_block"]:

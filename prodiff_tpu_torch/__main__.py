@@ -1,12 +1,17 @@
 """Command line of the port:
-``python -m prodiff_tpu_torch preprocess|binarize|train|infer|vocode|web ...``.
+``python -m prodiff_tpu_torch preprocess|binarize|train|infer|vocode|web|merge_rectified|convert_ckpt ...``.
 
 The flags are those of the JAX package's ``main.py preprocess`` / ``main.py
 binarize`` / ``main.py train`` / ``main.py infer`` / ``main.py vocode
-wav2wav`` / ``main.py web`` that the port supports, plus ``--device`` on
-every command with device work (``preprocess`` has none). ``binarize``
-takes ``svs``, ``svs_rectified``, ``vari``, ``dur`` and ``pitch``; ``train``
-takes ``svs``, ``dur``, ``pitch`` and ``vari``. The
+wav2wav`` / ``main.py web`` / ``main.py merge_rectified`` / ``main.py
+convert_ckpt`` that the port supports, plus ``--device`` on every command
+with device work (``preprocess``, ``merge_rectified`` and ``convert_ckpt``
+have none). ``binarize`` takes ``svs``, ``svs_rectified``, ``vari``, ``dur``
+and ``pitch``; ``train`` takes ``svs``, ``svs_rectified``, ``dur``, ``pitch``
+and ``vari``. ``merge_rectified TARGET COMPONENT`` splices a trained
+``svs_rectified`` student into a teacher checkpoint as
+``TARGET.merged.ckpt``; ``convert_ckpt`` writes a reference torch teacher
+as a checkpoint of this format (no optimizer state). The
 experiment directory (``checkpoints/{exp_name}/{task}``: ``config.yaml``,
 the maps and the checkpoints, written by either package) is read without
 JAX. ``binarize`` and ``train`` need PyYAML, ``train`` msgpack too.
@@ -16,6 +21,41 @@ from __future__ import annotations
 
 import argparse
 import os
+
+
+def convert_ckpt(torch_ckpt: str, config: str, out=None, step: int = 0) -> str:
+    """A reference (torch) ProDiffTeacher checkpoint -> this format, as
+    ``main.py convert_ckpt`` writes it: ``global_step`` ``step``, ``epoch``
+    0, ``checkpoint_callback_best`` 0.0, the params, an empty
+    ``optimizer_state``. Returns the path written."""
+    from prodiff_tpu_torch.config import set_hparams
+    from prodiff_tpu_torch.utils import ckpt_utils
+    from prodiff_tpu_torch.utils.convert import load_torch_state_dict, reference_teacher_flax_params
+
+    hparams = set_hparams(task="svs", config_fn=config)
+    payload = {"global_step": step, "epoch": 0, "checkpoint_callback_best": 0.0,
+               "state_dict": reference_teacher_flax_params(load_torch_state_dict(torch_ckpt),
+                                                           hparams),
+               "optimizer_state": {}}
+    out = out or os.path.join(os.path.dirname(torch_ckpt), f"model_ckpt_steps_{step}.ckpt")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    ckpt_utils.write_checkpoint_file(out, payload)
+    return out
+
+
+def merge_rectified(target_ckpt: str, component_ckpt: str) -> str:
+    """The teacher checkpoint ``target_ckpt`` with its ``diffusion``
+    replaced by the ``svs_rectified`` student of ``component_ckpt``, written
+    as ``{target_ckpt}.merged.ckpt`` (``main.py merge_rectified``)."""
+    from prodiff_tpu_torch.utils import ckpt_utils
+
+    target = ckpt_utils.load_checkpoint_file(target_ckpt)
+    component = ckpt_utils.load_checkpoint_file(component_ckpt)
+    ckpt_utils.merge_subtree(target["state_dict"], "params.diffusion",
+                             ckpt_utils.extract_submodel(component["state_dict"], "params"))
+    out = target_ckpt + ".merged.ckpt"
+    ckpt_utils.write_checkpoint_file(out, target)
+    return out
 
 
 def vocode_wav2wav(wav: str, config: str, keyshift: int = 0, output_dir: str = "infer_out",
@@ -80,7 +120,7 @@ def main(argv=None) -> None:
                           help="where the feature extractors run; default: cuda "
                                "(cpu only when named)")
 
-    train = sub.add_parser("train", help="train a task (svs, dur, pitch, vari)")
+    train = sub.add_parser("train", help="train a task (svs, svs_rectified, dur, pitch, vari)")
     train.add_argument("train_task")
     train.add_argument("--config", required=True)
     train.add_argument("--exp_name", required=True)
@@ -119,6 +159,17 @@ def main(argv=None) -> None:
     web.add_argument("--port", type=int, default=7694)
     web.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
 
+    merge = sub.add_parser("merge_rectified",
+                           help="splice a distilled student into a teacher checkpoint")
+    merge.add_argument("target_ckpt")
+    merge.add_argument("component_ckpt")
+
+    conv = sub.add_parser("convert_ckpt", help="convert a reference torch teacher checkpoint")
+    conv.add_argument("torch_ckpt")
+    conv.add_argument("--config", required=True, help="hparams yaml describing the model")
+    conv.add_argument("--out", default=None, help="output path (default: beside the input)")
+    conv.add_argument("--step", type=int, default=0, help="global step to stamp")
+
     args = parser.parse_args(argv)
     if args.command == "preprocess":
         from prodiff_tpu_torch.preprocess import PreprocessHandler
@@ -146,6 +197,10 @@ def main(argv=None) -> None:
                               make_work_dir=True)
         task = get_task_cls(args.train_task)(hparams)
         Trainer(hparams, device=device).fit(task, max_steps=args.max_steps)
+    elif args.command == "merge_rectified":
+        print(f"| merged -> {merge_rectified(args.target_ckpt, args.component_ckpt)}")
+    elif args.command == "convert_ckpt":
+        print(f"| converted -> {convert_ckpt(args.torch_ckpt, args.config, args.out, args.step)}")
     elif args.command == "vocode":
         for path in vocode_wav2wav(args.wav, args.config, args.keyshift, args.output_dir,
                                    args.device):

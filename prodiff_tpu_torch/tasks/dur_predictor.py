@@ -1,7 +1,9 @@
 """The duration-predictor train task (port of
 ``prodiff_tpu/tasks/dur_predictor.py``): the phoneme encoder and conv
 predictor of ``models/duration.py`` trained on the three-level log-domain
-duration loss (``ops/losses.py:dur_loss``)."""
+duration loss (``ops/losses.py:dur_loss``). Its validation "plot" prints
+the first item's phonemes, target and predicted durations, as in the JAX
+package."""
 
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ class DurPredictorDataset(BaseDataset):
 @register_task("dur")
 class DurPredictorTask(BaseTask):
     dataset_cls = DurPredictorDataset
+    weight_carrier = (dur_predictor_flax_params, dur_predictor_state_dict)
 
     def __init__(self, hparams):
         super().__init__(hparams)
@@ -58,8 +61,10 @@ class DurPredictorTask(BaseTask):
                                 log_offset=self.loss_log_offset, lambda_pdur=self.lambdas[0],
                                 lambda_wdur=self.lambdas[1], lambda_sdur=self.lambdas[2])}
 
-    def params_tree(self, model) -> dict:
-        return dur_predictor_flax_params(model.state_dict(), self.hparams)
-
-    def load_params_tree(self, model, tree: dict) -> None:
-        model.load_state_dict(dur_predictor_state_dict(tree, self.hparams))
+    @torch.no_grad()
+    def validation_plots(self, model, batch, step: int, out_dir, writer=None) -> None:
+        model.eval()
+        dur_pred = model(batch["ph_seq"], batch["onset"], batch["word_dur"], infer=True)
+        ph_text = self.ph_encoder.decode(batch["ph_seq"][0].tolist()).split()
+        print(f"ph_text: {ph_text}\ndur_tgt: {batch['ph_dur'][0].cpu().numpy()}\n"
+              f"dur_pred: {dur_pred[0].cpu().numpy()}")

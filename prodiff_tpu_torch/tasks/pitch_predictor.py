@@ -4,7 +4,9 @@
 loss, with random retake masks (``use_pitch_retake``, default on): a whole
 segment a quarter of the time, OR'd with a random span, drawn by the
 collater from the dataset's ``numpy`` generator after the shuffle's draws,
-as in the JAX package."""
+as in the JAX package. Its validation plots draw the ground-truth pitch
+beside the prediction (base pitch + the sampled delta at ``pitch_expr`` 1),
+``pitch_{i}_step{step}.png``."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from prodiff_tpu_torch.data.dataset import BaseDataset
 from prodiff_tpu_torch.models.pitch_predictor import PitchPredictor
 from prodiff_tpu_torch.ops.losses import spec_loss_reflow
 from prodiff_tpu_torch.tasks import register_task
-from prodiff_tpu_torch.tasks.base import BaseTask
+from prodiff_tpu_torch.tasks.base import BaseTask, plot_curves, plot_generator, pyplot
 from prodiff_tpu_torch.utils.convert import pitch_predictor_flax_params, pitch_predictor_state_dict
 from prodiff_tpu_torch.utils.pitch_utils import random_continuous_masks
 from prodiff_tpu_torch.utils.text_encoder import TokenTextEncoder
@@ -69,6 +71,7 @@ class PitchPredictorDataset(BaseDataset):
 @register_task("pitch")
 class PitchPredictorTask(BaseTask):
     dataset_cls = PitchPredictorDataset
+    weight_carrier = (pitch_predictor_flax_params, pitch_predictor_state_dict)
 
     def __init__(self, hparams):
         super().__init__(hparams)
@@ -97,8 +100,23 @@ class PitchPredictorTask(BaseTask):
         return spec_loss_reflow(v_pred, v_gt, t, batch["mel2note"] > 0, self.loss_type,
                                 log_norm=True, name="pitch")
 
-    def params_tree(self, model) -> dict:
-        return pitch_predictor_flax_params(model.state_dict(), self.hparams)
+    def validation_curves(self, model, batch, generator: Optional[torch.Generator] = None,
+                          init_noise: Optional[torch.Tensor] = None) -> dict:
+        """{"pitch": (gt, pred)}, numpy [B, T_mel] (MIDI): the prediction is
+        the base pitch plus the delta sampled at ``pitch_expr`` 1 from
+        ``init_noise`` or a draw from ``generator``."""
+        b = batch["ph_seq"].shape[0]
+        delta = model.infer(batch["ph_seq"], batch["mel2ph"], batch["note_midi"],
+                            batch["note_rest"], batch["mel2note"], batch["base_pitch"],
+                            init_noise=init_noise, generator=generator,
+                            pitch_expr=batch["base_pitch"].new_ones(b, 1),
+                            spk_id=batch.get("spk_id"))
+        return {"pitch": (batch["pitch"].cpu().numpy(),
+                          (batch["base_pitch"] + delta).cpu().numpy())}
 
-    def load_params_tree(self, model, tree: dict) -> None:
-        model.load_state_dict(pitch_predictor_state_dict(tree, self.hparams))
+    def validation_plots(self, model, batch, step: int, out_dir, writer=None) -> None:
+        if out_dir is None or pyplot() is None:  # no figure: no sampling
+            return
+        model.eval()
+        gen = plot_generator(self.hparams, step, batch["pitch"].device)
+        plot_curves(self.validation_curves(model, batch, gen), self.hparams, step, out_dir, writer)

@@ -1,11 +1,21 @@
-"""The SVS acoustic-model train task (port of ``svs`` in
-``prodiff_tpu/tasks/svs.py``): trains the ProDiffTeacher
-(``component/train_task/svs/task.py:13-100``), ``diff_type: prodiff`` (the
-x0 losses of ``mel_loss``) or ``reflow`` (the velocity loss of its first
-term, logit-normal weighted).
+"""The SVS acoustic-model train tasks (port of ``prodiff_tpu/tasks/svs.py``).
 
-``svs_rectified``, bf16 training and the validation plots land with later
-slices and raise ``NotImplementedError`` saying which.
+``svs`` trains the ProDiffTeacher (``component/train_task/svs/task.py:13-100``),
+``diff_type: prodiff`` (the x0 losses of ``mel_loss``) or ``reflow`` (the
+velocity loss of its first term, logit-normal weighted); its validation
+plots sample the first validation batch (``infer_mels``) and draw it beside
+the ground truth, ``mel_{i}_step{step}.png``.
+
+``svs_rectified`` trains a bare student on the teacher's binarized
+(condition, x_T, x_0) triplets (``task.py:102-171``), the offline
+progressive distillation: ``diff_type: prodiff`` a one-step
+``GaussianDiffusion`` whose noise is the teacher's start point x_T, ``reflow``
+a ``RectifiedFlow``. Its denoiser is the teacher's WaveNet, so with
+``dilation_cycle_length: 1`` it trains through K5 on the card. It draws no
+plots, as in the JAX package.
+
+bf16/amp training is refused: it lands with the bf16 slice (tensor-core
+operand variants of K5a, K5b and K1).
 """
 
 from __future__ import annotations
@@ -18,11 +28,19 @@ import torch
 
 from prodiff_tpu_torch.data.collate import collate_1d, collate_2d
 from prodiff_tpu_torch.data.dataset import BaseDataset
+from prodiff_tpu_torch.models.diffusion import GaussianDiffusion
 from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+from prodiff_tpu_torch.models.reflow import RectifiedFlow
+from prodiff_tpu_torch.models.wavenet import WaveNet
 from prodiff_tpu_torch.ops.losses import parse_loss_spec, spec_loss_prodiff, spec_loss_reflow
 from prodiff_tpu_torch.tasks import register_task
-from prodiff_tpu_torch.tasks.base import BaseTask
-from prodiff_tpu_torch.utils.convert import teacher_flax_params, teacher_state_dict
+from prodiff_tpu_torch.tasks.base import BaseTask, plot_generator, pyplot, save_figure
+from prodiff_tpu_torch.utils.convert import (
+    rectified_flax_params,
+    rectified_state_dict,
+    teacher_flax_params,
+    teacher_state_dict,
+)
 
 
 class SVSDataset(BaseDataset):
@@ -61,9 +79,21 @@ class SVSDataset(BaseDataset):
         return batch
 
 
+class SVSRectifiedDataset(SVSDataset):
+    time_keys = dict(SVSDataset.time_keys, condition=1, x_T=1, x_0=1)
+
+    def collater(self, samples: List[dict]) -> Dict[str, np.ndarray]:
+        batch = super().collater(samples)
+        # stored per item as [T, M] (condition [T, H]); batched [B, T, M]
+        for key in ("condition", "x_T", "x_0"):
+            batch[key] = collate_2d([np.asarray(s[key], np.float32) for s in samples], 0.0)
+        return batch
+
+
 @register_task("svs")
 class SVSTask(BaseTask):
     dataset_cls = SVSDataset
+    weight_carrier = (teacher_flax_params, teacher_state_dict)
 
     def __init__(self, hparams):
         super().__init__(hparams)
@@ -71,7 +101,7 @@ class SVSTask(BaseTask):
         if hparams.get("bf16") or hparams.get("amp"):
             raise NotImplementedError(
                 "bf16/amp training: the port trains in parity mode (float32, TF32 off); "
-                "a fast mode lands with a performance slice")
+                "bf16 lands with the bf16 slice (tensor-core variants of K5a, K5b and K1)")
         self.loss_type = parse_loss_spec(hparams["mel_loss"])
         self.loss_type_list = list(self.loss_type)
 
@@ -97,6 +127,9 @@ class SVSTask(BaseTask):
         args, kwargs = self.model_inputs(batch)
         output = model(*args, gt_spec=batch["mel"], t=t, noise=noise, generator=generator,
                        **kwargs)
+        return self._losses(output, batch)
+
+    def _losses(self, output, batch) -> Dict[str, torch.Tensor]:
         non_padding = batch["mel2ph"] > 0
         if self.diffusion_type == "prodiff":
             spec_pred, spec_gt = output
@@ -105,17 +138,78 @@ class SVSTask(BaseTask):
         return spec_loss_reflow(v_pred, v_gt, t, non_padding, self.loss_type_list[0],
                                 log_norm=True, name="mel")
 
-    def params_tree(self, model) -> dict:
-        """The model's weights as the JAX package's param tree (checkpoints)."""
-        return teacher_flax_params(model.state_dict(), self.hparams)
+    def infer_mels(self, model, batch, generator: Optional[torch.Generator] = None,
+                   infer_step: Optional[int] = None, **noise) -> torch.Tensor:
+        """Sampled mels [B, T_mel, M] of a batch, for the validation plots:
+        ``sampling_steps`` (reflow) or ``timesteps`` steps unless given;
+        ``noise`` (``init_noise``, ``step_noises``) injects the draws,
+        otherwise they come from ``generator``."""
+        if infer_step is None:
+            infer_step = (int(self.hparams.get("sampling_steps", 20))
+                          if self.diffusion_type == "reflow"
+                          else int(self.hparams.get("timesteps", 4)))
+        args, kwargs = self.model_inputs(batch)
+        return model.infer(*args, infer_step=infer_step, generator=generator, **noise, **kwargs)
 
-    def load_params_tree(self, model, tree: dict) -> None:
-        model.load_state_dict(teacher_state_dict(tree, self.hparams))
+    def validation_plots(self, model, batch, step: int, out_dir, writer=None) -> None:
+        """``mel_{i}_step{step}.png``: the ground truth beside the sampled mel
+        (draws seeded from (seed, step)), for the first ``num_valid_plots``
+        items."""
+        plt = pyplot() if out_dir is not None else None
+        if plt is None:
+            return
+        model.eval()
+        gen = plot_generator(self.hparams, step, batch["mel"].device)
+        mel_pred = self.infer_mels(model, batch, gen).cpu().numpy()
+        mel_gt = batch["mel"].cpu().numpy()
+        os.makedirs(out_dir, exist_ok=True)
+        for i in range(min(self.hparams.get("num_valid_plots", 10), len(mel_gt))):
+            fig = plt.figure(figsize=(12, 6))
+            plt.pcolor(np.concatenate([mel_gt[i], mel_pred[i]], axis=-1).T,
+                       vmin=self.hparams.get("mel_vmin", -6), vmax=self.hparams.get("mel_vmax", 1.5))
+            save_figure(plt, fig, out_dir, f"mel_{i}", f"mel_val_{i}", step, writer)
 
 
 @register_task("svs_rectified")
 class SVSRectifiedTask(SVSTask):
-    def __init__(self, hparams):
-        raise NotImplementedError(
-            "svs_rectified (student distillation on teacher pairs) lands with the "
-            "distillation slice")
+    """Student distillation on the teacher's (condition, x_T, x_0) triplets."""
+
+    dataset_cls = SVSRectifiedDataset
+    weight_carrier = (rectified_flax_params, rectified_state_dict)
+
+    def build_model(self):
+        hp = self.hparams
+        mel_bins = hp["audio_num_mel_bins"]
+        denoiser = WaveNet(in_dims=mel_bins, hidden_size=hp["hidden_size"],
+                           residual_layers=hp["residual_layers"],
+                           residual_channels=hp["residual_channels"],
+                           dilation_cycle_length=hp["dilation_cycle_length"])
+        if self.diffusion_type == "prodiff":
+            self.model = GaussianDiffusion(denoise_fn=denoiser, out_dims=mel_bins, timesteps=1,
+                                           schedule_type=hp["schedule_type"],
+                                           max_beta=hp.get("max_beta", 0.06))
+        else:
+            self.model = RectifiedFlow(denoise_fn=denoiser, out_dims=mel_bins,
+                                       time_scale=hp["timescale"], num_features=1,
+                                       sampling_algorithm=hp.get("sampling_algorithm", "euler"),
+                                       spec_min=tuple(hp["spec_min"]),
+                                       spec_max=tuple(hp["spec_max"]))
+        return self.model
+
+    def compute_losses(self, model, batch, generator: Optional[torch.Generator] = None,
+                       t: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The student's losses on the triplets: ``diff_type: prodiff``
+        noises x_0 with the teacher's own start point x_T (so ``noise`` is
+        refused) at ``t`` in {0, 1}; ``reflow`` takes ``t`` and the start
+        point ``noise``. Whatever is not given is drawn from ``generator``."""
+        x_0 = batch["x_0"][:, None]  # [B, 1, T, M]
+        if self.diffusion_type == "prodiff":
+            if noise is not None:
+                raise ValueError("svs_rectified (prodiff) noises with the batch's x_T")
+            noise = batch["x_T"][:, None]
+        return self._losses(model(batch["condition"], x_0, t=t, noise=noise,
+                                  generator=generator), batch)
+
+    def validation_plots(self, model, batch, step: int, out_dir, writer=None) -> None:
+        """None, as in the JAX package."""

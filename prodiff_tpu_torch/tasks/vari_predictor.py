@@ -4,7 +4,8 @@
 :func:`~prodiff_tpu_torch.models.vari_predictor.variance_list` with the
 ProDiff x0 losses of ``vari_prediction_args.loss_type``. With
 ``dilation_cycle_length: 1`` (the base config) its denoiser trains through
-K5 on the card."""
+K5 on the card. Its validation plots draw each curve's ground truth beside
+the sampled prediction, ``{name}_{i}_step{step}.png``."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from prodiff_tpu_torch.data.dataset import BaseDataset
 from prodiff_tpu_torch.models.vari_predictor import VariPredictor, variance_list
 from prodiff_tpu_torch.ops.losses import parse_loss_spec, spec_loss_prodiff
 from prodiff_tpu_torch.tasks import register_task
-from prodiff_tpu_torch.tasks.base import BaseTask
+from prodiff_tpu_torch.tasks.base import BaseTask, plot_curves, plot_generator, pyplot
 from prodiff_tpu_torch.tasks.pitch_predictor import note_batch
 from prodiff_tpu_torch.utils.convert import vari_predictor_flax_params, vari_predictor_state_dict
 
@@ -43,6 +44,7 @@ class VariPredictorDataset(BaseDataset):
 @register_task("vari")
 class VariPredictorTask(BaseTask):
     dataset_cls = VariPredictorDataset
+    weight_carrier = (vari_predictor_flax_params, vari_predictor_state_dict)
 
     def __init__(self, hparams):
         super().__init__(hparams)
@@ -67,8 +69,20 @@ class VariPredictorTask(BaseTask):
                             generator=generator)
         return spec_loss_prodiff(x0_pred, x0, batch["mel2note"] > 0, self.loss_type, name="vari")
 
-    def params_tree(self, model) -> dict:
-        return vari_predictor_flax_params(model.state_dict(), self.hparams)
+    def validation_curves(self, model, batch, generator: Optional[torch.Generator] = None,
+                          **noise) -> dict:
+        """{curve name: (gt, pred)}, numpy [B, T_mel]; ``noise``
+        (``init_noise``, ``step_noises``) injects the sampler's draws,
+        otherwise they come from ``generator``."""
+        curves = model.infer(batch["ph_seq"], batch["mel2ph"], batch["note_midi"],
+                             batch["note_rest"], batch["mel2note"], batch["f0"],
+                             spk_embed_id=batch.get("spk_id"), generator=generator, **noise)
+        return {name: (batch[name].cpu().numpy(), pred.cpu().numpy())
+                for name, pred in curves.items()}
 
-    def load_params_tree(self, model, tree: dict) -> None:
-        model.load_state_dict(vari_predictor_state_dict(tree, self.hparams))
+    def validation_plots(self, model, batch, step: int, out_dir, writer=None) -> None:
+        if out_dir is None or pyplot() is None:  # no figure: no sampling
+            return
+        model.eval()
+        gen = plot_generator(self.hparams, step, batch["f0"].device)
+        plot_curves(self.validation_curves(model, batch, gen), self.hparams, step, out_dir, writer)

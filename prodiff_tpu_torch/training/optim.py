@@ -18,15 +18,26 @@ named tensors. Where optax and ``torch.optim`` differ, this follows optax:
   the k-th; the updates in between are zero and leave the Adam state and
   the schedule's count alone.
 
-The state (``state_dict``) is plain named arrays in the port's own layout.
+The state (``state_dict``) is the tree of optax's state that the JAX
+trainer checkpoints (``utils/convert.py:optimizer_flax_state``), its moments
+carried by the task's weight carrier; ``load_state_dict`` also reads the
+port's older layout (``count``, ``mini_step``, ``mu``, ``nu``, ``acc``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from prodiff_tpu_torch.utils.convert import (
+    Carrier,
+    check_permutation,
+    flat_carrier,
+    optimizer_flax_state,
+    optimizer_state_from_flax,
+)
 
 
 def rsqrt_schedule(lr: float, warmup_updates: int, hidden_size: int) -> Callable[[int], float]:
@@ -48,10 +59,16 @@ def build_lr_schedule(hparams: dict) -> Callable[[int], float]:
 
 class Optimizer:
     """AdamW + clipping + accumulation over ``named_params`` (name ->
-    parameter); :meth:`step` reads each parameter's ``.grad``."""
+    parameter); :meth:`step` reads each parameter's ``.grad``. ``carrier``
+    maps a name -> tensor map to the JAX param tree and back (the task's;
+    by default the names are the tree's keys)."""
 
-    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], hparams: dict):
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], hparams: dict,
+                 carrier: Optional[Carrier] = None):
         self.params = {n: p for n, p in named_params if p.requires_grad}
+        self.hparams = hparams
+        self.carrier = carrier or flat_carrier()
+        self._carrier_checked = False
         self.schedule = build_lr_schedule(hparams)
         self.clip_value = hparams.get("clip_grad_value", 0) or 0
         self.clip_norm = hparams.get("clip_grad_norm", 0) or 0
@@ -112,19 +129,25 @@ class Optimizer:
             p.add_(neg_lr * upd)
         self.count = k
 
-    def state_dict(self) -> dict:
-        """Named numpy arrays (the port's layout; the JAX trainer's optax
-        state is a different tree)."""
-        def host(d):
-            return {n: t.detach().cpu().numpy() for n, t in d.items()}
+    def _check_carrier(self) -> None:
+        """Once: the carrier moves the moments' elements without combining them."""
+        if not self._carrier_checked:
+            check_permutation(self.carrier, {n: tuple(p.shape) for n, p in self.params.items()})
+            self._carrier_checked = True
 
-        out = {"count": self.count, "mini_step": self.mini_step,
-               "mu": host(self.mu), "nu": host(self.nu)}
-        if self.acc is not None:
-            out["acc"] = host(self.acc)
-        return out
+    def state_dict(self) -> dict:
+        """Optax's state tree for ``build_optimizer(hparams)``, host arrays."""
+        self._check_carrier()
+        state = {"count": self.count, "mini_step": self.mini_step, "mu": self.mu,
+                 "nu": self.nu, "acc": self.acc}
+        return optimizer_flax_state(state, self.carrier, self.hparams)
 
     def load_state_dict(self, state: dict) -> None:
+        """Optax's state tree, or the port's older layout (``count``,
+        ``mini_step``, ``mu``, ``nu``, ``acc``: name -> array)."""
+        if "mu" not in state:
+            self._check_carrier()
+            state = optimizer_state_from_flax(state, self.carrier, self.hparams)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         for key in ("mu", "nu", "acc"):

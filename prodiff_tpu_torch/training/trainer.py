@@ -8,21 +8,31 @@ trainer:
 
 - ``val_step`` under ``torch.no_grad()`` in eval mode (dropout off; the
   denoiser's stack runs K1), ``evaluate`` weighting each batch's losses by
-  its ``nsamples``, and a sanity validation before the first step;
+  its ``nsamples`` and drawing the task's validation plots of the first
+  batch under ``work_dir/plots``, and a sanity validation before the first
+  step;
 - ``fit``: epochs over the train iterator; scalars every ``tb_log_interval``
-  steps (``MetricsWriter``: JSONL, and TensorBoard if it imports); every
-  ``val_check_interval`` steps a validation, a checkpoint and, when the
-  monitored loss improved, ``model_ckpt_best.pt``; a restart resumes from
-  the newest checkpoint; SIGTERM/SIGUSR1 save a checkpoint at the next step
-  boundary and stop; ``print_nan_grads`` raises on a non-finite gradient
-  norm at a logged step;
+  steps (``MetricsWriter``: JSONL, and TensorBoard and its figures if it
+  imports); every ``val_check_interval`` steps a validation, a checkpoint
+  and, when the monitored loss improved, ``model_ckpt_best.pt``; a restart
+  resumes from the newest checkpoint, the port's or the JAX trainer's (the
+  optimizer state is optax's tree in both); SIGTERM/SIGUSR1 save a
+  checkpoint at the next step boundary and stop; ``print_nan_grads`` raises
+  on a non-finite gradient norm at a logged step;
+- ``async_save``: the host snapshot of the weights and the optimizer state
+  is taken at once, the file is written on a (non-daemon) thread, joined
+  before the next save, before the best copy and when ``fit`` ends;
+- ``profile_steps: N``: ``torch.profiler`` (host, and the card's kernels)
+  over N steps from this session's step 10, written as a Chrome trace
+  under ``work_dir/profile``, as ``jax.profiler`` traces the JAX trainer's;
 - ``DevicePrefetcher`` copies the next batch to the card on a side stream
   while the current step runs.
 
 The diffusion step ``t`` and noise come from a ``torch.Generator`` seeded
-from (seed, step), so a resumed run draws what an unbroken one would.
-Not ported here: ``profile_steps``, ``async_save``, multi-host loading and
-data-parallel training (later slices).
+from (seed, step), and dropout draws from the device's generator seeded so
+for the step, so a resumed run draws what an unbroken one would.
+Not ported here: multi-host loading and data-parallel training (later
+slices).
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from prodiff_tpu_torch.training.optim import Optimizer, global_norm
 from prodiff_tpu_torch.utils import ckpt_utils
 
 log = logging.getLogger("prodiff_tpu_torch.trainer")
+PROFILE_AT = 10  # the session's step the profile starts at, as the JAX trainer's
 
 
 class MetricsWriter:
@@ -61,6 +72,11 @@ class MetricsWriter:
         except Exception:
             self.tb = None
         self.jsonl = open(os.path.join(work_dir, "metrics.jsonl"), "a")
+
+    def add_figure(self, tag: str, fig, step: int) -> None:
+        """A matplotlib figure into TensorBoard; nothing without it."""
+        if self.tb is not None:
+            self.tb.add_figure(tag, fig, step)
 
     def add_scalars(self, metrics: Dict[str, float], step: int, prefix: str = "") -> None:
         rec = {"step": step}
@@ -174,9 +190,6 @@ class Trainer:
     def __init__(self, hparams: dict, device=None):
         self.hparams = hparams
         self.device = resolve_device(device)
-        if hparams.get("profile_steps", 0):
-            raise NotImplementedError("profile_steps: the profiler route lands with a "
-                                      "performance slice")
         self.work_dir = hparams["work_dir"]
         self.seed = hparams.get("seed", 1234)
         self.max_updates = hparams.get("max_updates", 200000)
@@ -186,6 +199,12 @@ class Trainer:
         self.monitor_mode = hparams.get("valid_monitor_mode", "min")
         self.check_nans = hparams.get("print_nan_grads", False)
         self.num_sanity_val_steps = hparams.get("num_sanity_val_steps", -1)
+        self.profile_steps = hparams.get("profile_steps", 0)
+        self.async_save = hparams.get("async_save", False)
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_error: Optional[BaseException] = None
+        self._profiler = None
+        self._profile_from = 0
         self.global_step = 0
         self.current_epoch = 0
         self.best_val = math.inf if self.monitor_mode == "min" else -math.inf
@@ -199,7 +218,8 @@ class Trainer:
         self.task = task
         torch.manual_seed(self.seed)
         self.model = task.build_model().to(self.device)
-        self.optimizer = Optimizer(self.model.named_parameters(), self.hparams)
+        self.optimizer = Optimizer(self.model.named_parameters(), self.hparams,
+                                   carrier=task.carrier())
         self.generator = torch.Generator(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         log.info("| model params: %.2fM on %s", n_params / 1e6, self.device)
@@ -211,7 +231,10 @@ class Trainer:
         """One optimizer step; returns the losses, ``total_loss`` and the
         raw gradients' global norm, as device tensors."""
         self.model.train()
-        losses = self.task.compute_losses(self.model, batch, self._seeded(self.global_step))
+        cuda = [self.device.index or 0] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=cuda):
+            torch.manual_seed(self.seed * 2 ** 32 + 2 ** 30 + self.global_step)  # dropout
+            losses = self.task.compute_losses(self.model, batch, self._seeded(self.global_step))
         total = sum(losses.values())
         for p in self.optimizer.params.values():
             p.grad = None
@@ -234,7 +257,11 @@ class Trainer:
 
     # ---- checkpointing ------------------------------------------------------
 
-    def save_checkpoint(self) -> str:
+    def save_checkpoint(self, block: bool = True) -> str:
+        """Snapshot the weights and the optimizer state to the host, then
+        write ``model_ckpt_steps_{step}.ckpt``: at once, or with
+        ``async_save`` and ``block=False`` on a thread (the next save, the
+        best copy and the end of ``fit`` join it)."""
         payload = {
             "global_step": int(self.global_step),
             "epoch": int(self.current_epoch),
@@ -242,19 +269,47 @@ class Trainer:
             "state_dict": self.task.params_tree(self.model),
             "optimizer_state": self.optimizer.state_dict(),
         }
-        path = ckpt_utils.save_checkpoint(self.work_dir, self.global_step, payload,
-                                          self.num_ckpt_keep)
-        log.info("| saved checkpoint %s", path)
-        return path
+        self.join_pending_save()
+        step = self.global_step
+
+        def write() -> str:
+            path = ckpt_utils.save_checkpoint(self.work_dir, step, payload, self.num_ckpt_keep)
+            log.info("| saved checkpoint %s", path)
+            return path
+
+        if self.async_save and not block:
+            def write_in_thread() -> None:
+                try:
+                    write()
+                except BaseException as e:  # raised again by join_pending_save
+                    self._save_error = e
+
+            self._save_thread = threading.Thread(target=write_in_thread, daemon=False)
+            self._save_thread.start()
+            return os.path.join(self.work_dir, f"model_ckpt_steps_{step}.ckpt")
+        return write()
+
+    def join_pending_save(self) -> None:
+        """Wait for a checkpoint being written on a thread; raise its error."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+        self._save_thread = None
+        error, self._save_error = self._save_error, None
+        if error is not None:
+            raise error
 
     def restore_checkpoint(self) -> bool:
+        """Resume from the newest checkpoint in the work dir, written by
+        either package (or by the port before its optimizer state took
+        optax's layout). An empty optimizer state (``convert_ckpt``'s) is
+        refused, as the JAX trainer's ``from_state_dict`` refuses it."""
         payload = ckpt_utils.load_last_checkpoint(self.work_dir)
         if payload is None:
             return False
         opt_state = payload["optimizer_state"]
-        if not (isinstance(opt_state, dict) and "mu" in opt_state):
-            raise ValueError("the newest checkpoint's optimizer state is not the port's "
-                             "layout (a JAX trainer checkpoint?): the port resumes only its own")
+        if not opt_state:
+            raise ValueError("the newest checkpoint has no optimizer state (convert_ckpt "
+                             "writes none): the JAX trainer cannot resume it either")
         self.global_step = int(payload["global_step"])
         self.current_epoch = int(payload.get("epoch", 0))
         self.best_val = float(payload.get("checkpoint_callback_best", self.best_val))
@@ -262,6 +317,35 @@ class Trainer:
         self.optimizer.load_state_dict(opt_state)
         log.info("| restored checkpoint at step %d", self.global_step)
         return True
+
+    def _profile(self, steps_this_session: int) -> None:
+        """Start the profiler before this session's step 10, stop it
+        ``profile_steps`` steps later."""
+        if not self.profile_steps:
+            return
+        if steps_this_session == PROFILE_AT and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            self._profiler = profile(activities=acts)
+            self._profiler.__enter__()
+            self._profile_from = self.global_step
+        elif steps_this_session == PROFILE_AT + self.profile_steps:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        out = os.path.join(self.work_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"trace_steps_{self._profile_from}-{self.global_step}.json")
+        prof.export_chrome_trace(path)
+        log.info("| profile of steps %d-%d: %s", self._profile_from + 1, self.global_step, path)
 
     # ---- loops --------------------------------------------------------------
 
@@ -291,6 +375,9 @@ class Trainer:
                 pass  # not the main thread
 
         t_start = time.time()
+        # the profile counts the steps of this session (a resumed run's
+        # global_step may be past 10 already)
+        steps_this_session = 0
         try:
             while self.global_step < max_steps and not preempted.is_set():
                 self.current_epoch += 1
@@ -300,16 +387,19 @@ class Trainer:
                     for _, batch in prefetcher:
                         if self.global_step >= max_steps or preempted.is_set():
                             break
+                        self._profile(steps_this_session)
                         metrics = self.train_step(batch)
                         self.global_step += 1
+                        steps_this_session += 1
                         if self.global_step % self.tb_log_interval == 0:
                             self._log_train(metrics, writer)
                         if self.global_step % self.val_check_interval == 0:
-                            val = self.evaluate(task)
+                            val = self.evaluate(task, writer=writer)
                             writer.add_scalars(val, self.global_step, prefix="val/")
                             improved = self._update_best(val.get("total_loss"))
-                            self.save_checkpoint()
+                            self.save_checkpoint(block=False)
                             if improved:
+                                self.join_pending_save()
                                 ckpt_utils.save_best_copy(self.work_dir, self.global_step)
                 finally:
                     prefetcher.close()
@@ -318,9 +408,13 @@ class Trainer:
             self.save_checkpoint()
             raise
         finally:
-            writer.close()
-            for sig, handler in prev_handlers.items():
-                signal.signal(sig, handler)
+            try:
+                self._stop_profile()
+                self.join_pending_save()
+            finally:
+                writer.close()
+                for sig, handler in prev_handlers.items():
+                    signal.signal(sig, handler)
         if preempted.is_set() or self.global_step % self.val_check_interval != 0:
             self.save_checkpoint()
         log.info("| training done: %d steps in %.1fs", self.global_step, time.time() - t_start)
@@ -332,7 +426,10 @@ class Trainer:
             raise FloatingPointError(f"non-finite grad norm at step {self.global_step}")
         writer.add_scalars(values, self.global_step, prefix="tr/")
 
-    def evaluate(self, task, max_batches: Optional[int] = None) -> Dict[str, float]:
+    def evaluate(self, task, max_batches: Optional[int] = None,
+                 writer: Optional[MetricsWriter] = None) -> Dict[str, float]:
+        """The validation losses, weighted by each batch's ``nsamples``; the
+        task's plots of the first batch under ``work_dir/plots``."""
         sums: Dict[str, float] = {}
         weights: Dict[str, float] = {}
         for i, (nsamples, batch) in enumerate(DevicePrefetcher(task.val_iterator(), self.device)):
@@ -342,6 +439,9 @@ class Trainer:
             for k, v in self.val_step(batch).items():
                 sums[k] = sums.get(k, 0.0) + float(v) * nsamples
                 weights[k] = weights.get(k, 0.0) + nsamples
+            if i == 0:
+                task.validation_plots(self.model, batch, self.global_step,
+                                      os.path.join(self.work_dir, "plots"), writer=writer)
         return {k: sums[k] / max(weights[k], 1) for k in sums}
 
     def _update_best(self, val_loss: Optional[float]) -> bool:

@@ -6,9 +6,17 @@
   ``prodiff_tpu/utils/teacher_convert.py:convert_prodiff_teacher``.
   :func:`teacher_flax_params` goes the other way, for the checkpoints the
   port's trainer writes (``utils/ckpt_utils.py``). The variance stack's
-  models (``DurPredictor``, ``PitchPredictor``, ``VariPredictor``) have a
-  pair each (``*_state_dict``, ``*_flax_params``). All are tables of
-  ``(kind, port name, flax path)`` entries read both ways.
+  models (``DurPredictor``, ``PitchPredictor``, ``VariPredictor``) and the
+  bare student of ``svs_rectified`` (``rectified_*``) have a pair each
+  (``*_state_dict``, ``*_flax_params``). All are tables of ``(kind, port
+  name, flax path)`` entries read both ways.
+- :func:`reference_teacher_flax_params` reads a reference torch teacher
+  (:func:`load_torch_state_dict`; a reflow teacher's ``velocity_fn`` read as
+  ``denoise_fn``) as ``prodiff_tpu/utils/teacher_convert.py`` does.
+- :func:`optimizer_flax_state` / :func:`optimizer_state_from_flax` carry the
+  optimizer's state to and from the tree of optax's state that the JAX
+  trainer writes, through a task's weight carrier, after
+  :func:`check_permutation` holds that carrier to moving elements only.
 - :func:`nsf_hifigan_state_dict` does the same for the NSF-HiFiGAN
   generator, inverting ``prodiff_tpu/utils/torch_convert.py:convert_nsf_hifigan``.
 - :func:`fastdiff_state_dict` does the same for the FastDiff vocoder,
@@ -26,8 +34,9 @@
   (flax msgpack: arrays as msgpack ext type 1 holding ``(shape, dtype name,
   bytes)``, numpy scalars as ext type 3, arrays over 1 GiB split into
   ``__msgpack_chunked_array__`` dicts) without importing flax.
-- :func:`load_torch_state_dict` reads a torch generator checkpoint (tensors
-  only) and folds weight norm the way the reference does at load time;
+- :func:`load_torch_state_dict` reads a torch checkpoint (a generator's, or
+  a training checkpoint's ``state_dict.model``; tensors only) and folds
+  weight norm the way the reference does at load time;
   :func:`last_checkpoint_path` finds the newest ``model_ckpt_steps_*.ckpt``.
 
 Layouts: flax convs are ``[k, C_in, C_out]``, torch's ``[C_out, C_in, k]``;
@@ -291,6 +300,164 @@ def vari_predictor_state_dict(flax_params: Dict[str, Any], hparams: dict) -> Sta
 
 def vari_predictor_flax_params(state_dict: StateDict, hparams: dict) -> Dict[str, Any]:
     return _flax_params(_vari_entries(hparams), state_dict)
+
+
+def _rectified_entries(hp: dict) -> List[Entry]:
+    """The bare student of ``svs_rectified``: its denoiser at ``denoise_fn``."""
+    return _rebase(_wavenet_entries(hp["residual_layers"]), "diffusion.denoise_fn.",
+                   "denoise_fn.", 1)
+
+
+def rectified_state_dict(flax_params: Dict[str, Any], hparams: dict) -> StateDict:
+    """The JAX ``SVSRectifiedTask`` student (``{"params": {"denoise_fn":
+    <WaveNet>}}``; its ``GaussianDiffusion`` or ``RectifiedFlow`` has no
+    parameters of its own) -> this port's student state dict."""
+    return _state_dict(_rectified_entries(hparams), flax_params)
+
+
+def rectified_flax_params(state_dict: StateDict, hparams: dict) -> Dict[str, Any]:
+    return _flax_params(_rectified_entries(hparams), state_dict)
+
+
+# the reference names a reflow teacher's net velocity_fn (modules/diffusion/reflow.py:13)
+_REFERENCE_NETS = ("diffusion.velocity_fn.", "diffusion.denoise_fn.")
+# embeds a reference checkpoint may hold that the hparams turn off, as
+# prodiff_tpu/utils/teacher_convert.py:convert_prodiff_teacher leaves them out
+_TEACHER_EMBED_FLAGS = (("dur_embed", "use_dur_embed", True), ("spk_embed", "use_spk_id", True),
+                        ("gender_embed", "use_gender_id", False),
+                        ("lang_embed", "use_lang_id", True),
+                        ("voicing_embed", "use_voicing_embed", False),
+                        ("breath_embed", "use_breath_embed", False))
+
+
+def reference_teacher_flax_params(sd: StateDict, hparams: dict) -> Dict[str, Any]:
+    """A reference ``ProDiffTeacher`` state dict (torch names) -> the JAX
+    package's param tree: a reflow teacher's ``diffusion.velocity_fn.*`` read
+    as ``diffusion.denoise_fn.*`` and the embeds the hparams turn off left
+    out, as ``convert_prodiff_teacher`` does."""
+    old, new = _REFERENCE_NETS
+    sd = {(new + k[len(old):] if k.startswith(old) else k): v for k, v in sd.items()}
+    off = tuple(f"{name}." for name, flag, default in _TEACHER_EMBED_FLAGS
+                if not hparams.get(flag, default))
+    return teacher_flax_params({k: v for k, v in sd.items() if not k.startswith(off)}, hparams)
+
+
+# ---- optimizer state in optax's layout ----------------------------------------
+#
+# ``serialization.to_state_dict`` of ``prodiff_tpu/training/optim.py:
+# build_optimizer(hp)``'s state: a chain of one empty stage a clip
+# (``clip_grad_value``, then ``clip_grad_norm``) and AdamW, itself the chain
+# (scale_by_adam {count, mu, nu}, add_decayed_weights {}, scale_by_schedule
+# {count}); under ``accumulate_grad_batches > 1`` wrapped in MultiSteps
+# {mini_step, gradient_step, inner_opt_state, acc_grads, skip_state {}}.
+# ``mu``, ``nu`` and ``acc_grads`` are param trees without the ``{"params":
+# ...}`` wrapper. Counts are int32 0-d arrays.
+
+Carrier = Tuple[Any, Any]  # (name -> tensor map -> {"params": tree}, its inverse)
+
+
+def flat_carrier() -> Carrier:
+    """The identity carrier: a name -> tensor map is its own tree."""
+    return (lambda sd: {"params": {n: _np(t) for n, t in sd.items()}},
+            lambda tree: {n: _t(v) for n, v in _params(tree).items()})
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def check_permutation(carrier: Carrier, shapes: Dict[str, Tuple[int, ...]]) -> None:
+    """Raise unless ``carrier`` moves elements without combining or scaling
+    them: a probe where each tensor holds 1..n, carried out, must give
+    integer leaves whose values, counted together, are the probe's, and
+    carried back must give the probe. Adam's moments are elementwise, so
+    only such a carrier may map them (a transpose, a split or a join);
+    weight norm or a folded bias may not."""
+    probe = {n: torch.arange(1, int(np.prod(s)) + 1, dtype=torch.float32).reshape(s)
+             for n, s in shapes.items()}
+    sizes = [p.numel() for p in probe.values()]
+    top = max(sizes, default=0)
+    if top >= 2 ** 24:
+        raise ValueError("a tensor of 2**24 elements or more: float32 cannot number them")
+    want = np.cumsum(np.bincount(sizes, minlength=top + 1)[::-1])[::-1]  # tensors holding v
+    want[0] = 0
+    got = np.zeros(top + 1, np.int64)
+    for path, leaf in _leaves(_params(carrier[0](probe))):
+        v = leaf.ravel().astype(np.float64)
+        ints = np.rint(v)
+        if v.size and not (np.array_equal(v, ints) and 1 <= ints.min() and ints.max() <= top):
+            raise ValueError(f"the weight carrier combines or rescales elements at "
+                             f"{'/'.join(path)}: the optimizer state cannot be carried through it")
+        got += np.bincount(ints.astype(np.int64), minlength=top + 1)
+    back = carrier[1](carrier[0](probe))
+    if not np.array_equal(got, want) or set(back) != set(probe) or any(
+            not torch.equal(back[n].float(), probe[n]) for n in probe):
+        raise ValueError("the weight carrier is not a permutation of the elements: the "
+                         "optimizer state cannot be carried through it")
+
+
+def _chain_hp(hp: dict) -> Tuple[int, int]:
+    """(empty clip stages before AdamW, accumulation)."""
+    clips = sum(1 for k in ("clip_grad_value", "clip_grad_norm") if hp.get(k, 0))
+    return clips, max(int(hp.get("accumulate_grad_batches", 1) or 1), 1)
+
+
+def optimizer_flax_state(state: dict, carrier: Carrier, hp: dict) -> dict:
+    """The port's optimizer state (``count``, ``mini_step`` and the name ->
+    tensor maps ``mu``, ``nu``, ``acc``) -> optax's tree for
+    ``build_optimizer(hp)``, the moments carried by ``carrier[0]`` (which
+    the caller has held to :func:`check_permutation`)."""
+
+    def tree(named):
+        return _params(carrier[0](named))
+
+    count = np.asarray(state["count"], np.int32)
+    adam = {"0": {"count": count, "mu": tree(state["mu"]), "nu": tree(state["nu"])},
+            "1": {}, "2": {"count": count}}
+    clips, accum = _chain_hp(hp)
+    chain = {str(i): {} for i in range(clips)}
+    chain[str(clips)] = adam
+    if accum == 1:
+        return chain
+    return {"mini_step": np.asarray(state["mini_step"], np.int32), "gradient_step": count,
+            "inner_opt_state": chain, "acc_grads": tree(state["acc"]), "skip_state": {}}
+
+
+def _expect_keys(node, keys, where: str) -> None:
+    if not isinstance(node, dict) or set(node) != set(keys):
+        got = sorted(node) if isinstance(node, dict) else type(node).__name__
+        raise ValueError(f"optimizer state {where}: keys {got}, build_optimizer(hparams) "
+                         f"has {sorted(keys)}")
+
+
+def optimizer_state_from_flax(tree: dict, carrier: Carrier, hp: dict) -> dict:
+    """Optax's tree for ``build_optimizer(hp)`` -> the port's optimizer state
+    (the inverse of :func:`optimizer_flax_state`, through a carrier held to
+    :func:`check_permutation`); raises, as flax's ``from_state_dict`` does,
+    where the tree is not that optimizer's."""
+    clips, accum = _chain_hp(hp)
+    mini_step, acc, chain = 0, None, tree
+    if accum > 1:
+        _expect_keys(tree, ("mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+                            "skip_state"), "(MultiSteps)")
+        mini_step, chain = int(tree["mini_step"]), tree["inner_opt_state"]
+        acc = carrier[1]({"params": tree["acc_grads"]})
+    _expect_keys(chain, [str(i) for i in range(clips + 1)], "(the chain)")
+    for i in range(clips):
+        _expect_keys(chain[str(i)], (), f"stage {i} (a clip)")
+    adam = chain[str(clips)]
+    _expect_keys(adam, ("0", "1", "2"), "(AdamW)")
+    _expect_keys(adam["0"], ("count", "mu", "nu"), "(scale_by_adam)")
+    count = int(adam["0"]["count"])
+    if int(adam["2"]["count"]) != count or (accum > 1 and int(tree["gradient_step"]) != count):
+        raise ValueError("optimizer state: Adam's, the schedule's and the accumulator's counts "
+                         "differ")
+    return {"count": count, "mini_step": mini_step, "mu": carrier[1]({"params": adam["0"]["mu"]}),
+            "nu": carrier[1]({"params": adam["0"]["nu"]}), "acc": acc}
 
 
 def nsf_hifigan_state_dict(flax_params: Dict[str, Any], h: dict) -> StateDict:

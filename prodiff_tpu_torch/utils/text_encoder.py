@@ -29,5 +29,8 @@ class TokenTextEncoder:
             sentence = [t if t in self._token_to_id else self._replace_oov for t in sentence]
         return [self._token_to_id[t] for t in sentence]
 
+    def decode(self, ids: Sequence[int]) -> str:
+        return " ".join(self._id_to_token[i] for i in ids)
+
     def id(self, token: str) -> int:
         return self._token_to_id[token]

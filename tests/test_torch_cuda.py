@@ -901,3 +901,92 @@ def test_data_pipeline_models_on_card_match_cpu(cuda, model, tmp_path):
     for g, w in zip(got, want):
         assert g.shape == w.shape == wav.shape and np.abs(w).max() > 1e-3
         np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("diff_type", ["prodiff", "reflow"])
+def test_svs_rectified_step_on_card_matches_cpu(cuda, diff_type):
+    """One ``svs_rectified`` training loss on the card against the same
+    student on the CPU (t injected; the DDPM student noises with the
+    batch's x_T, the reflow one with an injected start point): the loss
+    and every gradient; the student's 4-layer cycle-1 WaveNet trains
+    through K5, 1 + 2L save-forward and 2L chain launches."""
+    import copy
+
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import host_tensors
+
+    hp = dict(_small_variance_hp(), task="svs_rectified", data_dir="unused", max_tokens=1000,
+              max_sentences=4, mel_loss="l1:0.5|ssim:0.5", diff_type=diff_type)
+    task = get_task_cls("svs_rectified")(hp)
+    rng = np.random.default_rng(23)
+    torch.manual_seed(23)
+    b, t_mel = 2, 96
+    mel2ph = np.repeat(np.arange(1, 9), 12)[None].repeat(b, 0)
+    mel2ph[1, 70:] = 0
+    batch = {"mel2ph": mel2ph, "condition": rng.normal(size=(b, t_mel, 64)).astype(np.float32),
+             "x_T": rng.normal(size=(b, t_mel, 32)).astype(np.float32),
+             "x_0": rng.uniform(-10, -2, (b, t_mel, 32)).astype(np.float32)}
+    draws = ({"t": np.array([1, 0])} if diff_type == "prodiff" else
+             {"t": np.array([0.2, 0.7], np.float32),
+              "noise": rng.normal(size=(b, 1, t_mel, 32)).astype(np.float32)})
+    ref = task.build_model()
+    torch.nn.init.normal_(ref.denoise_fn.output_projection.weight, std=0.02)
+    ref.eval()
+    card = copy.deepcopy(ref).to(cuda)
+    before = (residual_stack_save.launches.count, residual_stack_chain.launches.count)
+    totals = []
+    for net, dev in ((card, cuda), (ref, torch.device("cpu"))):
+        a = {k: v.to(dev) for k, v in host_tensors(batch, pin=False).items()}
+        total = sum(task.compute_losses(net, a, **{k: torch.as_tensor(v, device=dev)
+                                                   for k, v in draws.items()}).values())
+        total.backward()
+        totals.append(total.detach().cpu())
+    torch.cuda.synchronize()
+    assert (residual_stack_save.launches.count - before[0],
+            residual_stack_chain.launches.count - before[1]) == (1 + 2 * 4, 2 * 4)
+    torch.testing.assert_close(totals[0], totals[1], atol=1e-4, rtol=1e-4)
+    cpu_params = dict(ref.named_parameters())
+    for pname, p in card.named_parameters():
+        assert p.grad is not None and cpu_params[pname].grad is not None, pname
+        assert_grad_close(p.grad.cpu(), cpu_params[pname].grad, pname)
+
+
+def test_infer_mels_on_card_matches_cpu(cuda):
+    """``SVSTask.infer_mels`` (the validation plots' sampling) of a small
+    teacher on the card against the CPU on the same injected noise: 4 DDPM
+    steps of K1, 3 launches each."""
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.tasks.svs import SVSTask
+    from prodiff_tpu_torch.training.trainer import host_tensors
+
+    hp = dict(_small_variance_hp(), task="svs", data_dir="unused", max_tokens=1000,
+              max_sentences=4, mel_loss="l1:0.5|ssim:0.5", diff_type="prodiff")
+    task = SVSTask(hp)
+    rng = np.random.default_rng(24)
+    torch.manual_seed(24)
+    b, t_ph, t_mel = 2, 7, 96
+    tokens = rng.integers(3, 10, (b, t_ph))
+    tokens[1, 5:] = 0
+    mel2ph = np.repeat(np.arange(1, t_ph + 1), t_mel // t_ph + 1)[:t_mel][None].repeat(b, 0)
+    mel2ph[1, 70:] = 0
+    batch = {"ph_seq": tokens, "mel2ph": mel2ph, "lang_seq": (tokens > 0).astype(np.int64),
+             "f0": rng.uniform(100, 400, (b, t_mel)).astype(np.float32), "spk_id": np.array([1, 0]),
+             "voicing": np.full((b, t_mel), -30.0, np.float32),
+             "breath": np.full((b, t_mel), -60.0, np.float32)}
+    noise = {"init_noise": rng.uniform(size=(b, 1, t_mel, 32)).astype(np.float32),
+             "step_noises": rng.normal(size=(4, b, 1, t_mel, 32)).astype(np.float32)}
+    ref = ProDiffTeacher(10, hp)
+    torch.nn.init.normal_(ref.diffusion.denoise_fn.output_projection.weight, std=0.05)
+    ref.eval()
+    card = ProDiffTeacher(10, hp).to(cuda).eval()
+    card.load_state_dict(ref.state_dict())
+    before = residual_stack.launches.count
+    out = []
+    for net, dev in ((card, cuda), (ref, torch.device("cpu"))):
+        a = {k: v.to(dev) for k, v in host_tensors(batch, pin=False).items()}
+        out.append(task.infer_mels(net, a, **{k: torch.as_tensor(v, device=dev)
+                                              for k, v in noise.items()}).cpu())
+    torch.cuda.synchronize()
+    assert residual_stack.launches.count - before == 4 * stack_launches(b, t_mel, 64, 4)
+    assert out[0].shape == (b, t_mel, 32)
+    torch.testing.assert_close(out[0], out[1], atol=ATOL, rtol=RTOL)

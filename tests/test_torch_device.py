@@ -33,6 +33,7 @@ def test_resolve_device_defaults_to_the_card(no_cuda):
     ["train", "dur", "--config", "train.yaml", "--exp_name", "exp"],
     ["train", "pitch", "--config", "train.yaml", "--exp_name", "exp"],
     ["train", "vari", "--config", "train.yaml", "--exp_name", "exp"],
+    ["train", "svs_rectified", "--config", "train.yaml", "--exp_name", "exp"],
     ["binarize", "dur", "--config", "data.yaml", "--exp_name", "exp"],
     ["binarize", "pitch", "--config", "data.yaml", "--exp_name", "exp"],
     ["binarize", "svs", "--config", "data.yaml", "--exp_name", "exp"],
@@ -121,3 +122,36 @@ def test_train_cli_stops_before_writing_without_a_card(no_cuda, tmp_path, monkey
     assert not (tmp_path / "checkpoints").exists()
     with pytest.raises(FileNotFoundError, match="config"):
         port_cli(argv + ["--device", "cpu"])
+
+
+def test_train_svs_rectified_runs_on_the_cpu_when_named(no_cuda, tmp_path, monkeypatch):
+    """``train svs_rectified`` raises without a card and trains (3 steps) on
+    a synthetic triplet set with ``--device cpu``."""
+    import yaml
+
+    from prodiff_tpu_torch.utils.synthetic import make_svs_dataset, small_hparams
+
+    monkeypatch.chdir(tmp_path)
+    make_svs_dataset(str(tmp_path), task="svs_rectified", rectified=True, n_train=4, n_valid=2)
+    hp = small_hparams(str(tmp_path), task="svs_rectified", max_updates=3)
+    for key in ("task", "work_dir"):
+        hp.pop(key)
+    (tmp_path / "rect.yaml").write_text(yaml.dump(hp))
+    argv = ["train", "svs_rectified", "--config", "rect.yaml", "--exp_name", "exp"]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        port_cli(argv)
+    assert not (tmp_path / "checkpoints").exists()
+    port_cli(argv + ["--device", "cpu"])
+    assert (tmp_path / "checkpoints" / "exp" / "svs_rectified" / "model_ckpt_steps_3.ckpt").exists()
+
+
+@pytest.mark.parametrize("argv", [["merge_rectified", "a.ckpt", "b.ckpt"],
+                                  ["convert_ckpt", "ref.ckpt", "--config", "c.yaml"]])
+def test_checkpoint_commands_take_no_device(no_cuda, argv, tmp_path, monkeypatch):
+    """``merge_rectified`` and ``convert_ckpt`` do no device work: they take
+    no ``--device`` and need no card (here they stop at the missing file)."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit):
+        port_cli(argv + ["--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        port_cli(argv)

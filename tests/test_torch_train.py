@@ -226,12 +226,16 @@ def _infer(model, jmodel, params, inp):
 def test_checkpoint_port_to_jax(tmp_path):
     """The port writes (params as the JAX tree, flax msgpack); the JAX
     package reads it with ``load_checkpoint_file`` + ``from_state_dict``
-    and its forward equals the port's."""
+    and its forward equals the port's; the optimizer state is optax's tree
+    of ``build_optimizer``, which ``from_state_dict`` restores."""
     jmodel, params, _, inp = _teacher_pair()
     torch.manual_seed(3)
     model = ProDiffTeacher(12, TEACHER_HP).eval()
     torch.nn.init.normal_(model.diffusion.denoise_fn.output_projection.weight, std=0.05)
-    opt = Optimizer(model.named_parameters(), dict(lr=1.0, warmup_updates=10, hidden_size=32))
+    opt_hp = dict(lr=1.0, warmup_updates=10, hidden_size=32)
+    opt = Optimizer(model.named_parameters(), opt_hp,
+                    carrier=(lambda sd: teacher_flax_params(sd, TEACHER_HP),
+                             lambda tree: teacher_state_dict(tree, TEACHER_HP)))
     payload = {"global_step": 7, "epoch": 1, "checkpoint_callback_best": float("inf"),
                "state_dict": teacher_flax_params(model.state_dict(), TEACHER_HP),
                "optimizer_state": opt.state_dict()}
@@ -243,8 +247,14 @@ def test_checkpoint_port_to_jax(tmp_path):
     jparams = serialization.from_state_dict(params, read["state_dict"])
     got, want = _infer(model, jmodel, jparams, inp)
     close(got, want)
+    # the optimizer state is optax's tree, which the JAX trainer restores
+    jopt = serialization.from_state_dict(build_optimizer(opt_hp).init(params["params"]),
+                                         read["optimizer_state"])
+    adam = jopt[0][0]  # chain(adamw) -> adamw = chain(scale_by_adam, ...)
+    assert int(adam.count) == 0 and jax.tree.structure(adam.mu) == jax.tree.structure(
+        params["params"])
     back = load_flax_checkpoint(path)  # and the port reads its own file
-    assert int(back["optimizer_state"]["count"]) == 0
+    assert int(back["optimizer_state"]["0"]["0"]["count"]) == 0
     for k, v in teacher_state_dict(back["state_dict"], TEACHER_HP).items():
         torch.testing.assert_close(v, model.state_dict()[k], atol=0, rtol=0)
 
