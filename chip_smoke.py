@@ -144,6 +144,22 @@ Phases, each printing its lines before the last:
      deterministic algorithms (within 1e-5 of each tensor's peak), and
      ``train svs`` with ``profile_steps: 2`` (the trace names K5's kernels).
      Every kernel's entry of the JSON line gains ``launches_distillation``.
+ 13. (``phase_bf16``) the teacher's bf16 policy, then parity mode again: the
+     bf16 variants of K1, K5a and K5b (``csrc/*_bf16.cu``, tensor-core
+     mma.sync) against their twins at the table's shapes (K1 at B=1, T=512,
+     640 and 2048; K5 at B=16, T=1536), timed beside the float32 kernels,
+     each with its bound at the bf16 dense rate; ``train svs`` with ``bf16:
+     true`` by the CLI (41 K5a-bf16 and 40 K5b-bf16 launches a step, its
+     median step beside a float32 run's on the same items), ``train
+     svs_rectified --precision fast`` and a ``train svs`` step with ``amp:
+     true``; one bf16 teacher step against the same step on the CPU, which
+     takes the card's route through the kernels' twins; a
+     ``--precision fast`` render of ``samples/example.ds`` by the CLI (K1-bf16
+     only) and its mel against the parity render's, and ``/api/infer`` in
+     fast mode; the 250-step float32-vs-bf16 convergence check on the card
+     (``tests/test_torch_bf16_convergence.py``, residual channels 64, the
+     narrowest the kernels take). The bf16 entries of the JSON line carry
+     the launches of this phase's main paths.
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -247,7 +263,18 @@ TRAIN_N_VALID = 2  # validation items: one batch each
 GRAD_TOL, STEP_TOL = 1e-4, 1e-3
 K1_LAUNCHES = 3  # a stack: step projection, cond GEMM, the cooperative layer chain
 COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "ublock_block", "lvc",
-           "residual_stack_save", "residual_stack_chain")
+           "residual_stack_save", "residual_stack_chain", "residual_stack_bf16",
+           "residual_stack_save_bf16", "residual_stack_chain_bf16")
+# the bf16 phase: the H100 SXM's published dense bf16 tensor-core rate (700 W);
+# kernel vs twin in bf16 at 1e-2 of the peak (the same rounding points, another
+# float32 sum order: a value may cross a bf16 rounding boundary); a bf16
+# training step card vs CPU at 2e-2 of each gradient's peak (the CPU takes the
+# card's route through the kernels' twins, which round where the kernels do;
+# the encoder's bf16 products may still round one unit apart); the fast
+# render's mel vs the parity render's at 2e-2 of its peak
+BF16_PEAK = 989e12
+BF16_KERNEL_TOL, BF16_STEP_TOL, BF16_RENDER_TOL = 1e-2, 2e-2, 2e-2
+BF16_EXP, BF16_TRAIN_STEPS, BF16_CONV_CHANNELS = "bf16", 4, 64
 # vocode wav2wav: NSF-HiFiGAN at the base config's audio settings (the openvpi
 # 44.1 kHz generator), FastDiff at its LJSpeech audio settings (22.05 kHz, hop
 # 256, 80 mels, fmin 80, fmax 7600), both with the built-in ACF extractor
@@ -313,10 +340,11 @@ def graph_replay(name, fn, want, torch) -> None:
         f"{timed_ms(graph.replay, 20, torch):.4f} ms (max abs err {res['max_abs_err']:.3e})")
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations at the FP32 peak or
-    bytes at the HBM rate, whichever is longer."""
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def bound(flops: float, nbytes: float, peak: float = FP32_PEAK) -> dict:
+    """The least time the card could take: operations at ``peak`` (the FP32
+    rate, or the bf16 tensor cores' for a bf16-operand kernel) or bytes at
+    the HBM rate, whichever is longer."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -332,7 +360,10 @@ def counters():
             "ublock_layer": ublock_layer.launches, "ublock_block": ublock_block.launches,
             "lvc": lvc.launches,
             "residual_stack_save": residual_stack_save.launches,
-            "residual_stack_chain": residual_stack_chain.launches}
+            "residual_stack_chain": residual_stack_chain.launches,
+            "residual_stack_bf16": residual_stack.bf16_launches,
+            "residual_stack_save_bf16": residual_stack_save.bf16_launches,
+            "residual_stack_chain_bf16": residual_stack_chain.bf16_launches}
 
 
 def reset_counts() -> None:
@@ -382,10 +413,11 @@ def phase_kernels(dev, torch):
         flops = 2 * b * t * n_layers * layer + 2 * b * n_layers * c * c
         nbytes = 4 * (2 * b * t * c + b * t * h + b * c + n_layers * (layer + c * c + 7 * c))
         lim = bound(flops, nbytes)
+        rows = wn.chain_rows(b, t, c, wn._slots[(dev.index, torch.float32)])
         log(f"K1 B={b} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{lim['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: {lim['bound_by']}), "
             f"share of bound {lim['bound_ms'] / ms:.3f}; {wn.stack_launches(b, t, c, n_layers)} launches "
-            f"a stack, chain tile rows {wn.chain_rows(b, t, c, wn._slots[dev.index])}")
+            f"a stack, chain tile rows {rows}")
         k1["max_abs_err"] = max(k1["max_abs_err"], res["max_abs_err"])
         k1["by_shape"].append(dict(B=b, T=t, ms=ms, plain_ms=plain_ms, **lim,
                                    share=lim["bound_ms"] / ms))
@@ -1624,14 +1656,20 @@ def train_config(data_dir: str) -> dict:
     return hp
 
 
-def step_vs_cpu(label, task, make_model, batch, draws, dev, torch, tol=STEP_TOL) -> dict:
+def step_vs_cpu(label, task, make_model, batch, draws, dev, torch, tol=STEP_TOL,
+                cpu_twins=False) -> dict:
     """One training step of ``make_model()``'s seeded weights (its denoiser's
     output projection seeded too: the reference zero-inits it) on a short
     numpy ``batch``, the same injected ``draws`` (t and noise, where the task
     takes them), dropout off: card (kernels + cuBLAS) vs CPU (the plain
-    module loop). The loss, every parameter's gradient and the params after
-    one AdamW step are held within ``tol`` of each one's peak. Returns
-    the kernel launches of the card's step."""
+    module loop, or with ``cpu_twins`` the card's route through the
+    kernels' plain twins). The loss, every parameter's gradient and the
+    params after one AdamW step are held within ``tol`` of each one's peak.
+    Returns the kernel launches of the card's step."""
+    import contextlib
+    from unittest import mock
+
+    from prodiff_tpu_torch.models import wavenet
     from prodiff_tpu_torch.training.optim import Optimizer
     from prodiff_tpu_torch.training.trainer import host_tensors
 
@@ -1649,10 +1687,13 @@ def step_vs_cpu(label, task, make_model, batch, draws, dev, torch, tol=STEP_TOL)
         lr = opt.lr()
         b = {k: v.to(d) for k, v in host_tensors(batch, pin=False).items()}
         before = {k: c.count for k, c in counters().items()}
-        losses = task.compute_losses(model, b, **{k: torch.as_tensor(v, device=d)
-                                                  for k, v in draws.items()})
-        total = sum(losses.values())
-        total.backward()
+        route = (mock.patch.object(wavenet, "on_kernels", lambda x, cycle: cycle == 1)
+                 if cpu_twins and where == "cpu" else contextlib.nullcontext())
+        with route:
+            losses = task.compute_losses(model, b, **{k: torch.as_tensor(v, device=d)
+                                                      for k, v in draws.items()})
+            total = sum(losses.values())
+            total.backward()
         if where == "card":
             torch.cuda.synchronize()
             launched = {k: c.count - before[k] for k, c in counters().items()
@@ -3239,6 +3280,381 @@ def phase_distillation(dev, torch, tree):
     return totals
 
 
+def peak_compare(name, got, want, tol, torch) -> float:
+    """``grad_compare`` of two tensors of any float dtype, in float32."""
+    return grad_compare(name, got.float(), want.float(), tol, torch)
+
+
+def bf16_kernels(dev, torch) -> tuple:
+    """K1-bf16 at B=1, T=512/640/2048 and K5a/K5b-bf16 at B=16, T=1536 (L=20,
+    C=H=256) against their twins, timed (CUDA events, 3 warm-ups, mean of
+    20; the twins mean of 3) beside the float32 kernels on the same
+    (float32) weights, with bounds at the bf16 rate counting bf16 bytes for
+    the bf16 weights, saves and the chain's outputs. Returns the kernels-line
+    summaries of the three."""
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+    from prodiff_tpu_torch.ops import wavenet_train as wt
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    n_layers, c, h = 20, 256, 256
+
+    def weights():
+        return wn.StackedWaveNet(
+            dilated_w=rand(n_layers, 3, c, 2 * c, scale=(3 * c) ** -0.5),
+            dilated_b=rand(n_layers, 2 * c, scale=0.1),
+            diff_w=rand(n_layers, c, c, scale=c ** -0.5), diff_b=rand(n_layers, c, scale=0.1),
+            cond_w=rand(n_layers, h, 2 * c, scale=h ** -0.5), cond_b=rand(n_layers, 2 * c, scale=0.1),
+            out_w=rand(n_layers, c, 2 * c, scale=c ** -0.5), out_b=rand(n_layers, 2 * c, scale=0.1))
+
+    w32 = weights()
+    w16 = wn.cast_stack(w32, torch.bfloat16)
+    mat = n_layers * (3 * c * 2 * c + c * c + h * 2 * c + c * 2 * c)  # weight elements
+    bias = n_layers * (2 * c + c + 2 * c + 2 * c)
+    k1 = {"by_shape": []}
+    for b, t in K1_SHAPES:
+        x0, cond, step = rand(b, t, c), rand(b, t, h), rand(b, c)
+        before = wn.residual_stack.bf16_launches.count
+        got = wn.residual_stack(x0, cond, step, w16)
+        torch.cuda.synchronize()
+        n = wn.residual_stack.bf16_launches.count - before
+        if n != K1_LAUNCHES:
+            raise AssertionError(f"K1-bf16 launched {n} kernels, not {K1_LAUNCHES}")
+        err = peak_compare(f"K1-bf16 vs its twin, B={b} T={t}", got,
+                           wn.residual_stack_plain(x0, cond, step, w16), BF16_KERNEL_TOL, torch)
+        ms = timed_ms(lambda: wn.residual_stack(x0, cond, step, w16), 20, torch)
+        f32_ms = timed_ms(lambda: wn.residual_stack(x0, cond, step, w32), 20, torch)
+        plain_ms = timed_ms(lambda: wn.residual_stack_plain(x0, cond, step, w16), 3, torch)
+        flops = 2 * b * t * n_layers * (3 * c * 2 * c + h * 2 * c + c * 2 * c) + 2 * b * n_layers * c * c
+        nbytes = 2 * mat + 4 * (bias + b * t * (c + h + c) + b * c)
+        lim = bound(flops, nbytes, BF16_PEAK)
+        log(f"K1-bf16 B={b} T={t}: kernel {ms:.4f} ms ({n} launches), float32 K1 {f32_ms:.4f} ms, "
+            f"plain twin {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB: {lim['bound_by']}), share of bound {lim['bound_ms'] / ms:.3f}")
+        k1["by_shape"].append(dict(b=b, t=t, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+                                   max_abs_err=err, **lim))
+    first = k1["by_shape"][0]
+    k1.update({k: first[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms", "bound_by")})
+    k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["by_shape"])
+
+    b, t = TRAIN_B, TRAIN_T
+    tag = f"L={n_layers} C={c} H={h} B={b} T={t}"
+    x0, cond, step, g = rand(b, t, c), rand(b, t, h), rand(b, c), rand(b, t, c)
+    saves, chains = wt.residual_stack_save.bf16_launches.count, wt.residual_stack_chain.bf16_launches.count
+    skip, xs, zs = wt.residual_stack_save(x0, cond, step, w16)
+    dz, dy, dx0 = wt.residual_stack_chain(zs, g, w16)
+    torch.cuda.synchronize()
+    got_n = (wt.residual_stack_save.bf16_launches.count - saves,
+             wt.residual_stack_chain.bf16_launches.count - chains)
+    if got_n != (1 + 2 * n_layers, 2 * n_layers):
+        raise AssertionError(f"K5-bf16 launched {got_n}")
+    want = wt.residual_stack_save_plain(x0, cond, step, w16)
+    fwd_err = max(peak_compare(f"K5a-bf16 {name} vs its twin, {tag}", got, ref, BF16_KERNEL_TOL, torch)
+                  for name, got, ref in zip(("skip", "xs", "zs"), (skip, xs, zs), want))
+    del want
+    chain_err = max(peak_compare(f"K5b-bf16 {name} vs its twin, {tag}", got, ref, BF16_KERNEL_TOL, torch)
+                    for name, got, ref in zip(("dz", "dy", "dx0"), (dz, dy, dx0),
+                                              wt.residual_stack_chain_plain(zs, g, w16)))
+    _, _, zs32 = wt.residual_stack_save(x0, cond, step, w32)
+    ms = {
+        "save": timed_ms(lambda: wt.residual_stack_save(x0, cond, step, w16), 20, torch),
+        "save_f32": timed_ms(lambda: wt.residual_stack_save(x0, cond, step, w32), 20, torch),
+        "save_plain": timed_ms(lambda: wt.residual_stack_save_plain(x0, cond, step, w16), 3, torch),
+        "chain": timed_ms(lambda: wt.residual_stack_chain(zs, g, w16), 20, torch),
+        "chain_f32": timed_ms(lambda: wt.residual_stack_chain(zs32, g, w32), 20, torch),
+        "chain_plain": timed_ms(lambda: wt.residual_stack_chain_plain(zs, g, w16), 3, torch),
+    }
+    del zs32
+    bt = b * t
+    fwd_flops = 2 * bt * n_layers * (3 * c * 2 * c + h * 2 * c + c * 2 * c) + 2 * b * n_layers * c * c
+    fwd_bytes = 2 * mat + 4 * (bias + bt * (c + h + c) + b * c) + 2 * n_layers * bt * 3 * c
+    chain_flops = 2 * bt * n_layers * (2 * c * c + 3 * 2 * c * c)
+    chain_bytes = (2 * n_layers * (bt * 2 * c + 3 * c * 2 * c + c * 2 * c) + 4 * 2 * bt * c
+                   + 2 * n_layers * bt * 3 * c)
+    k5a = dict(max_abs_err=fwd_err, ms=ms["save"], f32_ms=ms["save_f32"], plain_ms=ms["save_plain"],
+               **bound(fwd_flops, fwd_bytes, BF16_PEAK))
+    k5b = dict(max_abs_err=chain_err, ms=ms["chain"], f32_ms=ms["chain_f32"],
+               plain_ms=ms["chain_plain"], **bound(chain_flops, chain_bytes, BF16_PEAK))
+    for name, k, flops, nbytes in (("K5a-bf16 save-forward", k5a, fwd_flops, fwd_bytes),
+                                   ("K5b-bf16 backward chain", k5b, chain_flops, chain_bytes)):
+        log(f"{name} {tag}: kernel {k['ms']:.4f} ms, float32 kernel {k['f32_ms']:.4f} ms, plain "
+            f"twin {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e9:.3f} GB: {k['bound_by']}), share of bound {k['bound_ms'] / k['ms']:.3f}")
+    del xs, zs, dz, dy, dx0, skip
+    torch.cuda.empty_cache()
+    return k1, k5a, k5b
+
+
+def bf16_train_runs(tmp, dev, torch) -> dict:
+    """``train svs`` by the CLI at the training cell's shape, float32 then
+    ``bf16: true`` on the same items (each step timed and its launches
+    counted), then ``train svs`` with ``amp: true`` and ``train
+    svs_rectified --precision fast`` (``bf16: null``) on shorter runs; the
+    bf16 teacher step held against the same step on the CPU. Returns the
+    launches of the bf16 run."""
+    import yaml
+
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.tasks.svs import SVSTask
+    from prodiff_tpu_torch.training.trainer import Trainer
+    from prodiff_tpu_torch.utils.synthetic import make_svs_dataset
+
+    data_dir = os.path.join(tmp, "data")
+    make_svs_dataset(data_dir, n_train=2 * TRAIN_B, n_valid=1, n_mels=128, seed=7,
+                     t_ph_range=(32, 33), dur_range=(45, 49))
+    hp = dict(train_config(data_dir), val_check_interval=10 ** 6, num_sanity_val_steps=0)
+    calls = []
+    orig = Trainer.train_step
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        before = {k: c.count for k, c in counters().items()}
+        start = time.perf_counter()
+        out = orig(self, batch)
+        torch.cuda.synchronize()
+        calls.append(((time.perf_counter() - start) * 1e3,
+                      {k: c.count - before[k] for k, c in counters().items() if c.count != before[k]}))
+        return out
+
+    def run(name, task, steps, extra=(), **keys):
+        cfg = os.path.join(tmp, f"{name}.yaml")
+        with open(cfg, "w") as f:
+            yaml.dump(dict(hp, **keys), f)
+        calls.clear()
+        Trainer.train_step = timed
+        try:
+            port_cli(["train", task, "--config", cfg, "--exp_name", name, "--max_steps", str(steps),
+                      "--device", str(dev), *extra])
+        finally:
+            Trainer.train_step = orig
+        return list(calls)
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        runs = {"f32": run("f32", "svs", BF16_TRAIN_STEPS, bf16=False)}
+        reset_counts()
+        runs["bf16"] = run("bf16", "svs", BF16_TRAIN_STEPS, bf16=True)
+        torch.cuda.synchronize()
+        per_step = {"residual_stack_save_bf16": 41, "residual_stack_chain_bf16": 40}
+        launches = check_counts(f"train svs with bf16: true ({BF16_TRAIN_STEPS} steps)",
+                                {k: BF16_TRAIN_STEPS * v for k, v in per_step.items()})
+        for label, run_calls in runs.items():
+            want = per_step if label == "bf16" else {"residual_stack_save": 41,
+                                                     "residual_stack_chain": 40}
+            bad = [d for _, d in run_calls if d != want]
+            if len(run_calls) != BF16_TRAIN_STEPS or bad:
+                raise AssertionError(f"{label} steps launched {bad or len(run_calls)}")
+        med = {k: sorted(ms for ms, _ in v[1:])[(len(v) - 1) // 2] for k, v in runs.items()}
+        log(f"train svs (CLI, B={TRAIN_B} x T={TRAIN_T}, {BF16_TRAIN_STEPS} steps each, the same "
+            f"items): median step (host clock, synchronised, steps 2-{BF16_TRAIN_STEPS}) float32 "
+            f"{med['f32']:.3f} ms, bf16 {med['bf16']:.3f} ms; every bf16 step launched K5a-bf16 41 "
+            f"and K5b-bf16 40 times and no float32 kernel")
+        amp = run("amp", "svs", 1, bf16=None, amp=True)
+        if [d for _, d in amp] != [per_step]:
+            raise AssertionError(f"train svs with amp: true launched {amp}")
+        make_svs_dataset(os.path.join(tmp, "rect"), task="svs_rectified", rectified=True,
+                         n_train=4, n_valid=1, n_mels=128, hidden=256)
+        rect = run("rect", "svs_rectified", 2, extra=("--precision", "fast"),
+                   data_dir=os.path.join(tmp, "rect"), bf16=None, max_sentences=4,
+                   max_tokens=4 * 2000, batch_size_buckets=[1, 2, 4])
+        if [d for _, d in rect] != [per_step] * 2:
+            raise AssertionError(f"train svs_rectified --precision fast launched {rect}")
+        log(f"train svs with amp: true (1 step) and train svs_rectified --precision fast (bf16: "
+            f"null, 2 steps): each step launched K5a-bf16 41 and K5b-bf16 40 times")
+    finally:
+        os.chdir(cwd)
+    task = SVSTask(dict(hp, bf16=True, work_dir=os.path.join(tmp, "checkpoints", "bf16", "svs"),
+                        task="svs"))
+    ds = task.train_iterator().dataset
+    batch = ds.collater([ds[0], ds[1]])
+    batch.pop("nsamples")
+    batch = {k: v[:, :128] if k in ds.time_keys else v for k, v in batch.items()}
+    rng = np.random.default_rng(SEED + 14)
+    draws = {"t": np.array([1, 4]),
+             "noise": rng.normal(size=(2, 1, *batch["mel"].shape[1:])).astype(np.float32)}
+    launched = step_vs_cpu("SVS teacher in bf16 (bf16: true), the CPU through the kernels' twins",
+                           task, task.build_model, batch, draws, dev, torch, tol=BF16_STEP_TOL,
+                           cpu_twins=True)
+    if launched != {"residual_stack_save_bf16": 41, "residual_stack_chain_bf16": 40}:
+        raise AssertionError(f"the bf16 step on the card launched {launched}")
+    return launches
+
+
+def write_bf16_tree(tmp, torch) -> None:
+    """``checkpoints/bf16/svs`` under ``tmp``: the base config's teacher on
+    seeded weights as a JAX-format checkpoint with its config and maps, and
+    the NSF-HiFiGAN generator beside it."""
+    import yaml
+
+    from prodiff_tpu_torch.config import load_base_config
+    from prodiff_tpu_torch.infer.handler import phone_encoder
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.utils import ckpt_utils, convert
+
+    voc_dir = os.path.join(tmp, "nsf_hifigan")
+    os.makedirs(voc_dir)
+    torch.manual_seed(SEED)
+    torch.save({"generator": seeded_generator(torch).state_dict()}, os.path.join(voc_dir, "model"))
+    with open(os.path.join(voc_dir, "config.json"), "w") as f:
+        json.dump(VOCODER_H, f)
+    work = os.path.join(tmp, "checkpoints", BF16_EXP, "svs")
+    os.makedirs(work)
+    hp = dict(load_base_config(), **SLICE_HPARAMS, vocoder_ckpt=os.path.join(voc_dir, "model"),
+              work_dir=work)
+    teacher = ProDiffTeacher(len(phone_encoder(VAR_PHONES)), hp)
+    torch.nn.init.normal_(teacher.diffusion.denoise_fn.output_projection.weight, std=0.02)
+    ckpt_utils.write_checkpoint_file(
+        os.path.join(work, "model_ckpt_steps_0.ckpt"),
+        {"global_step": 0, "state_dict": convert.teacher_flax_params(teacher.state_dict(), hp)})
+    with open(os.path.join(work, "config.yaml"), "w") as f:
+        yaml.dump(hp, f)
+    for name, m in (("phone_set", VAR_PHONES), ("spk_map", SPEAKERS),
+                    ("lang_map", SLICE_HPARAMS["languages"])):
+        with open(os.path.join(work, f"{name}.json"), "w") as f:
+            json.dump(m, f)
+
+
+def bf16_render(tmp, dev, torch) -> dict:
+    """``infer samples/example.ds --precision fast`` by the CLI (K1-bf16 3
+    launches a denoiser call, no float32 K1) beside the same command in
+    parity mode; the mel of a deterministic render in fast mode against the
+    parity one; ``/api/infer`` served in fast mode. Returns the launches of
+    the fast render."""
+    from prodiff_tpu_torch import device as policy
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.infer.handler import SVSInferHandler
+    from prodiff_tpu_torch.serve.handler import WebHandler
+
+    import shutil
+
+    write_bf16_tree(tmp, torch)
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples", "example.ds"),
+                os.path.join(tmp, "example.ds"))
+    batches = []
+    acoustic = SVSInferHandler._acoustic
+
+    def counted(self, *args):
+        batches.append(args[1].shape)
+        return acoustic(self, *args)
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    SVSInferHandler._acoustic = counted
+    secs, launches = {}, None
+    try:
+        for mode in ("parity", "fast"):
+            batches.clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            port_cli(["infer", "example.ds", "--exp_name", BF16_EXP, "--spk_name", "spk0",
+                      "--device", str(dev), "--precision", mode])
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+            steps = len(batches) * SLICE_HPARAMS["timesteps"] * K1_LAUNCHES
+            key = "residual_stack_bf16" if mode == "fast" else "residual_stack"
+            got = check_counts(f"infer example.ds --precision {mode}",
+                               {key: steps, "resblock_stage": len(batches) * 5 * 18})
+            if mode == "fast":
+                launches = got
+            if policy.precision() != "parity":
+                raise AssertionError("the CLI left the precision mode changed")
+    finally:
+        SVSInferHandler._acoustic = acoustic
+        os.chdir(cwd)
+    mels = {}
+    for mode in ("parity", "fast"):
+        policy.set_precision(mode)
+        try:
+            handler = SVSInferHandler(BF16_EXP, checkpoints_root=os.path.join(tmp, "checkpoints"),
+                                      deterministic=True, device=dev,
+                                      out_dir=os.path.join(tmp, f"out_{mode}"))
+            seen = capture_mel(handler)
+            handler.handle(None, os.path.join(tmp, "example.ds"), "spk0", "zh")
+            mels[mode] = torch.as_tensor(seen["mel"])
+        finally:
+            policy.set_precision("parity")
+    err = peak_compare("fast-mode render (K1-bf16) vs parity (K1) of example.ds, the mel into the "
+                       "vocoder", mels["fast"], mels["parity"], BF16_RENDER_TOL, torch)
+    log(f"infer example.ds by the CLI ({len(batches)} batches {batches}, models loaded included): "
+        f"parity {secs['parity']:.3f} s, fast {secs['fast']:.3f} s; the mel's max error "
+        f"{err:.3e}")
+
+    policy.set_precision("fast")
+    try:
+        core = SVSInferHandler(BF16_EXP, checkpoints_root=os.path.join(tmp, "checkpoints"),
+                               device=dev)
+        web = WebHandler(core=core, host="127.0.0.1", port=0)  # warm-up runs here
+        reset_counts()
+        wav = web.api_infer(request_payload(2.0, np.random.default_rng(SEED)))
+        torch.cuda.synchronize()
+        got = {k: c.count for k, c in counters().items() if c.count}
+        if set(got) != {"residual_stack_bf16", "resblock_stage"}:
+            raise AssertionError(f"/api/infer in fast mode launched {got}")
+        log(f"/api/infer in fast mode (2 s request): launches {got}, {len(wav['wav'])} samples")
+    finally:
+        policy.set_precision("parity")
+    return launches
+
+
+def bf16_convergence(tmp, dev) -> None:
+    """The 250-step float32-vs-bf16 loss curves on the card (the JAX test's
+    small config, residual channels 64) with the JAX test's bounds."""
+    import importlib.util
+
+    # by its path: a package named ``tests`` elsewhere on sys.path would shadow the repo's
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_bf16_convergence.py")
+    spec = importlib.util.spec_from_file_location("torch_bf16_convergence", path)
+    conv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conv)
+    t0 = time.time()
+    got = conv.check_curves(conv.convergence_curves(tmp, str(dev),
+                                                    residual_channels=BF16_CONV_CHANNELS))
+    log(f"convergence, 250 steps float32 vs bf16 on the card (small config, residual channels "
+        f"{BF16_CONV_CHANNELS}): worst 25-step window {got['worst_window']:.4f} (bound 0.08), "
+        f"tail {got['tail']:.4f} (bound 0.05; float32 {got['tail_f32']:.4f}, bf16 "
+        f"{got['tail_bf16']:.4f}, head {got['head']:.4f}), {time.time() - t0:.3f} s")
+
+
+def phase_bf16(dev, torch):
+    """The bf16 policy's kernels and paths (the module docstring's phase 13).
+    Returns the kernels-line summaries of K1/K5a/K5b-bf16 with the launches
+    of their main paths."""
+    import shutil
+    import tempfile
+
+    from prodiff_tpu_torch import device as policy
+
+    k1, k5a, k5b = bf16_kernels(dev, torch)
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_bf16_")
+    spans = {}
+    try:
+        t0 = time.time()
+        train = bf16_train_runs(os.path.join(tmp, "train"), dev, torch)
+        spans["train"] = time.time() - t0
+        t0 = time.time()
+        render = bf16_render(os.path.join(tmp, "render"), dev, torch)
+        spans["render"] = time.time() - t0
+        t0 = time.time()
+        bf16_convergence(os.path.join(tmp, "convergence"), dev)
+        spans["convergence"] = time.time() - t0
+    finally:
+        policy.set_precision("parity")
+        shutil.rmtree(tmp, ignore_errors=True)
+    if policy.precision() != "parity":
+        raise AssertionError("the bf16 phase left fast mode on")
+    log("bf16 phase spans (s): " + json.dumps({k: round(v, 3) for k, v in spans.items()}))
+    k1["launches"] = render["residual_stack_bf16"]
+    k5a["launches"] = train["residual_stack_save_bf16"]
+    k5b["launches"] = train["residual_stack_chain_bf16"]
+    return k1, k5a, k5b
+
+
 def main() -> int:
     import argparse
 
@@ -3264,7 +3680,8 @@ def main() -> int:
     log(smi[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; precision mode {policy.precision()}")
 
-    sources = ("wavenet_stack", "resblock", "ublock", "ublock_block", "lvc", "wavenet_train")
+    sources = ("wavenet_stack", "resblock", "ublock", "ublock_block", "lvc", "wavenet_train",
+               "wavenet_stack_bf16", "wavenet_train_bf16")
     t0 = time.time()
     skips = () if args.fastdiff_kernels else tuple(
         ("ublock", (f"LVCT_SKIP={v}",)) for v in K4_SKIPS.values()) + tuple(
@@ -3301,6 +3718,7 @@ def main() -> int:
     vt_launches = timed_phase("variance_train", phase_variance_train)
     dp_launches, dp_tree = timed_phase("data_pipeline", phase_data_pipeline)
     distill_launches = timed_phase("distillation", lambda d, t: phase_distillation(d, t, dp_tree))
+    k1_bf16, k5a_bf16, k5b_bf16 = timed_phase("bf16", phase_bf16)
     log(f"phase seconds: {json.dumps(spent)}; script total {time.time() - t_script:.3f} s")
 
     def entry(name, source, replaces, n, m, counter):
@@ -3309,6 +3727,12 @@ def main() -> int:
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=None,  # no single PyTorch call computes any of these
                     launches_distillation=distill_launches[counter])
+
+    def bf16_entry(name, source, replaces, m, counter):
+        # launches: the bf16 phase's main paths (train svs with bf16: true for
+        # K5, the --precision fast render for K1); bound at the bf16 dense rate
+        return dict(entry(name, source, replaces, m["launches"], m, counter), f32_ms=m["f32_ms"],
+                    bound_rate="bf16 dense tensor cores, 989 TFLOP/s; HBM 3.35 TB/s")
 
     kernels = [
         dict(entry("wavenet_residual_stack", "wavenet_stack.cu",
@@ -3345,6 +3769,14 @@ def main() -> int:
         dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
                    vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"], "ublock_block"),
              k4_chain_ms=fd["ublock_block"]["k4_chain_ms"], by_block=fd["ublock_block"]["by_block"]),
+        dict(bf16_entry("wavenet_residual_stack_bf16", "wavenet_stack_bf16.cu",
+                        "prodiff_tpu/ops/pallas/wavenet.py:177", k1_bf16, "residual_stack_bf16"),
+             by_shape=k1_bf16["by_shape"]),
+        bf16_entry("wavenet_stack_save_forward_bf16", "wavenet_train_bf16.cu",
+                   "prodiff_tpu/ops/pallas/wavenet_train.py:71", k5a_bf16, "residual_stack_save_bf16"),
+        bf16_entry("wavenet_stack_backward_chain_bf16", "wavenet_train_bf16.cu",
+                   "prodiff_tpu/ops/pallas/wavenet_train.py:161", k5b_bf16,
+                   "residual_stack_chain_bf16"),
     ]
     if fd_mono_launches["ublock_block"] != vocode_launches["fastdiff"]["ublock_block"]:
         raise AssertionError("K7 launched a different number of times in the mono render and vocode")

@@ -6,7 +6,10 @@ binarize`` / ``main.py train`` / ``main.py infer`` / ``main.py vocode
 wav2wav`` / ``main.py web`` / ``main.py merge_rectified`` / ``main.py
 convert_ckpt`` that the port supports, plus ``--device`` on every command
 with device work (``preprocess``, ``merge_rectified`` and ``convert_ckpt``
-have none). ``binarize`` takes ``svs``, ``svs_rectified``, ``vari``, ``dur``
+have none) and ``--precision parity|fast`` on ``train``, ``infer`` and
+``web``, the port's stand-in for the JAX package's choice of backend
+(``device.py``: ``fast`` computes what the JAX package computes on its
+accelerator; the mode holds for the command and is restored after it). ``binarize`` takes ``svs``, ``svs_rectified``, ``vari``, ``dur``
 and ``pitch``; ``train`` takes ``svs``, ``svs_rectified``, ``dur``, ``pitch``
 and ``vari``. ``merge_rectified TARGET COMPONENT`` splices a trained
 ``svs_rectified`` student into a teacher checkpoint as
@@ -21,6 +24,9 @@ from __future__ import annotations
 
 import argparse
 import os
+
+PRECISION_HELP = ("parity (default): the JAX package's CPU semantics; fast: its accelerator's "
+                  "(bf16: null trains in bf16, a render streams pallas_wavenet_dtype weights)")
 
 
 def convert_ckpt(torch_ckpt: str, config: str, out=None, step: int = 0) -> str:
@@ -126,6 +132,8 @@ def main(argv=None) -> None:
     train.add_argument("--exp_name", required=True)
     train.add_argument("--max_steps", type=int, default=None, help="override max_updates")
     train.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
+    train.add_argument("--precision", choices=("parity", "fast"), default="parity",
+                       help=PRECISION_HELP)
 
     infer = sub.add_parser("infer", help="render a .ds project to a wav")
     infer.add_argument("proj")
@@ -144,6 +152,8 @@ def main(argv=None) -> None:
     infer.add_argument("--isolate_base_harmonic", action="store_true",
                        help="with --isolate_aspiration, also the first harmonic (bh) apart")
     infer.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
+    infer.add_argument("--precision", choices=("parity", "fast"), default="parity",
+                       help=PRECISION_HELP)
 
     vocode = sub.add_parser("vocode", help="run audio through a vocoder")
     vocode_sub = vocode.add_subparsers(dest="vocode_command", required=True)
@@ -158,6 +168,8 @@ def main(argv=None) -> None:
     web.add_argument("--exp_name", required=True)
     web.add_argument("--port", type=int, default=7694)
     web.add_argument("--device", default="cuda", help="default: cuda (cpu only when named)")
+    web.add_argument("--precision", choices=("parity", "fast"), default="parity",
+                     help=PRECISION_HELP)
 
     merge = sub.add_parser("merge_rectified",
                            help="splice a distilled student into a teacher checkpoint")
@@ -171,6 +183,21 @@ def main(argv=None) -> None:
     conv.add_argument("--step", type=int, default=0, help="global step to stamp")
 
     args = parser.parse_args(argv)
+    if getattr(args, "precision", None) is None:
+        run(args)
+        return
+    from prodiff_tpu_torch import device
+
+    before = device.precision()
+    device.set_precision(args.precision)
+    try:
+        run(args)
+    finally:
+        device.set_precision(before)
+
+
+def run(args) -> None:
+    """One parsed command."""
     if args.command == "preprocess":
         from prodiff_tpu_torch.preprocess import PreprocessHandler
 

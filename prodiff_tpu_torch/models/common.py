@@ -10,6 +10,14 @@ Parameter names follow the torch reference's state dict
 (``encoder.layers.{i}.op.self_attn.in_proj_weight`` ...), which
 ``prodiff_tpu/utils/teacher_convert.py`` maps to the JAX package's tree. LayerNorm epsilon is flax's 1e-6, the reference this
 port is held against.
+
+``dtype`` is flax's ``dtype=``: a module given ``torch.bfloat16`` casts its
+operands (input, weight, bias) to bf16 and returns bf16, while its
+parameters stay float32 ``nn.Parameter``s. The casts are explicit, not
+``torch.autocast``, so the ops that stay in float32 are the JAX modules'
+own: attention scores accumulate and the softmax runs in float32, and the
+LayerNorms (no dtype) promote a bf16 input to float32, as bf16 + f32 does
+in both frameworks.
 """
 
 from __future__ import annotations
@@ -25,6 +33,25 @@ import torch.nn.functional as F
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 
 
+def cast(dtype: Optional[torch.dtype], *xs):
+    """flax's ``promote_dtype(..., dtype=dtype)``: every operand in the
+    module's compute dtype; ``None`` leaves them as they are."""
+    if dtype is None:
+        return xs
+    return tuple(None if x is None else x.to(dtype) for x in xs)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as float32 (exact); any other dtype as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm without dtype: a bf16 input meets the float32 scale and
+    bias and comes out float32 (flax's promotion)."""
+    return ln(widen(x))
+
+
 class Embedding(nn.Embedding):
     """Token embedding with reference init (normal std=H^-0.5, zero pad row)."""
 
@@ -37,13 +64,19 @@ class Embedding(nn.Embedding):
 
 
 class Linear(nn.Linear):
-    """Dense with xavier-uniform weight and zero bias (reference ``Linear``)."""
+    """Dense with xavier-uniform weight and zero bias (reference ``Linear``);
+    ``dtype`` is the compute dtype (flax's), the parameters stay float32."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_features, out_features, bias=bias)
         nn.init.xavier_uniform_(self.weight)
         if bias:
             nn.init.zeros_(self.bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*cast(self.dtype, x, self.weight, self.bias))
 
 
 def sinusoidal_embedding_table(num_embeddings: int, embedding_dim: int,
@@ -85,26 +118,30 @@ class SinusoidalPositionalEmbedding(nn.Module):
 class MultiheadSelfAttention(nn.Module):
     """fairseq ``MultiheadAttention(self_attention=True, bias=False)``.
 
-    Plain matmul + softmax: the JAX package has no kernel for it either."""
+    Plain matmul + softmax: the JAX package has no kernel for it either. In
+    bf16 the scores accumulate in float32 (``preferred_element_type``) and
+    the float32 softmax is cast to the query's dtype."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
-        self.out_proj = Linear(embed_dim, embed_dim, bias=False)
+        self.out_proj = Linear(embed_dim, embed_dim, bias=False, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, _ = x.shape
         h, d = self.num_heads, self.embed_dim // self.num_heads
-        q, k, v = (x @ self.in_proj_weight.t()).chunk(3, dim=-1)
+        x, w = cast(self.dtype, x, self.in_proj_weight)
+        q, k, v = (x @ w.t()).chunk(3, dim=-1)
         q = q.reshape(b, t, h, d) * d ** -0.5
         k = k.reshape(b, t, h, d)
         v = v.reshape(b, t, h, d)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        attn = torch.einsum("bqhd,bkhd->bhqk", widen(q), widen(k))
         if key_padding_mask is not None:
             attn = attn.masked_fill(key_padding_mask[:, None, None, :], torch.finfo(attn.dtype).min)
-        attn = torch.softmax(attn, dim=-1)
+        attn = torch.softmax(attn, dim=-1).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, self.embed_dim)
         return self.out_proj(out)
 
@@ -113,15 +150,17 @@ class TransformerFFNLayer(nn.Module):
     """Conv(k) -> *k^-0.5 -> GELU -> Linear FFN (reference ``common_layers.py:542-585``)."""
 
     def __init__(self, hidden_size: int, filter_size: int, kernel_size: int = 9,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel_size = kernel_size
+        self.dtype = dtype
         self.ffn_1 = nn.Conv1d(hidden_size, filter_size, kernel_size, padding=kernel_size // 2)
         self.dropout = nn.Dropout(dropout)
-        self.ffn_2 = Linear(filter_size, hidden_size)
+        self.ffn_2 = Linear(filter_size, hidden_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ffn_1(x.transpose(1, 2)).transpose(1, 2)
+        x, w, b = cast(self.dtype, x, self.ffn_1.weight, self.ffn_1.bias)
+        x = F.conv1d(x.transpose(1, 2), w, b, padding=self.kernel_size // 2).transpose(1, 2)
         x = F.gelu(x * self.kernel_size ** -0.5)
         return self.ffn_2(self.dropout(x))
 
@@ -130,24 +169,24 @@ class EncSALayer(nn.Module):
     """Pre-LN encoder layer: LN->MHA->res->mask, LN->FFN->res->mask."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
         if num_heads > 0:
             self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-            self.self_attn = MultiheadSelfAttention(hidden_size, num_heads)
+            self.self_attn = MultiheadSelfAttention(hidden_size, num_heads, dtype=dtype)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.ffn = TransformerFFNLayer(hidden_size, 4 * hidden_size, kernel_size, dropout)
+        self.ffn = TransformerFFNLayer(hidden_size, 4 * hidden_size, kernel_size, dropout, dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         nonpad = (~padding_mask).to(x.dtype)[:, :, None]
         if self.num_heads > 0:
             residual = x
-            x = self.self_attn(self.layer_norm1(x), key_padding_mask=padding_mask)
+            x = self.self_attn(layer_norm(self.layer_norm1, x), key_padding_mask=padding_mask)
             x = (residual + self.dropout(x)) * nonpad
         residual = x
-        x = self.ffn(self.layer_norm2(x))
+        x = self.ffn(layer_norm(self.layer_norm2, x))
         return (residual + self.dropout(x)) * nonpad
 
 
@@ -155,9 +194,9 @@ class TransformerEncoderLayer(nn.Module):
     """The reference's wrapper that names each layer's body ``op``."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.op = EncSALayer(hidden_size, num_heads, kernel_size, dropout)
+        self.op = EncSALayer(hidden_size, num_heads, kernel_size, dropout, dtype)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         return self.op(x, padding_mask)
@@ -169,10 +208,11 @@ class FFTBlocks(nn.Module):
     encoder that owns the stack, as on the slice's path."""
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2, dropout: float = 0.1):
+                 num_heads: int = 2, dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, dropout)
+            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, dropout, dtype)
             for _ in range(num_layers)
         )
         self.layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
@@ -182,7 +222,7 @@ class FFTBlocks(nn.Module):
         x = x * nonpad
         for layer in self.layers:
             x = layer(x, padding_mask) * nonpad
-        return self.layer_norm(x) * nonpad
+        return layer_norm(self.layer_norm, x) * nonpad
 
 
 class SinusoidalPosEmb(nn.Module):

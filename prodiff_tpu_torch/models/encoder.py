@@ -15,11 +15,13 @@ class FastspeechEncoder(FFTBlocks):
     """Token embedding (x sqrt(H)) + optional extra embed + sinusoidal
     positions -> FFT blocks. Padding = token id 0. Like the reference, the
     encoder IS the block stack, so its state-dict names are
-    ``embed_tokens``, ``layers.{i}.op...`` and ``layer_norm``."""
+    ``embed_tokens``, ``layers.{i}.op...`` and ``layer_norm``. ``dtype`` is
+    the blocks' compute dtype (flax's); the embeddings stay float32."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
-                 kernel_size: int = 9, num_heads: int = 2, dropout: float = 0.1):
-        super().__init__(hidden_size, num_layers, kernel_size, num_heads, dropout)
+                 kernel_size: int = 9, num_heads: int = 2, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(hidden_size, num_layers, kernel_size, num_heads, dropout, dtype)
         self.hidden_size = hidden_size
         self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
         self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
@@ -39,11 +41,13 @@ class NoteEncoder(FFTBlocks):
     """Note-midi/dur conditioning encoder (the pitch and variance
     predictors'). Padding = ``note_midi < 0``; rest notes zero their midi
     embedding; sinusoidal positions count the non-padding notes. State-dict
-    names: ``note_midi_embed``, ``note_dur_embed``, then the block stack's."""
+    names: ``note_midi_embed``, ``note_dur_embed``, then the block stack's.
+    ``dtype`` as :class:`FastspeechEncoder`'s; as in the JAX package, no
+    caller sets it."""
 
     def __init__(self, hidden_size: int, num_layers: int, kernel_size: int = 9,
-                 num_heads: int = 2, dropout: float = 0.1):
-        super().__init__(hidden_size, num_layers, kernel_size, num_heads, dropout)
+                 num_heads: int = 2, dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
+        super().__init__(hidden_size, num_layers, kernel_size, num_heads, dropout, dtype)
         self.hidden_size = hidden_size
         self.note_midi_embed = Linear(1, hidden_size)
         self.note_dur_embed = Linear(1, hidden_size)

@@ -10,6 +10,13 @@ by ``spec_min``/``spec_max``; its start point is its only noise).
 :meth:`ProDiffTeacher.forward` is the training call (``gt_spec`` -> the
 DDPM's ``(x0_pred, x0)`` or the flow's ``(v_pred, v_gt, t)``),
 :meth:`ProDiffTeacher.infer` samples either.
+
+The bf16 compute policy follows ``prodiff_tpu/models/prodiff.py:63-66``:
+``bf16`` or ``amp`` true (in training, as the task resolved it) builds the
+encoder and the WaveNet with ``dtype=bfloat16``; the embeddings, the
+duration/pitch/curve projections and every parameter stay float32. The
+WaveNet's kernel route also reads ``pallas_wavenet_dtype``
+(``device.kernel_operand_dtype``).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
+from prodiff_tpu_torch import device
 from prodiff_tpu_torch.models.common import Embedding, Linear
 from prodiff_tpu_torch.models.diffusion import GaussianDiffusion
 from prodiff_tpu_torch.models.encoder import FastspeechEncoder
@@ -36,9 +44,10 @@ class ProDiffTeacher(nn.Module):
             raise NotImplementedError(f"diff_type {self.diff_type!r}")
         hidden = hp["hidden_size"]
         self.mel_bins = hp["audio_num_mel_bins"]
+        dtype = device.module_dtype(hp)
         self.encoder = FastspeechEncoder(
             vocab_size, hidden, hp["enc_layers"], hp["enc_ffn_kernel_size"], hp["num_heads"],
-            hp.get("dropout", 0.1),
+            hp.get("dropout", 0.1), dtype=dtype,
         )
         self.with_dur_embed = hp.get("use_dur_embed", True)
         if self.with_dur_embed:
@@ -64,6 +73,7 @@ class ProDiffTeacher(nn.Module):
             residual_layers=hp["residual_layers"],
             residual_channels=hp["residual_channels"],
             dilation_cycle_length=hp["dilation_cycle_length"],
+            dtype=dtype, stream_dtype=device.stream_dtype(hp),
         )
         if self.diff_type == "prodiff":
             self.diffusion = GaussianDiffusion(

@@ -81,6 +81,9 @@ class BaseTask:
     dataset_cls = None
     # (port state dict, hparams) -> JAX param tree {"params": ...}, and the inverse
     weight_carrier = None
+    # where the model trains, set by the trainer before build_model: it
+    # decides the bf16 policy of ``bf16: null`` (device.resolve_train_bf16)
+    device = None
 
     def __init__(self, hparams: dict):
         self.hparams = hparams

@@ -14,8 +14,11 @@ a ``RectifiedFlow``. Its denoiser is the teacher's WaveNet, so with
 ``dilation_cycle_length: 1`` it trains through K5 on the card. It draws no
 plots, as in the JAX package.
 
-bf16/amp training is refused: it lands with the bf16 slice (tensor-core
-operand variants of K5a, K5b and K1).
+Both tasks build their models from ``device.resolve_train_bf16(hparams,
+device)`` (``bf16``/``amp`` true, or ``bf16: null`` in ``fast`` mode on the
+card): the bf16 compute policy, whose WaveNet trains through K5's bf16
+variants on the card. Parameters, the optimizer state and checkpoints stay
+float32, and there is no loss scaling, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from prodiff_tpu_torch import device as policy
 from prodiff_tpu_torch.data.collate import collate_1d, collate_2d
 from prodiff_tpu_torch.data.dataset import BaseDataset
 from prodiff_tpu_torch.models.diffusion import GaussianDiffusion
@@ -98,16 +102,13 @@ class SVSTask(BaseTask):
     def __init__(self, hparams):
         super().__init__(hparams)
         self.diffusion_type = hparams.get("diff_type", "prodiff")
-        if hparams.get("bf16") or hparams.get("amp"):
-            raise NotImplementedError(
-                "bf16/amp training: the port trains in parity mode (float32, TF32 off); "
-                "bf16 lands with the bf16 slice (tensor-core variants of K5a, K5b and K1)")
         self.loss_type = parse_loss_spec(hparams["mel_loss"])
         self.loss_type_list = list(self.loss_type)
 
     def build_model(self) -> ProDiffTeacher:
         self.build_phone_encoder()
-        self.model = ProDiffTeacher(len(self.ph_encoder), self.hparams)
+        self.model = ProDiffTeacher(len(self.ph_encoder),
+                                    policy.resolve_train_bf16(self.hparams, self.device))
         return self.model
 
     @staticmethod
@@ -178,12 +179,13 @@ class SVSRectifiedTask(SVSTask):
     weight_carrier = (rectified_flax_params, rectified_state_dict)
 
     def build_model(self):
-        hp = self.hparams
+        hp = policy.resolve_train_bf16(self.hparams, self.device)
         mel_bins = hp["audio_num_mel_bins"]
         denoiser = WaveNet(in_dims=mel_bins, hidden_size=hp["hidden_size"],
                            residual_layers=hp["residual_layers"],
                            residual_channels=hp["residual_channels"],
-                           dilation_cycle_length=hp["dilation_cycle_length"])
+                           dilation_cycle_length=hp["dilation_cycle_length"],
+                           dtype=policy.module_dtype(hp), stream_dtype=policy.stream_dtype(hp))
         if self.diffusion_type == "prodiff":
             self.model = GaussianDiffusion(denoise_fn=denoiser, out_dims=mel_bins, timesteps=1,
                                            schedule_type=hp["schedule_type"],

@@ -216,6 +216,7 @@ class Trainer:
         without an example batch (the JAX trainer initialises from the
         first batch)."""
         self.task = task
+        task.device = self.device
         torch.manual_seed(self.seed)
         self.model = task.build_model().to(self.device)
         self.optimizer = Optimizer(self.model.named_parameters(), self.hparams,

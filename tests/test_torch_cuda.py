@@ -990,3 +990,125 @@ def test_infer_mels_on_card_matches_cpu(cuda):
     assert residual_stack.launches.count - before == 4 * stack_launches(b, t_mel, 64, 4)
     assert out[0].shape == (b, t_mel, 32)
     torch.testing.assert_close(out[0], out[1], atol=ATOL, rtol=RTOL)
+
+
+# ---- bf16 variants (K1-bf16, K5a/K5b-bf16: csrc/*_bf16.cu) -----------------
+#
+# Kernel and twin round the same operands to bf16 at the same places; they
+# differ in the float32 sum order, which can move a value across a bf16
+# rounding boundary (one unit in the last place, 2^-8 of it) and carry that
+# through the later layers. So outputs and gradients are held at 1e-2 of
+# each one's peak (about 2.5 such units), bf16's bound, not float32's.
+
+BF16_TOL = 1e-2
+
+
+def assert_peak_close(got, want, name, tol=BF16_TOL):
+    got, want = got.float(), want.float()
+    peak = max(float(want.abs().max()), 1e-6)
+    err = float((got - want).abs().max())
+    assert torch.isfinite(got).all() and err <= tol * peak, f"{name}: {err:.3e} vs peak {peak:.3e}"
+
+
+@pytest.mark.parametrize("b,t,c,h,n_layers", [
+    (1, 512, 256, 256, 20),  # the render's shape: 32 row tiles of 16
+    (3, 640, 128, 32, 4), (2, 37, 128, 64, 3),  # ragged tiles, B > 1
+])
+def test_residual_stack_bf16_kernel_matches_twin(cuda, b, t, c, h, n_layers):
+    """K1-bf16 (bf16 weights: step projection, cond GEMM and the cooperative
+    tensor-core chain, 3 launches) vs the plain twin on the same bf16
+    stack; the float32 counter does not move."""
+    rng = np.random.default_rng(30)
+    w = wavenet_stack.cast_stack(_stacked(rng, n_layers, c, h, cuda), torch.bfloat16)
+    x0, cond, step = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device=cuda)
+                      for s in ((b, t, c), (b, t, h), (b, c)))
+    f32, b16 = residual_stack.launches.count, residual_stack.bf16_launches.count
+    got = residual_stack(x0, cond, step, w)
+    torch.cuda.synchronize()
+    assert residual_stack.bf16_launches.count - b16 == 3
+    assert residual_stack.launches.count == f32
+    assert_peak_close(got, residual_stack_plain(x0, cond, step, w), "skip")
+
+
+@pytest.mark.parametrize("b,t,c,h,n_layers", [(2, 150, 128, 64, 3), (3, 1537, 256, 256, 4)])
+def test_wavenet_train_bf16_kernels_match_twin(cuda, b, t, c, h, n_layers):
+    """K5a-bf16 (skip, bf16 xs/zs) and K5b-bf16 (bf16 dz/dy, float32 dx0) vs
+    their twins; 1 + 2L and 2L launches on the bf16 counters."""
+    rng = np.random.default_rng(31)
+    w = wavenet_stack.cast_stack(_stacked(rng, n_layers, c, h, cuda), torch.bfloat16)
+    x0, cond, step, g = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device=cuda)
+                         for s in ((b, t, c), (b, t, h), (b, c), (b, t, c)))
+    saves, chains = residual_stack_save.bf16_launches.count, residual_stack_chain.bf16_launches.count
+    skip, xs, zs = residual_stack_save(x0, cond, step, w)
+    torch.cuda.synchronize()
+    assert residual_stack_save.bf16_launches.count - saves == 1 + 2 * n_layers
+    assert xs.dtype == zs.dtype == torch.bfloat16
+    for name, got, want in zip(("skip", "xs", "zs"), (skip, xs, zs),
+                               residual_stack_save_plain(x0, cond, step, w)):
+        assert_peak_close(got, want, name)
+    dz, dy, dx0 = residual_stack_chain(zs, g, w)
+    torch.cuda.synchronize()
+    assert residual_stack_chain.bf16_launches.count - chains == 2 * n_layers
+    assert dz.dtype == dy.dtype == torch.bfloat16 and dx0.dtype == torch.float32
+    for name, got, want in zip(("dz", "dy", "dx0"), (dz, dy, dx0),
+                               residual_stack_chain_plain(zs, g, w)):
+        assert_peak_close(got, want, name)
+
+
+def test_residual_stack_fn_bf16_grads_match_cpu(cuda):
+    """The Function in bf16 (float32 weights in, cast inside): its output
+    and 11 float32 gradients on the card (K5-bf16 + cuBLAS) vs the same
+    Function on the CPU (the twins); the float32 kernels do not run."""
+    rng = np.random.default_rng(32)
+    b, t, c, h, n_layers = 3, 50, 128, 64, 4
+    ins_cpu = [torch.tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((b, t, c), (b, t, h), (b, c))] + list(_stacked(rng, n_layers, c, h, "cpu"))
+    g = torch.tensor(rng.normal(size=(b, t, c)), dtype=torch.float32)
+    f32 = residual_stack_save.launches.count + residual_stack_chain.launches.count
+    grads = {}
+    for where, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        ins = [a.to(dev).requires_grad_() for a in ins_cpu]
+        out = ResidualStackFn.apply(*ins, torch.bfloat16)
+        got = torch.autograd.grad(out, ins, g.to(dev))
+        assert all(a.dtype == torch.float32 for a in got)
+        grads[where] = [out.detach().cpu()] + [a.cpu() for a in got]
+    assert residual_stack_save.launches.count + residual_stack_chain.launches.count == f32
+    names = ("skip", "x0", "cond", "step") + StackedWaveNet._fields
+    for name, got, want in zip(names, grads["card"], grads["cpu"]):
+        assert_peak_close(got, want, name)
+
+
+def test_fast_mode_render_runs_k1_bf16(cuda):
+    """In fast mode a float32 teacher (bf16: null) renders through K1-bf16
+    (pallas_wavenet_dtype), in parity mode through K1; the two mels agree
+    within bf16's bound of the mel's peak."""
+    from prodiff_tpu_torch import device as policy
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+
+    hp = dict(TRAIN_HP, residual_layers=4, residual_channels=128)
+    torch.manual_seed(33)
+    net = ProDiffTeacher(10, hp)
+    torch.nn.init.normal_(net.diffusion.denoise_fn.output_projection.weight, std=0.05)
+    net.to(cuda).eval()
+    rng = np.random.default_rng(33)
+    b, t_ph, t_mel = 2, 7, 96
+    tokens = torch.tensor(rng.integers(3, 10, (b, t_ph)), device=cuda)
+    mel2ph = torch.tensor(np.repeat(np.arange(1, t_ph + 1), 14)[:t_mel][None].repeat(b, 0),
+                          device=cuda)
+    f0 = torch.tensor(rng.uniform(100, 400, (b, t_mel)), dtype=torch.float32, device=cuda)
+    kw = dict(lang_seq=torch.ones_like(tokens), spk_embed_id=torch.tensor([1, 0], device=cuda),
+              init_noise=torch.tensor(rng.uniform(size=(b, 1, t_mel, 16)), dtype=torch.float32,
+                                      device=cuda),
+              step_noises=torch.zeros((4, b, 1, t_mel, 16), device=cuda))
+    mels = {}
+    try:
+        for mode in ("parity", "fast"):
+            policy.set_precision(mode)
+            f32, b16 = residual_stack.launches.count, residual_stack.bf16_launches.count
+            mels[mode] = net.infer(tokens, mel2ph, f0, **kw)
+            torch.cuda.synchronize()
+            ran = (residual_stack.launches.count - f32, residual_stack.bf16_launches.count - b16)
+            assert ran == ((12, 0) if mode == "parity" else (0, 12)), (mode, ran)
+    finally:
+        policy.set_precision("parity")
+    assert_peak_close(mels["fast"], mels["parity"], "mel", tol=2e-2)

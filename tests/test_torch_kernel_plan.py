@@ -281,3 +281,16 @@ def test_lvc_units_cover_each_window_in_8_row_slices(hop):
         covered = [t for t0, n in spans for t in range(t0, t0 + n)]
         assert covered == list(range(l * hop, (l + 1) * hop))
     assert plan["smem"] <= lvc_ops.MAX_SMEM
+
+
+@pytest.mark.parametrize("t,rows", [(512, 16), (640, 32), (2048, 32)])
+def test_bf16_chain_rows_are_whole_mma_row_tiles(t, rows):
+    """The bf16 chain (``csrc/wavenet_stack_bf16.cu``) tiles frames in whole
+    m16n8k16 row tiles, so its choices are 16 and 32 rows (24 is out); the
+    same rounds-of-the-grid rule picks between them (264 co-resident blocks
+    of either here): 16 rows while one round covers the tiles, 32 once 16
+    takes more rounds."""
+    assert set(wn.CHAIN_ROWS_BF16) == {16, 32}
+    assert wn.chain_rows(1, t, 256, {16: 264, 32: 264}, wn.CHAIN_ROWS_BF16) == rows
+    # the zc buffer stays float32, so the layer grouping is the float32 one's
+    assert wn.layer_group(1, t, 256, 20) == 20 and wn.stack_launches(1, t, 256, 20) == 3
