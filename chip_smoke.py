@@ -159,7 +159,23 @@ Phases, each printing its lines before the last:
      fast mode; the 250-step float32-vs-bf16 convergence check on the card
      (``tests/test_torch_bf16_convergence.py``, residual channels 64, the
      narrowest the kernels take). The bf16 entries of the JSON line carry
-     the launches of this phase's main paths.
+     the launches of this phase's main paths. The fast render also runs
+     NSF-HiFiGAN with bf16 tap stacks (K2/K3-bf16, 90 launches a batch, no
+     float32 K2/K3); its wav is held against the parity render's, and the
+     fast vocoder alone against the float32 one on the parity mel, at the
+     JAX package's bound for bf16 tap stacks (max |diff| < 0.05,
+     correlation > 0.999); ``/api/infer`` in fast mode launches K1-bf16 and
+     K2/K3-bf16 only.
+ 14. (``phase_bf16_vocoders``) the serving vocoders' bf16: K2/K3-bf16
+     (``csrc/resblock_bf16.cu``, tensor-core mma.sync) at the five stages of
+     a T_mel=512 pass, K4-bf16 and K7-bf16 (the bf16-window builds of
+     ``ublock.cu`` and ``ublock_block.cu``) at the LJSpeech hops 8, 64 and
+     256, each against its twin and timed beside its float32 kernel with its
+     bound; the FastDiff text->wav path in fast mode by each route (layer:
+     K4-bf16 48; ``MONO_BLOCK``: K7-bf16 8 and K4-bf16 16; unfused: the
+     float32 K6 48, as the JAX package gives ``lvc_pallas`` no bf16
+     windows), and the fast FastDiff vocoder against the parity one on one
+     mel and injected noise (2e-2 of the wav's peak).
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -264,7 +280,8 @@ GRAD_TOL, STEP_TOL = 1e-4, 1e-3
 K1_LAUNCHES = 3  # a stack: step projection, cond GEMM, the cooperative layer chain
 COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "ublock_block", "lvc",
            "residual_stack_save", "residual_stack_chain", "residual_stack_bf16",
-           "residual_stack_save_bf16", "residual_stack_chain_bf16")
+           "residual_stack_save_bf16", "residual_stack_chain_bf16", "resblock_stage_bf16",
+           "ublock_layer_bf16", "ublock_block_bf16")
 # the bf16 phase: the H100 SXM's published dense bf16 tensor-core rate (700 W);
 # kernel vs twin in bf16 at 1e-2 of the peak (the same rounding points, another
 # float32 sum order: a value may cross a bf16 rounding boundary); a bf16
@@ -274,6 +291,14 @@ COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "ublock_block", "
 # render's mel vs the parity render's at 2e-2 of its peak
 BF16_PEAK = 989e12
 BF16_KERNEL_TOL, BF16_STEP_TOL, BF16_RENDER_TOL = 1e-2, 2e-2, 2e-2
+# the serving vocoders' bf16 (phase 14): K2/K3-bf16 vs its twin at 7e-3 of the
+# peak (18 chained bf16 roundings: another float32 sum order rounds a few conv
+# inputs to the neighbouring bf16 value; the CPU twin is 2.1e-4 of the peak
+# off the Pallas kernel); a render's wav with bf16 tap stacks vs float32 at the JAX
+# package's bound (tests/test_nsf_packed.py:190-204); FastDiff-4 fast vs
+# parity on one mel and injected noise at 2e-2 of the wav's peak
+# (tests/test_torch_bf16_vocoders.py: 4.5e-3 on the CPU twins, held at 1.5e-2)
+RES_BF16_TOL, WAV_BF16_MAX_ABS, WAV_BF16_CORR, FD_BF16_WAV_TOL = 7e-3, 0.05, 0.999, 2e-2
 BF16_EXP, BF16_TRAIN_STEPS, BF16_CONV_CHANNELS = "bf16", 4, 64
 # vocode wav2wav: NSF-HiFiGAN at the base config's audio settings (the openvpi
 # 44.1 kHz generator), FastDiff at its LJSpeech audio settings (22.05 kHz, hop
@@ -363,7 +388,10 @@ def counters():
             "residual_stack_chain": residual_stack_chain.launches,
             "residual_stack_bf16": residual_stack.bf16_launches,
             "residual_stack_save_bf16": residual_stack_save.bf16_launches,
-            "residual_stack_chain_bf16": residual_stack_chain.bf16_launches}
+            "residual_stack_chain_bf16": residual_stack_chain.bf16_launches,
+            "resblock_stage_bf16": resblock_stage.bf16_launches,
+            "ublock_layer_bf16": ublock_layer.bf16_launches,
+            "ublock_block_bf16": ublock_block.bf16_launches}
 
 
 def reset_counts() -> None:
@@ -477,6 +505,28 @@ def capture_graph(calls, torch):
     return graph
 
 
+def per_steps(fn):
+    """One call of ``fn(step)`` for each step of a hoisted FastDiff stack."""
+    return [lambda s=s: fn(s) for s in range(FD_STEPS)]
+
+
+def in_turns(fns: dict, torch, rounds: int = 5) -> dict:
+    """Host-clock milliseconds of each zero-argument call of ``fns`` (two
+    labels), synchronised, run in turns (a, b, b, a) ``rounds`` times; the
+    median, min and max of each."""
+    a, b = fns
+    times = {a: [], b: []}
+    for _ in range(rounds):
+        for label in (a, b, b, a):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fns[label]()
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - start) * 1e3)
+    return {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
+            for k, v in times.items()}
+
+
 def graph_ms(calls, torch, reps: int = 10) -> float:
     """Milliseconds a call of ``calls``, captured together into one CUDA graph
     and replayed ``reps`` times between CUDA events: the kernels' time with
@@ -573,9 +623,6 @@ def phase_fastdiff_kernels(dev, torch, split: bool = True):
 
     def rand(*shape, scale=1.0):
         return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
-
-    def per_steps(fn):
-        return [lambda s=s: fn(s) for s in range(FD_STEPS)]
 
     c, n_layers, n_win = 32, FD_CONFIG["lvc_layers_each_block"], FD_T_MEL
     dilations = [3 ** i for i in range(n_layers)]
@@ -865,13 +912,17 @@ def post(url: str, payload=None) -> dict:
 
 def capture_mel(handler) -> dict:
     """Record the mel each render hands the vocoder (the teacher's output,
-    padded with the silence floor), on the host."""
+    padded with the silence floor) and the wav it gets back, on the host,
+    and the f0 beside the mel."""
     seen = {}
     spec2wav = handler.vocoder.spec2wav_batch
 
     def spy(mel, f0, **kw):
-        seen["mel"] = mel.detach().cpu().numpy()
-        return spec2wav(mel, f0, **kw)
+        seen["mel"], seen["f0"] = mel.detach().cpu().numpy(), f0
+        wav = spec2wav(mel, f0, **kw)
+        seen["wav"] = np.asarray(wav.detach().float().cpu()) if hasattr(wav, "detach") \
+            else np.asarray(wav)
+        return wav
 
     handler.vocoder.spec2wav_batch = spy
     return seen
@@ -1040,19 +1091,27 @@ def fastdiff_inputs(rng, t_ph: int, t_mel: int):
     return tokens, mel2ph, f0, np.ones((1, t_ph), np.int64), np.zeros((1,), np.int64)
 
 
-def phase_fastdiff(dev, torch):
-    """The FastDiff text->wav path at full width on seeded random weights."""
+def fastdiff_models(dev, torch):
+    """The FastDiff path's seeded models: the teacher on ``dev`` (eval), its
+    state dict, and FastDiff's reference state dict."""
     from prodiff_tpu_torch.models.fastdiff import FastDiff as FastDiffNet
     from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
-    from prodiff_tpu_torch.vocoders import get_vocoder_cls
 
     torch.manual_seed(SEED)
     teacher = ProDiffTeacher(64, FD_TEACHER_HPARAMS)
     torch.nn.init.normal_(teacher.diffusion.denoise_fn.output_projection.weight, std=0.02)
     teacher_sd = teacher.state_dict()
-    teacher = teacher.to(dev).eval()
     torch.manual_seed(SEED + 2)
     fd_sd = FastDiffNet.from_config(FD_CONFIG).state_dict()  # a seeded reference state dict
+    return teacher.to(dev).eval(), teacher_sd, fd_sd
+
+
+def phase_fastdiff(dev, torch):
+    """The FastDiff text->wav path at full width on seeded random weights."""
+    from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+    from prodiff_tpu_torch.vocoders import get_vocoder_cls
+
+    teacher, teacher_sd, fd_sd = fastdiff_models(dev, torch)
     n_fd = sum(v.numel() for v in fd_sd.values())
     log(f"FastDiff path: teacher {sum(p.numel() for p in teacher.parameters()) / 1e6:.2f}M params "
         f"(80 mels, {FD_TEACHER_STEPS} steps), FastDiff {n_fd / 1e6:.2f}M params "
@@ -3520,10 +3579,12 @@ def write_bf16_tree(tmp, torch) -> None:
 
 def bf16_render(tmp, dev, torch) -> dict:
     """``infer samples/example.ds --precision fast`` by the CLI (K1-bf16 3
-    launches a denoiser call, no float32 K1) beside the same command in
-    parity mode; the mel of a deterministic render in fast mode against the
-    parity one; ``/api/infer`` served in fast mode. Returns the launches of
-    the fast render."""
+    launches a denoiser call and K2/K3-bf16 90 a batch, no float32 K1 or
+    K2/K3) beside the same command in parity mode; the mel of a
+    deterministic render in fast mode against the parity one, its wav at the
+    JAX test's bound for bf16 tap stacks, and the fast vocoder alone on the
+    parity render's mel; ``/api/infer`` served in fast mode. Returns the
+    launches of the fast render."""
     from prodiff_tpu_torch import device as policy
     from prodiff_tpu_torch.__main__ import main as port_cli
     from prodiff_tpu_torch.infer.handler import SVSInferHandler
@@ -3556,9 +3617,10 @@ def bf16_render(tmp, dev, torch) -> dict:
             torch.cuda.synchronize()
             secs[mode] = time.perf_counter() - t0
             steps = len(batches) * SLICE_HPARAMS["timesteps"] * K1_LAUNCHES
-            key = "residual_stack_bf16" if mode == "fast" else "residual_stack"
+            sfx = "_bf16" if mode == "fast" else ""
             got = check_counts(f"infer example.ds --precision {mode}",
-                               {key: steps, "resblock_stage": len(batches) * 5 * 18})
+                               {f"residual_stack{sfx}": steps,
+                                f"resblock_stage{sfx}": len(batches) * 5 * 18})
             if mode == "fast":
                 launches = got
             if policy.precision() != "parity":
@@ -3566,20 +3628,43 @@ def bf16_render(tmp, dev, torch) -> dict:
     finally:
         SVSInferHandler._acoustic = acoustic
         os.chdir(cwd)
-    mels = {}
+    seen, vocoders = {}, {}
     for mode in ("parity", "fast"):
         policy.set_precision(mode)
         try:
             handler = SVSInferHandler(BF16_EXP, checkpoints_root=os.path.join(tmp, "checkpoints"),
                                       deterministic=True, device=dev,
                                       out_dir=os.path.join(tmp, f"out_{mode}"))
-            seen = capture_mel(handler)
+            seen[mode] = capture_mel(handler)
             handler.handle(None, os.path.join(tmp, "example.ds"), "spk0", "zh")
-            mels[mode] = torch.as_tensor(seen["mel"])
+            vocoders[mode] = handler.vocoder
         finally:
             policy.set_precision("parity")
     err = peak_compare("fast-mode render (K1-bf16) vs parity (K1) of example.ds, the mel into the "
-                       "vocoder", mels["fast"], mels["parity"], BF16_RENDER_TOL, torch)
+                       "vocoder", torch.as_tensor(seen["fast"]["mel"]),
+                       torch.as_tensor(seen["parity"]["mel"]), BF16_RENDER_TOL, torch)
+    wav_fast, wav_parity = seen["fast"]["wav"], seen["parity"]["wav"]
+    hold_wav("fast-mode render (K1-bf16, K2/K3-bf16) vs parity of example.ds, the last batch's "
+             "wav", wav_fast, wav_parity)
+    # the vocoder alone: the fast generator (bf16 tap stacks) on the parity mel
+    reset_counts()
+    alone = vocoders["fast"].spec2wav_batch(torch.as_tensor(seen["parity"]["mel"], device=dev),
+                                            seen["parity"]["f0"], deterministic=True)
+    torch.cuda.synchronize()
+    check_counts("the fast vocoder on the parity mel", {"resblock_stage_bf16": 5 * 18})
+    hold_wav("NSF-HiFiGAN with bf16 tap stacks vs float32 on the same (parity) mel, the last "
+             "batch's wav", np.asarray(alone.float().cpu()), wav_parity)
+    mel_p = torch.as_tensor(seen["parity"]["mel"], device=dev)
+    turns = in_turns({m: lambda m=m: vocoders[m].spec2wav_batch(mel_p, seen["parity"]["f0"],
+                                                               deterministic=True)
+                      for m in ("parity", "fast")}, torch)
+    log(f"NSF-HiFiGAN alone on that mel {list(mel_p.shape)}, parity (float32 stacks) and fast "
+        f"(bf16 stacks) in turns, 10 each (host clock, synchronised, ms): "
+        + json.dumps({k: {kk: round(vv, 3) for kk, vv in v.items()} for k, v in turns.items()}))
+    fast_vs_parity_profile(
+        f"NSF-HiFiGAN alone on that mel", {m: lambda m=m: vocoders[m].spec2wav_batch(
+            mel_p, seen["parity"]["f0"], deterministic=True) for m in ("parity", "fast")},
+        {"conv_kernel": "K2/K3 and K2/K3-bf16 resblock_stage"}, torch)
     log(f"infer example.ds by the CLI ({len(batches)} batches {batches}, models loaded included): "
         f"parity {secs['parity']:.3f} s, fast {secs['fast']:.3f} s; the mel's max error "
         f"{err:.3e}")
@@ -3593,12 +3678,41 @@ def bf16_render(tmp, dev, torch) -> dict:
         wav = web.api_infer(request_payload(2.0, np.random.default_rng(SEED)))
         torch.cuda.synchronize()
         got = {k: c.count for k, c in counters().items() if c.count}
-        if set(got) != {"residual_stack_bf16", "resblock_stage"}:
+        if set(got) != {"residual_stack_bf16", "resblock_stage_bf16"}:
             raise AssertionError(f"/api/infer in fast mode launched {got}")
         log(f"/api/infer in fast mode (2 s request): launches {got}, {len(wav['wav'])} samples")
     finally:
         policy.set_precision("parity")
     return launches
+
+
+def hold_wav(name, got, want) -> dict:
+    """A bf16 render's wav against the float32 one at the JAX package's bound
+    for bf16 tap stacks (``tests/test_nsf_packed.py:190-204``): max |diff| <
+    0.05 and correlation > 0.999; raises beyond."""
+    got, want = np.asarray(got, np.float64).ravel(), np.asarray(want, np.float64).ravel()
+    err = float(np.abs(got - want).max())
+    corr = float(np.corrcoef(got, want)[0, 1])
+    ok = bool(np.isfinite(got).all()) and err < WAV_BF16_MAX_ABS and corr > WAV_BF16_CORR
+    log(f"{name}: max_abs_err={err:.3e} (bound {WAV_BF16_MAX_ABS}), correlation {corr:.6f} (bound "
+        f"{WAV_BF16_CORR}), peak {np.abs(want).max():.4f}, {got.size} samples "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the bf16 wav is off the float32 one")
+    return {"max_abs_err": err, "correlation": corr}
+
+
+def fast_vs_parity_profile(label, fns: dict, ours: dict, torch) -> None:
+    """``kernel_split`` of each zero-argument render of ``fns`` (parity and
+    fast, 2 calls each after a warm-up): host ms, kernel ms, the device's
+    idle share, kernel launches and the time by group, a call."""
+    for mode, fn in fns.items():
+        fn()
+        wall_ms, busy_ms, sums, rows = kernel_split(fn, 2, ours, torch)
+        log(f"{label}, {mode}, under torch.profiler (mean of 2): {wall_ms:.3f} ms on the host "
+            f"clock, {busy_ms:.3f} ms of kernel time (device idle share "
+            f"{max(0.0, 1 - busy_ms / wall_ms):.3f}), {sum(n for _, n, _ in rows)} kernel "
+            f"launches; by group (ms): " + json.dumps({g: round(v, 4) for g, v in sums.items()}))
 
 
 def bf16_convergence(tmp, dev) -> None:
@@ -3624,7 +3738,7 @@ def bf16_convergence(tmp, dev) -> None:
 def phase_bf16(dev, torch):
     """The bf16 policy's kernels and paths (the module docstring's phase 13).
     Returns the kernels-line summaries of K1/K5a/K5b-bf16 with the launches
-    of their main paths."""
+    of their main paths, and K2/K3-bf16's launches in the fast render."""
     import shutil
     import tempfile
 
@@ -3652,7 +3766,243 @@ def phase_bf16(dev, torch):
     k1["launches"] = render["residual_stack_bf16"]
     k5a["launches"] = train["residual_stack_save_bf16"]
     k5b["launches"] = train["residual_stack_chain_bf16"]
-    return k1, k5a, k5b
+    return k1, k5a, k5b, render["resblock_stage_bf16"]
+
+
+def bf16_vocoder_kernels(dev, torch) -> tuple:
+    """K2/K3-bf16 at the five stages of one T_mel=512 vocoder pass, K4-bf16
+    at every (block, layer) of the LJSpeech FastDiff net at T_mel=512 and
+    K7-bf16 at blocks 1 and 2, each against its twin on the same bf16
+    operands (the stage at ``RES_BF16_TOL`` of the peak: its chain of 18
+    bf16 roundings turns the two sides' float32 sum orders into different
+    roundings of a few conv inputs; K4/K7 at ``KERNEL_TOL``: both widen the
+    same bf16 windows exactly), timed beside the float32 kernel on the same
+    (float32) weights and windows, with bounds: the stage at the bf16 tensor
+    cores' rate, K4/K7 at the FP32 rate counting the bf16 window bytes.
+    K4/K7 are timed as ``phase_fastdiff_kernels`` times them (``graph_ms``
+    over the four steps of a hoisted stack). Returns the kernels-line
+    summaries of the three."""
+    from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
+    from prodiff_tpu_torch.ops.ublock import (mono_block_supported, ublock_block,
+                                              ublock_block_plain, ublock_layer, ublock_layer_plain)
+
+    rng = np.random.default_rng(SEED + 15)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    res = {"max_abs_err": 0.0, "max_err_share_of_peak": 0.0, "ms": 0.0, "f32_ms": 0.0,
+           "plain_ms": 0.0, "stages": []}
+    flops = nbytes = 0
+    for c, t in RES_STAGES:
+        taps = 6 * sum(RES_K)
+        st_flops, st_bytes = 2 * taps * c * c * t, 4 * (2 * t * c + 18 * c) + 2 * taps * c * c
+        flops += st_flops
+        nbytes += st_bytes
+        w32 = torch.cat([rand(k * c * c, scale=(k * c) ** -0.5) for k in RES_K for _ in range(6)])
+        w16, biases, x = w32.to(torch.bfloat16), rand(18, c, scale=0.1), rand(1, t, c)
+        before = counters()["resblock_stage_bf16"].count
+        got = resblock_stage(x, w16, biases, RES_K, RES_D)
+        torch.cuda.synchronize()
+        if counters()["resblock_stage_bf16"].count - before != 18:
+            raise AssertionError("K2/K3-bf16 did not launch 18 convs")
+        want = resblock_stage_plain(x, w16, biases, RES_K, RES_D)
+        err = peak_compare(f"K2/K3-bf16 resblock_stage C={c} T={t} vs its twin", got, want,
+                           RES_BF16_TOL, torch)
+        share = err / float(want.abs().max())
+        ms = timed_ms(lambda: resblock_stage(x, w16, biases, RES_K, RES_D), 10, torch)
+        f32_ms = timed_ms(lambda: resblock_stage(x, w32, biases, RES_K, RES_D), 10, torch)
+        plain_ms = timed_ms(lambda: resblock_stage_plain(x, w16, biases, RES_K, RES_D), 3, torch)
+        lim = bound(st_flops, st_bytes, BF16_PEAK)
+        log(f"K2/K3-bf16 C={c} T={t}: kernel {ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, plain "
+            f"twin {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({st_flops / 1e9:.1f} GFLOP: "
+            f"{lim['bound_by']}), share of bound {lim['bound_ms'] / ms:.3f}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["max_err_share_of_peak"] = max(res["max_err_share_of_peak"], share)
+        for k, v in (("ms", ms), ("f32_ms", f32_ms), ("plain_ms", plain_ms)):
+            res[k] += v
+        res["stages"].append(dict(C=c, T=t, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+                                  err_share_of_peak=share, **lim, share=lim["bound_ms"] / ms))
+    res.update(bound(flops, nbytes, BF16_PEAK))
+    log(f"K2/K3-bf16, all 5 stages of one vocoder pass at T_mel=512: kernel {res['ms']:.4f} ms, "
+        f"float32 kernel {res['f32_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s: {res['bound_by']}), "
+        f"share of bound {res['bound_ms'] / res['ms']:.3f}")
+
+    c, n_layers, n_win = 32, FD_CONFIG["lvc_layers_each_block"], FD_T_MEL
+    dilations = [3 ** i for i in range(n_layers)]
+    k4 = {"max_abs_err": 0.0, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0, "by_block": []}
+    k7 = {"max_abs_err": 0.0, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0, "by_block": []}
+    totals = {"k4": [0, 0], "k7": [0, 0]}
+    for blk, hop in enumerate(FD_HOPS):
+        t = n_win * hop
+        x, ad = rand(1, t, c), rand(1, t, c)
+        km16 = rand(FD_STEPS, 1, n_win, n_layers * 3 * c, 2 * c, scale=0.1).to(torch.bfloat16)
+        km32 = km16.float()
+        lb = rand(FD_STEPS, 1, n_win, n_layers * 2 * c, scale=0.1)
+        window_bytes = n_win * (2 * 3 * c * 2 * c + 4 * 2 * c)  # a (step, layer): bf16 kernels
+        cws, cbs = [rand(c, c, 3, scale=0.2) for _ in dilations], [rand(c, scale=0.1)
+                                                                    for _ in dilations]
+        row = {"block": blk, "hop": hop, "T": t, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0}
+        flops_b, bytes_b = 18432 * t * n_layers, n_layers * (4 * (3 * t * c + 3 * c * c + c)
+                                                             + window_bytes)
+        for i, d in enumerate(dilations):
+            def call(fn, s, km, i=i, d=d):
+                return fn(x, ad, cws[i], cbs[i], km, lb, d, hop, step_idx=s, layer_idx=i)
+            res4 = compare(f"K4-bf16 ublock_layer hop={hop} dilation={d} (step {i}, layer {i}) vs "
+                           f"its twin", call(ublock_layer, i, km16),
+                           call(ublock_layer_plain, i, km16), torch)
+            k4["max_abs_err"] = max(k4["max_abs_err"], res4["max_abs_err"])
+            row["ms"] += graph_ms(per_steps(lambda s: call(ublock_layer, s, km16)), torch)
+            row["f32_ms"] += graph_ms(per_steps(lambda s: call(ublock_layer, s, km32)), torch)
+            row["plain_ms"] += graph_ms(per_steps(lambda s: call(ublock_layer_plain, s, km16)),
+                                        torch)
+        row.update(bound(flops_b, bytes_b))
+        log(f"K4-bf16 block {blk} (hop {hop}, T={t}), its {n_layers} layers: kernel "
+            f"{row['ms']:.4f} ms, float32 K4 {row['f32_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"share of bound {row['bound_ms'] / row['ms']:.3f}")
+        for k in ("ms", "f32_ms", "plain_ms"):
+            k4[k] += row[k]
+        k4["by_block"].append(row)
+        totals["k4"][0] += flops_b
+        totals["k4"][1] += bytes_b
+        if mono_block_supported(hop, dilations):
+            def block(fn, s, km):
+                return fn(x, ad, cws, cbs, km, lb, dilations, hop, s)
+            res7 = compare(f"K7-bf16 ublock_block hop={hop} T={t} (step 2) vs its twin",
+                           block(ublock_block, 2, km16), block(ublock_block_plain, 2, km16), torch)
+            k7["max_abs_err"] = max(k7["max_abs_err"], res7["max_abs_err"])
+            bytes7 = 4 * (3 * t * c + n_layers * (3 * c * c + c)) + n_layers * window_bytes
+            row7 = dict(block=blk, hop=hop, T=t,
+                        ms=graph_ms(per_steps(lambda s: block(ublock_block, s, km16)), torch),
+                        f32_ms=graph_ms(per_steps(lambda s: block(ublock_block, s, km32)), torch),
+                        plain_ms=graph_ms(per_steps(lambda s: block(ublock_block_plain, s, km16)),
+                                          torch),
+                        **bound(flops_b, bytes7))
+            log(f"K7-bf16 block {blk} (hop {hop}, T={t}): kernel {row7['ms']:.4f} ms, float32 K7 "
+                f"{row7['f32_ms']:.4f} ms, plain {row7['plain_ms']:.4f} ms, bound "
+                f"{row7['bound_ms']:.4f} ms ({row7['bound_by']}), share of bound "
+                f"{row7['bound_ms'] / row7['ms']:.3f}")
+            for k in ("ms", "f32_ms", "plain_ms"):
+                k7[k] += row7[k]
+            k7["by_block"].append(row7)
+            totals["k7"][0] += flops_b
+            totals["k7"][1] += bytes7
+        del km16, km32, lb
+    k4.update(bound(*totals["k4"]))
+    k7.update(bound(*totals["k7"]))
+    for name, acc in (("K4-bf16, the 12 layers", k4), ("K7-bf16, blocks 1 and 2", k7)):
+        log(f"{name} of one FastDiff forward at T_mel={FD_T_MEL}: kernel {acc['ms']:.4f} ms, "
+            f"float32 kernel {acc['f32_ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, bound "
+            f"{acc['bound_ms']:.4f} ms ({acc['bound_by']}; FP32 rate, bf16 window bytes)")
+    torch.cuda.empty_cache()
+    return res, k4, k7
+
+
+def bf16_fastdiff_paths(dev, torch) -> dict:
+    """The FastDiff text->wav path of ``phase_fastdiff`` (its seeded weights
+    and inputs) in fast mode: the layer route launches K1-bf16 and K4-bf16
+    only, the ``MONO_BLOCK`` route K1-bf16, K7-bf16 (blocks 1, 2) and K4-bf16
+    (block 0), the unfused route (``fastdiff_packed: false``) K1-bf16 and the
+    float32 K6 (the JAX package gives ``lvc_pallas`` no bf16 windows); then
+    the fast vocoder alone against the parity one on the same mel and
+    injected noise at ``FD_BF16_WAV_TOL`` of the wav's peak. Returns the
+    launches of the layer and mono routes."""
+    import prodiff_tpu_torch.models.fastdiff as fd_model
+    from prodiff_tpu_torch import device as policy
+    from prodiff_tpu_torch.vocoders import get_vocoder_cls
+
+    teacher, _, fd_sd = fastdiff_models(dev, torch)
+    vocoder = get_vocoder_cls("fastdiff")
+    rng = np.random.default_rng(SEED)
+    tokens, mel2ph, f0, lang, spk = (torch.as_tensor(a, device=dev) for a in
+                                     fastdiff_inputs(rng, FD_T_PH, FD_T_MEL))
+    n_lay, n_blocks = FD_CONFIG["lvc_layers_each_block"], len(FD_HOPS)
+    k1 = FD_TEACHER_STEPS * K1_LAUNCHES
+    launches = {}
+    policy.set_precision("fast")
+    try:
+        voc = vocoder({}, state_dict=fd_sd, config=FD_CONFIG, device=dev)
+        voc_unfused = vocoder({"fastdiff_packed": False}, state_dict=fd_sd, config=FD_CONFIG,
+                              device=dev)
+        if voc.model.lvc_blocks[0].kernel_predictor.dtype != torch.bfloat16 or \
+                voc_unfused.model.lvc_blocks[0].kernel_predictor.dtype is not None:
+            raise AssertionError("fast mode did not give the fused route, and it alone, a bf16 KP")
+
+        def render(v, mono=False):
+            fd_model.MONO_BLOCK = mono
+            try:
+                gen = torch.Generator(dev).manual_seed(1)
+                mel = teacher.infer(tokens, mel2ph, f0, infer_step=FD_TEACHER_STEPS, lang_seq=lang,
+                                    spk_embed_id=spk, generator=gen)
+                return v.spec2wav(mel[0], generator=gen)
+            finally:
+                fd_model.MONO_BLOCK = False
+
+        for label, v, mono, want in (
+                ("layer", voc, False, {"ublock_layer_bf16": FD_STEPS * n_blocks * n_lay}),
+                ("mono", voc, True, {"ublock_block_bf16": FD_STEPS * 2,
+                                     "ublock_layer_bf16": FD_STEPS * n_lay}),
+                ("unfused", voc_unfused, False, {"lvc": FD_STEPS * n_blocks * n_lay})):
+            render(v, mono)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            start = time.perf_counter()
+            wav = render(v, mono)
+            ms = (time.perf_counter() - start) * 1e3
+            launches[label] = check_counts(f"the FastDiff text->wav render in fast mode, {label} "
+                                           f"route", dict(want, residual_stack_bf16=k1))
+            if wav.shape != (FD_T_MEL * voc.hop,) or not np.isfinite(wav).all():
+                raise AssertionError(f"fast FastDiff render ({label}): wav {wav.shape}")
+            log(f"FastDiff text->wav in fast mode, {label} route: {ms:.3f} ms on the host clock "
+                f"(with the wav's copy), peak {np.abs(wav).max():.4f}")
+    finally:
+        policy.set_precision("parity")
+    # the fast vocoder (bf16 KP and windows) vs the parity one, same mel and noise
+    voc_parity = vocoder({}, state_dict=fd_sd, config=FD_CONFIG, device=dev)
+    nrng = np.random.default_rng(SEED + 16)
+    n_samples = FD_T_MEL * voc.hop
+    mel = torch.tensor(nrng.normal(size=(FD_T_MEL, FD_CONFIG["cond_channels"])) - 4.0,
+                       dtype=torch.float32, device=dev)
+    noise = dict(init_noise=torch.tensor(nrng.normal(size=(1, n_samples, 1)), dtype=torch.float32,
+                                         device=dev),
+                 step_noises=torch.tensor(nrng.normal(size=(FD_STEPS, 1, n_samples, 1)),
+                                          dtype=torch.float32, device=dev))
+    for mono in (False, True):
+        fd_model.MONO_BLOCK = mono
+        try:
+            got, want = voc.spec2wav(mel, **noise), voc_parity.spec2wav(mel, **noise)
+            turns = in_turns({"parity": lambda: voc_parity.spec2wav(mel, **noise),
+                              "fast": lambda: voc.spec2wav(mel, **noise)}, torch)
+        finally:
+            fd_model.MONO_BLOCK = False
+        route = f"K{7 if mono else 4}-bf16"
+        peak_compare(f"FastDiff-4 in fast mode (bf16 KP, {route}) vs parity on one mel and "
+                     f"injected noise, the wav", torch.as_tensor(got), torch.as_tensor(want),
+                     FD_BF16_WAV_TOL, torch)
+        log(f"FastDiff-4 alone ({route} route), parity and fast in turns, 10 each (host clock, "
+            f"synchronised, with the wav's copy, ms): "
+            + json.dumps({k: {kk: round(vv, 3) for kk, vv in v.items()} for k, v in turns.items()}))
+    fast_vs_parity_profile(
+        "FastDiff-4 alone (K4 route)", {"parity": lambda: voc_parity.spec2wav(mel, **noise),
+                                        "fast": lambda: voc.spec2wav(mel, **noise)},
+        {"ublock_tiled_kernel": "K4 ublock_layer", "ublock_stream_kernel": "K4 ublock_layer"},
+        torch)
+    return launches
+
+
+def phase_bf16_vocoders(dev, torch):
+    """The serving vocoders in fast mode (the module docstring's phase 14):
+    the kernels, then the FastDiff paths (the SVS render's are
+    ``bf16_render``'s, in phase 13). Returns the kernels-line summaries of
+    K2/K3-, K4- and K7-bf16 with the launches of the FastDiff routes."""
+    res, k4, k7 = bf16_vocoder_kernels(dev, torch)
+    launches = bf16_fastdiff_paths(dev, torch)
+    k4["launches"] = launches["layer"]["ublock_layer_bf16"]
+    k4["launches_mono"] = launches["mono"]["ublock_layer_bf16"]
+    k7["launches"] = launches["mono"]["ublock_block_bf16"]
+    return res, k4, k7
 
 
 def main() -> int:
@@ -3681,7 +4031,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; precision mode {policy.precision()}")
 
     sources = ("wavenet_stack", "resblock", "ublock", "ublock_block", "lvc", "wavenet_train",
-               "wavenet_stack_bf16", "wavenet_train_bf16")
+               "wavenet_stack_bf16", "wavenet_train_bf16", "resblock_bf16")
     t0 = time.time()
     skips = () if args.fastdiff_kernels else tuple(
         ("ublock", (f"LVCT_SKIP={v}",)) for v in K4_SKIPS.values()) + tuple(
@@ -3718,7 +4068,9 @@ def main() -> int:
     vt_launches = timed_phase("variance_train", phase_variance_train)
     dp_launches, dp_tree = timed_phase("data_pipeline", phase_data_pipeline)
     distill_launches = timed_phase("distillation", lambda d, t: phase_distillation(d, t, dp_tree))
-    k1_bf16, k5a_bf16, k5b_bf16 = timed_phase("bf16", phase_bf16)
+    k1_bf16, k5a_bf16, k5b_bf16, res_bf16 = timed_phase("bf16", phase_bf16)
+    res_bf16_k, k4_bf16, k7_bf16 = timed_phase("bf16_vocoders", phase_bf16_vocoders)
+    res_bf16_k["launches"] = res_bf16
     log(f"phase seconds: {json.dumps(spent)}; script total {time.time() - t_script:.3f} s")
 
     def entry(name, source, replaces, n, m, counter):
@@ -3728,11 +4080,13 @@ def main() -> int:
                     library_ms=None,  # no single PyTorch call computes any of these
                     launches_distillation=distill_launches[counter])
 
-    def bf16_entry(name, source, replaces, m, counter):
-        # launches: the bf16 phase's main paths (train svs with bf16: true for
-        # K5, the --precision fast render for K1); bound at the bf16 dense rate
+    def bf16_entry(name, source, replaces, m, counter,
+                   rate="bf16 dense tensor cores, 989 TFLOP/s; HBM 3.35 TB/s"):
+        # launches: the bf16 phases' main paths (train svs with bf16: true for
+        # K5, the --precision fast render for K1 and K2/K3, the fast FastDiff
+        # render for K4 and K7); bound at the bf16 dense rate (K4/K7: FP32)
         return dict(entry(name, source, replaces, m["launches"], m, counter), f32_ms=m["f32_ms"],
-                    bound_rate="bf16 dense tensor cores, 989 TFLOP/s; HBM 3.35 TB/s")
+                    bound_rate=rate)
 
     kernels = [
         dict(entry("wavenet_residual_stack", "wavenet_stack.cu",
@@ -3777,6 +4131,19 @@ def main() -> int:
         bf16_entry("wavenet_stack_backward_chain_bf16", "wavenet_train_bf16.cu",
                    "prodiff_tpu/ops/pallas/wavenet_train.py:161", k5b_bf16,
                    "residual_stack_chain_bf16"),
+        dict(bf16_entry("resblock_stage_bf16", "resblock_bf16.cu",
+                        "prodiff_tpu/ops/pallas/resblock.py:357", res_bf16_k,
+                        "resblock_stage_bf16"),
+             stages=res_bf16_k["stages"],
+             max_err_share_of_peak=res_bf16_k["max_err_share_of_peak"]),
+        dict(bf16_entry("ublock_layer_bf16", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
+                        k4_bf16, "ublock_layer_bf16",
+                        "FP32 FMA, 67 TFLOP/s; HBM 3.35 TB/s (bf16 window bytes)"),
+             by_block=k4_bf16["by_block"], launches_mono=k4_bf16["launches_mono"]),
+        dict(bf16_entry("ublock_block_bf16", "ublock_block.cu",
+                        "prodiff_tpu/ops/pallas/ublock.py:583", k7_bf16, "ublock_block_bf16",
+                        "FP32 FMA, 67 TFLOP/s; HBM 3.35 TB/s (bf16 window bytes)"),
+             by_block=k7_bf16["by_block"]),
     ]
     if fd_mono_launches["ublock_block"] != vocode_launches["fastdiff"]["ublock_block"]:
         raise AssertionError("K7 launched a different number of times in the mono render and vocode")

@@ -66,6 +66,16 @@
 // block, so there is no next unit; at hop 256 a second 24.6 KB buffer would
 // take two 111 KB blocks an SM down to one.
 //
+// Window elements W: float, or bf16 in K4's and K7's bf16 builds (the
+// window kernels of the JAX package's accelerator route, whose
+// KernelPredictor computes in bf16). A bf16 window is staged and streamed
+// as bf16 (half the bytes: 12.3 KB a window's kernel) and widened to float32
+// where a thread reads it, from shared memory (tiled) or global memory
+// (streaming), as ublock_layer_packed and ublock_block_packed widen each
+// window at their VMEM read (prodiff_tpu/ops/pallas/ublock.py:439-446,
+// :772); the rest of the unit is the float32 unit. The biases are float32
+// in both builds.
+//
 // LVCT_SKIP (0 in every kernel the port runs) builds variants that leave a
 // phase out, for measuring where a unit's time goes (chip_smoke.py): bit 0
 // the conv, bit 1 the window product with its kernel loads (the output is
@@ -73,6 +83,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -91,11 +102,16 @@ using lvcw::CO;
 using lvcw::KC;
 using lvcw::MAX_SMEM;
 using lvcw::NT;
-using lvcw::Stack;
+using lvcw::StackT;
+using bf16 = __nv_bfloat16;
 
 constexpr float SLOPE = 0.2f;
-constexpr int KW = KC * CO + CO;  // one window's kernel and bias, floats
 constexpr int WS = 3 * C * C + C; // the staged conv weight and bias, floats
+
+// Floats of one staged window: its kernel [KC][CO] of W values, then its
+// float bias [CO].
+template <class W>
+__host__ __device__ constexpr int kw_floats() { return KC * CO * (int)sizeof(W) / 4 + CO; }
 constexpr int TILED_MIN_HOP = 64;
 constexpr int TILED_ROWS = 256, STREAM_ROWS = 32;
 constexpr bool RUN_CONV = !(LVCT_SKIP & 1), RUN_WINDOWS = !(LVCT_SKIP & 2);
@@ -135,17 +151,20 @@ __host__ __device__ inline int staged_windows(int hop) {
 }
 
 // Shared-memory floats of a block for conv dilations up to dmax.
+template <class W = float>
 __host__ __device__ inline int smem_floats(int hop, int dmax) {
   const int R = unit_rows(hop);
-  return staged_windows(hop) * KW + WS + (R + 2 * (dmax + 1)) * C + C * (R + 8);
+  return staged_windows(hop) * kw_floats<W>() + WS + (R + 2 * (dmax + 1)) * C + C * (R + 8);
 }
 
 // Whether two blocks of smem_floats(hop, dmax) fit on one SM (228 KB, 1 KB
 // reserved a block). Where they do (hop >= 256) the tiled kernel is
 // compiled for two blocks an SM (at most 128 registers a thread); where they
-// do not (hop 64 and 96: 185 KB) for one, with the registers that frees.
+// do not (hop 64 and 96: 185 KB; 136 KB with bf16 windows) for one, with
+// the registers that frees.
+template <class W = float>
 __host__ __device__ inline bool two_per_sm(int hop, int dmax) {
-  return 2 * (smem_floats(hop, dmax) * 4 + 1024) <= 233472;
+  return 2 * (smem_floats<W>(hop, dmax) * 4 + 1024) <= 233472;
 }
 
 __device__ __forceinline__ float leaky(float v) { return fmaxf(v, SLOPE * v); }
@@ -168,6 +187,28 @@ __device__ __forceinline__ float4 ld4_stream(const float* p) {
   return v;
 }
 
+// Four bf16 values (8 bytes) widened to float32 (exact).
+__device__ __forceinline__ float4 widen4(uint2 v) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// ld4_stream of four bf16 window values, widened.
+__device__ __forceinline__ float4 ld4_stream(const bf16* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return widen4(v);
+}
+
+// Four window values from shared memory, as float32.
+__device__ __forceinline__ float4 ld4w(const float* p) { return tile::ld4(p); }
+__device__ __forceinline__ float4 ld4w(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+
 // xs is [rows][32] with its 8 float4 columns swizzled by the row, so that
 // rows 4 apart (one conv thread's neighbours) fall in different banks.
 __device__ __forceinline__ int xs_at(int row, int c4) {
@@ -175,18 +216,18 @@ __device__ __forceinline__ int xs_at(int row, int c4) {
 }
 
 struct Tiles {
-  float* Kb;  // [staged windows][KW]: kernel [KC][CO] then bias [CO]
+  float* Kb;  // [staged windows][kw_floats<W>()]: kernel [KC][CO] of W, then bias [CO]
   float* Ws;  // [3][C][C] (tap, in, out) then the bias [C]
   float* xs;  // [R + 2h][32] (swizzled), row i = time t0 - h + i, h = dmax + 1
   float* yT;  // [C][R + 8], col j + 3 = time t0 - 1 + j
 };
 
-template <bool STREAM = false>
+template <bool STREAM = false, class W = float>
 __device__ __forceinline__ Tiles carve(float* smem, int hop, int dmax) {
   const int R = unit_rows(hop);
   Tiles tl;
   tl.Kb = smem;
-  tl.Ws = tl.Kb + (STREAM ? 0 : unit_windows(hop) * KW);
+  tl.Ws = tl.Kb + (STREAM ? 0 : unit_windows(hop) * kw_floats<W>());
   tl.xs = tl.Ws + WS;
   tl.yT = tl.xs + (R + 2 * (dmax + 1)) * C;
   return tl;
@@ -195,12 +236,14 @@ __device__ __forceinline__ Tiles carve(float* smem, int hop, int dmax) {
 // One layer's operands: x_in [B, T, C] (written by other blocks in K7: read
 // through L2 only), ad [B, T, C], cw [C, C, 3] (torch Conv1d layout), cb [C],
 // the window stack at (step, layer), x_out [B, T, C].
-struct Layer {
+template <class W>
+struct LayerT {
+  using Window = W;
   const float* x;
   const float* ad;
   const float* cw;
   const float* cb;
-  Stack s;
+  StackT<W> s;
   float* out;
   int T, hop, dil;
 };
@@ -210,7 +253,8 @@ struct Layer {
 // co's 96 weights (torch layout [out][in][tap]), all in flight before the
 // first store, and stores them with co consecutive across the warp (no bank
 // conflicts).
-__device__ __forceinline__ void stage_conv(const Layer& a, const Tiles& tl, int tid) {
+template <class Lyr>
+__device__ __forceinline__ void stage_conv(const Lyr& a, const Tiles& tl, int tid) {
   static_assert(3 * C * C == 3 * 4 * NT, "three float4s a thread");
   const int co = tid & 31, w = tid >> 5;
   float4 v[3];
@@ -232,17 +276,18 @@ __device__ __forceinline__ void stage_conv(const Layer& a, const Tiles& tl, int 
 
 // Start the copies of the windows that tiled unit (b, t0) reads; one commit
 // group.
-template <int R>
-__device__ __forceinline__ void issue_kernels(const Layer& a, int b, int t0, const Tiles& tl,
+template <int R, class W>
+__device__ __forceinline__ void issue_kernels(const LayerT<W>& a, int b, int t0, const Tiles& tl,
                                               int tid) {
   if constexpr (!RUN_WINDOWS) return;
+  constexpr int KWF = kw_floats<W>(), PIECES = KC * CO * (int)sizeof(W) / 16;
   const int l0 = t0 / a.hop, l1 = (min(t0 + R, a.T) - 1) / a.hop;
   for (int l = l0; l <= l1; ++l) {
-    const float* src = a.s.kernel(b, l);
+    const float* src = reinterpret_cast<const float*>(a.s.kernel(b, l));
     const float* bsrc = a.s.bias(b, l);
-    float* dst = tl.Kb + (l - l0) * KW;
-    for (int i = tid; i < KC * CO / 4; i += NT) tile::cp_async16(dst + 4 * i, src + 4 * i, true);
-    if (tid < CO / 4) tile::cp_async16(dst + KC * CO + 4 * tid, bsrc + 4 * tid, true);
+    float* dst = tl.Kb + (l - l0) * KWF;
+    for (int i = tid; i < PIECES; i += NT) tile::cp_async16(dst + 4 * i, src + 4 * i, true);
+    if (tid < CO / 4) tile::cp_async16(dst + KWF - CO + 4 * tid, bsrc + 4 * tid, true);
   }
   tile::cp_async_commit();
 }
@@ -255,15 +300,15 @@ __device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
 
 // Bring unit (b, t0)'s x + audio_down rows and window kernels toward L2
 // while the current unit computes (thread 0 issues a few bulk prefetches).
-template <int R>
-__device__ __forceinline__ void prefetch_unit(const Layer& a, int b, int t0) {
+template <int R, class W>
+__device__ __forceinline__ void prefetch_unit(const LayerT<W>& a, int b, int t0) {
   const int h = a.dil + 1, lo = max(t0 - h, 0), hi = min(t0 + R + h, a.T);
   const size_t off = ((size_t)b * a.T + lo) * C;
   const unsigned bytes = (unsigned)(hi - lo) * C * sizeof(float);
   prefetch_l2(a.x + off, bytes);
   prefetch_l2(a.ad + off, bytes);
   for (int l = t0 / a.hop; l <= (min(t0 + R, a.T) - 1) / a.hop; ++l) {
-    prefetch_l2(a.s.kernel(b, l), KC * CO * sizeof(float));
+    prefetch_l2(a.s.kernel(b, l), KC * CO * sizeof(W));
     prefetch_l2(a.s.bias(b, l), CO * sizeof(float));
   }
 }
@@ -279,8 +324,9 @@ struct StreamKernel {
 };
 
 // Issue the 24 + 1 loads of a lane's StreamKernel: K the window's kernel
-// [KC][CO], bias its [CO].
-__device__ __forceinline__ void load_stream_share(const float* K, const float* bias, int kq,
+// [KC][CO] (float, or bf16 widened as it arrives), bias its [CO].
+template <class W>
+__device__ __forceinline__ void load_stream_share(const W* K, const float* bias, int kq,
                                                   int col, StreamKernel& sk) {
   K += col;
 #pragma unroll
@@ -355,7 +401,8 @@ __device__ __forceinline__ int stream_col(int tid) {
 }
 
 // Issue the loads of a lane's StreamKernel for unit (b, t0).
-__device__ __forceinline__ void load_stream_kernel(const Layer& a, int b, int t0, int tid,
+template <class W>
+__device__ __forceinline__ void load_stream_kernel(const LayerT<W>& a, int b, int t0, int tid,
                                                    StreamKernel& sk) {
   const int t = t0 + 8 * (tid >> 6);
   if (t >= a.T) return;  // the warp's rows are past the sequence end
@@ -366,8 +413,8 @@ __device__ __forceinline__ void load_stream_kernel(const Layer& a, int b, int t0
 // The streaming window product of unit (b, t0) (R rows; yT and xs staged):
 // the lane's quarter sums (stream_quarters), then gate and filter quads meet
 // (xor 4); each lane writes one row's 4 outputs.
-template <int R>
-__device__ __forceinline__ void stream_product(const Layer& a, int b, int t0, const Tiles& tl,
+template <int R, class W>
+__device__ __forceinline__ void stream_product(const LayerT<W>& a, int b, int t0, const Tiles& tl,
                                                int tid, const StreamKernel& sk) {
   constexpr int LDY = R + 8;
   const int T = a.T, h = a.dil + 1;
@@ -402,9 +449,9 @@ __device__ __forceinline__ void stream_product(const Layer& a, int b, int t0, co
 // the conv weight of this layer is staged before the call. The block's next
 // unit of the layer, (nb, nt0) unless nb < 0, is prefetched into L2 as the
 // window product starts.
-template <int R, int M, int CM, int CN, bool STREAM = false, bool SPLIT = false>
-__device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Tiles& tl, int tid,
-                                         bool kernels_issued, int nb, int nt0) {
+template <int R, int M, int CM, int CN, bool STREAM = false, bool SPLIT = false, class W>
+__device__ __forceinline__ void run_unit(const LayerT<W>& a, int b, int t0, const Tiles& tl,
+                                         int tid, bool kernels_issued, int nb, int nt0) {
   static_assert(R == (NT / (C / CN)) * CM, "the conv is one pass of the block");
   static_assert(STREAM ? R == 8 * (NT / 64) : R == 32 * M && M % 4 == 0,
                 "streaming: a warp pair a row group of 8; tiled: 32 row groups of M rows");
@@ -542,19 +589,22 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
   // tiled: rows r0 .. r0 + M - 1, output pairs (4pg + p, 32 + 4pg + p)
   const int rg = tid >> 3, pg = tid & 7, r0 = rg * M;
   if (t0 + r0 >= T) return;  // past the sequence end (a whole row group: 8 | hop; SPLIT: 4 | T)
+  constexpr int KWF = kw_floats<W>();
   const int w = (t0 + r0) / a.hop - t0 / a.hop;
-  const float* K = tl.Kb + w * KW;
+  const float* Ks = tl.Kb + w * KWF;  // the window's slot: kernel, then bias at KWF - CO
   // SPLIT: rows M/2 .. M - 1 read K2, the window of row M/2 (K where that row
   // is past T: those rows are not written)
-  const float* K2 = K;
-  if constexpr (SPLIT) K2 = tl.Kb + (min(t0 + r0 + M / 2, T - 1) / a.hop - t0 / a.hop) * KW;
+  const float* Ks2 = Ks;
+  if constexpr (SPLIT) Ks2 = tl.Kb + (min(t0 + r0 + M / 2, T - 1) / a.hop - t0 / a.hop) * KWF;
+  const W* K = reinterpret_cast<const W*>(Ks);
+  const W* K2 = reinterpret_cast<const W*>(Ks2);
   float ag[M][4], af[M][4];
   {
-    const float4 bg = tile::ld4(K + KC * CO + 4 * pg), bf = tile::ld4(K + KC * CO + C + 4 * pg);
+    const float4 bg = tile::ld4(Ks + KWF - CO + 4 * pg), bf = tile::ld4(Ks + KWF - CO + C + 4 * pg);
     float4 bg2 = bg, bf2 = bf;
     if constexpr (SPLIT) {
-      bg2 = tile::ld4(K2 + KC * CO + 4 * pg);
-      bf2 = tile::ld4(K2 + KC * CO + C + 4 * pg);
+      bg2 = tile::ld4(Ks2 + KWF - CO + 4 * pg);
+      bf2 = tile::ld4(Ks2 + KWF - CO + C + 4 * pg);
     }
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -576,13 +626,13 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
     v[M + 1] = yr[M + 1];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      const float* kr = K + (q * C + c) * CO + 4 * pg;
-      const float4 kg1 = tile::ld4(kr), kf1 = tile::ld4(kr + C);
+      const W* kr = K + (q * C + c) * CO + 4 * pg;
+      const float4 kg1 = ld4w(kr), kf1 = ld4w(kr + C);
       float4 kg2 = kg1, kf2 = kf1;
       if constexpr (SPLIT) {
-        const float* kr2 = K2 + (q * C + c) * CO + 4 * pg;
-        kg2 = tile::ld4(kr2);
-        kf2 = tile::ld4(kr2 + C);
+        const W* kr2 = K2 + (q * C + c) * CO + 4 * pg;
+        kg2 = ld4w(kr2);
+        kf2 = ld4w(kr2 + C);
       }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
@@ -613,7 +663,7 @@ __device__ __forceinline__ void run_unit(const Layer& a, int b, int t0, const Ti
 // the current device, its shared-memory attribute raised as needed. Cached
 // per device, kernel (`variant` < VARIANTS, one per kernel of a library) and
 // size; static, so that two loaded libraries never share the cache.
-constexpr int VARIANTS = 4;
+constexpr int VARIANTS = 8;
 
 template <class K>
 static cudaError_t blocks_per_sm(K kernel, int variant, int smem, int* per_sm,

@@ -29,13 +29,15 @@ constexpr int MAX_SMEM = 232448;
 __host__ inline bool hop_supported(int hop) { return hop >= 8 && hop % 8 == 0; }
 
 // Window (step, b, l, layer)'s kernel [KC, CO] and bias [CO] in the hoisted
-// stacks km [N, B, L, layers*KC, CO] and lb [N, B, L, layers*CO].
-struct Stack {
-  const float* km;
+// stacks km [N, B, L, layers*KC, CO] (window elements W: float, or bf16 in
+// K4's and K7's bf16 builds) and lb [N, B, L, layers*CO] (float).
+template <class W>
+struct StackT {
+  const W* km;
   const float* lb;
   int B, L, layers, step, layer;
 
-  __device__ const float* kernel(int b, int l) const {
+  __device__ const W* kernel(int b, int l) const {
     return km + (((size_t)step * B + b) * L + l) * ((size_t)layers * KC * CO) +
            (size_t)layer * KC * CO;
   }
@@ -43,5 +45,7 @@ struct Stack {
     return lb + (((size_t)step * B + b) * L + l) * ((size_t)layers * CO) + (size_t)layer * CO;
   }
 };
+
+using Stack = StackT<float>;
 
 }  // namespace lvcw

@@ -30,6 +30,13 @@
 // from 64 that are 4 mod 8 (ublock_layer_packed takes every multiple of 4)
 // an 8-row tile may straddle a window edge: the tiled plan's SPLIT build
 // reads a second window's kernel for the tile's last 4 rows.
+//
+// The bf16 build (ublock_layer_forward_bf16; template argument W = bf16)
+// takes the bf16 window kernels of the JAX package's accelerator route
+// (K4-bf16): staged or streamed as bf16, half the window bytes, which bound
+// block 0, and widened to float32 at each read, as ublock_layer_packed
+// widens them at its VMEM read (ublock.py:439-446); everything else is the
+// float32 layer.
 
 #include "lvc_tiles.cuh"
 
@@ -39,11 +46,11 @@ namespace {
 
 // hop >= 64: the tiled plan, MINB blocks an SM (two_per_sm); SPLIT at hops
 // that are 4 mod 8 (one block an SM: such a unit stages at least 2 windows)
-template <int MINB, bool SPLIT = false>
-__global__ void __launch_bounds__(NT, MINB) ublock_tiled_kernel(Layer a, int B) {
+template <class W, int MINB, bool SPLIT = false>
+__global__ void __launch_bounds__(NT, MINB) ublock_tiled_kernel(LayerT<W> a, int B) {
   extern __shared__ float4 smem4[];
   constexpr int R = TILED_ROWS;
-  const Tiles tl = carve(reinterpret_cast<float*>(smem4), a.hop, a.dil);
+  const Tiles tl = carve<false, W>(reinterpret_cast<float*>(smem4), a.hop, a.dil);
   const int tid = threadIdx.x, per_b = (a.T + R - 1) / R;
   const int units = B * per_b;
   stage_conv(a, tl, tid);  // made visible by run_unit's barriers
@@ -55,7 +62,8 @@ __global__ void __launch_bounds__(NT, MINB) ublock_tiled_kernel(Layer a, int B) 
 }
 
 // hop < 64: the streaming plan, one block an SM (its registers)
-__global__ void __launch_bounds__(NT, 1) ublock_stream_kernel(Layer a, int B) {
+template <class W>
+__global__ void __launch_bounds__(NT, 1) ublock_stream_kernel(LayerT<W> a, int B) {
   extern __shared__ float4 smem4[];
   constexpr int R = STREAM_ROWS;
   const Tiles tl = carve<true>(reinterpret_cast<float*>(smem4), a.hop, a.dil);
@@ -70,14 +78,17 @@ __global__ void __launch_bounds__(NT, 1) ublock_stream_kernel(Layer a, int B) {
 }
 
 // Blocks of the persistent grid for (B, T, hop, dil), or a negative error.
+template <class W>
 int layer_grid(int B, int T, int hop, int dil, int* grid) {
-  const int smem = smem_floats(hop, dil) * (int)sizeof(float), R = unit_rows(hop);
+  const int smem = smem_floats<W>(hop, dil) * (int)sizeof(float), R = unit_rows(hop);
+  const int v = sizeof(W) == 2 ? 4 : 0;  // the bf16 kernels' cache slots
   int per_sm = 0, sms = 0;
   cudaError_t e =
-      hop < TILED_MIN_HOP    ? blocks_per_sm(ublock_stream_kernel, 0, smem, &per_sm)
-      : split_tiles(hop)     ? blocks_per_sm(ublock_tiled_kernel<1, true>, 3, smem, &per_sm)
-      : two_per_sm(hop, dil) ? blocks_per_sm(ublock_tiled_kernel<2>, 1, smem, &per_sm)
-                             : blocks_per_sm(ublock_tiled_kernel<1>, 2, smem, &per_sm);
+      hop < TILED_MIN_HOP ? blocks_per_sm(ublock_stream_kernel<W>, v, smem, &per_sm)
+      : split_tiles(hop)  ? blocks_per_sm(ublock_tiled_kernel<W, 1, true>, v + 3, smem, &per_sm)
+      : two_per_sm<W>(hop, dil)
+          ? blocks_per_sm(ublock_tiled_kernel<W, 2>, v + 1, smem, &per_sm)
+          : blocks_per_sm(ublock_tiled_kernel<W, 1>, v + 2, smem, &per_sm);
   if (e == cudaSuccess) e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
   const int units = B * ((T + R - 1) / R);
@@ -85,46 +96,68 @@ int layer_grid(int B, int T, int hop, int dil, int* grid) {
   return *grid < 1 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
+template <class W>
+int layer_forward(const float* x, const float* ad, const float* cw, const float* cb, const W* km,
+                  const float* lb, float* out, int B, int T, int L, int hop, int dil, int layers,
+                  int step, int layer, cudaStream_t stream) {
+  if (B < 1 || L < 1 || !layer_hop_supported(hop) || T != L * hop || dil < 1 || layers < 1 ||
+      step < 0 || layer < 0 || layer >= layers)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_floats<W>(hop, dil) * sizeof(float);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const int e = layer_grid<W>(B, T, hop, dil, &grid);
+  if (e != 0) return e;
+  const LayerT<W> a{x, ad, cw, cb, StackT<W>{km, lb, B, L, layers, step, layer}, out, T, hop, dil};
+  if (hop < TILED_MIN_HOP)
+    ublock_stream_kernel<W><<<grid, NT, smem, stream>>>(a, B);
+  else if (split_tiles(hop))
+    ublock_tiled_kernel<W, 1, true><<<grid, NT, smem, stream>>>(a, B);
+  else if (two_per_sm<W>(hop, dil))
+    ublock_tiled_kernel<W, 2><<<grid, NT, smem, stream>>>(a, B);
+  else
+    ublock_tiled_kernel<W, 1><<<grid, NT, smem, stream>>>(a, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Shared-memory bytes of one block of the layer kernel at (hop, dil).
+// Shared-memory bytes of one block of the layer kernel at (hop, dil), float32
+// windows (_bf16: bf16 windows).
 extern "C" int ublock_layer_smem(int hop, int dil) {
-  return smem_floats(hop, dil) * (int)sizeof(float);
+  return smem_floats<float>(hop, dil) * (int)sizeof(float);
+}
+extern "C" int ublock_layer_smem_bf16(int hop, int dil) {
+  return smem_floats<bf16>(hop, dil) * (int)sizeof(float);
 }
 
 // Blocks of the layer kernel's persistent grid for (B, T, hop, dil) on the
 // current device, or -1 on an error.
 extern "C" int ublock_layer_grid(int B, int T, int hop, int dil) {
   int grid = 0;
-  return layer_grid(B, T, hop, dil, &grid) == 0 ? grid : -1;
+  return layer_grid<float>(B, T, hop, dil, &grid) == 0 ? grid : -1;
+}
+extern "C" int ublock_layer_grid_bf16(int B, int T, int hop, int dil) {
+  int grid = 0;
+  return layer_grid<bf16>(B, T, hop, dil, &grid) == 0 ? grid : -1;
 }
 
 // x, ad [B, T, 32]; cw [32, 32, 3] (torch Conv1d layout), cb [32];
 // km [N, B, L, layers*96, 64], lb [N, B, L, layers*64] (a plain per-layer
 // kmat is N = layers = 1); out [B, T, 32], distinct from x and ad. Reads step
 // `step`, layer `layer`. One launch on `stream`; returns the launch error
-// (cudaError_t) or 0.
+// (cudaError_t) or 0. km is float32 here, bf16 in ublock_layer_forward_bf16.
 extern "C" int ublock_layer_forward(const float* x, const float* ad, const float* cw,
                                     const float* cb, const float* km, const float* lb,
                                     float* out, int B, int T, int L, int hop, int dil,
                                     int layers, int step, int layer, void* stream_ptr) {
-  if (B < 1 || L < 1 || !layer_hop_supported(hop) || T != L * hop || dil < 1 || layers < 1 ||
-      step < 0 || layer < 0 || layer >= layers)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = ublock_layer_smem(hop, dil);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  const int e = layer_grid(B, T, hop, dil, &grid);
-  if (e != 0) return e;
-  const Layer a{x, ad, cw, cb, Stack{km, lb, B, L, layers, step, layer}, out, T, hop, dil};
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (hop < TILED_MIN_HOP)
-    ublock_stream_kernel<<<grid, NT, smem, stream>>>(a, B);
-  else if (split_tiles(hop))
-    ublock_tiled_kernel<1, true><<<grid, NT, smem, stream>>>(a, B);
-  else if (two_per_sm(hop, dil))
-    ublock_tiled_kernel<2><<<grid, NT, smem, stream>>>(a, B);
-  else
-    ublock_tiled_kernel<1><<<grid, NT, smem, stream>>>(a, B);
-  return (int)cudaGetLastError();
+  return layer_forward<float>(x, ad, cw, cb, km, lb, out, B, T, L, hop, dil, layers, step, layer,
+                              (cudaStream_t)stream_ptr);
+}
+extern "C" int ublock_layer_forward_bf16(const float* x, const float* ad, const float* cw,
+                                         const float* cb, const void* km, const float* lb,
+                                         float* out, int B, int T, int L, int hop, int dil,
+                                         int layers, int step, int layer, void* stream_ptr) {
+  return layer_forward<bf16>(x, ad, cw, cb, static_cast<const bf16*>(km), lb, out, B, T, L, hop,
+                             dil, layers, step, layer, (cudaStream_t)stream_ptr);
 }

@@ -25,6 +25,11 @@
 // staging that a chain of K4 launches pays at every launch. The grid is the
 // co-resident block count (occupancy API), so a refused launch is an error
 // the caller sees, never a fallback.
+//
+// The bf16 build (ublock_block_forward_bf16; W = bf16, K7-bf16) takes the
+// bf16 window kernels of the JAX package's accelerator route, staged as
+// bf16 and widened to float32 at each shared-memory read, as
+// ublock_block_packed widens them at its VMEM read (ublock.py:772).
 
 #include <cooperative_groups.h>
 
@@ -39,21 +44,23 @@ constexpr int MAX_LAYERS = 8;  // ops/ublock.py:MONO_MAX_LAYERS
 
 // The block's operands, in the kernel's parameter space (read through the
 // constant cache, so they hold no registers across the layer loop).
+template <class W>
 struct BlockArgs {
-  Layer layer[MAX_LAYERS];
+  LayerT<W> layer[MAX_LAYERS];
   int B, n, dmax;
 };
 
-template <int MINB>
-__global__ void __launch_bounds__(NT, MINB) ublock_block_kernel(const __grid_constant__ BlockArgs p) {
+template <class W, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+ublock_block_kernel(const __grid_constant__ BlockArgs<W> p) {
   extern __shared__ float4 smem4[];
-  const Tiles tl = carve(reinterpret_cast<float*>(smem4), p.layer[0].hop, p.dmax);
+  const Tiles tl = carve<false, W>(reinterpret_cast<float*>(smem4), p.layer[0].hop, p.dmax);
   cg::grid_group grid = cg::this_grid();
   constexpr int R = 256;
   const int tid = threadIdx.x, per_b = (p.layer[0].T + R - 1) / R, units = p.B * per_b;
   stage_conv(p.layer[0], tl, tid);
   for (int i = 0; i < p.n; ++i) {
-    const Layer& a = p.layer[i];
+    const LayerT<W>& a = p.layer[i];
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const int n = u + gridDim.x < units ? u + gridDim.x : -1;
       // layer i > 0: its first unit's kernels were issued before the barrier
@@ -70,45 +77,27 @@ __global__ void __launch_bounds__(NT, MINB) ublock_block_kernel(const __grid_con
 }
 
 // Co-resident blocks of the kernel on the current device at (hop, dmax).
+template <class W>
 cudaError_t block_slots(int hop, int dmax, int* slots) {
   int per_sm = 0, sms = 0;
-  const int smem = smem_floats(hop, dmax) * (int)sizeof(float);
-  cudaError_t e = two_per_sm(hop, dmax) ? blocks_per_sm(ublock_block_kernel<2>, 0, smem, &per_sm)
-                                        : blocks_per_sm(ublock_block_kernel<1>, 1, smem, &per_sm);
+  const int smem = smem_floats<W>(hop, dmax) * (int)sizeof(float);
+  const int v = sizeof(W) == 2 ? 2 : 0;  // the bf16 kernels' cache slots
+  cudaError_t e = two_per_sm<W>(hop, dmax)
+                      ? blocks_per_sm(ublock_block_kernel<W, 2>, v, smem, &per_sm)
+                      : blocks_per_sm(ublock_block_kernel<W, 1>, v + 1, smem, &per_sm);
   if (e == cudaSuccess) e = sm_count(&sms);
   *slots = per_sm * sms;
   return e;
 }
 
-}  // namespace
-
-// Shared-memory bytes of one block of the kernel at (hop, the largest dilation).
-extern "C" int ublock_block_smem(int hop, int dmax) {
-  return smem_floats(hop, dmax) * (int)sizeof(float);
-}
-
-// Blocks of the kernel that can be co-resident on the current device, or -1
-// on an error.
-extern "C" int ublock_block_slots(int hop, int dmax) {
-  int slots = 0;
-  return block_slots(hop, dmax, &slots) == cudaSuccess ? slots : -1;
-}
-
-// src[i], dst[i] [B, T, 32]: layer i's input and output (layer i + 1 reads
-// dst[i]; a layer never writes what it reads; ops/ublock.py:pingpong plans
-// them); ad [B, T, 32]; cw [n, 32, 32, 3] (torch Conv1d layout per layer),
-// cb [n, 32]; km [N, B, L, n*96, 64], lb [N, B, L, n*64]; dil [n]. Runs the
-// n layers of the block at stack step `step`. One cooperative launch on
-// `stream`; returns the launch error (cudaError_t; a refused cooperative
-// launch included) or 0.
-extern "C" int ublock_block_forward(const float* const* src, float* const* dst, const float* ad,
-                                    const float* cw, const float* cb, const float* km,
-                                    const float* lb, const int* dil, int n, int B, int T, int L,
-                                    int hop, int layers, int step, void* stream_ptr) {
+template <class W>
+int block_forward(const float* const* src, float* const* dst, const float* ad, const float* cw,
+                  const float* cb, const W* km, const float* lb, const int* dil, int n, int B,
+                  int T, int L, int hop, int layers, int step, cudaStream_t stream) {
   if (n < 1 || n > MAX_LAYERS || layers != n || B < 1 || L < 1 || hop < TILED_MIN_HOP ||
       hop % 32 || T != L * hop || step < 0)
     return (int)cudaErrorInvalidValue;
-  BlockArgs p{};
+  BlockArgs<W> p{};
   p.B = B;
   p.n = n;
   for (int i = 0; i < n; ++i) {
@@ -116,20 +105,65 @@ extern "C" int ublock_block_forward(const float* const* src, float* const* dst, 
     p.dmax = dil[i] > p.dmax ? dil[i] : p.dmax;
     if ((const float*)dst[i] == src[i] || (i > 0 && src[i] != dst[i - 1]))
       return (int)cudaErrorInvalidValue;
-    p.layer[i] = Layer{src[i], ad, cw + (size_t)i * C * C * 3, cb + i * C,
-                       Stack{km, lb, B, L, layers, step, i}, dst[i], T, hop, dil[i]};
+    p.layer[i] = LayerT<W>{src[i], ad, cw + (size_t)i * C * C * 3, cb + i * C,
+                           StackT<W>{km, lb, B, L, layers, step, i}, dst[i], T, hop, dil[i]};
   }
-  const int smem = ublock_block_smem(hop, p.dmax);
+  const int smem = smem_floats<W>(hop, p.dmax) * (int)sizeof(float);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   int slots = 0;
-  cudaError_t e = block_slots(hop, p.dmax, &slots);
+  cudaError_t e = block_slots<W>(hop, p.dmax, &slots);
   if (e != cudaSuccess) return (int)e;
   const int units = B * ((T + 255) / 256);
   const int grid = units < slots ? units : slots;
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  const void* kernel = two_per_sm(hop, p.dmax) ? (const void*)ublock_block_kernel<2>
-                                               : (const void*)ublock_block_kernel<1>;
-  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, smem,
-                                          (cudaStream_t)stream_ptr);
+  const void* kernel = two_per_sm<W>(hop, p.dmax) ? (const void*)ublock_block_kernel<W, 2>
+                                                  : (const void*)ublock_block_kernel<W, 1>;
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, smem, stream);
+}
+
+}  // namespace
+
+// Shared-memory bytes of one block of the kernel at (hop, the largest
+// dilation), float32 windows (_bf16: bf16 windows).
+extern "C" int ublock_block_smem(int hop, int dmax) {
+  return smem_floats<float>(hop, dmax) * (int)sizeof(float);
+}
+extern "C" int ublock_block_smem_bf16(int hop, int dmax) {
+  return smem_floats<bf16>(hop, dmax) * (int)sizeof(float);
+}
+
+// Blocks of the kernel that can be co-resident on the current device, or -1
+// on an error.
+extern "C" int ublock_block_slots(int hop, int dmax) {
+  int slots = 0;
+  return block_slots<float>(hop, dmax, &slots) == cudaSuccess ? slots : -1;
+}
+extern "C" int ublock_block_slots_bf16(int hop, int dmax) {
+  int slots = 0;
+  return block_slots<bf16>(hop, dmax, &slots) == cudaSuccess ? slots : -1;
+}
+
+// src[i], dst[i] [B, T, 32]: layer i's input and output (layer i + 1 reads
+// dst[i]; a layer never writes what it reads; ops/ublock.py:pingpong plans
+// them); ad [B, T, 32]; cw [n, 32, 32, 3] (torch Conv1d layout per layer),
+// cb [n, 32]; km [N, B, L, n*96, 64] (float32 here, bf16 in
+// ublock_block_forward_bf16), lb [N, B, L, n*64]; dil [n]. Runs the n layers
+// of the block at stack step `step`. One cooperative launch on `stream`;
+// returns the launch error (cudaError_t; a refused cooperative launch
+// included) or 0.
+extern "C" int ublock_block_forward(const float* const* src, float* const* dst, const float* ad,
+                                    const float* cw, const float* cb, const float* km,
+                                    const float* lb, const int* dil, int n, int B, int T, int L,
+                                    int hop, int layers, int step, void* stream_ptr) {
+  return block_forward<float>(src, dst, ad, cw, cb, km, lb, dil, n, B, T, L, hop, layers, step,
+                              (cudaStream_t)stream_ptr);
+}
+extern "C" int ublock_block_forward_bf16(const float* const* src, float* const* dst,
+                                         const float* ad, const float* cw, const float* cb,
+                                         const void* km, const float* lb, const int* dil, int n,
+                                         int B, int T, int L, int hop, int layers, int step,
+                                         void* stream_ptr) {
+  return block_forward<bf16>(src, dst, ad, cw, cb, static_cast<const bf16*>(km), lb, dil, n, B, T,
+                             L, hop, layers, step, (cudaStream_t)stream_ptr);
 }

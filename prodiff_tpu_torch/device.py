@@ -9,9 +9,12 @@ contract (``prodiff_tpu/ops/pallas/__init__.py``). Two modes:
   ``bf16``/``amp`` is true.
 - ``fast``: what the JAX package computes on its accelerator, with the CUDA
   card in the TPU's place: ``bf16: null`` trains with the bf16 compute policy
-  (``prodiff_tpu/models/prodiff.py:resolve_train_bf16``) and a render's
+  (``prodiff_tpu/models/prodiff.py:resolve_train_bf16``), a render's
   WaveNet stack streams its weights in ``pallas_wavenet_dtype`` (bfloat16 by
-  default), as the JAX kernel route does.
+  default), as the JAX kernel route does, NSF-HiFiGAN's resblock stages take
+  bf16 tap stacks (``nsf_fused_res_dtype``, :func:`resblock_tap_dtype`) and
+  FastDiff's fused-layer route computes its KernelPredictor, and so its
+  window kernels, in bf16 (:func:`kernel_predictor_dtype`).
 
 Both modes keep TF32 off for matrix products
 (``torch.backends.cuda.matmul.allow_tf32``) and cuDNN convolutions
@@ -102,6 +105,38 @@ def kernel_operand_dtype(dtype: Optional[torch.dtype], stream: torch.dtype,
     if not train and _mode == FAST:
         return stream
     return dtype or torch.float32
+
+
+FUSED_RES_DTYPES = ("auto", "float32", "off")
+
+
+def resblock_tap_dtype(hp: Dict[str, Any], device: Optional[Device]) -> torch.dtype:
+    """Tap dtype of NSF-HiFiGAN's resblock stages, read from
+    ``nsf_fused_res_dtype`` as ``prodiff_tpu/vocoders/nsf_hifigan.py:99-106``
+    reads it: ``auto`` (the default; also an empty value) gives bfloat16 tap
+    stacks on the JAX package's packed accelerator route (``nsf_packed``
+    unset or true), here ``fast`` mode on a CUDA device, else float32;
+    ``float32`` and ``off`` give float32. ``off`` selects the JAX package's
+    packed-XLA stages, which the port does not have: it runs the float32
+    kernel, the same function. Any other value raises, as the JAX dict lookup
+    does. Which stages take the bf16 stacks is the model's stage gate
+    (``models/nsf_hifigan.py:stage_tap_dtypes``)."""
+    value = hp.get("nsf_fused_res_dtype", "auto") or "auto"
+    if value not in FUSED_RES_DTYPES:
+        raise KeyError(f"nsf_fused_res_dtype {value!r}: one of {FUSED_RES_DTYPES}")
+    packed = hp.get("nsf_packed", None) is not False
+    return torch.bfloat16 if value == "auto" and packed and _on_card(device) else torch.float32
+
+
+def kernel_predictor_dtype(fused_layer: bool, device: Optional[Device]) -> torch.dtype:
+    """Compute dtype of FastDiff's KernelPredictor: bfloat16 on the fused-layer
+    route in ``fast`` mode on a CUDA device, as the JAX packed route builds
+    it off interpret mode (``prodiff_tpu/models/fastdiff.py:522-535``,
+    ``:675-721``), so the window kernels come out bf16; float32 otherwise,
+    and always on the unfused route (``fastdiff_packed: false``), whose JAX
+    counterpart (the linen route) builds it with the module's dtype, which
+    no config sets."""
+    return torch.bfloat16 if fused_layer and _on_card(device) else torch.float32
 
 
 def resolve_device(device: Optional[Device] = None) -> torch.device:

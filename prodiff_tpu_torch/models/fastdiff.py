@@ -37,8 +37,13 @@ ported; nor are its diagnostic knobs.
 The KernelPredictor depends only on (mel, step), so a sampler hoists it out
 of its loop (:func:`fastdiff_step_kernels`): one batched KP per block per
 segment, stacked ``[n, B, L, layers*3C, 2C]``, which the layer kernels read
-in place at (step, layer). Layout is ``[B, T, C]`` at the public functions,
-as in the JAX package; the convs run channel-first inside.
+in place at (step, layer). With ``kp_dtype=torch.bfloat16`` (the fused
+layer in ``fast`` mode on the card, ``device.kernel_predictor_dtype``, as the
+JAX packed route off interpret mode) the KernelPredictors compute in bf16
+and the stacks are bf16; the layer kernels widen each window value to
+float32 where they read it, and the biases stay float32. Layout is
+``[B, T, C]`` at the public functions, as in the JAX package; the convs run
+channel-first inside.
 
 State-dict names follow the torch reference (``first_audio_conv``,
 ``downsample.{i}.conv.{j}``, ``lvc_blocks.{i}.kernel_predictor.residual_conv.{1,3,6,8,11,13}``,
@@ -130,11 +135,21 @@ class DiffusionDBlock(nn.Module):
 
 
 class KernelPredictor(nn.Module):
+    """Port of ``prodiff_tpu/models/fastdiff.py:KernelPredictor`` with
+    ``flat=True``. ``dtype`` is flax's ``dtype=``: None computes in float32;
+    ``torch.bfloat16`` casts the parameters (kept float32) and the input to
+    bf16 at use and runs every conv, bias add, leaky and the residual add in
+    bf16, rounding where flax does (``promote_dtype``; a conv's or a head's
+    product, then its bias add, each round to bf16: ``_GemmSameConv``). So
+    the window kernels come out bf16. These convs run outside any Pallas
+    kernel in the JAX package; here cuDNN and cuBLAS compute them."""
+
     def __init__(self, cond_channels: int, conv_in_channels: int, conv_out_channels: int,
                  conv_layers: int, conv_kernel_size: int = 3, kpnet_hidden_channels: int = 64,
-                 kpnet_conv_size: int = 3):
+                 kpnet_conv_size: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         hid, ks = kpnet_hidden_channels, kpnet_conv_size
+        self.dtype = dtype
         self.conv_size = ks
         self.input_conv = nn.Sequential(nn.Conv1d(cond_channels, hid, 5, padding=2),
                                         nn.LeakyReLU(KP_LRELU))
@@ -151,13 +166,33 @@ class KernelPredictor(nn.Module):
     def _head(self, hu: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
         # a SAME conv as one GEMM on the unfolded input, so the (large) output
         # comes out [B, L, features] contiguous, ready for the window kernels
-        return F.linear(hu, conv.weight.view(conv.out_channels, -1), conv.bias)
+        w = conv.weight.view(conv.out_channels, -1)
+        if self.dtype is None:
+            return F.linear(hu, w, conv.bias)
+        return F.linear(hu, w.to(self.dtype)) + conv.bias.to(self.dtype)
+
+    def _trunk_bf16(self, c: torch.Tensor) -> torch.Tensor:
+        """The input and residual convs in ``self.dtype``, flax's rounding."""
+        def conv(h, m):
+            return (F.conv1d(h, m.weight.to(self.dtype), None, padding=m.padding)
+                    + m.bias.to(self.dtype)[:, None])
+
+        h = F.leaky_relu(conv(c.transpose(1, 2).to(self.dtype), self.input_conv[0]), KP_LRELU)
+        r = h
+        for m in self.residual_conv:
+            if isinstance(m, nn.Conv1d):
+                r = F.leaky_relu(conv(r, m), KP_LRELU)
+        return h + r
 
     def forward(self, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """c [B, L, cond] -> flat kernels [B, L, layers*k*Cin*Cout] (tap-major
-        ``[layers, k, Cin, Cout]``) and biases [B, L, layers*Cout]."""
-        h = self.input_conv(c.transpose(1, 2))
-        h = h + self.residual_conv(h)
+        ``[layers, k, Cin, Cout]``) and biases [B, L, layers*Cout], both in
+        the compute dtype."""
+        if self.dtype is None:
+            h = self.input_conv(c.transpose(1, 2))
+            h = h + self.residual_conv(h)
+        else:
+            h = self._trunk_bf16(c)
         ks = self.conv_size
         lo = (ks - 1) // 2
         hu = F.pad(h, (lo, ks - 1 - lo)).unfold(2, ks, 1)  # [B, hid, L, ks]
@@ -169,13 +204,13 @@ class TimeAwareLVCBlock(nn.Module):
     def __init__(self, in_channels: int, cond_channels: int, upsample_ratio: int,
                  conv_layers: int = 4, cond_hop_length: int = 256,
                  kpnet_hidden_channels: int = 64, kpnet_conv_size: int = 3,
-                 noise_scale_embed_dim_out: int = 512):
+                 noise_scale_embed_dim_out: int = 512, kp_dtype: Optional[torch.dtype] = None):
         super().__init__()
         c, r = in_channels, upsample_ratio
         self.cond_hop_length = cond_hop_length
         self.fc_t = nn.Linear(noise_scale_embed_dim_out, cond_channels)
         self.kernel_predictor = KernelPredictor(cond_channels, c, 2 * c, conv_layers, 3,
-                                                kpnet_hidden_channels, kpnet_conv_size)
+                                                kpnet_hidden_channels, kpnet_conv_size, kp_dtype)
         self.upsample = nn.ConvTranspose1d(c, c, 2 * r, stride=r, padding=r // 2 + r % 2,
                                            output_padding=r % 2)
         self.convs = nn.ModuleList(
@@ -183,15 +218,17 @@ class TimeAwareLVCBlock(nn.Module):
 
     def kernels(self, c: torch.Tensor, emb: torch.Tensor) -> BlockKernels:
         """c [n*B, L, cond], emb [n, D] -> this block's window-kernel stack
-        ``[n, B, L, layers*3C, 2C]`` and bias stack ``[n, B, L, layers*2C]``
-        (views of the KP's outputs, no copy)."""
+        ``[n, B, L, layers*3C, 2C]`` in the KernelPredictor's dtype (a view of
+        its output, no copy) and bias stack ``[n, B, L, layers*2C]`` in
+        float32 (the JAX packed route casts the bf16 biases back,
+        ``prodiff_tpu/models/fastdiff.py:548-550``)."""
         n = emb.shape[0]
         nb, L, _ = c.shape
         noise = self.fc_t(emb)  # [n, cond]
         cond = c.view(n, nb // n, L, -1) + noise[:, None, None, :]
         kflat, bflat = self.kernel_predictor(cond.view(nb, L, -1))
         cout = 2 * self.convs[0].in_channels
-        return kflat.view(n, nb // n, L, -1, cout), bflat.view(n, nb // n, L, -1)
+        return kflat.view(n, nb // n, L, -1, cout), bflat.float().view(n, nb // n, L, -1)
 
     def forward(self, x: torch.Tensor, audio_down: torch.Tensor, kp: BlockKernels,
                 step_idx: int, fused_layer: bool) -> torch.Tensor:
@@ -225,11 +262,19 @@ class FastDiff(nn.Module):
                  lvc_layers_each_block: int = 4, lvc_kernel_size: int = 3,
                  kpnet_hidden_channels: int = 64, kpnet_conv_size: int = 3,
                  diffusion_step_embed_dim_in: int = 128, diffusion_step_embed_dim_mid: int = 512,
-                 diffusion_step_embed_dim_out: int = 512, fused_layer: bool = True):
+                 diffusion_step_embed_dim_out: int = 512, fused_layer: bool = True,
+                 kp_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if lvc_kernel_size != 3 or audio_channels != 1:
             raise NotImplementedError("the port runs the reference shape: k=3 LVC, mono audio")
+        if kp_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"kp_dtype must be float32 or bfloat16, got {kp_dtype}")
+        if kp_dtype == torch.bfloat16 and not fused_layer:
+            raise ValueError("bf16 window kernels run on the fused-layer route only: the JAX "
+                             "package's unfused (linen) route computes its KernelPredictor in "
+                             "float32")
         self.fused_layer = fused_layer
+        kp_dtype = None if kp_dtype == torch.float32 else kp_dtype
         self.embed_dim_in = diffusion_step_embed_dim_in
         c = inner_channels
         self.first_audio_conv = nn.Conv1d(audio_channels, c, 7, padding=3)
@@ -242,17 +287,18 @@ class FastDiff(nn.Module):
         self.lvc_blocks = nn.ModuleList(
             TimeAwareLVCBlock(c, cond_channels, r, lvc_layers_each_block, int(hop),
                               kpnet_hidden_channels, kpnet_conv_size,
-                              diffusion_step_embed_dim_out)
+                              diffusion_step_embed_dim_out, kp_dtype)
             for r, hop in zip(upsample_ratios, hops))
         self.final_conv = nn.Sequential(nn.Conv1d(c, audio_channels, 7, padding=3))
 
     @classmethod
-    def from_config(cls, config: dict, fused_layer: bool = True) -> "FastDiff":
+    def from_config(cls, config: dict, fused_layer: bool = True,
+                    kp_dtype: Optional[torch.dtype] = None) -> "FastDiff":
         keys = ("audio_channels", "inner_channels", "cond_channels", "upsample_ratios",
                 "lvc_layers_each_block", "lvc_kernel_size", "kpnet_hidden_channels",
                 "kpnet_conv_size", "diffusion_step_embed_dim_in", "diffusion_step_embed_dim_mid",
                 "diffusion_step_embed_dim_out")
-        return cls(**{k: config[k] for k in keys}, fused_layer=fused_layer)
+        return cls(**{k: config[k] for k in keys}, fused_layer=fused_layer, kp_dtype=kp_dtype)
 
     def step_embedding(self, steps: torch.Tensor) -> torch.Tensor:
         """steps [n, 1] -> [n, D_out]."""

@@ -12,6 +12,13 @@ that mean runs as one ``resblock_stage`` kernel call (port of the Pallas K2/K3);
 on the CPU it is the plain module loop.
 The TPU lane-layout machinery of the JAX module (the packed trunk and its
 runner) is not ported: this computes the function it computes.
+
+``tap_dtype=torch.bfloat16`` is ``PackedGeneratorRunner(fused_res_dtype=
+bfloat16)``: the stages that the JAX packed route runs on its fused or
+streamed resblock kernel (:func:`stage_tap_dtypes`, the JAX gates copied)
+take bf16 tap stacks, the others stay float32, as the JAX linen and XLA
+stages do. A stage with bf16 stacks runs ``resblock_stage`` on the CPU too
+(its bf16 twin), so the CPU holds the route the card takes.
 """
 
 from __future__ import annotations
@@ -25,6 +32,85 @@ import torch.nn.functional as F
 
 from prodiff_tpu_torch.models.common import params_key
 from prodiff_tpu_torch.ops.resblock import LRELU_SLOPE, get_padding, resblock_stage
+
+
+FUSED_TAP_BYTES_MAX = 9 * 2 ** 20  # the JAX fused stage's VMEM cap on its tap stacks
+
+
+def hifigan_stage_packs(init_ch: int, n_stages: int) -> Tuple[int, ...]:
+    """Packing factor per upsample stage of the JAX packed trunk (1 = plain
+    layout); a copy of ``prodiff_tpu/models/nsf_hifigan.py:hifigan_stage_packs``."""
+    packs = []
+    for i in range(n_stages):
+        c = init_ch // (2 ** (i + 1))
+        packs.append(128 // c if (c < 128 and 128 % c == 0) else 1)
+    return tuple(packs)
+
+
+def packed_trunk_supported(t_mel: int, *, rates: Sequence[int], ksizes: Sequence[int],
+                           init_ch: int, resblock: str, res_ksizes: Sequence[int],
+                           has_source: bool) -> bool:
+    """The JAX packed trunk's architecture and shape gate; a copy of
+    ``prodiff_tpu/models/nsf_hifigan.py:packed_trunk_supported``."""
+    n = len(rates)
+    if str(resblock) != "1":
+        return False
+    if any(k != 2 * u for u, k in zip(rates, ksizes)):
+        return False
+    if any(rk % 2 == 0 for rk in res_ksizes):
+        return False
+    packs = hifigan_stage_packs(init_ch, n)
+    if packs[-1] <= 1:
+        return False
+    t_audio = t_mel * int(np.prod(rates))
+    p_prev, t_cur = 1, t_mel
+    for i, (u, p) in enumerate(zip(rates, packs)):
+        t_cur *= u
+        if p < p_prev or (p > 1 and p % p_prev != 0):
+            return False
+        if t_cur % p != 0:
+            return False
+        if has_source:
+            s_f0 = int(np.prod(rates[i + 1:])) if i + 1 < n else 1
+            p_n = p if p > 1 else 2
+            if t_audio % (s_f0 * p_n) != 0:
+                return False
+        p_prev = p
+    return True
+
+
+def convk_row_offsets(k: int, dilation: int, pack: int) -> Tuple[int, ...]:
+    """The packed-row offsets an odd-k dilated SAME conv reaches at pack P; a
+    copy of ``prodiff_tpu/ops/packed.py:convk_row_offsets``."""
+    taps = [dilation * (j - k // 2) for j in range(k)]
+    return tuple(sorted({(p_out + t - p_in) // pack for p_out in range(pack)
+                         for p_in in range(pack) for t in taps
+                         if (p_out + t - p_in) % pack == 0}))
+
+
+def fused_stage_kinds(init_ch: int, n_stages: int, res_ksizes: Sequence[int],
+                      res_dsizes: Sequence[Sequence[int]], tap_bytes: int = 2
+                      ) -> Tuple[Optional[str], ...]:
+    """Per stage, the JAX packed trunk's resblock kernel when it is given
+    tap stacks of ``tap_bytes`` a value (``prepare_packed_trunk_params``,
+    ``prodiff_tpu/models/nsf_hifigan.py:751-800``): ``"stream"``
+    (``resblock_group_streamed``: an unpacked stage wider than 128 lanes, a
+    multiple of 128), ``"fuse"`` (``resblock_group_packed``: a 128-lane
+    stage whose tap stacks fit the VMEM cap) or None (the XLA stage)."""
+    packs = hifigan_stage_packs(init_ch, n_stages)
+    kinds = []
+    for i, p in enumerate(packs):
+        c = init_ch // (2 ** (i + 1))
+        if p <= 1 and c > 128 and c % 128 == 0:
+            kinds.append("stream")
+            continue
+        fuse = max(p, 1) * c == 128
+        if fuse:
+            taps = sum(len(convk_row_offsets(k, dd, max(p, 1)))
+                       for k, ds in zip(res_ksizes, res_dsizes) for d in ds for dd in (d, 1))
+            fuse = taps * 128 * 128 * tap_bytes <= FUSED_TAP_BYTES_MAX
+        kinds.append("fuse" if fuse else None)
+    return tuple(kinds)
 
 
 class ResBlock1(nn.Module):
@@ -103,10 +189,16 @@ class Generator(nn.Module):
                  upsample_rates: Sequence[int] = (8, 8, 2, 2, 2),
                  upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4, 4),
                  resblock: str = "1", resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
-                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3):
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+                 tap_dtype: torch.dtype = torch.float32):
         super().__init__()
         if str(resblock) != "1":
             raise NotImplementedError("ResBlock2 generators land with the other-vocoders slice")
+        if tap_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"tap_dtype must be float32 or bfloat16, got {tap_dtype}")
+        self.tap_dtype = tap_dtype
+        self.upsample_initial_channel = upsample_initial_channel
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.upsample_rates = tuple(upsample_rates)
         self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
         self.resblock_dilation_sizes = tuple(tuple(d) for d in resblock_dilation_sizes)
@@ -134,7 +226,7 @@ class Generator(nn.Module):
         self._stages = None
 
     @classmethod
-    def from_config(cls, h: dict) -> "Generator":
+    def from_config(cls, h: dict, tap_dtype: torch.dtype = torch.float32) -> "Generator":
         return cls(
             num_mels=h["num_mels"], sampling_rate=h["sampling_rate"],
             upsample_initial_channel=h["upsample_initial_channel"],
@@ -143,13 +235,36 @@ class Generator(nn.Module):
             resblock=str(h["resblock"]),
             resblock_kernel_sizes=h["resblock_kernel_sizes"],
             resblock_dilation_sizes=h["resblock_dilation_sizes"],
+            tap_dtype=tap_dtype,
         )
 
-    def stage_weights(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    def stage_tap_dtypes(self, t_mel: int) -> Tuple[torch.dtype, ...]:
+        """Per stage, the dtype of its tap stacks for a mel of ``t_mel``
+        frames: ``tap_dtype`` where the JAX package's packed route runs the
+        fused or streamed resblock kernel (the trunk's gate at this length,
+        then the stage's kind, :func:`fused_stage_kinds`), else float32,
+        as its linen and XLA stages compute."""
+        n = len(self.upsample_rates)
+        f32 = (torch.float32,) * n
+        if self.tap_dtype == torch.float32 or not packed_trunk_supported(
+                t_mel, rates=self.upsample_rates, ksizes=self.upsample_kernel_sizes,
+                init_ch=self.upsample_initial_channel, resblock="1",
+                res_ksizes=self.resblock_kernel_sizes, has_source=True):
+            return f32
+        kinds = fused_stage_kinds(self.upsample_initial_channel, n, self.resblock_kernel_sizes,
+                                  self.resblock_dilation_sizes,
+                                  torch.finfo(self.tap_dtype).bits // 8)
+        return tuple(self.tap_dtype if kind else torch.float32 for kind in kinds)
+
+    def stage_weights(self, dtypes: Optional[Sequence[torch.dtype]] = None
+                      ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
         """Per stage, its convs flattened for ``resblock_stage``: weights (each
-        conv ``[k, C_in, C_out]``, in resblock/unit/conv1-conv2 order) and
-        biases ``[n_convs, C]``; rebuilt when a parameter changes."""
-        key = params_key(self)
+        conv ``[k, C_in, C_out]``, in resblock/unit/conv1-conv2 order) in that
+        stage's entry of ``dtypes`` (default float32; bf16 copies are made
+        here, the parameters stay float32) and float32 biases ``[n_convs,
+        C]``; rebuilt when a parameter or the dtypes change."""
+        dtypes = tuple(dtypes or (torch.float32,) * len(self.ups))
+        key = (params_key(self), dtypes)
         if self._stages is None or self._stages[0] != key:
             n = len(self.resblock_kernel_sizes)
             stages = []
@@ -161,7 +276,8 @@ class Generator(nn.Module):
                             for conv in (c1, c2):
                                 ws.append(conv.weight.permute(2, 1, 0).reshape(-1))
                                 bs.append(conv.bias)
-                    stages.append((torch.cat(ws).contiguous(), torch.stack(bs).contiguous()))
+                    stages.append((torch.cat(ws).to(dtypes[i]).contiguous(),
+                                   torch.stack(bs).contiguous()))
             self._stages = (key, tuple(stages))
         return self._stages[1]
 
@@ -173,11 +289,12 @@ class Generator(nn.Module):
         sine source)."""
         har_source = self.m_source(f0, self.upp, generator).transpose(1, 2)  # [B, 1, T*upp]
         n = len(self.resblock_kernel_sizes)
+        dtypes = self.stage_tap_dtypes(mel.shape[1])
         x = self.conv_pre(mel.transpose(1, 2))
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(F.leaky_relu(x, LRELU_SLOPE)) + noise_conv(har_source)
-            if x.is_cuda:
-                w, b = self.stage_weights()[i]
+            if x.is_cuda or dtypes[i] != torch.float32:
+                w, b = self.stage_weights(dtypes)[i]
                 x = resblock_stage(
                     x.transpose(1, 2), w, b,
                     self.resblock_kernel_sizes, self.resblock_dilation_sizes,

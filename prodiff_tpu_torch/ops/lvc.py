@@ -16,7 +16,11 @@ caller takes :func:`lvc_matmul` instead, as :func:`on_kernels` decides.
 Window kernels come either per layer (``kmat [B, L, 3Cin, Cout]``, ``bias
 [B, L, Cout]``, ``step_idx=None``) or as the hoisted KernelPredictor stack
 (``kmat [N, B, L, layers*3Cin, Cout]``, ``bias [N, B, L, layers*Cout]``),
-read in place at ``(step_idx, layer_idx)``.
+read in place at ``(step_idx, layer_idx)``. The plain versions take float32
+or bf16 window kernels (the KernelPredictor's output in ``fast`` mode) and
+widen bf16 ones to float32, as XLA promotes the JAX package's mixed einsum;
+K6 takes float32 windows only: the JAX package reaches ``lvc_pallas`` only
+from its linen route, whose KernelPredictor is float32.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ def lvc_plain(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
     """x [B, T, Cin] -> [B, T, Cout], T = L * hop."""
     b, t, cin = x.shape
     km, lb = window_kernels(kmat, bias, cin, step_idx, layer_idx)
+    km = km.float()
     n_win, kc, cout = km.shape[1:]
     if t != n_win * hop or kc != 3 * cin:
         raise ValueError(f"lvc: x {tuple(x.shape)} does not match kernels {tuple(km.shape)} at hop {hop}")
@@ -88,24 +93,31 @@ def lvc_plain(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
 def lvc_matmul(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
                step_idx: Optional[int] = None, layer_idx: int = 0) -> torch.Tensor:
     """The window product off the kernels (:func:`on_kernels` false):
-    :func:`lvc_plain` on any device, each call counted in
-    ``lvc_matmul.launches`` (library launches, no kernel of this package)."""
+    :func:`lvc_plain` on any device, bf16 windows widened to float32, each
+    call counted in ``lvc_matmul.launches`` (library launches, no kernel of
+    this package)."""
     lvc_matmul.launches.add(1)
     return lvc_plain(x, kmat, bias, hop, step_idx, layer_idx)
 
 
 def check_kernel_operands(name: str, hop_rule: HopRule, x: torch.Tensor, kmat: torch.Tensor,
                           bias: torch.Tensor, hop: int, step_idx: Optional[int], layer_idx: int,
-                          *extra: torch.Tensor):
+                          *extra: torch.Tensor,
+                          window_dtypes: Tuple[torch.dtype, ...] = (torch.float32,)):
     """Validate the operands of a window-kernel launch, its hop against the
-    kernel's ``hop_rule``; returns the stack's ``(n_win, layers, step,
-    layer)`` and the contiguous operands."""
+    kernel's ``hop_rule`` and its window kernels' dtype against the builds it
+    has (``window_dtypes``: K4 and K7 float32 and bfloat16, K6 float32);
+    every other operand is float32. Returns the stack's ``(n_win, layers,
+    step, layer)`` and the contiguous operands."""
     b, t, c = x.shape
     dtype = device.compute_dtype()
+    if kmat.dtype not in window_dtypes:
+        raise ValueError(f"{name}: the window kernels must be one of {list(window_dtypes)}, "
+                         f"got {kmat.dtype}")
     for a in (x, kmat, bias, *extra):
-        if a.device != x.device or a.dtype != dtype:
-            raise ValueError(f"{name}: every operand must be {dtype} on {x.device}, "
-                             f"got {a.dtype} on {a.device}")
+        if a.device != x.device or (a is not kmat and a.dtype != dtype):
+            raise ValueError(f"{name}: every operand but the window kernels must be {dtype}, "
+                             f"all on {x.device}, got {a.dtype} on {a.device}")
     if c != KERNEL_C:
         raise ValueError(f"{name}: the kernel takes C = {KERNEL_C} channels, got {c}")
     rule, hop_ok = hop_rule
@@ -191,7 +203,10 @@ def lvc(x: torch.Tensor, kmat: torch.Tensor, bias: torch.Tensor, hop: int,
     """x [B, T, Cin] -> [B, T, Cout].
 
     CPU tensors run :func:`lvc_plain`; CUDA tensors launch the kernel (one
-    launch, counted in ``lvc.launches``), which needs Cin = 32, Cout = 64."""
+    launch, counted in ``lvc.launches``), which needs Cin = 32, Cout = 64 and
+    float32 window kernels. bf16 windows raise on both."""
+    if kmat.dtype != torch.float32:
+        raise ValueError(f"lvc: the kernel takes float32 window kernels, got {kmat.dtype}")
     if x.device.type == "cpu":
         return lvc_plain(x, kmat, bias, hop, step_idx, layer_idx)
     if x.device.type != "cuda":

@@ -2,13 +2,19 @@
 
 Port of ``prodiff_tpu/ops/pallas/resblock.py`` (``resblock_group_packed`` and
 ``resblock_group_streamed``, one entry here): ``mean_j ResBlock1_j(x)`` over
-a stage's ResBlock1s on ``[B, T, C]``. The kernel is ``csrc/resblock.cu``;
-:func:`resblock_stage_plain` computes the same function with ``F.conv1d``.
-:func:`resblock_stage` takes the plain version only for CPU tensors; a CUDA
-tensor launches the kernel or raises.
+a stage's ResBlock1s on ``[B, T, C]``. The kernels are ``csrc/resblock.cu``
+(float32 taps) and ``csrc/resblock_bf16.cu`` (bf16 taps, the tap stacks of
+``prepare_resblock_stage(dtype=bfloat16)``, on the tensor cores); the
+weights' dtype picks the route. :func:`resblock_stage_plain` computes the
+same function with ``F.conv1d``. :func:`resblock_stage` takes the plain
+version only for CPU tensors; a CUDA tensor launches the kernel or raises.
 
 A stage's weights travel as one flat tensor: the convs in (resblock, unit,
-conv1/conv2) order, each ``[k, C_in, C_out]``, plus biases ``[n_convs, C]``.
+conv1/conv2) order, each ``[k, C_in, C_out]``, float32 or bfloat16, plus
+float32 biases ``[n_convs, C]``. With bf16 taps each conv rounds its
+leaky'd float32 input to bf16 and accumulates in float32, as the Pallas
+kernels' walk does (``_stage_walk``: ``yb = y.astype(wdtype)``); bias,
+residual, the mean and the activations between convs stay float32.
 """
 
 from __future__ import annotations
@@ -42,18 +48,22 @@ def _conv_layout(ksizes: Sequence[int], dsizes: Sequence[Sequence[int]]
 
 def resblock_stage_plain(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
                          ksizes: Sequence[int], dsizes: Sequence[Sequence[int]]) -> torch.Tensor:
-    """x [B,T,C] -> mean_j ResBlock1_j(x) [B,T,C]."""
+    """x [B,T,C] -> mean_j ResBlock1_j(x) [B,T,C]. bf16 ``weights``: each
+    conv's input is rounded to bf16 and the float32 conv runs on the rounded
+    operands (a product of two bf16 values is exact in float32), the
+    kernels' function."""
     c = x.shape[-1]
+    tap_dtype = weights.dtype
     convs = []
     off = 0
     for ci, (k, d) in enumerate(_conv_layout(ksizes, dsizes)):
-        kern = weights[off: off + k * c * c].view(k, c, c).permute(2, 1, 0)  # [out, in, k]
+        kern = weights[off: off + k * c * c].view(k, c, c).permute(2, 1, 0).float()  # [out, in, k]
         convs.append((kern, biases[ci], d, get_padding(k, d)))
         off += k * c * c
 
     def conv(h, i):
         kern, bias, d, pad = convs[i]
-        return F.conv1d(h, kern, bias, padding=pad, dilation=d)
+        return F.conv1d(h.to(tap_dtype).float(), kern, bias, padding=pad, dilation=d)
 
     xc = x.transpose(1, 2)  # [B, C, T]
     total = None
@@ -69,14 +79,20 @@ def resblock_stage_plain(x: torch.Tensor, weights: torch.Tensor, biases: torch.T
     return (total / len(dsizes)).transpose(1, 2)
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("resblock")
-    lib.resblock_stage.argtypes = (
+# the tap dtype -> (library, C entry)
+_ENTRIES = {torch.float32: ("resblock", "resblock_stage"),
+            torch.bfloat16: ("resblock_bf16", "resblock_stage_bf16")}
+
+
+def _entry(tap_dtype: torch.dtype):
+    name, fn_name = _ENTRIES[tap_dtype]
+    fn = getattr(cuda_build.load(name), fn_name)
+    fn.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
-    lib.resblock_stage.restype = ctypes.c_int
-    return lib
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _int_array(values: Sequence[int]):
@@ -88,19 +104,27 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
     """x [B,T,C] -> mean_j ResBlock1_j(x) [B,T,C].
 
     CPU tensors run :func:`resblock_stage_plain`; CUDA tensors launch the
-    kernel (one launch per conv, counted in ``resblock_stage.launches``)."""
+    kernel of the weights' dtype, one launch per conv: float32 taps
+    ``csrc/resblock.cu`` (counted in ``resblock_stage.launches``), bf16 taps
+    ``csrc/resblock_bf16.cu`` (``resblock_stage.bf16_launches``). ``x`` and
+    ``biases`` are float32 on both; any other dtype raises."""
+    dtype = device.compute_dtype()
+    if weights.dtype not in _ENTRIES:
+        raise ValueError(f"resblock_stage: taps must be one of {list(_ENTRIES)}, "
+                         f"got {weights.dtype}")
+    for a in (x, biases):
+        if a.dtype != dtype:
+            raise ValueError(f"resblock_stage: x and biases must be {dtype} (the kernels' "
+                             f"activations and biases), got {a.dtype}")
     if x.device.type == "cpu":
         return resblock_stage_plain(x, weights, biases, ksizes, dsizes)
     if x.device.type != "cuda":
         raise ValueError(f"resblock_stage: unsupported device {x.device}")
     b, t, c = x.shape
-    dtype = device.compute_dtype()
-    for a in (x, weights, biases):
-        if a.device != x.device or a.dtype != dtype:
-            raise ValueError(
-                f"resblock_stage: every operand must be {dtype} on {x.device}, "
-                f"got {a.dtype} on {a.device}"
-            )
+    for a in (weights, biases):
+        if a.device != x.device:
+            raise ValueError(f"resblock_stage: every operand must be on {x.device}, "
+                             f"got {a.device}")
     if not (c in (16, 32) or c % 64 == 0):
         raise ValueError(f"resblock_stage: C must be 16, 32 or a multiple of 64, got {c}")
     if len(ksizes) != len(dsizes) or any(k not in KERNEL_SIZES for k in ksizes):
@@ -117,22 +141,26 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
         )
     x = x.contiguous()
     weights, biases = weights.contiguous(), biases.contiguous()
+    if weights.data_ptr() % 16:
+        raise ValueError("resblock_stage: the weights must be 16-byte aligned")
     out = torch.empty_like(x)
     h = torch.empty_like(x)
     tmp = torch.empty_like(x)
-    lib = _library()
+    entry = _entry(weights.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.resblock_stage(
+        err = entry(
             x.data_ptr(), out.data_ptr(), h.data_ptr(), tmp.data_ptr(),
             weights.data_ptr(), biases.data_ptr(),
             _int_array(list(ksizes)), _int_array([len(ds) for ds in dsizes]),
             _int_array([d for ds in dsizes for d in ds]),
             len(ksizes), b, t, c, stream,
         )
-    cuda_build.check(err, "resblock_stage")
-    resblock_stage.launches.add(len(layout))
+    cuda_build.check(err, _ENTRIES[weights.dtype][1])
+    bf16 = weights.dtype == torch.bfloat16
+    (resblock_stage.bf16_launches if bf16 else resblock_stage.launches).add(len(layout))
     return out
 
 
 resblock_stage.launches = cuda_build.LaunchCounter()
+resblock_stage.bf16_launches = cuda_build.LaunchCounter()

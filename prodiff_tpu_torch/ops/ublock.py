@@ -27,6 +27,14 @@ reading layer i's windows from the hoisted stack at ``(step_idx, i)``.
 :func:`mono_block_supported` is the static gate of the blocks the kernel
 takes. Both kernels run ``csrc/lvc_tiles.cuh``'s work units, whose plan
 :func:`layer_plan` mirrors.
+
+Each kernel has a float32-window build and a bf16-window build (K4-bf16,
+K7-bf16: the same source, the window element a template argument), which
+the window kernels' dtype picks: bf16 windows are the KernelPredictor's
+output in ``fast`` mode, and the kernels widen each value to float32 where
+they read it, as ``ublock_layer_packed``/``ublock_block_packed`` do at their
+VMEM read; the plain twins compute on ``kmat.float()``. Every other operand
+is float32.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from prodiff_tpu_torch.ops.lvc import LAYER_HOP_RULE as HOP_RULE
 from prodiff_tpu_torch.ops.lvc import KERNEL_C, MAX_SMEM, check_kernel_operands, lvc_plain
 
 LRELU_SLOPE = 0.2
+WINDOW_DTYPES = (torch.float32, torch.bfloat16)  # K4's and K7's builds
 
 
 def gated_residual(xa: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -73,18 +82,28 @@ def ublock_layer_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.
     return gated_residual(xa, lvc_plain(y, kmat, bias, hop, step_idx, layer_idx))
 
 
-def _library() -> ctypes.CDLL:
-    return bind_layer_library(cuda_build.load("ublock"))
+def _library(window_dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    return bind_layer_library(cuda_build.load("ublock"), window_dtype)
 
 
-def bind_layer_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare K4's C entry points on ``lib`` (``csrc/ublock.cu``, or a
-    variant of it built with defines, which only measurement code loads)."""
-    lib.ublock_layer_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.ublock_layer_forward.restype = ctypes.c_int
-    lib.ublock_layer_smem.argtypes = [ctypes.c_int] * 2
-    lib.ublock_layer_grid.argtypes = [ctypes.c_int] * 4
+def bind_layer_library(lib: ctypes.CDLL, window_dtype: torch.dtype = torch.float32
+                       ) -> ctypes.CDLL:
+    """Declare the C entry points of K4's build for ``window_dtype`` windows
+    (those of the bf16 build have the suffix ``_bf16``) on ``lib``
+    (``csrc/ublock.cu``, or a variant of it built with defines, which only
+    measurement code loads)."""
+    sfx = _suffix(window_dtype)
+    fwd = getattr(lib, f"ublock_layer_forward{sfx}")
+    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fwd.restype = ctypes.c_int
+    getattr(lib, f"ublock_layer_smem{sfx}").argtypes = [ctypes.c_int] * 2
+    getattr(lib, f"ublock_layer_grid{sfx}").argtypes = [ctypes.c_int] * 4
     return lib
+
+
+def _suffix(window_dtype: torch.dtype) -> str:
+    """The C entries' suffix of the build for ``window_dtype`` windows."""
+    return "_bf16" if window_dtype == torch.bfloat16 else ""
 
 
 def ublock_layer(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.Tensor,
@@ -93,8 +112,13 @@ def ublock_layer(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.Tensor
                  layer_idx: int = 0) -> torch.Tensor:
     """x, audio_down [B, T, C] -> the next layer's x [B, T, C].
 
-    CPU tensors run :func:`ublock_layer_plain`; CUDA tensors launch the kernel
-    (one launch, counted in ``ublock_layer.launches``), which needs C = 32."""
+    CPU tensors run :func:`ublock_layer_plain`; CUDA tensors launch the
+    kernel's build for the window kernels' dtype (one launch, counted in
+    ``ublock_layer.launches``, bf16 windows in ``ublock_layer.bf16_launches``),
+    which needs C = 32."""
+    if kmat.dtype not in WINDOW_DTYPES:
+        raise ValueError(f"ublock_layer: the window kernels must be one of "
+                         f"{list(WINDOW_DTYPES)}, got {kmat.dtype}")
     if x.device.type == "cpu":
         return ublock_layer_plain(x, audio_down, conv_w, conv_b, kmat, bias, dilation, hop,
                                   step_idx, layer_idx)
@@ -102,29 +126,31 @@ def ublock_layer(x: torch.Tensor, audio_down: torch.Tensor, conv_w: torch.Tensor
         raise ValueError(f"ublock_layer: unsupported device {x.device}")
     (n_win, layers, step, layer), (x, kmat, bias, audio_down, conv_w, conv_b) = \
         check_kernel_operands("ublock_layer", HOP_RULE, x, kmat, bias, hop, step_idx, layer_idx,
-                              audio_down, conv_w, conv_b)
+                              audio_down, conv_w, conv_b, window_dtypes=WINDOW_DTYPES)
     b, t, c = x.shape
     if audio_down.shape != x.shape or conv_w.shape != (c, c, 3) or conv_b.shape != (c,):
         raise ValueError(f"ublock_layer: audio_down {tuple(audio_down.shape)}, conv "
                          f"{tuple(conv_w.shape)} / {tuple(conv_b.shape)} for x {tuple(x.shape)}")
-    if dilation < 1 or layer_plan(hop, dilation)["smem"] > MAX_SMEM:
+    if dilation < 1 or layer_plan(hop, dilation, kmat.dtype)["smem"] > MAX_SMEM:
         raise ValueError(f"ublock_layer: dilation {dilation} at hop {hop} is outside the kernel "
                          f"(>= 1, its halo within {MAX_SMEM} bytes of shared memory)")
     out = torch.empty_like(x)
-    lib = _library()
+    entry = f"ublock_layer_forward{_suffix(kmat.dtype)}"
+    fwd = getattr(_library(kmat.dtype), entry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ublock_layer_forward(
+        err = fwd(
             x.data_ptr(), audio_down.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
             kmat.data_ptr(), bias.data_ptr(), out.data_ptr(),
             b, t, n_win, hop, dilation, layers, step, layer, stream,
         )
-    cuda_build.check(err, "ublock_layer_forward")
-    ublock_layer.launches.add(1)
+    cuda_build.check(err, entry)
+    (ublock_layer.bf16_launches if kmat.dtype == torch.bfloat16 else ublock_layer.launches).add(1)
     return out
 
 
 ublock_layer.launches = cuda_build.LaunchCounter()
+ublock_layer.bf16_launches = cuda_build.LaunchCounter()
 
 
 # The work-unit plan of csrc/lvc_tiles.cuh, shared by K4 and K7 (the C side
@@ -132,24 +158,30 @@ ublock_layer.launches = cuda_build.LaunchCounter()
 MONO_MIN_HOP = 64  # the JAX route's _FUSED_MIN_HOP: K7 runs on the audio-rate blocks only
 MONO_MAX_LAYERS = 8
 TILED_MIN_HOP = 64  # hop >= 64: 256-row units of 8 x 8 register tiles; below, 32-row streaming units
-_KW = 3 * KERNEL_C * 2 * KERNEL_C + 2 * KERNEL_C  # one window's kernel and bias, floats
 _WS = 3 * KERNEL_C * KERNEL_C + KERNEL_C  # the staged conv weight and bias, floats
 
 
-def layer_plan(hop: int, dilation: int) -> dict:
+def _window_floats(window_dtype: torch.dtype) -> int:
+    """Floats of one staged window: its kernel in ``window_dtype``, then its
+    float32 bias (``csrc/lvc_tiles.cuh:kw_floats``)."""
+    size = torch.finfo(window_dtype).bits // 8
+    return 3 * KERNEL_C * 2 * KERNEL_C * size // 4 + 2 * KERNEL_C
+
+
+def layer_plan(hop: int, dilation: int, window_dtype: torch.dtype = torch.float32) -> dict:
     """One block's work unit for an LVC layer at (hop, dilation): ``rows`` (R),
     ``rows_per_thread`` of the window product, the most ``windows`` a unit
     touches (units start at multiples of R), whether it ``streams`` the
     window kernels into registers (hop < 64: a warp 8 rows x 32 outputs, a
     lane 8 rows x 4 outputs over a quarter of the channels) rather than
     staging them in shared memory (a thread 8 rows x 8 outputs), and the
-    block's shared-memory bytes (staged window kernels, conv weight,
-    x + audio_down with a dilation + 1 halo, y k-major)."""
+    block's shared-memory bytes (staged window kernels in ``window_dtype``,
+    conv weight, x + audio_down with a dilation + 1 halo, y k-major)."""
     tiled = hop >= TILED_MIN_HOP
     rows = 256 if tiled else 32
     windows = (hop - math.gcd(rows, hop) + rows - 1) // hop + 1
-    floats = ((windows * _KW if tiled else 0) + _WS + (rows + 2 * (dilation + 1)) * KERNEL_C
-              + KERNEL_C * (rows + 8))
+    floats = ((windows * _window_floats(window_dtype) if tiled else 0) + _WS
+              + (rows + 2 * (dilation + 1)) * KERNEL_C + KERNEL_C * (rows + 8))
     return {"rows": rows, "rows_per_thread": 8, "windows": windows, "streams": not tiled,
             "smem": 4 * floats}
 
@@ -186,14 +218,17 @@ def ublock_block_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Seque
     return x
 
 
-def _block_library() -> ctypes.CDLL:
+def _block_library(window_dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """``csrc/ublock_block.cu`` with the C entries of its build for
+    ``window_dtype`` windows declared."""
     lib = cuda_build.load("ublock_block")
-    lib.ublock_block_forward.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 2
-                                         + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)]
-                                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.ublock_block_forward.restype = ctypes.c_int
-    lib.ublock_block_smem.argtypes = [ctypes.c_int] * 2
-    lib.ublock_block_slots.argtypes = [ctypes.c_int] * 2
+    sfx = _suffix(window_dtype)
+    fwd = getattr(lib, f"ublock_block_forward{sfx}")
+    fwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 5
+                    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    getattr(lib, f"ublock_block_smem{sfx}").argtypes = [ctypes.c_int] * 2
+    getattr(lib, f"ublock_block_slots{sfx}").argtypes = [ctypes.c_int] * 2
     return lib
 
 
@@ -203,8 +238,13 @@ def ublock_block(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[to
     """x, audio_down [B, T, C] -> the block's output [B, T, C].
 
     CPU tensors run :func:`ublock_block_plain`; CUDA tensors launch the
-    kernel once (counted in ``ublock_block.launches``), which needs C = 32,
-    every layer of the stack and :func:`mono_block_supported`."""
+    kernel's build for the window kernels' dtype once (counted in
+    ``ublock_block.launches``, bf16 windows in ``ublock_block.bf16_launches``),
+    which needs C = 32, every layer of the stack and
+    :func:`mono_block_supported`."""
+    if kmat.dtype not in WINDOW_DTYPES:
+        raise ValueError(f"ublock_block: the window kernels must be one of "
+                         f"{list(WINDOW_DTYPES)}, got {kmat.dtype}")
     if x.device.type == "cpu":
         return ublock_block_plain(x, audio_down, conv_ws, conv_bs, kmat, bias, dilations, hop,
                                   step_idx)
@@ -217,7 +257,8 @@ def ublock_block(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[to
                          f"{dilations} at hop {hop}: outside the kernel's gate")
     cw, cb = torch.stack(list(conv_ws)), torch.stack(list(conv_bs))
     (n_win, layers, step, _), (x, kmat, bias, audio_down, cw, cb) = check_kernel_operands(
-        "ublock_block", HOP_RULE, x, kmat, bias, hop, step_idx, 0, audio_down, cw, cb)
+        "ublock_block", HOP_RULE, x, kmat, bias, hop, step_idx, 0, audio_down, cw, cb,
+        window_dtypes=WINDOW_DTYPES)
     b, t, c = x.shape
     if audio_down.shape != x.shape or cw.shape != (n, c, c, 3) or cb.shape != (n, c):
         raise ValueError(f"ublock_block: audio_down {tuple(audio_down.shape)}, convs "
@@ -230,17 +271,19 @@ def ublock_block(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[to
     plan = pingpong(n)
     src = (ctypes.c_void_p * n)(*(bufs[s].data_ptr() for s, _ in plan))
     dst = (ctypes.c_void_p * n)(*(bufs[d].data_ptr() for _, d in plan))
-    lib = _block_library()
+    entry = f"ublock_block_forward{_suffix(kmat.dtype)}"
+    fwd = getattr(_block_library(kmat.dtype), entry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ublock_block_forward(
+        err = fwd(
             src, dst, audio_down.data_ptr(), cw.data_ptr(), cb.data_ptr(),
             kmat.data_ptr(), bias.data_ptr(), (ctypes.c_int * n)(*dilations),
             n, b, t, n_win, hop, layers, step, stream,
         )
-    cuda_build.check(err, "ublock_block_forward")
-    ublock_block.launches.add(1)
+    cuda_build.check(err, entry)
+    (ublock_block.bf16_launches if kmat.dtype == torch.bfloat16 else ublock_block.launches).add(1)
     return bufs["out"]
 
 
 ublock_block.launches = cuda_build.LaunchCounter()
+ublock_block.bf16_launches = cuda_build.LaunchCounter()

@@ -13,6 +13,10 @@ in cuDNN, the LVC kernel, gate and residual apart); unset or true, the fused
 layer kernel. The JAX package's ``fastdiff_fused_lvc`` (its opt-in Pallas LVC
 inside the linen path) has no effect here: on the card the LVC always runs in
 a kernel, the fused layer's or, in the unfused layer, the LVC's.
+
+The KernelPredictors' compute dtype is ``device.kernel_predictor_dtype`` at
+construction: bf16 on the fused layer in ``fast`` mode on the card (the
+window kernels then run the bf16 builds of K4 and K7), float32 otherwise.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from prodiff_tpu_torch.device import resolve_device
+from prodiff_tpu_torch.device import kernel_predictor_dtype, resolve_device
 from prodiff_tpu_torch.models.fastdiff import (
     MAX_HOISTED_STEPS,
     FastDiff as FastDiffNet,
@@ -54,10 +58,10 @@ NOISE_SCHEDULES = {
 
 
 def build_fastdiff(config: dict, state_dict: dict, reverse_step: int = 4,
-                   fused_layer: bool = True):
+                   fused_layer: bool = True, kp_dtype: Optional[torch.dtype] = None):
     """-> (model with the reference state dict loaded, the train schedule's
     hyperparams, the reverse noise schedule)."""
-    model = FastDiffNet.from_config(config, fused_layer=fused_layer)
+    model = FastDiffNet.from_config(config, fused_layer=fused_layer, kp_dtype=kp_dtype)
     model.load_state_dict(tap_major_state_dict(state_dict, config))
     train = np.linspace(float(config["beta_0"]), float(config["beta_T"]), int(config["T"]))
     if config.get("noise_schedule", ""):
@@ -68,14 +72,14 @@ def build_fastdiff(config: dict, state_dict: dict, reverse_step: int = 4,
 
 
 def load_fastdiff_model(config_path: str, checkpoint_path: str, reverse_step: int = 4,
-                        fused_layer: bool = True):
+                        fused_layer: bool = True, kp_dtype: Optional[torch.dtype] = None):
     """-> (model, hyperparams, noise schedule, config) from the files."""
     import yaml
 
     with open(config_path) as f:
         config = yaml.safe_load(f)
     return (*build_fastdiff(config, load_torch_state_dict(checkpoint_path), reverse_step,
-                            fused_layer), config)
+                            fused_layer, kp_dtype), config)
 
 
 @register_vocoder
@@ -86,15 +90,16 @@ class FastDiff(BaseVocoder):
         self.device = resolve_device(device)
         reverse_step = int(hparams.get("fastdiff_reverse_step", 4))
         fused = hparams.get("fastdiff_packed", None) is not False
+        kp_dtype = kernel_predictor_dtype(fused, self.device)
         if state_dict is None:
             base_dir = hparams.get("vocoder_ckpt") or "checkpoint/FastDiff"
             ckpt = last_checkpoint_path(base_dir)
             if ckpt is None:
                 raise FileNotFoundError(f"no FastDiff checkpoints in {base_dir}")
             model, dh, schedule, config = load_fastdiff_model(
-                os.path.join(base_dir, "config.yaml"), ckpt, reverse_step, fused)
+                os.path.join(base_dir, "config.yaml"), ckpt, reverse_step, fused, kp_dtype)
         else:
-            model, dh, schedule = build_fastdiff(config, state_dict, reverse_step, fused)
+            model, dh, schedule = build_fastdiff(config, state_dict, reverse_step, fused, kp_dtype)
         self.config = config
         self.model = model.to(self.device).eval()
         self.hop = int(np.prod(config["upsample_ratios"]))

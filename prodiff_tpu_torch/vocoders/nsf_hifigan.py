@@ -5,6 +5,11 @@ Loads a torch generator checkpoint plus the ``config.json`` beside it
 and config. The acoustic model works in log10-mel; the generator wants
 natural log, hence the ``* LOG10_TO_LN``. ``wav2spec`` is the log10-mel of a
 wav file at the config's audio settings (``ops/mel.py``).
+
+The resblock stages' tap dtype is ``device.resblock_tap_dtype`` of the
+hparams (``nsf_fused_res_dtype``, ``nsf_packed``) at construction, as the JAX
+vocoder builds its ``PackedGeneratorRunner`` once: bf16 tap stacks in
+``fast`` mode on the card, float32 otherwise.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from prodiff_tpu_torch.device import resolve_device
+from prodiff_tpu_torch.device import resblock_tap_dtype, resolve_device
 from prodiff_tpu_torch.models.nsf_hifigan import Generator
 from prodiff_tpu_torch.ops.mel import LOG10_TO_LN, MelSpectrogram
 from prodiff_tpu_torch.utils.audio import load_wav
@@ -38,7 +43,7 @@ class NsfHifiGAN(BaseVocoder):
                 config = json.load(f)
             state_dict = load_torch_state_dict(model_path)
         self.h = config
-        self.model = Generator.from_config(config)
+        self.model = Generator.from_config(config, resblock_tap_dtype(hparams, self.device))
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
 

@@ -1112,3 +1112,131 @@ def test_fast_mode_render_runs_k1_bf16(cuda):
     finally:
         policy.set_precision("parity")
     assert_peak_close(mels["fast"], mels["parity"], "mel", tol=2e-2)
+
+
+# ---- the serving vocoders' bf16 (K2/K3-bf16, K4-bf16, K7-bf16) ----------------
+# K2/K3-bf16 vs its twin at 7e-3 of the peak: 18 chained bf16 roundings, so
+# another float32 sum order rounds a few conv inputs to the neighbouring bf16
+# value; K4/K7-bf16 at the float32 tolerance: both sides widen the same bf16
+# windows exactly.
+
+RES_BF16_TOL = 7e-3
+
+
+@pytest.mark.parametrize("c,t", [(256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049),
+                                 (256, 7), (16, 9)])
+def test_resblock_stage_bf16_kernel_matches_twin(cuda, c, t):
+    """K2/K3-bf16 (bf16 taps: 18 tensor-core launches, on the bf16 counter)
+    vs the bf16 twin on every C's tile, ragged T and halos past both ends."""
+    rng = np.random.default_rng(40)
+    ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
+    w, bias = _stage(rng, c, ksizes, dsizes, cuda)
+    w = w.to(torch.bfloat16)
+    x = torch.tensor(rng.normal(size=(2, t, c)), dtype=torch.float32, device=cuda)
+    f32, b16 = resblock_stage.launches.count, resblock_stage.bf16_launches.count
+    got = resblock_stage(x, w, bias, ksizes, dsizes)
+    torch.cuda.synchronize()
+    assert resblock_stage.bf16_launches.count - b16 == 18
+    assert resblock_stage.launches.count == f32
+    assert_peak_close(got, resblock_stage_plain(x, w, bias, ksizes, dsizes), "stage",
+                      tol=RES_BF16_TOL)
+
+
+@pytest.mark.parametrize("hop,dilation,n_win", [(256, 27, 4), (64, 3, 8), (8, 9, 32), (100, 9, 6),
+                                                (40, 1, 9)])
+def test_ublock_layer_bf16_kernel_matches_twin(cuda, hop, dilation, n_win):
+    """K4-bf16 (the bf16-window build: tiled, split-tile and streaming plans)
+    vs its twin, read in place from a bf16 stack; its shared memory as
+    layer_plan's."""
+    rng = np.random.default_rng(41)
+    x, ad, cw, cb, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(3, 4))
+    km = km.to(torch.bfloat16)
+    f32, b16 = ublock_layer.launches.count, ublock_layer.bf16_launches.count
+    got = ublock_layer(x, ad, cw, cb, km, lb, dilation, hop, step_idx=2, layer_idx=1)
+    torch.cuda.synchronize()
+    assert (ublock_layer.launches.count - f32, ublock_layer.bf16_launches.count - b16) == (0, 1)
+    want = ublock_layer_plain(x, ad, cw, cb, km, lb, dilation, hop, step_idx=2, layer_idx=1)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    lib = ublock_ops._library(torch.bfloat16)
+    assert lib.ublock_layer_smem_bf16(hop, dilation) == \
+        layer_plan(hop, dilation, torch.bfloat16)["smem"]
+    assert lib.ublock_layer_grid_bf16(2, n_win * hop, hop, dilation) > 0
+
+
+@pytest.mark.parametrize("hop,n_win,step", [(64, 7, 2), (256, 3, 1)])
+def test_ublock_block_bf16_kernel_matches_twin(cuda, hop, n_win, step):
+    """K7-bf16 (one cooperative launch, bf16 windows) vs its twin."""
+    rng = np.random.default_rng(42)
+    dils = [1, 3, 9, 27]
+    x, ad, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(3, 4))
+    km = km.to(torch.bfloat16)
+    cws = [torch.tensor(rng.normal(size=(32, 32, 3)) * 0.2, dtype=torch.float32, device=cuda)
+           for _ in dils]
+    cbs = [torch.tensor(rng.normal(size=32) * 0.1, dtype=torch.float32, device=cuda) for _ in dils]
+    f32, b16 = ublock_block.launches.count, ublock_block.bf16_launches.count
+    got = ublock_block(x, ad, cws, cbs, km, lb, dils, hop, step)
+    torch.cuda.synchronize()
+    assert (ublock_block.launches.count - f32, ublock_block.bf16_launches.count - b16) == (0, 1)
+    torch.testing.assert_close(got, ublock_block_plain(x, ad, cws, cbs, km, lb, dils, hop, step),
+                               atol=ATOL, rtol=RTOL)
+    lib = ublock_ops._block_library(torch.bfloat16)
+    assert lib.ublock_block_smem_bf16(hop, 27) == layer_plan(hop, 27, torch.bfloat16)["smem"]
+    assert lib.ublock_block_slots_bf16(hop, 27) > 0
+
+
+def test_fast_mode_vocoders_run_the_bf16_kernels(cuda):
+    """Built in fast mode, NSF-HiFiGAN launches K2/K3-bf16 only and FastDiff's
+    fused route K4-bf16 only (its KernelPredictor in bf16), the unfused route
+    the float32 K6; each agrees with its parity build within bf16's bound."""
+    from prodiff_tpu_torch import device as policy
+    from prodiff_tpu_torch.models.fastdiff import FastDiff as FastDiffNet
+    from prodiff_tpu_torch.models.nsf_hifigan import Generator
+    from prodiff_tpu_torch.vocoders.fastdiff import FastDiff
+    from prodiff_tpu_torch.vocoders.nsf_hifigan import NsfHifiGAN
+
+    h = {"num_mels": 16, "sampling_rate": 44100, "upsample_initial_channel": 128,
+         "upsample_rates": [4, 4, 2], "upsample_kernel_sizes": [8, 8, 4], "resblock": "1",
+         "resblock_kernel_sizes": [3, 7], "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5]]}
+    torch.manual_seed(43)
+    gen = Generator.from_config(h)
+    with torch.no_grad():  # fan-in scaled, so the wav follows the mel (not its biases)
+        for m in gen.modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+                torch.nn.init.normal_(m.weight, std=0.5 / (m.weight[0].numel()) ** 0.5)
+    sd = gen.state_dict()
+    fd_cfg = {"audio_channels": 1, "inner_channels": 32, "cond_channels": 16,
+              "upsample_ratios": [8, 8, 4], "lvc_layers_each_block": 4, "lvc_kernel_size": 3,
+              "kpnet_hidden_channels": 64, "kpnet_conv_size": 3,
+              "diffusion_step_embed_dim_in": 128, "diffusion_step_embed_dim_mid": 512,
+              "diffusion_step_embed_dim_out": 512, "beta_0": 1e-6, "beta_T": 0.01, "T": 1000}
+    fd_sd = FastDiffNet.from_config(fd_cfg).state_dict()
+    rng = np.random.default_rng(43)
+    mel = rng.normal(size=(16, 16)).astype(np.float32) - 4
+    f0 = rng.uniform(100, 400, 16).astype(np.float32)
+    noise = dict(init_noise=torch.tensor(rng.normal(size=(1, 16 * 256, 1)), dtype=torch.float32,
+                                         device=cuda),
+                 step_noises=torch.tensor(rng.normal(size=(4, 1, 16 * 256, 1)),
+                                          dtype=torch.float32, device=cuda))
+    counters = (resblock_stage.launches, resblock_stage.bf16_launches, ublock_layer.launches,
+                ublock_layer.bf16_launches, lvc.launches)
+    wavs = {}
+    try:
+        for mode in ("parity", "fast"):
+            policy.set_precision(mode)
+            nsf = NsfHifiGAN({}, state_dict=sd, config=h, device=cuda)
+            fd = FastDiff({}, state_dict=fd_sd, config=fd_cfg, device=cuda)
+            fd_unfused = FastDiff({"fastdiff_packed": False}, state_dict=fd_sd, config=fd_cfg,
+                                  device=cuda)
+            before = [c.count for c in counters]
+            wavs[mode] = (nsf.spec2wav(mel, f0=f0, deterministic=True), fd.spec2wav(mel, **noise))
+            fd_unfused.spec2wav(mel, **noise)
+            torch.cuda.synchronize()
+            ran = [c.count - b for c, b in zip(counters, before)]
+            want = [36, 0, 48, 0, 48] if mode == "parity" else [0, 36, 0, 48, 48]
+            assert ran == want, (mode, ran)
+    finally:
+        policy.set_precision("parity")
+    (nsf_f, fd_f), (nsf_p, fd_p) = wavs["fast"], wavs["parity"]
+    assert np.abs(nsf_f - nsf_p).max() < 0.05
+    assert np.corrcoef(nsf_f, nsf_p)[0, 1] > 0.999
+    assert_peak_close(torch.as_tensor(fd_f), torch.as_tensor(fd_p), "FastDiff wav", tol=2e-2)
