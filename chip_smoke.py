@@ -176,6 +176,19 @@ Phases, each printing its lines before the last:
      float32 K6 48, as the JAX package gives ``lvc_pallas`` no bf16
      windows), and the fast FastDiff vocoder against the parity one on one
      mel and injected noise (2e-2 of the wav's peak).
+ 15. (``phase_other_vocoders``) the other vocoders: K2 and K2-bf16 at C = 8
+     (HiFi-GAN V2's last stage at T_mel=512, T=131,072; the bf16 build pairs
+     two taps in each k16 step) against the twin, K2/K3 at every stage of
+     HiFi-GAN V1 and V2 in both tap dtypes, timed with their bounds; then
+     ``vocode wav2wav`` (in-process) on a 6.0 s tone at the LJSpeech audio
+     settings with ACF pitch through HiFi-GAN V1, V2, V3 (ResBlock2), V1
+     with its NSF source and Parallel WaveGAN (parallel_wavegan.v1) in
+     parity mode, and V1 and V2 in fast mode, on seeded checkpoints in the
+     three layouts the wrappers read, the random draws injected: each
+     render's launches (K2/K3 72 for V1 and V2, 18 of V2's at C = 8; none
+     for V3 and PWG), host clock, kernel time and idle share
+     (torch.profiler), each parity render held against the CPU on a
+     32-frame tone, fast against parity at the bound for bf16 tap stacks.
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -281,7 +294,7 @@ K1_LAUNCHES = 3  # a stack: step projection, cond GEMM, the cooperative layer ch
 COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "ublock_block", "lvc",
            "residual_stack_save", "residual_stack_chain", "residual_stack_bf16",
            "residual_stack_save_bf16", "residual_stack_chain_bf16", "resblock_stage_bf16",
-           "ublock_layer_bf16", "ublock_block_bf16")
+           "ublock_layer_bf16", "ublock_block_bf16", "resblock_stage_c8", "resblock_stage_c8_bf16")
 # the bf16 phase: the H100 SXM's published dense bf16 tensor-core rate (700 W);
 # kernel vs twin in bf16 at 1e-2 of the peak (the same rounding points, another
 # float32 sum order: a value may cross a bf16 rounding boundary); a bf16
@@ -391,7 +404,9 @@ def counters():
             "residual_stack_chain_bf16": residual_stack_chain.bf16_launches,
             "resblock_stage_bf16": resblock_stage.bf16_launches,
             "ublock_layer_bf16": ublock_layer.bf16_launches,
-            "ublock_block_bf16": ublock_block.bf16_launches}
+            "ublock_block_bf16": ublock_block.bf16_launches,
+            "resblock_stage_c8": resblock_stage.c8_launches,
+            "resblock_stage_c8_bf16": resblock_stage.c8_bf16_launches}
 
 
 def reset_counts() -> None:
@@ -4005,6 +4020,271 @@ def phase_bf16_vocoders(dev, torch):
     return res, k4, k7
 
 
+# the other vocoders (phase 15): HiFi-GAN V1/V2/V3 (Kong et al., NeurIPS 2020,
+# config_v1/v2/v3.json) and Parallel WaveGAN (kan-bayashi parallel_wavegan.v1,
+# LJSpeech), behind vocode wav2wav at the LJSpeech audio settings
+HIFIGAN_V1 = {"resblock": "1", "upsample_rates": [8, 8, 2, 2],
+              "upsample_kernel_sizes": [16, 16, 4, 4], "upsample_initial_channel": 512,
+              "resblock_kernel_sizes": [3, 7, 11], "resblock_dilation_sizes": [[1, 3, 5]] * 3,
+              "audio_sample_rate": 22050}
+HIFIGAN_V2 = dict(HIFIGAN_V1, upsample_initial_channel=128)
+HIFIGAN_V3 = {"resblock": "2", "upsample_rates": [8, 8, 4], "upsample_kernel_sizes": [16, 16, 8],
+              "upsample_initial_channel": 256, "resblock_kernel_sizes": [3, 5, 7],
+              "resblock_dilation_sizes": [[1, 2], [2, 6], [3, 12]], "audio_sample_rate": 22050}
+PWG_V1 = {"hop_size": 256, "generator_params": {
+    "layers": 30, "stacks": 3, "residual_channels": 64, "gate_channels": 128,
+    "skip_channels": 64, "aux_channels": 80, "aux_context_window": 2, "kernel_size": 3,
+    "upsample_params": {"upsample_scales": [4, 4, 4, 4]}, "use_pitch_embed": False}}
+OTHER_SAMPLES = 132300  # the 6.0 s tone at 22.05 kHz: 516 mel frames
+OTHER_CPU_FRAMES = 32  # the card vs CPU renders run a 32-frame tone
+# (name, config, vocoder, hparams, precision mode, K2/K3 launches a render and at C = 8)
+OTHER_CELLS = (
+    ("hifigan_v1", HIFIGAN_V1, "hifigan", {}, "parity", 72, 0),
+    ("hifigan_v2", HIFIGAN_V2, "hifigan", {}, "parity", 72, 18),
+    ("hifigan_v3", HIFIGAN_V3, "hifigan", {}, "parity", 0, 0),
+    ("hifigan_v1_nsf", dict(HIFIGAN_V1, use_pitch_embed=True), "hifigan", {"use_nsf": True},
+     "parity", 72, 0),
+    ("pwg", PWG_V1, "pwg", {}, "parity", 0, 0),
+    ("hifigan_v1_fast", HIFIGAN_V1, "hifigan", {}, "fast", 72, 0),
+    ("hifigan_v2_fast", HIFIGAN_V2, "hifigan", {}, "fast", 72, 18),
+)
+# the stages of V1 and V2 at T_mel = 512 (C, T)
+HIFIGAN_STAGES = {"V1": ((256, 4096), (128, 32768), (64, 65536), (32, 131072)),
+                  "V2": ((64, 4096), (32, 32768), (16, 65536), (8, 131072))}
+
+
+def other_vocoder_kernels(dev, torch) -> dict:
+    """K2 and K2-bf16 at C = 8 (V2's last stage, T_mel = 512) against the
+    plain twin (float32 at ``KERNEL_TOL``, bf16 at ``RES_BF16_TOL`` of the
+    peak), then K2/K3 at every stage of V1 and V2 in both tap dtypes, timed
+    (CUDA events, 3 warm-ups, mean of 20) beside the twin and the bound.
+    Returns the C = 8 rows and the stage table."""
+    from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
+
+    rng = np.random.default_rng(SEED + 16)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    taps = 6 * sum(RES_K)
+    out = {"stages": {}}
+    for model, stages in HIFIGAN_STAGES.items():
+        rows = []
+        for c, t in stages:
+            w32 = torch.cat([rand(k * c * c, scale=(k * c) ** -0.5) for k in RES_K for _ in range(6)])
+            w16, biases, x = w32.to(torch.bfloat16), rand(18, c, scale=0.1), rand(1, t, c)
+            flops = 2 * taps * c * c * t
+            row = {"C": c, "T": t}
+            for dt, w in (("float32", w32), ("bf16", w16)):
+                nbytes = 4 * (2 * t * c + 18 * c) + w.element_size() * taps * c * c
+                lim = bound(flops, nbytes, FP32_PEAK if dt == "float32" else BF16_PEAK)
+                ms = timed_ms(lambda: resblock_stage(x, w, biases, RES_K, RES_D), 20, torch)
+                row[dt] = dict(ms=ms, **lim, share=lim["bound_ms"] / ms)
+                if c == 8:
+                    name = f"K2{'-bf16' if dt == 'bf16' else ''} C=8 T={t}"
+                    got = resblock_stage(x, w, biases, RES_K, RES_D)
+                    want = resblock_stage_plain(x, w, biases, RES_K, RES_D)
+                    if dt == "float32":
+                        err = compare(f"{name} vs its twin", got, want, torch)["max_abs_err"]
+                    else:
+                        err = peak_compare(f"{name} vs its twin", got, want, RES_BF16_TOL, torch)
+                    plain_ms = timed_ms(lambda: resblock_stage_plain(x, w, biases, RES_K, RES_D),
+                                        20, torch)
+                    out[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **lim)
+                    log(f"{name}: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
+                        f"{lim['bound_ms']:.4f} ms ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB: "
+                        f"{lim['bound_by']}), share of bound {lim['bound_ms'] / ms:.3f}")
+            log(f"HiFi-GAN {model} stage C={c} T={t}: float32 K2/K3 {row['float32']['ms']:.4f} ms "
+                f"(bound {row['float32']['bound_ms']:.4f}, share {row['float32']['share']:.3f}), "
+                f"K2/K3-bf16 {row['bf16']['ms']:.4f} ms (bound {row['bf16']['bound_ms']:.4f}, "
+                f"share {row['bf16']['share']:.3f})")
+            rows.append(row)
+        out["stages"][model] = rows
+        log(f"HiFi-GAN {model}, its 4 stages at T_mel=512: float32 "
+            f"{sum(r['float32']['ms'] for r in rows):.4f} ms, bf16 "
+            f"{sum(r['bf16']['ms'] for r in rows):.4f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_pwg_output(gen, torch, peak: float = 0.4) -> None:
+    """Scale a random-weight PWG's last conv so that its wav peaks near
+    ``peak`` on a unit-normal mel (its output is linear: unscaled, it can
+    leave save_wav's int16 range)."""
+    rng = np.random.default_rng(SEED + 17)
+    c = torch.tensor(rng.normal(size=(1, 20, 80)), dtype=torch.float32)
+    z = torch.tensor(rng.normal(size=(1, 16 * 256, 1)), dtype=torch.float32)
+    with torch.no_grad():
+        wav = gen(z, c)
+        gen.last_conv_layers[3].weight.mul_(peak / float(wav.abs().max()))
+        gen.last_conv_layers[3].bias.zero_()
+
+
+def phase_other_vocoders(dev, torch):
+    """``vocode wav2wav`` (in-process, ``__main__.main``) through HiFi-GAN V1,
+    V2, V3, V1 with its NSF source and Parallel WaveGAN, in parity mode, and
+    V1 and V2 in fast mode, at full width on seeded random checkpoints (V1,
+    V2 and PWG in the layouts the wrappers resolve: a framework
+    ``config.yaml`` + ``model_ckpt_steps_*.ckpt``, the release
+    ``config.json`` + ``generator_v1``, ``checkpoint-*steps.pkl``), on the
+    6.0 s tone at 22.05 kHz with ACF pitch and the random draws injected
+    (the NSF source's phases and noise, PWG's ``z``, made on the CPU from one
+    seed). Each render's launches (72 K2/K3 for V1 and V2, 18 of them at
+    C = 8 for V2; none for V3 and PWG), its host clock and, in a second run
+    under torch.profiler, its kernel time and the device's idle share; each
+    parity cell held against the same command on the CPU on a 32-frame tone;
+    fast V1/V2 against parity at the bound for bf16 tap stacks. Before them,
+    ``other_vocoder_kernels``. Returns (kernel rows, launches by cell)."""
+    import shutil
+    import tempfile
+
+    import yaml
+    from scipy.io import wavfile
+
+    from prodiff_tpu_torch import device as policy
+    from prodiff_tpu_torch.__main__ import main as port_cli
+    from prodiff_tpu_torch.models.hifigan import HifiGanGenerator, source_draws
+    from prodiff_tpu_torch.models.pwg import ParallelWaveGANGenerator
+    from prodiff_tpu_torch.vocoders.hifigan import PWG, HifiGAN
+
+    kern = other_vocoder_kernels(dev, torch)
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_other_vocoders_")
+    audio = dict(VOCODE_FD_AUDIO)
+
+    def seeded_hifigan(h, seed):
+        torch.manual_seed(seed)
+        gen = HifiGanGenerator.from_config(h)
+        with torch.no_grad():  # fan-in scaled, as seeded_generator; conv_post at 0.3
+            for m in gen.modules():
+                if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+                    w = m.weight
+                    fan_in = w.shape[1] * w.shape[2] if isinstance(m, torch.nn.Conv1d) \
+                        else w.shape[0] * w.shape[2] / m.stride[0]
+                    torch.nn.init.normal_(w, std=0.5 / fan_in ** 0.5)
+            gen.conv_post.weight.mul_(0.3)
+        return gen
+
+    dirs = {}
+    for i, (name, cfg, kind, _, mode, _, _) in enumerate(OTHER_CELLS):
+        base = name.replace("_fast", "")
+        if base in dirs:
+            continue
+        d = dirs[base] = os.path.join(tmp, base)
+        os.makedirs(d)
+        if kind == "pwg":
+            torch.manual_seed(SEED + 20 + i)
+            gen = ParallelWaveGANGenerator.from_config(PWG_V1).eval()
+            scale_pwg_output(gen, torch)
+            with open(os.path.join(d, "config.yaml"), "w") as f:
+                yaml.dump({**PWG_V1, **audio}, f)
+            torch.save({"model": {"generator": gen.state_dict()}, "steps": 400000},
+                       os.path.join(d, "checkpoint-400000steps.pkl"))
+        elif base == "hifigan_v2":  # the release layout
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump(cfg, f)
+            torch.save({"generator": seeded_hifigan(cfg, SEED + 20 + i).state_dict()},
+                       os.path.join(d, "generator_v1"))
+        else:  # the framework layout
+            with open(os.path.join(d, "config.yaml"), "w") as f:
+                yaml.dump({**cfg, **audio}, f)
+            sd = {f"model_gen.{k}": v for k, v in seeded_hifigan(cfg, SEED + 20 + i).state_dict().items()}
+            torch.save({"state_dict": sd}, os.path.join(d, "model_ckpt_steps_1000.ckpt"))
+
+    sr, hop = audio["audio_sample_rate"], audio["hop_size"]
+    tones = {}
+    for label, n in (("full", OTHER_SAMPLES), ("short", OTHER_CPU_FRAMES * hop)):
+        wav_dir = os.path.join(tmp, f"in_{label}")
+        os.makedirs(wav_dir)
+        tones[label] = os.path.join(wav_dir, "tone.wav")
+        wavfile.write(tones[label], sr, vibrato_tone(n, sr, SEED + 11))
+
+    def draws_for(n_frames, where):
+        """The injected draws of an n-frame render, made on the CPU from one seed."""
+        g = torch.Generator().manual_seed(SEED + 18)
+        d = source_draws(1, n_frames * hop, 8, g)
+        return tuple(t.to(where) for t in d)
+
+    def z_for(n_frames, where):
+        g = torch.Generator().manual_seed(SEED + 19)
+        return torch.randn((1, n_frames * hop, 1), generator=g).to(where)
+
+    hifigan_render, pwg_render = HifiGAN.spec2wav, PWG.spec2wav
+
+    def cli(name, cell_hp, kind, tone, where, profiled=False):
+        """One ``vocode wav2wav`` run: (the written wav, host-clock ms, and
+        under torch.profiler the kernel ms and their split by group)."""
+        cfg = os.path.join(tmp, f"{name}.yaml")
+        with open(cfg, "w") as f:
+            yaml.dump(dict(audio, vocoder=kind, vocoder_ckpt=dirs[name.replace("_fast", "")],
+                           **cell_hp), f)
+        out_dir = os.path.join(tmp, f"out_{name}_{where}_{os.path.basename(os.path.dirname(tone))}")
+        argv = ["vocode", "wav2wav", tone, "--config", cfg, "--output_dir", out_dir,
+                "--device", where]
+        busy, sums = None, {}
+        if profiled:
+            wall_ms, busy, sums, _ = kernel_split(lambda: port_cli(argv), 1,
+                                                  {"conv_kernel": "K2/K3 resblock_stage",
+                                                   "conv_kernel_c8": "K2-bf16 C=8"}, torch)
+        else:
+            start = time.perf_counter()
+            port_cli(argv)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        _, wav = wavfile.read(os.path.join(out_dir, "tone.wav"))
+        return wav, wall_ms, busy, sums
+
+    HifiGAN.spec2wav = lambda self, mel, **kw: hifigan_render(
+        self, mel, draws=draws_for(len(mel), self.device), **kw)
+    PWG.spec2wav = lambda self, mel, **kw: pwg_render(self, mel, z=z_for(len(mel), self.device), **kw)
+    launches, wavs, report = {}, {}, {}
+    n_frames = (OTHER_SAMPLES + audio["win_size"] - hop - audio["win_size"]) // hop + 1
+    try:
+        cli("hifigan_v2", {}, "hifigan", tones["short"], "cuda")  # warm-up: mel, ACF, allocator
+        for name, _, kind, cell_hp, mode, n_res, n_c8 in OTHER_CELLS:
+            policy.set_precision(mode)
+            try:
+                want = {"resblock_stage_bf16" if mode == "fast" else "resblock_stage": n_res,
+                        "resblock_stage_c8_bf16" if mode == "fast" else "resblock_stage_c8": n_c8}
+                reset_counts()
+                wav, wall_ms, busy, sums = cli(name, cell_hp, kind, tones["full"], "cuda",
+                                               profiled=True)
+                launches[name] = check_counts(f"vocode wav2wav {name} ({mode})", want)
+                if wav.shape != (n_frames * hop,):
+                    raise AssertionError(f"{name}: wav {wav.shape}, want ({n_frames * hop},)")
+                wavs[name] = wav.astype(np.float64) / 32767
+                report[name] = {"host_ms": wall_ms, "rtf": wall_ms / 1e3 / (OTHER_SAMPLES / sr),
+                                "kernel_ms": busy,
+                                "idle_share": max(0.0, 1 - busy / wall_ms) if busy else None,
+                                "by_group_ms": {g: round(v, 3) for g, v in sums.items()}}
+                log(f"vocode wav2wav {name} ({mode}): {OTHER_SAMPLES} samples in, {n_frames} "
+                    f"frames, peak {np.abs(wav).max()} of 32767; under torch.profiler "
+                    f"{wall_ms:.3f} ms on the host clock (RTF {report[name]['rtf']:.5f}), kernel "
+                    f"{busy:.3f} ms, device idle share "
+                    f"{report[name]['idle_share'] if busy else 'not measured'}; by group (ms): "
+                    + json.dumps(report[name]["by_group_ms"]))
+                if mode == "parity":
+                    card, *_ = cli(name, cell_hp, kind, tones["short"], "cuda")
+                    cpu, cpu_ms, *_ = cli(name, cell_hp, kind, tones["short"], "cpu")
+                    err = float(np.abs(card.astype(np.float64) - cpu).max())
+                    peak = float(np.abs(cpu.astype(np.float64)).max())
+                    log(f"vocode wav2wav {name}: card vs CPU written wav {list(cpu.shape)} "
+                        f"max_abs_err {err:.0f} (int16 steps), peak {peak:.0f}, tol {CPU_TOL} x "
+                        f"peak; the CPU run {cpu_ms:.3f} ms")
+                    if not (0 < peak < 32767 and err <= CPU_TOL * peak):
+                        raise AssertionError(f"{name}: the card's wav disagrees with the CPU's")
+                else:
+                    report[name].update(hold_wav(f"vocode wav2wav {name} vs parity", wavs[name],
+                                                 wavs[name.replace("_fast", "")]))
+            finally:
+                policy.set_precision("parity")
+    finally:
+        HifiGAN.spec2wav, PWG.spec2wav = hifigan_render, pwg_render
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("other vocoders: " + json.dumps(report))
+    return kern, launches
+
+
 def main() -> int:
     import argparse
 
@@ -4071,6 +4351,7 @@ def main() -> int:
     k1_bf16, k5a_bf16, k5b_bf16, res_bf16 = timed_phase("bf16", phase_bf16)
     res_bf16_k, k4_bf16, k7_bf16 = timed_phase("bf16_vocoders", phase_bf16_vocoders)
     res_bf16_k["launches"] = res_bf16
+    other, other_launches = timed_phase("other_vocoders", phase_other_vocoders)
     log(f"phase seconds: {json.dumps(spent)}; script total {time.time() - t_script:.3f} s")
 
     def entry(name, source, replaces, n, m, counter):
@@ -4098,7 +4379,15 @@ def main() -> int:
              launches_data_pipeline=dp_launches["residual_stack"]),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
                    launches["resblock_stage"], res, "resblock_stage"), stages=res["stages"],
-             launches_data_pipeline=dp_launches["resblock_stage"]),
+             launches_data_pipeline=dp_launches["resblock_stage"],
+             launches_other_vocoders={k: v["resblock_stage"] for k, v in other_launches.items()},
+             hifigan_stages={m: [dict(C=r["C"], T=r["T"], **r["float32"]) for r in rows]
+                             for m, rows in other["stages"].items()}),
+        dict(entry("resblock_stage_c8", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
+                   other_launches["hifigan_v2"]["resblock_stage_c8"], other["float32"],
+                   "resblock_stage_c8"),
+             shape="HiFi-GAN V2's last stage: B=1, T=131072, C=8 (T_mel=512); the TPU kernel's "
+                   "pack 16"),
         dict(entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
                    fd_launches["ublock_layer"], fd["ublock_layer"], "ublock_layer"),
              bound_sum_of_blocks_ms=fd["ublock_layer"]["bound_sum_of_blocks_ms"],
@@ -4135,7 +4424,19 @@ def main() -> int:
                         "prodiff_tpu/ops/pallas/resblock.py:357", res_bf16_k,
                         "resblock_stage_bf16"),
              stages=res_bf16_k["stages"],
-             max_err_share_of_peak=res_bf16_k["max_err_share_of_peak"]),
+             max_err_share_of_peak=res_bf16_k["max_err_share_of_peak"],
+             launches_other_vocoders={k: v["resblock_stage_bf16"]
+                                      for k, v in other_launches.items()},
+             hifigan_stages={m: [dict(C=r["C"], T=r["T"], **r["bf16"]) for r in rows]
+                             for m, rows in other["stages"].items()}),
+        dict(entry("resblock_stage_c8_bf16", "resblock_bf16.cu",
+                   "prodiff_tpu/ops/pallas/resblock.py:357",
+                   other_launches["hifigan_v2_fast"]["resblock_stage_c8_bf16"], other["bf16"],
+                   "resblock_stage_c8_bf16"),
+             f32_ms=other["float32"]["ms"],
+             bound_rate="bf16 dense tensor cores, 989 TFLOP/s; HBM 3.35 TB/s",
+             shape="HiFi-GAN V2's last stage: B=1, T=131072, C=8 (T_mel=512), two taps a "
+                   "k16 step"),
         dict(bf16_entry("ublock_layer_bf16", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
                         k4_bf16, "ublock_layer_bf16",
                         "FP32 FMA, 67 TFLOP/s; HBM 3.35 TB/s (bf16 window bytes)"),

@@ -6,7 +6,8 @@
 // stage with its weights streamed per conv). On Hopper neither reason for
 // the split holds (there are no 128-lane registers to fill, and every conv's
 // weights stream through shared memory anyway), so one entry serves any C in
-// {16, 32, 64, 128, 256}. It computes, on x [B, T, C]:
+// {8, 16, 32, 64, 128, 256}. C = 8 is the last stage of a HiFiGAN that
+// starts at 128 channels (V2), which the TPU kernel runs at pack 16. It computes, on x [B, T, C]:
 //   out = mean_j ResBlock1_j(x),   ResBlock1(h) = for each dilation d:
 //         h = conv_k(leaky(conv_{k,d}(leaky(h)))) + h
 // with leaky slope 0.1 and zero padding get_padding(k, d) at the true
@@ -28,10 +29,12 @@
 // frames the taps reach (BM + 2 pad rows, k-major, through registers, with
 // the pre-activation leaky and the zeros outside [0, T) applied on the way),
 // double-buffered (tile_gemm.cuh:run_chunks), one barrier a chunk. The tile
-// per C, (BM, BN, FM) = (512, 16, 4), (256, 32, 4), (256, 64, 8) at C = 64
-// and 128, (128, 64, 4) at C = 256, gives 128-512 blocks of 8 warps a stage
-// at T_mel = 512; the 4-row fragments at C = 32 and 256 spill less at the
-// 128-register cap that two blocks an SM need. Epilogues: leaky (first conv
+// per C, (BM, BN, FM) = (512, 8, 4) at C = 8, (512, 16, 4), (256, 32, 4),
+// (256, 64, 8) at C = 64 and 128, (128, 64, 4) at C = 256, gives 128-512
+// blocks of 8 warps a stage at T_mel = 512 (C = 8: 256 blocks of 4 warps at
+// T = 131,072, one chunk of BK = 8 channels, its two channel groups 0-3 and
+// 4-7 with the one column of threads); the 4-row fragments at C = 32 and 256
+// spill less at the 128-register cap that two blocks an SM need. Epilogues: leaky (first conv
 // of a unit), + residual (second conv, in place), or + residual accumulated
 // into the stage mean (last unit of each ResBlock). k is 3, 7 or 11 (a template
 // argument), and the halo (k - 1) / 2 * d at most MAX_PAD frames a side.
@@ -230,6 +233,9 @@ int conv_k(const float* in, const float* w, const float* bias, const float* res,
 int conv(const float* in, const float* w, const float* bias, const float* res, float* dst,
          int B, int T, int C, int k, int d, int pre_leaky, int epi, int first, int last,
          float n_res, cudaStream_t stream) {
+  if (C == 8)
+    return conv_k<512, 8, 4>(in, w, bias, res, dst, B, T, C, k, d, pre_leaky, epi, first, last,
+                             n_res, stream);
   if (C == 16)
     return conv_k<512, 16, 4>(in, w, bias, res, dst, B, T, C, k, d, pre_leaky, epi, first,
                               last, n_res, stream);
@@ -256,7 +262,7 @@ extern "C" int resblock_stage(const float* x, float* out, float* h, float* tmp,
                               const int* ksizes, const int* nunits,
                               const int* dils, int n_res, int B, int T, int C,
                               void* stream_ptr) {
-  if (B < 1 || T < 1 || n_res < 1 || !(C == 16 || C == 32 || C % 64 == 0))
+  if (B < 1 || T < 1 || n_res < 1 || !(C == 8 || C == 16 || C == 32 || C % 64 == 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   size_t woff = 0;

@@ -37,6 +37,22 @@
 // tile by C: (BM, BN) = (256, 16), (256, 32), (128, 64) at C >= 64. k is 3,
 // 7 or 11 (a template argument), the halo (k - 1) / 2 * d at most MAX_PAD
 // frames a side. wgmma, TMA and fusing a unit's two convs are later work.
+//
+// C = 8 (the last stage of a HiFiGAN that starts at 128 channels, which the
+// TPU kernel runs at pack 16) has a kernel of its own, conv_kernel_c8: a tap
+// of a C = 8 conv reduces over 8 input channels, half of an m16n8k16 k step.
+// It PAIRS TWO TAPS in one k step rather than zero-padding the staged tile
+// to 16 channels: k 0-7 are tap 2p's channels and k 8-15 tap 2p+1's. The A
+// fragment's second half (the ldmatrix.x4 addresses of lanes 16-31) reads
+// the staged rows d further down, the B fragment's rows 8-15 hold tap
+// 2p+1's weights, and an odd k's last pair has a zero second tap (its A
+// lanes reread tap 2p's rows: finite values times zero weights). So a
+// 16-row tile takes ceil(k / 2) mma, 2/4/6 at k = 3/7/11, where zero-padding
+// would take k mma with half of each wasted. The staged rows are 8 bf16 (16
+// bytes) with no padding: the 8 rows of an ldmatrix phase are 128
+// contiguous bytes, in distinct banks. One chunk holds all 8 input
+// channels, so nothing is double-buffered; each lane builds its B fragments
+// once from global memory (at most 6 pairs, 12 registers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,6 +199,114 @@ conv_kernel(const float* __restrict__ in, const bf16* __restrict__ w,
     }
 }
 
+// conv_kernel at C = 8 with two taps a k step (see the header): WARPS warps,
+// each MT 16-row tiles of the BM = WARPS * MT * 16 frames a block owns.
+template <int WARPS, int MT, int K>
+__global__ void __launch_bounds__(WARPS * 32)
+conv_kernel_c8(const float* __restrict__ in, const bf16* __restrict__ w,
+               const float* __restrict__ bias, const float* res, float* dst, int T, int d,
+               int pre_leaky, int epi, int first, int last, float n_res) {
+  constexpr int C = 8, BM = WARPS * MT * 16, NTH = WARPS * 32, NP = (K + 1) / 2;
+  __shared__ __align__(16) bf16 As[(BM + 2 * MAX_PAD) * C];
+  const int pad = (K - 1) / 2 * d, rows = BM + 2 * pad;
+  const int b = blockIdx.y, t0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, lane = tid & 31, row0 = (tid >> 5) * MT * 16;
+  const float* inb = in + (size_t)b * T * C;
+
+  // B fragments: b0 holds k rows kr, kr + 1 of column lane / 4 (tap 2p's
+  // channels kr, kr + 1), b1 the same rows of tap 2p + 1 (k rows 8 + kr).
+  uint32_t bfr[NP][2];
+  const int kr = 2 * (lane & 3), col = lane >> 2;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 2 * p + h;
+      __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+      if (q < K) {
+        v.x = w[((size_t)q * C + kr) * C + col];
+        v.y = w[((size_t)q * C + kr + 1) * C + col];
+      }
+      bfr[p][h] = *reinterpret_cast<uint32_t*>(&v);
+    }
+
+  // the frames the taps reach, leaky'd and rounded to bf16, zero outside [0, T)
+  for (int e = tid; e < rows * 2; e += NTH) {
+    const int r = e >> 1, t = t0 - pad + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t >= 0 && t < T) {
+      v = mma::ld4(inb + (size_t)t * C + (e & 1) * 4);
+      if (pre_leaky) v = make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
+    }
+    *reinterpret_cast<uint2*>(As + r * C + (e & 1) * 4) = mma::pack4(v);
+  }
+  __syncthreads();
+
+  float acc[MT][4] = {};
+  const int arow = lane & 15, second = lane >> 4;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int q = 2 * p + second < K ? 2 * p + second : 2 * p;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      uint32_t a[4];
+      mma::ldsm_x4(a, As + (row0 + 16 * mi + arow + q * d) * C);
+      mma::mma16816(acc[mi], a, bfr[p][0], bfr[p][1]);
+    }
+  }
+
+  const int co = mma::frag_col(0);
+  const float2 bv = *reinterpret_cast<const float2*>(bias + co);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + row0 + mma::frag_row(mi, half);
+      if (t >= T) continue;
+      const size_t i = ((size_t)b * T + t) * C + co;
+      float v0 = acc[mi][2 * half] + bv.x, v1 = acc[mi][2 * half + 1] + bv.y;
+      if (epi == EPI_LEAKY) {
+        v0 = leaky(v0);
+        v1 = leaky(v1);
+      } else {
+        const float2 r = *reinterpret_cast<const float2*>(res + i);
+        v0 += r.x;
+        v1 += r.y;
+        if (epi == EPI_MEAN) {
+          if (!first) {
+            const float2 o = *reinterpret_cast<const float2*>(dst + i);
+            v0 = o.x + v0;
+            v1 = o.y + v1;
+          }
+          if (last) {
+            v0 /= n_res;
+            v1 /= n_res;
+          }
+        }
+      }
+      *reinterpret_cast<float2*>(dst + i) = make_float2(v0, v1);
+    }
+}
+
+template <int WARPS, int MT>
+int conv_c8(const float* in, const bf16* w, const float* bias, const float* res, float* dst,
+            int B, int T, int k, int d, int pre_leaky, int epi, int first, int last, float n_res,
+            cudaStream_t stream) {
+  constexpr int BM = WARPS * MT * 16;
+  const dim3 grid((T + BM - 1) / BM, B);
+  switch (k) {
+#define RESBLOCK_C8_CASE(K)                                                                  \
+  case K:                                                                                    \
+    conv_kernel_c8<WARPS, MT, K><<<grid, WARPS * 32, 0, stream>>>(in, w, bias, res, dst, T, \
+                                                                  d, pre_leaky, epi, first, \
+                                                                  last, n_res);             \
+    return (int)cudaGetLastError();
+    RESBLOCK_C8_CASE(3) RESBLOCK_C8_CASE(7) RESBLOCK_C8_CASE(11)
+#undef RESBLOCK_C8_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int WM, int WN, int MT, int NT, int K>
 int launch_conv(const float* in, const bf16* w, const float* bias, const float* res, float* dst,
                 int B, int T, int C, int d, int pre_leaky, int epi, int first, int last,
@@ -227,6 +351,9 @@ int conv_k(const float* in, const bf16* w, const float* bias, const float* res, 
 int conv(const float* in, const bf16* w, const float* bias, const float* res, float* dst, int B,
          int T, int C, int k, int d, int pre_leaky, int epi, int first, int last, float n_res,
          cudaStream_t stream) {
+  if (C == 8)
+    return conv_c8<8, 2>(in, w, bias, res, dst, B, T, k, d, pre_leaky, epi, first, last, n_res,
+                         stream);
   if (C == 16)
     return conv_k<8, 1, 2, 2>(in, w, bias, res, dst, B, T, C, k, d, pre_leaky, epi, first, last,
                               n_res, stream);
@@ -250,7 +377,7 @@ extern "C" int resblock_stage_bf16(const float* x, float* out, float* h, float* 
                                    const void* w_ptr, const float* bias, const int* ksizes,
                                    const int* nunits, const int* dils, int n_res, int B, int T,
                                    int C, void* stream_ptr) {
-  if (B < 1 || T < 1 || n_res < 1 || !(C == 16 || C == 32 || C % 64 == 0))
+  if (B < 1 || T < 1 || n_res < 1 || !(C == 8 || C == 16 || C == 32 || C % 64 == 0))
     return (int)cudaErrorInvalidValue;
   const bf16* w = static_cast<const bf16*>(w_ptr);
   cudaStream_t stream = (cudaStream_t)stream_ptr;

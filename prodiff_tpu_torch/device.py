@@ -128,6 +128,18 @@ def resblock_tap_dtype(hp: Dict[str, Any], device: Optional[Device]) -> torch.dt
     return torch.bfloat16 if value == "auto" and packed and _on_card(device) else torch.float32
 
 
+def hifigan_tap_dtype(hp: Dict[str, Any], device: Optional[Device]) -> torch.dtype:
+    """Tap dtype of HiFiGAN's resblock stages (``vocoders/hifigan.py``):
+    bfloat16 where the JAX ``HifiGAN`` renders through its packed runner
+    with ``fused_res_dtype="auto"`` on the accelerator
+    (``prodiff_tpu/vocoders/hifigan.py:81-84``, ``prodiff_tpu/models/hifigan.py:198-201``):
+    ``hifigan_packed`` unset or true, here ``fast`` mode on a CUDA device;
+    else float32. Which stages take the bf16 stacks is the model's stage
+    gate (``models/hifigan.py:HifiGanGenerator._packed_supported``)."""
+    packed = hp.get("hifigan_packed", None) is not False
+    return torch.bfloat16 if packed and _on_card(device) else torch.float32
+
+
 def kernel_predictor_dtype(fused_layer: bool, device: Optional[Device]) -> torch.dtype:
     """Compute dtype of FastDiff's KernelPredictor: bfloat16 on the fused-layer
     route in ``fast`` mode on a CUDA device, as the JAX packed route builds
@@ -137,6 +149,30 @@ def kernel_predictor_dtype(fused_layer: bool, device: Optional[Device]) -> torch
     counterpart (the linen route) builds it with the module's dtype, which
     no config sets."""
     return torch.bfloat16 if fused_layer and _on_card(device) else torch.float32
+
+
+def refuse_multi_gpu(hp: Dict[str, Any]) -> None:
+    """Raise for the keys that ask for more than one device: ``model_parallel
+    > 1`` (the JAX trainer's (data, model) mesh and the teacher's tensor
+    parallelism) and ``multi_host: true`` (its ``jax.distributed``
+    initialisation). The port runs one GPU (ROADMAP queue 1, "Multi-GPU").
+    Where ``dilation_cycle_length != 1`` the JAX teacher's own refusal of
+    ``model_parallel > 1`` comes first, word for word
+    (``prodiff_tpu/models/wavenet.py:100-112``)."""
+    mp = hp.get("model_parallel", 1)
+    cycle = hp.get("dilation_cycle_length", 1)
+    if mp > 1 and cycle != 1:
+        raise ValueError(
+            "model_parallel > 1 requires dilation_cycle_length == 1 "
+            f"(got {cycle}); the TP denoiser stacks "
+            "per-layer params and needs uniform dilation"
+        )
+    if mp > 1 or hp.get("multi_host", False):
+        raise NotImplementedError(
+            f"model_parallel={mp}, multi_host={hp.get('multi_host', False)}: the PyTorch port "
+            "runs on one GPU; tensor parallelism and multi-host training are ROADMAP queue 1, "
+            '"Multi-GPU" (set model_parallel: 1 and multi_host: false)'
+        )
 
 
 def resolve_device(device: Optional[Device] = None) -> torch.device:

@@ -7,9 +7,14 @@ State-dict names follow the torch reference (``conv_pre``, ``ups.{i}``,
 ``noise_convs.{i}``, ``resblocks.{n}.convs1.{j}``, ``m_source.l_linear``,
 ``conv_post``), with weight norm already folded.
 
-Each upsample stage ends in the mean of its ResBlock1s. For CUDA tensors
-that mean runs as one ``resblock_stage`` kernel call (port of the Pallas K2/K3);
-on the CPU it is the plain module loop.
+Each upsample stage ends in the mean of its ResBlock1s (or ResBlock2s).
+For CUDA tensors a ResBlock1 stage runs as one ``resblock_stage`` kernel call
+(port of the Pallas K2/K3); on the CPU it is the plain module loop. A
+ResBlock2 stage runs its plain modules on both, decided by the architecture
+before any launch: the JAX package has no kernel for it either (its packed
+gate refuses ``resblock != "1"`` and its linen stage runs in XLA).
+:class:`ResBlockStages` holds that routing for this generator and
+``models/hifigan.py:HifiGanGenerator``.
 The TPU lane-layout machinery of the JAX module (the packed trunk and its
 runner) is not ported: this computes the function it computes.
 
@@ -134,6 +139,101 @@ class ResBlock1(nn.Module):
         return x
 
 
+class ResBlock2(nn.Module):
+    def __init__(self, channels: int, kernel_size: int = 3, dilation: Tuple[int, ...] = (1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            nn.Conv1d(channels, channels, kernel_size, dilation=d, padding=get_padding(kernel_size, d))
+            for d in dilation
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, C, T]."""
+        for c in self.convs:
+            x = c(F.leaky_relu(x, LRELU_SLOPE)) + x
+        return x
+
+
+RESBLOCKS = {"1": ResBlock1, "2": ResBlock2}
+
+
+class ResBlockStages(nn.Module):
+    """The resblock stages of a HiFiGAN-family generator. A subclass sets
+    ``ups``, ``resblocks`` (``len(resblock_kernel_sizes)`` a stage),
+    ``resblock`` ("1" or "2"), ``resblock_kernel_sizes``,
+    ``resblock_dilation_sizes``, ``upsample_rates``,
+    ``upsample_kernel_sizes``, ``upsample_initial_channel`` and ``tap_dtype``,
+    and defines ``_packed_supported(t_mel)``, the JAX packed route's gate."""
+
+    def _init_stages(self, resblock: str, tap_dtype: torch.dtype) -> None:
+        if str(resblock) not in RESBLOCKS:
+            raise ValueError(f"resblock must be '1' or '2', got {resblock!r}")
+        if tap_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"tap_dtype must be float32 or bfloat16, got {tap_dtype}")
+        self.resblock, self.tap_dtype = str(resblock), tap_dtype
+        self._stages = None
+
+    def _packed_supported(self, t_mel: int) -> bool:
+        raise NotImplementedError
+
+    def stage_tap_dtypes(self, t_mel: int) -> Tuple[torch.dtype, ...]:
+        """Per stage, the dtype of its tap stacks for a mel of ``t_mel``
+        frames: ``tap_dtype`` where the JAX package's packed route runs the
+        fused or streamed resblock kernel (the trunk's gate at this length,
+        then the stage's kind, :func:`fused_stage_kinds`), else float32,
+        as its linen and XLA stages compute."""
+        n = len(self.upsample_rates)
+        if self.tap_dtype == torch.float32 or not self._packed_supported(t_mel):
+            return (torch.float32,) * n
+        kinds = fused_stage_kinds(self.upsample_initial_channel, n, self.resblock_kernel_sizes,
+                                  self.resblock_dilation_sizes,
+                                  torch.finfo(self.tap_dtype).bits // 8)
+        return tuple(self.tap_dtype if kind else torch.float32 for kind in kinds)
+
+    def stage_weights(self, dtypes: Optional[Sequence[torch.dtype]] = None
+                      ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+        """Per stage, its ResBlock1 convs flattened for ``resblock_stage``:
+        weights (each conv ``[k, C_in, C_out]``, in resblock/unit/conv1-conv2
+        order) in that stage's entry of ``dtypes`` (default float32; bf16
+        copies are made here, the parameters stay float32) and float32
+        biases ``[n_convs, C]``; rebuilt when a parameter or the dtypes
+        change."""
+        if self.resblock != "1":
+            raise ValueError("stage_weights: only ResBlock1 stages run resblock_stage")
+        dtypes = tuple(dtypes or (torch.float32,) * len(self.ups))
+        key = (params_key(self), dtypes)
+        if self._stages is None or self._stages[0] != key:
+            n = len(self.resblock_kernel_sizes)
+            stages = []
+            with torch.no_grad():
+                for i in range(len(self.ups)):
+                    ws, bs = [], []
+                    for rb in self.resblocks[i * n: (i + 1) * n]:
+                        for c1, c2 in zip(rb.convs1, rb.convs2):
+                            for conv in (c1, c2):
+                                ws.append(conv.weight.permute(2, 1, 0).reshape(-1))
+                                bs.append(conv.bias)
+                    stages.append((torch.cat(ws).to(dtypes[i]).contiguous(),
+                                   torch.stack(bs).contiguous()))
+            self._stages = (key, tuple(stages))
+        return self._stages[1]
+
+    def stage(self, i: int, x: torch.Tensor, dtypes: Sequence[torch.dtype]) -> torch.Tensor:
+        """Stage ``i``'s resblock mean on x [B, C, T]: one ``resblock_stage``
+        call for a ResBlock1 stage on the card or with bf16 tap stacks, else
+        the plain module loop."""
+        n = len(self.resblock_kernel_sizes)
+        if self.resblock == "1" and (x.is_cuda or dtypes[i] != torch.float32):
+            w, b = self.stage_weights(dtypes)[i]
+            return resblock_stage(
+                x.transpose(1, 2), w, b, self.resblock_kernel_sizes, self.resblock_dilation_sizes,
+            ).transpose(1, 2)
+        xs = 0.0
+        for rb in self.resblocks[i * n: (i + 1) * n]:
+            xs = xs + rb(x)
+        return xs / n
+
+
 def sine_source(f0: torch.Tensor, upp: int, sampling_rate: int, harmonic_num: int,
                 generator: Optional[torch.Generator] = None, sine_amp: float = 0.1,
                 noise_std: float = 0.003, voiced_threshold: float = 0.0) -> torch.Tensor:
@@ -180,7 +280,7 @@ class SourceModuleHnNSF(nn.Module):
         return torch.tanh(self.l_linear(sines))
 
 
-class Generator(nn.Module):
+class Generator(ResBlockStages):
     """``h``-style constructor arguments: the openvpi NSF-HiFiGAN config.json
     fields (defaults = the 44.1 kHz, 128-mel release)."""
 
@@ -192,11 +292,7 @@ class Generator(nn.Module):
                  resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
                  tap_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if str(resblock) != "1":
-            raise NotImplementedError("ResBlock2 generators land with the other-vocoders slice")
-        if tap_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"tap_dtype must be float32 or bfloat16, got {tap_dtype}")
-        self.tap_dtype = tap_dtype
+        self._init_stages(resblock, tap_dtype)
         self.upsample_initial_channel = upsample_initial_channel
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.upsample_rates = tuple(upsample_rates)
@@ -208,6 +304,7 @@ class Generator(nn.Module):
         self.ups = nn.ModuleList()
         self.noise_convs = nn.ModuleList()
         self.resblocks = nn.ModuleList()
+        block = RESBLOCKS[self.resblock]
         for i, (u, k) in enumerate(zip(self.upsample_rates, upsample_kernel_sizes)):
             c_prev = upsample_initial_channel // (2 ** i)
             c_cur = upsample_initial_channel // (2 ** (i + 1))
@@ -218,12 +315,11 @@ class Generator(nn.Module):
             else:
                 self.noise_convs.append(nn.Conv1d(1, c_cur, 1))
             for rk, rd in zip(self.resblock_kernel_sizes, self.resblock_dilation_sizes):
-                self.resblocks.append(ResBlock1(c_cur, rk, rd))
+                self.resblocks.append(block(c_cur, rk, rd))
         self.conv_post = nn.Conv1d(c_cur, 1, 7, padding=3)
         for m in self.modules():
             if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
                 nn.init.normal_(m.weight, 0.0, 0.01)
-        self._stages = None
 
     @classmethod
     def from_config(cls, h: dict, tap_dtype: torch.dtype = torch.float32) -> "Generator":
@@ -238,48 +334,12 @@ class Generator(nn.Module):
             tap_dtype=tap_dtype,
         )
 
-    def stage_tap_dtypes(self, t_mel: int) -> Tuple[torch.dtype, ...]:
-        """Per stage, the dtype of its tap stacks for a mel of ``t_mel``
-        frames: ``tap_dtype`` where the JAX package's packed route runs the
-        fused or streamed resblock kernel (the trunk's gate at this length,
-        then the stage's kind, :func:`fused_stage_kinds`), else float32,
-        as its linen and XLA stages compute."""
-        n = len(self.upsample_rates)
-        f32 = (torch.float32,) * n
-        if self.tap_dtype == torch.float32 or not packed_trunk_supported(
-                t_mel, rates=self.upsample_rates, ksizes=self.upsample_kernel_sizes,
-                init_ch=self.upsample_initial_channel, resblock="1",
-                res_ksizes=self.resblock_kernel_sizes, has_source=True):
-            return f32
-        kinds = fused_stage_kinds(self.upsample_initial_channel, n, self.resblock_kernel_sizes,
-                                  self.resblock_dilation_sizes,
-                                  torch.finfo(self.tap_dtype).bits // 8)
-        return tuple(self.tap_dtype if kind else torch.float32 for kind in kinds)
-
-    def stage_weights(self, dtypes: Optional[Sequence[torch.dtype]] = None
-                      ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
-        """Per stage, its convs flattened for ``resblock_stage``: weights (each
-        conv ``[k, C_in, C_out]``, in resblock/unit/conv1-conv2 order) in that
-        stage's entry of ``dtypes`` (default float32; bf16 copies are made
-        here, the parameters stay float32) and float32 biases ``[n_convs,
-        C]``; rebuilt when a parameter or the dtypes change."""
-        dtypes = tuple(dtypes or (torch.float32,) * len(self.ups))
-        key = (params_key(self), dtypes)
-        if self._stages is None or self._stages[0] != key:
-            n = len(self.resblock_kernel_sizes)
-            stages = []
-            with torch.no_grad():
-                for i in range(len(self.ups)):
-                    ws, bs = [], []
-                    for rb in self.resblocks[i * n: (i + 1) * n]:
-                        for c1, c2 in zip(rb.convs1, rb.convs2):
-                            for conv in (c1, c2):
-                                ws.append(conv.weight.permute(2, 1, 0).reshape(-1))
-                                bs.append(conv.bias)
-                    stages.append((torch.cat(ws).to(dtypes[i]).contiguous(),
-                                   torch.stack(bs).contiguous()))
-            self._stages = (key, tuple(stages))
-        return self._stages[1]
+    def _packed_supported(self, t_mel: int) -> bool:
+        """``prodiff_tpu/models/nsf_hifigan.py:Generator._packed_supported``."""
+        return packed_trunk_supported(
+            t_mel, rates=self.upsample_rates, ksizes=self.upsample_kernel_sizes,
+            init_ch=self.upsample_initial_channel, resblock=self.resblock,
+            res_ksizes=self.resblock_kernel_sizes, has_source=True)
 
     def forward(self, mel: torch.Tensor, f0: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -288,22 +348,10 @@ class Generator(nn.Module):
         ``generator=None`` renders deterministically (zero-phase, noise-free
         sine source)."""
         har_source = self.m_source(f0, self.upp, generator).transpose(1, 2)  # [B, 1, T*upp]
-        n = len(self.resblock_kernel_sizes)
         dtypes = self.stage_tap_dtypes(mel.shape[1])
         x = self.conv_pre(mel.transpose(1, 2))
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(F.leaky_relu(x, LRELU_SLOPE)) + noise_conv(har_source)
-            if x.is_cuda or dtypes[i] != torch.float32:
-                w, b = self.stage_weights(dtypes)[i]
-                x = resblock_stage(
-                    x.transpose(1, 2), w, b,
-                    self.resblock_kernel_sizes, self.resblock_dilation_sizes,
-                ).transpose(1, 2)
-            else:
-                xs = 0.0
-                for rb in self.resblocks[i * n: (i + 1) * n]:
-                    xs = xs + rb(x)
-                x = xs / n
+            x = self.stage(i, x, dtypes)
         x = self.conv_post(F.leaky_relu(x))  # torch default slope 0.01 here
         return torch.tanh(x)[:, 0]
-

@@ -39,6 +39,7 @@ class ProDiffTeacher(nn.Module):
     def __init__(self, vocab_size: int, hparams: Dict[str, Any]):
         super().__init__()
         hp = hparams
+        device.refuse_multi_gpu(hp)
         self.diff_type = hp.get("diff_type", "prodiff")
         if self.diff_type not in ("prodiff", "reflow"):
             raise NotImplementedError(f"diff_type {self.diff_type!r}")

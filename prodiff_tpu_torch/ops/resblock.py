@@ -33,6 +33,15 @@ KERNEL_SIZES = (3, 7, 11)  # the kernel's taps (csrc/resblock.cu: a template arg
 MAX_PAD = 32  # the kernel's largest halo a side, get_padding(k, d)
 
 
+def channels_supported(c: int) -> bool:
+    """The kernels' widths: 8 (a HiFiGAN V2's last stage, the Pallas kernel's
+    pack 16), 16, 32 and the multiples of 64 (``csrc/resblock.cu:conv``,
+    ``csrc/resblock_bf16.cu:conv``). At every one of them a frame's row of
+    ``C`` float32 (and a tap row of ``C`` bf16) is a whole number of 16-byte
+    vectors, so a 16-byte aligned tensor keeps every row aligned."""
+    return c in (8, 16, 32) or (c > 0 and c % 64 == 0)
+
+
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
@@ -106,7 +115,8 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
     CPU tensors run :func:`resblock_stage_plain`; CUDA tensors launch the
     kernel of the weights' dtype, one launch per conv: float32 taps
     ``csrc/resblock.cu`` (counted in ``resblock_stage.launches``), bf16 taps
-    ``csrc/resblock_bf16.cu`` (``resblock_stage.bf16_launches``). ``x`` and
+    ``csrc/resblock_bf16.cu`` (``resblock_stage.bf16_launches``); at C = 8
+    also in ``resblock_stage.c8_launches`` / ``.c8_bf16_launches``. ``x`` and
     ``biases`` are float32 on both; any other dtype raises."""
     dtype = device.compute_dtype()
     if weights.dtype not in _ENTRIES:
@@ -125,8 +135,8 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
         if a.device != x.device:
             raise ValueError(f"resblock_stage: every operand must be on {x.device}, "
                              f"got {a.device}")
-    if not (c in (16, 32) or c % 64 == 0):
-        raise ValueError(f"resblock_stage: C must be 16, 32 or a multiple of 64, got {c}")
+    if not channels_supported(c):
+        raise ValueError(f"resblock_stage: C must be 8, 16, 32 or a multiple of 64, got {c}")
     if len(ksizes) != len(dsizes) or any(k not in KERNEL_SIZES for k in ksizes):
         raise ValueError(
             f"resblock_stage: kernel sizes in {KERNEL_SIZES}, one per resblock: {ksizes}")
@@ -141,8 +151,8 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
         )
     x = x.contiguous()
     weights, biases = weights.contiguous(), biases.contiguous()
-    if weights.data_ptr() % 16:
-        raise ValueError("resblock_stage: the weights must be 16-byte aligned")
+    if weights.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("resblock_stage: x and the weights must be 16-byte aligned")
     out = torch.empty_like(x)
     h = torch.empty_like(x)
     tmp = torch.empty_like(x)
@@ -159,8 +169,12 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
     cuda_build.check(err, _ENTRIES[weights.dtype][1])
     bf16 = weights.dtype == torch.bfloat16
     (resblock_stage.bf16_launches if bf16 else resblock_stage.launches).add(len(layout))
+    if c == 8:  # the C = 8 tile (float32) and the two-taps-a-k-step kernel (bf16), apart
+        (resblock_stage.c8_bf16_launches if bf16 else resblock_stage.c8_launches).add(len(layout))
     return out
 
 
 resblock_stage.launches = cuda_build.LaunchCounter()
 resblock_stage.bf16_launches = cuda_build.LaunchCounter()
+resblock_stage.c8_launches = cuda_build.LaunchCounter()  # also in .launches
+resblock_stage.c8_bf16_launches = cuda_build.LaunchCounter()  # also in .bf16_launches

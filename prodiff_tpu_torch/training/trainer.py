@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from prodiff_tpu_torch.data.dataset import drain
-from prodiff_tpu_torch.device import resolve_device
+from prodiff_tpu_torch.device import refuse_multi_gpu, resolve_device
 from prodiff_tpu_torch.training.optim import Optimizer, global_norm
 from prodiff_tpu_torch.utils import ckpt_utils
 
@@ -188,6 +188,7 @@ class DevicePrefetcher:
 
 class Trainer:
     def __init__(self, hparams: dict, device=None):
+        refuse_multi_gpu(hparams)
         self.hparams = hparams
         self.device = resolve_device(device)
         self.work_dir = hparams["work_dir"]

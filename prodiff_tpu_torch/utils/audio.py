@@ -39,6 +39,14 @@ def load_wav(path: str, sr: int = None) -> tuple:
     return data, file_sr
 
 
+def amp_to_db(x: np.ndarray) -> np.ndarray:
+    return 20 * np.log10(np.maximum(1e-5, x))
+
+
+def db_to_amp(x: np.ndarray) -> np.ndarray:
+    return 10.0 ** (x * 0.05)
+
+
 def cross_fade(a: np.ndarray, b: np.ndarray, idx: int) -> np.ndarray:
     """Linearly cross-fade segment ``b`` into ``a`` starting at sample ``idx``
     (stitches the per-segment renders of a long song)."""

@@ -18,7 +18,10 @@
   trainer writes, through a task's weight carrier, after
   :func:`check_permutation` holds that carrier to moving elements only.
 - :func:`nsf_hifigan_state_dict` does the same for the NSF-HiFiGAN
-  generator, inverting ``prodiff_tpu/utils/torch_convert.py:convert_nsf_hifigan``.
+  generator, inverting ``prodiff_tpu/utils/torch_convert.py:convert_nsf_hifigan``;
+  :func:`hifigan_state_dict` and :func:`pwg_state_dict` for the HiFiGAN and
+  Parallel WaveGAN generators, inverting ``prodiff_tpu/models/hifigan.py:convert_hifigan``
+  and ``prodiff_tpu/models/pwg.py:convert_pwg``.
 - :func:`fastdiff_state_dict` does the same for the FastDiff vocoder,
   inverting ``prodiff_tpu/models/fastdiff.py:convert_fastdiff``: the result is
   a torch-reference state dict (``kernel_conv`` rows in the reference's
@@ -460,25 +463,76 @@ def optimizer_state_from_flax(tree: dict, carrier: Carrier, hp: dict) -> dict:
             "nu": carrier[1]({"params": adam["0"]["nu"]}), "acc": acc}
 
 
+def _resblocks(sd: StateDict, p: Dict[str, Any], h: dict) -> None:
+    """A HiFiGAN-family generator's ResBlock1s (``convs1``/``convs2``) or
+    ResBlock2s (``convs``), ``len(resblock_kernel_sizes)`` a stage."""
+    n_up = len(h["upsample_rates"])
+    groups = ("convs1", "convs2") if str(h["resblock"]) == "1" else ("convs",)
+    for n in range(n_up * len(h["resblock_kernel_sizes"])):
+        block = p[f"resblocks_{n}"]
+        for j in range(len(h["resblock_dilation_sizes"][n % len(h["resblock_kernel_sizes"])])):
+            for group in groups:
+                _conv(sd, f"resblocks.{n}.{group}.{j}", block[f"{group}_{j}"]["conv"])
+
+
 def nsf_hifigan_state_dict(flax_params: Dict[str, Any], h: dict) -> StateDict:
     """JAX NSF-HiFiGAN ``Generator`` params -> this port's ``Generator`` state dict."""
     p = _params(flax_params)
     sd: StateDict = {}
     _conv(sd, "conv_pre", p["conv_pre"]["conv"])
     _conv(sd, "conv_post", p["conv_post"]["conv"])
-    n_up = len(h["upsample_rates"])
-    for i in range(n_up):
+    for i in range(len(h["upsample_rates"])):
         _convt(sd, f"ups.{i}", p[f"ups_{i}"])
         _conv(sd, f"noise_convs.{i}", p[f"noise_convs_{i}"]["conv"])
-    if str(h["resblock"]) != "1":
-        raise NotImplementedError("ResBlock2 generators land with the other-vocoders slice")
-    n_units = len(h["resblock_dilation_sizes"][0])
-    for n in range(n_up * len(h["resblock_kernel_sizes"])):
-        block = p[f"resblocks_{n}"]
-        for j in range(n_units):
-            for group in ("convs1", "convs2"):
-                _conv(sd, f"resblocks.{n}.{group}.{j}", block[f"{group}_{j}"]["conv"])
+    _resblocks(sd, p, h)
     _dense(sd, "m_source.l_linear", p["m_source"]["l_linear"])
+    return sd
+
+
+def hifigan_state_dict(flax_params: Dict[str, Any], h: dict) -> StateDict:
+    """JAX ``HifiGanGenerator`` params -> this port's ``models/hifigan.py``
+    state dict (the reference's names), inverting
+    ``prodiff_tpu/models/hifigan.py:convert_hifigan``; ``noise_convs`` and
+    ``m_source`` where ``use_pitch_embed``."""
+    p = _params(flax_params)
+    sd: StateDict = {}
+    _conv(sd, "conv_pre", p["conv_pre"]["conv"])
+    _conv(sd, "conv_post", p["conv_post"]["conv"])
+    pitch = h.get("use_pitch_embed", False)
+    for i in range(len(h["upsample_rates"])):
+        _convt(sd, f"ups.{i}", p[f"ups_{i}"])
+        if pitch:
+            _conv(sd, f"noise_convs.{i}", p[f"noise_convs_{i}"]["conv"])
+    _resblocks(sd, p, h)
+    if pitch:
+        _dense(sd, "m_source.l_linear", p["m_source"]["l_linear"])
+    return sd
+
+
+def pwg_state_dict(flax_params: Dict[str, Any], config: dict) -> StateDict:
+    """JAX ``ParallelWaveGANGenerator`` params -> this port's
+    ``models/pwg.py`` state dict (the reference's names), inverting
+    ``prodiff_tpu/models/pwg.py:convert_pwg``: the upsampler's smoothing
+    convs at the odd indices of ``up_layers``, ``last_conv_layers.1`` and
+    ``.3`` between their ReLUs."""
+    p = _params(flax_params)
+    gp = config["generator_params"]
+    sd: StateDict = {}
+    _conv(sd, "first_conv", p["first_conv"])
+    _conv(sd, "last_conv_layers.1", p["last_conv_1"])
+    _conv(sd, "last_conv_layers.3", p["last_conv_3"])
+    for i in range(gp.get("layers", 30)):
+        layer = p[f"conv_layers_{i}"]
+        for name in ("conv", "conv1x1_aux", "conv1x1_skip", "conv1x1_out"):
+            _conv(sd, f"conv_layers.{i}.{name}", layer[name])
+    up = p["upsample_net"]
+    _conv(sd, "upsample_net.conv_in", up["conv_in"])
+    for i in range(len(gp["upsample_params"]["upsample_scales"])):
+        k = np.asarray(up["upsample"][f"up_conv_{i}"])  # (time, freq, I, O) -> torch [O, I, 1, kw]
+        sd[f"upsample_net.upsample.up_layers.{2 * i + 1}.weight"] = _t(np.transpose(k, (3, 2, 1, 0)))
+    if gp.get("use_pitch_embed", False):
+        _embedding(sd, "pitch_embed", p["pitch_embed"])
+        _dense(sd, "c_proj", p["c_proj"])
     return sd
 
 

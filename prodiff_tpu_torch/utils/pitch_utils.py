@@ -5,6 +5,26 @@ from __future__ import annotations
 
 import numpy as np
 
+f0_bin = 256
+f0_max = 1100.0
+f0_min = 50.0
+f0_mel_min = 1127 * np.log(1 + f0_min / 700)
+f0_mel_max = 1127 * np.log(1 + f0_max / 700)
+
+
+def f0_to_coarse(f0: np.ndarray) -> np.ndarray:
+    """Quantize f0 (Hz) to 256 mel-spaced bins; bin 0 reserved, 1..255 used
+    (Parallel WaveGAN's pitch ids)."""
+    f0_mel = 1127 * np.log(1 + np.asarray(f0) / 700)
+    f0_mel[f0_mel > 0] = (f0_mel[f0_mel > 0] - f0_mel_min) * (f0_bin - 2) / (
+        f0_mel_max - f0_mel_min
+    ) + 1
+    f0_mel[f0_mel <= 1] = 1
+    f0_mel[f0_mel > f0_bin - 1] = f0_bin - 1
+    f0_coarse = np.rint(f0_mel).astype(np.int64)
+    assert f0_coarse.max() <= 255 and f0_coarse.min() >= 1, (f0_coarse.max(), f0_coarse.min())
+    return f0_coarse
+
 
 def norm_f0(f0, uv=None):
     """log2 f0, ``-inf`` where unvoiced (the reference's ``pitch_norm: log``)."""

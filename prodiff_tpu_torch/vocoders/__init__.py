@@ -11,13 +11,10 @@ def register_vocoder(cls):
 
 
 def get_vocoder_cls(name: str):
-    from prodiff_tpu_torch.vocoders import fastdiff, nsf_hifigan  # noqa: F401
+    from prodiff_tpu_torch.vocoders import fastdiff, hifigan, nsf_hifigan  # noqa: F401
 
     if name.lower() not in VOCODERS:
-        raise ValueError(
-            f"Vocoder {name} not found in {sorted(VOCODERS)}; the other vocoders "
-            "land with a later slice"
-        )
+        raise ValueError(f"Vocoder {name} not found in {sorted(VOCODERS)}")
     return VOCODERS[name.lower()]
 
 

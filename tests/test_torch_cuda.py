@@ -140,9 +140,9 @@ def _stage(rng, c, ksizes, dsizes, dev):
 
 
 @pytest.mark.parametrize("c,t", [
-    (256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049),
+    (256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049), (8, 4097),
     # T < k * d: every conv's halo reaches past both sequence ends
-    (256, 7), (128, 20), (64, 1), (32, 54), (16, 9),
+    (256, 7), (128, 20), (64, 1), (32, 54), (16, 9), (8, 23),
 ])
 def test_resblock_stage_kernel_matches_plain(cuda, c, t):
     """Every C's tile, B = 2, ragged T; 12 of the 18 convs take the d = 1
@@ -1124,7 +1124,7 @@ RES_BF16_TOL = 7e-3
 
 
 @pytest.mark.parametrize("c,t", [(256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049),
-                                 (256, 7), (16, 9)])
+                                 (8, 4097), (256, 7), (16, 9), (8, 23)])
 def test_resblock_stage_bf16_kernel_matches_twin(cuda, c, t):
     """K2/K3-bf16 (bf16 taps: 18 tensor-core launches, on the bf16 counter)
     vs the bf16 twin on every C's tile, ragged T and halos past both ends."""
@@ -1240,3 +1240,44 @@ def test_fast_mode_vocoders_run_the_bf16_kernels(cuda):
     assert np.abs(nsf_f - nsf_p).max() < 0.05
     assert np.corrcoef(nsf_f, nsf_p)[0, 1] > 0.999
     assert_peak_close(torch.as_tensor(fd_f), torch.as_tensor(fd_p), "FastDiff wav", tol=2e-2)
+
+
+def test_hifigan_v2_render_matches_cpu(cuda):
+    """HiFi-GAN V2 (a 128-channel start: stages 64, 32, 16 and 8) on the card
+    vs a CPU copy (the plain modules): 18 K2 launches a stage, the C = 8
+    stage included; with bf16 taps (the fast mode's) every stage takes
+    K2-bf16 (72 launches), within the JAX bound for bf16 tap stacks of the
+    float32 wav."""
+    import copy
+
+    from prodiff_tpu_torch.models.hifigan import HifiGanGenerator
+
+    h = {"upsample_rates": [8, 8, 2, 2], "upsample_kernel_sizes": [16, 16, 4, 4],
+         "upsample_initial_channel": 128, "resblock": "1", "resblock_kernel_sizes": [3, 7, 11],
+         "resblock_dilation_sizes": [[1, 3, 5]] * 3}
+    torch.manual_seed(44)
+    gen = HifiGanGenerator.from_config(h).eval()
+    with torch.no_grad():
+        for m in gen.modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+                torch.nn.init.normal_(m.weight, std=0.5 / (m.weight[0].numel()) ** 0.5)
+    ref = copy.deepcopy(gen)
+    mel = torch.randn(1, 16, 80)
+    counters = (resblock_stage.launches, resblock_stage.bf16_launches)
+    before = [c.count for c in counters]
+    with torch.no_grad():
+        got = gen.to(cuda)(mel.to(cuda))
+        want = ref(mel)
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [72, 0]
+    torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+    fast = HifiGanGenerator.from_config(h, tap_dtype=torch.bfloat16).eval().to(cuda)
+    fast.load_state_dict(gen.state_dict())
+    assert fast.stage_tap_dtypes(16) == (torch.bfloat16,) * 4
+    before = [c.count for c in counters]
+    with torch.no_grad():
+        got16 = fast(mel.to(cuda))
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 72]
+    a, b = got16.cpu().numpy().ravel(), got.cpu().numpy().ravel()
+    assert np.abs(a - b).max() < 0.05 and np.corrcoef(a, b)[0, 1] > 0.999

@@ -52,7 +52,7 @@ def test_cli_defaults_to_the_card(no_cuda, argv, tmp_path, monkeypatch):
         port_cli(argv)
 
 
-@pytest.mark.parametrize("name", ["nsfhifigan", "fastdiff"])
+@pytest.mark.parametrize("name", ["nsfhifigan", "fastdiff", "hifigan", "pwg"])
 def test_vocoders_default_to_the_card(no_cuda, name):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         get_vocoder_cls(name)({}, state_dict={}, config={})
@@ -70,7 +70,7 @@ def test_mel_and_pitch_default_to_the_card(no_cuda, tmp_path):
     wavfile.write(str(tmp_path / "in.wav"), 44100, np.zeros(4096, np.float32))
     hp = {"audio_sample_rate": 44100, "audio_num_mel_bins": 16, "fft_size": 512,
           "win_size": 512, "hop_size": 128, "fmin": 40, "fmax": 16000}
-    for name in ("nsfhifigan", "fastdiff"):
+    for name in ("nsfhifigan", "fastdiff", "hifigan", "pwg"):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             get_vocoder_cls(name).wav2spec(str(tmp_path / "in.wav"), hp)
         _, mel = get_vocoder_cls(name).wav2spec(str(tmp_path / "in.wav"), hp, device="cpu")

@@ -57,8 +57,23 @@ def test_chain_rows_follows_the_slots():
     assert wn.chain_rows(1, 512, 256, {32: 132, 24: 132, 16: 264}) == 16
 
 
+@pytest.mark.parametrize("c,ok", [
+    (8, True),  # HiFiGAN V2's last stage (the Pallas kernel's pack 16)
+    (16, True), (32, True), (64, True), (128, True), (256, True), (512, True),
+    (4, False), (24, False), (48, False), (96, False),
+])
+def test_resblock_channels(c, ok):
+    """The widths the resblock kernels take; at each, a frame's float32 row
+    and a tap's bf16 row are whole 16-byte vectors, so the kernels' float4,
+    cp.async and ldmatrix accesses stay aligned on a 16-byte aligned tensor."""
+    assert resblock.channels_supported(c) == ok
+    if ok:
+        assert (4 * c) % 16 == 0 and (2 * c) % 16 == 0
+        assert all((k * c * c * 2) % 16 == 0 for k in resblock.KERNEL_SIZES)  # a conv's taps
+
+
 @pytest.mark.parametrize("ksizes,dsizes", [
-    ((3, 7, 11), ((1, 3, 5),) * 3),  # HiFiGAN v1 / NSF-HiFiGAN: the port's stages
+    ((3, 7, 11), ((1, 3, 5),) * 3),  # HiFiGAN V1/V2 / NSF-HiFiGAN: the port's stages
     ((3, 7, 11), ((1, 3, 5), (1, 3, 5), (1, 2, 6))),
 ])
 def test_resblock_configs_fit_the_kernel(ksizes, dsizes):
