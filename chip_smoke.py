@@ -160,7 +160,7 @@ Phases, each printing its lines before the last:
      (``tests/test_torch_bf16_convergence.py``, residual channels 64, the
      narrowest the kernels take). The bf16 entries of the JSON line carry
      the launches of this phase's main paths. The fast render also runs
-     NSF-HiFiGAN with bf16 tap stacks (K2/K3-bf16, 90 launches a batch, no
+     NSF-HiFiGAN with bf16 tap stacks (K2/K3-bf16, 45 launches a batch, no
      float32 K2/K3); its wav is held against the parity render's, and the
      fast vocoder alone against the float32 one on the parity mel, at the
      JAX package's bound for bf16 tap stacks (max |diff| < 0.05,
@@ -186,7 +186,8 @@ Phases, each printing its lines before the last:
      parity mode, and V1 and V2 in fast mode, on seeded checkpoints in the
      three layouts the wrappers read, the random draws injected: each
      render's launches (K2/K3 72 for V1 and V2, 18 of V2's at C = 8; none
-     for V3 and PWG), host clock, kernel time and idle share
+     for V3 and PWG; in fast mode K2/K3-bf16 36 for V1 and 45 for V2, 18
+     of them at C = 8), host clock, kernel time and idle share
      (torch.profiler), each parity render held against the CPU on a
      32-frame tone, fast against parity at the bound for bf16 tap stacks.
 Each path runs with every launch count set to 0 just before it and read just
@@ -290,7 +291,20 @@ TRAIN_N_VALID = 2  # validation items: one batch each
 # the card's training step vs the CPU's at 1e-3 of each gradient's peak
 # (the CPU runs the plain module loop, a different summation order end to end)
 GRAD_TOL, STEP_TOL = 1e-4, 1e-3
-K1_LAUNCHES = 3  # a stack: step projection, cond GEMM, the cooperative layer chain
+K1_LAUNCHES = 3  # a float32 stack: step projection, cond GEMM, the cooperative layer chain
+RES_LAUNCHES, RES_BF16_LAUNCHES = 18, 9  # a T_mel stage: a launch a conv (float32), a unit (bf16)
+# the bf16 serving kernels' split: a K1-bf16 build that stamps each layer's
+# phases, and K2/K3-bf16 builds that leave a part out
+K1_STAMPED = ("wavenet_stack_bf16", ("K1_STAMPS=1",))
+RES_BF16_SKIPS = {"no_weight_stream": "RESBLOCK_SKIP=1", "no_x_loads": "RESBLOCK_SKIP=2",
+                  "no_output": "RESBLOCK_SKIP=4"}
+# the earlier designs' times as PERF.md §6 records them (K1-bf16's
+# cooperative chain at T=512/640/2048; K2/K3-bf16 at a launch a conv: the
+# five stages, HiFi-GAN V1's and V2's), for the log only
+EARLIER_BF16_MS = {"K1-bf16, cooperative chain": (0.4821, 0.5138, 0.8245),
+                   "K2/K3-bf16 stages, a launch a conv": (0.5930, 0.9861, 0.6917, 0.5622, 0.5000),
+                   "HiFi-GAN V1 bf16 stages, a launch a conv": (0.5955, 0.9878, 0.6890, 0.5631),
+                   "HiFi-GAN V2 bf16 stages, a launch a conv": (0.2066, 0.1911, 0.1759, 0.1042)}
 COUNTED = ("residual_stack", "resblock_stage", "ublock_layer", "ublock_block", "lvc",
            "residual_stack_save", "residual_stack_chain", "residual_stack_bf16",
            "residual_stack_save_bf16", "residual_stack_chain_bf16", "resblock_stage_bf16",
@@ -1668,7 +1682,8 @@ def kernel_split(fn, n: int, ours: dict, torch):
     other = "other (elementwise, reductions, indexing)"
     sums = {g: 0.0 for g in (*dict.fromkeys(ours.values()), *LIBRARY_GROUPS, other)}
     for ms, _, key in rows:
-        name = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+        # templates of anonymous-namespace types name them "(anonymous namespace)::T"
+        name = re.search(r"(\w+)(?:<[^()]*>)?\(", key.replace("(anonymous namespace)::", ""))
         group = ours.get(name.group(1)) if name else None
         sums[group or next((g for g, keys in LIBRARY_GROUPS.items() if any(k in key for k in keys)),
                            other)] += ms
@@ -3359,6 +3374,72 @@ def peak_compare(name, got, want, tol, torch) -> float:
     return grad_compare(name, got.float(), want.float(), tol, torch)
 
 
+# set by main() with --parent: the earlier design's K1-bf16 and K2/K3-bf16
+# wrappers (tools/probe_bf16_kernels.py), timed in turns beside this one's
+PARENT = None
+
+
+def k1_bf16_launches(b: int, t: int, c: int = 256, n_layers: int = 20) -> int:
+    """K1-bf16's launches for a stack at (B, T): the step projection, then a
+    cond GEMM and a cluster chain per layer group of its schedule at this
+    card's clusters (ops/wavenet_stack.py:bf16_schedule)."""
+    import torch
+
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+
+    slots = wn._chain_slots(wn._library(torch.bfloat16), torch.device("cuda:0"), torch.bfloat16, c)
+    return wn.stack_launches(b, t, c, n_layers, torch.bfloat16, slots)
+
+
+def earlier_in_turns(name, earlier, this, reps, torch) -> dict:
+    """The earlier design and this one in turns (earlier, this, this,
+    earlier; ``timed_ms`` each): {"parent_ms": [2], "in_turns_ms": [2]}."""
+    got = {"parent_ms": [timed_ms(earlier, reps, torch)],
+           "in_turns_ms": [timed_ms(this, reps, torch) for _ in range(2)]}
+    got["parent_ms"].append(timed_ms(earlier, reps, torch))
+    log(f"{name} in turns with the earlier design: earlier {got['parent_ms']}, this "
+        f"{got['in_turns_ms']} ms")
+    return got
+
+
+def k1_bf16_split(x0, cond, step, w, torch) -> dict:
+    """Each layer's phases of the K1-bf16 chain (microseconds, the mean over
+    the stamped blocks and layers): the stamped build (``K1_STAMPED``) run
+    twice through the wrapper, its %globaltimer stamps read back."""
+    import ctypes
+
+    from prodiff_tpu_torch.ops import cuda_build
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+
+    lib = cuda_build.load(*K1_STAMPED)
+    lib.wavenet_residual_stack_bf16.argtypes = wn._ARGTYPES_BF16
+    lib.wavenet_residual_stack_bf16.restype = ctypes.c_int
+    lib.wavenet_cluster_slots_bf16.argtypes = [ctypes.c_int] * 2
+    lib.wavenet_cluster_slots_bf16.restype = ctypes.c_int
+    lib.wavenet_read_stamps_bf16.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.wavenet_clear_stamps_bf16.restype = ctypes.c_int
+    saved = wn._library
+    wn._library = lambda dtype=None: lib
+    try:
+        wn.residual_stack(x0, cond, step, w)
+        torch.cuda.synchronize()
+        if lib.wavenet_clear_stamps_bf16():
+            raise RuntimeError("wavenet_clear_stamps_bf16 failed")
+        wn.residual_stack(x0, cond, step, w)
+        torch.cuda.synchronize()
+    finally:
+        wn._library = saved
+    blocks, layers, edges = 64, 64, 6
+    host = (ctypes.c_ulonglong * (blocks * layers * edges))()
+    if lib.wavenet_read_stamps_bf16(host, blocks * layers * edges):
+        raise RuntimeError("wavenet_read_stamps_bf16 failed")
+    split = probe_module().stamp_split(
+        np.frombuffer(host, dtype=np.uint64).reshape(blocks, layers, edges))
+    log("K1-bf16 chain, a layer (us, stamped build): "
+        + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return split
+
+
 def bf16_kernels(dev, torch) -> tuple:
     """K1-bf16 at B=1, T=512/640/2048 and K5a/K5b-bf16 at B=16, T=1536 (L=20,
     C=H=256) against their twins, timed (CUDA events, 3 warm-ups, mean of
@@ -3395,13 +3476,17 @@ def bf16_kernels(dev, torch) -> tuple:
         got = wn.residual_stack(x0, cond, step, w16)
         torch.cuda.synchronize()
         n = wn.residual_stack.bf16_launches.count - before
-        if n != K1_LAUNCHES:
-            raise AssertionError(f"K1-bf16 launched {n} kernels, not {K1_LAUNCHES}")
+        if n != k1_bf16_launches(b, t, c, n_layers):
+            raise AssertionError(f"K1-bf16 launched {n} kernels, not {k1_bf16_launches(b, t)}")
         err = peak_compare(f"K1-bf16 vs its twin, B={b} T={t}", got,
                            wn.residual_stack_plain(x0, cond, step, w16), BF16_KERNEL_TOL, torch)
         ms = timed_ms(lambda: wn.residual_stack(x0, cond, step, w16), 20, torch)
         f32_ms = timed_ms(lambda: wn.residual_stack(x0, cond, step, w32), 20, torch)
         plain_ms = timed_ms(lambda: wn.residual_stack_plain(x0, cond, step, w16), 3, torch)
+        split = k1_bf16_split(x0, cond, step, w16, torch)
+        parent = {} if PARENT is None else earlier_in_turns(
+            f"K1-bf16 B={b} T={t}", lambda: PARENT["k1"](x0, cond, step, w16),
+            lambda: wn.residual_stack(x0, cond, step, w16), 20, torch)
         flops = 2 * b * t * n_layers * (3 * c * 2 * c + h * 2 * c + c * 2 * c) + 2 * b * n_layers * c * c
         nbytes = 2 * mat + 4 * (bias + b * t * (c + h + c) + b * c)
         lim = bound(flops, nbytes, BF16_PEAK)
@@ -3409,7 +3494,7 @@ def bf16_kernels(dev, torch) -> tuple:
             f"plain twin {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.2f} MB: {lim['bound_by']}), share of bound {lim['bound_ms'] / ms:.3f}")
         k1["by_shape"].append(dict(b=b, t=t, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
-                                   max_abs_err=err, **lim))
+                                   max_abs_err=err, phases_us=split, **parent, **lim))
     first = k1["by_shape"][0]
     k1.update({k: first[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms", "bound_by")})
     k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["by_shape"])
@@ -3594,7 +3679,7 @@ def write_bf16_tree(tmp, torch) -> None:
 
 def bf16_render(tmp, dev, torch) -> dict:
     """``infer samples/example.ds --precision fast`` by the CLI (K1-bf16 3
-    launches a denoiser call and K2/K3-bf16 90 a batch, no float32 K1 or
+    launches a denoiser call and K2/K3-bf16 45 a batch, no float32 K1 or
     K2/K3) beside the same command in parity mode; the mel of a
     deterministic render in fast mode against the parity one, its wav at the
     JAX test's bound for bf16 tap stacks, and the fast vocoder alone on the
@@ -3631,11 +3716,13 @@ def bf16_render(tmp, dev, torch) -> dict:
                       "--device", str(dev), "--precision", mode])
             torch.cuda.synchronize()
             secs[mode] = time.perf_counter() - t0
-            steps = len(batches) * SLICE_HPARAMS["timesteps"] * K1_LAUNCHES
+            steps = SLICE_HPARAMS["timesteps"] * sum(
+                k1_bf16_launches(*shape) if mode == "fast" else K1_LAUNCHES for shape in batches)
             sfx = "_bf16" if mode == "fast" else ""
             got = check_counts(f"infer example.ds --precision {mode}",
                                {f"residual_stack{sfx}": steps,
-                                f"resblock_stage{sfx}": len(batches) * 5 * 18})
+                                f"resblock_stage{sfx}": len(batches) * 5 * (
+                                    RES_BF16_LAUNCHES if mode == "fast" else RES_LAUNCHES)})
             if mode == "fast":
                 launches = got
             if policy.precision() != "parity":
@@ -3666,7 +3753,7 @@ def bf16_render(tmp, dev, torch) -> dict:
     alone = vocoders["fast"].spec2wav_batch(torch.as_tensor(seen["parity"]["mel"], device=dev),
                                             seen["parity"]["f0"], deterministic=True)
     torch.cuda.synchronize()
-    check_counts("the fast vocoder on the parity mel", {"resblock_stage_bf16": 5 * 18})
+    check_counts("the fast vocoder on the parity mel", {"resblock_stage_bf16": 5 * RES_BF16_LAUNCHES})
     hold_wav("NSF-HiFiGAN with bf16 tap stacks vs float32 on the same (parity) mel, the last "
              "batch's wav", np.asarray(alone.float().cpu()), wav_parity)
     mel_p = torch.as_tensor(seen["parity"]["mel"], device=dev)
@@ -3679,7 +3766,8 @@ def bf16_render(tmp, dev, torch) -> dict:
     fast_vs_parity_profile(
         f"NSF-HiFiGAN alone on that mel", {m: lambda m=m: vocoders[m].spec2wav_batch(
             mel_p, seen["parity"]["f0"], deterministic=True) for m in ("parity", "fast")},
-        {"conv_kernel": "K2/K3 and K2/K3-bf16 resblock_stage"}, torch)
+        {"conv_kernel": "K2/K3 and K2/K3-bf16 resblock_stage",
+         "unit_kernel": "K2/K3 and K2/K3-bf16 resblock_stage"}, torch)
     log(f"infer example.ds by the CLI ({len(batches)} batches {batches}, models loaded included): "
         f"parity {secs['parity']:.3f} s, fast {secs['fast']:.3f} s; the mel's max error "
         f"{err:.3e}")
@@ -3784,6 +3872,36 @@ def phase_bf16(dev, torch):
     return k1, k5a, k5b, render["resblock_stage_bf16"]
 
 
+def res_variant(define: str, torch):
+    """A call of the K2/K3-bf16 stage through a variant build of its source
+    (``RES_BF16_SKIPS``), with the wrapper's arguments; for timing only."""
+    import ctypes
+
+    from prodiff_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("resblock_bf16", (define,)).resblock_stage_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, w, biases, ksizes, dsizes):
+        b, t, c = x.shape
+        out, h, tmp = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+
+        def arr(v):
+            return (ctypes.c_int * len(v))(*v)
+
+        err = fn(x.data_ptr(), out.data_ptr(), h.data_ptr(), tmp.data_ptr(), w.data_ptr(),
+                 biases.data_ptr(), arr(list(ksizes)), arr([len(d) for d in dsizes]),
+                 arr([d for ds in dsizes for d in ds]), len(ksizes), b, t, c,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"resblock_stage_bf16 ({define}): CUDA error {err}")
+        return out
+
+    return call
+
+
 def bf16_vocoder_kernels(dev, torch) -> tuple:
     """K2/K3-bf16 at the five stages of one T_mel=512 vocoder pass, K4-bf16
     at every (block, layer) of the LJSpeech FastDiff net at T_mel=512 and
@@ -3808,6 +3926,7 @@ def bf16_vocoder_kernels(dev, torch) -> tuple:
 
     res = {"max_abs_err": 0.0, "max_err_share_of_peak": 0.0, "ms": 0.0, "f32_ms": 0.0,
            "plain_ms": 0.0, "stages": []}
+    res_variants = {name: res_variant(define, torch) for name, define in RES_BF16_SKIPS.items()}
     flops = nbytes = 0
     for c, t in RES_STAGES:
         taps = 6 * sum(RES_K)
@@ -3819,8 +3938,8 @@ def bf16_vocoder_kernels(dev, torch) -> tuple:
         before = counters()["resblock_stage_bf16"].count
         got = resblock_stage(x, w16, biases, RES_K, RES_D)
         torch.cuda.synchronize()
-        if counters()["resblock_stage_bf16"].count - before != 18:
-            raise AssertionError("K2/K3-bf16 did not launch 18 convs")
+        if counters()["resblock_stage_bf16"].count - before != RES_BF16_LAUNCHES:
+            raise AssertionError(f"K2/K3-bf16 did not launch {RES_BF16_LAUNCHES} units")
         want = resblock_stage_plain(x, w16, biases, RES_K, RES_D)
         err = peak_compare(f"K2/K3-bf16 resblock_stage C={c} T={t} vs its twin", got, want,
                            RES_BF16_TOL, torch)
@@ -3828,6 +3947,11 @@ def bf16_vocoder_kernels(dev, torch) -> tuple:
         ms = timed_ms(lambda: resblock_stage(x, w16, biases, RES_K, RES_D), 10, torch)
         f32_ms = timed_ms(lambda: resblock_stage(x, w32, biases, RES_K, RES_D), 10, torch)
         plain_ms = timed_ms(lambda: resblock_stage_plain(x, w16, biases, RES_K, RES_D), 3, torch)
+        skips = {name: timed_ms(lambda fn=fn: fn(x, w16, biases, RES_K, RES_D), 10, torch)
+                 for name, fn in res_variants.items()}
+        parent = {} if PARENT is None else earlier_in_turns(
+            f"K2/K3-bf16 C={c} T={t}", lambda: PARENT["stage"](x, w16, biases, RES_K, RES_D),
+            lambda: resblock_stage(x, w16, biases, RES_K, RES_D), 10, torch)
         lim = bound(st_flops, st_bytes, BF16_PEAK)
         log(f"K2/K3-bf16 C={c} T={t}: kernel {ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, plain "
             f"twin {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({st_flops / 1e9:.1f} GFLOP: "
@@ -3836,8 +3960,11 @@ def bf16_vocoder_kernels(dev, torch) -> tuple:
         res["max_err_share_of_peak"] = max(res["max_err_share_of_peak"], share)
         for k, v in (("ms", ms), ("f32_ms", f32_ms), ("plain_ms", plain_ms)):
             res[k] += v
+        log(f"K2/K3-bf16 C={c} T={t} with a part left out (ms): "
+            + json.dumps({k: round(v, 4) for k, v in skips.items()}))
         res["stages"].append(dict(C=c, T=t, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
-                                  err_share_of_peak=share, **lim, share=lim["bound_ms"] / ms))
+                                  err_share_of_peak=share, skip_ms=skips, **parent, **lim,
+                                  share=lim["bound_ms"] / ms))
     res.update(bound(flops, nbytes, BF16_PEAK))
     log(f"K2/K3-bf16, all 5 stages of one vocoder pass at T_mel=512: kernel {res['ms']:.4f} ms, "
         f"float32 kernel {res['f32_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
@@ -3934,7 +4061,6 @@ def bf16_fastdiff_paths(dev, torch) -> dict:
     tokens, mel2ph, f0, lang, spk = (torch.as_tensor(a, device=dev) for a in
                                      fastdiff_inputs(rng, FD_T_PH, FD_T_MEL))
     n_lay, n_blocks = FD_CONFIG["lvc_layers_each_block"], len(FD_HOPS)
-    k1 = FD_TEACHER_STEPS * K1_LAUNCHES
     launches = {}
     policy.set_precision("fast")
     try:
@@ -3966,6 +4092,8 @@ def bf16_fastdiff_paths(dev, torch) -> dict:
             start = time.perf_counter()
             wav = render(v, mono)
             ms = (time.perf_counter() - start) * 1e3
+            k1 = FD_TEACHER_STEPS * k1_bf16_launches(1, FD_T_MEL, FD_TEACHER_HPARAMS[
+                "residual_channels"], FD_TEACHER_HPARAMS["residual_layers"])
             launches[label] = check_counts(f"the FastDiff text->wav render in fast mode, {label} "
                                            f"route", dict(want, residual_stack_bf16=k1))
             if wav.shape != (FD_T_MEL * voc.hop,) or not np.isfinite(wav).all():
@@ -4045,8 +4173,8 @@ OTHER_CELLS = (
     ("hifigan_v1_nsf", dict(HIFIGAN_V1, use_pitch_embed=True), "hifigan", {"use_nsf": True},
      "parity", 72, 0),
     ("pwg", PWG_V1, "pwg", {}, "parity", 0, 0),
-    ("hifigan_v1_fast", HIFIGAN_V1, "hifigan", {}, "fast", 72, 0),
-    ("hifigan_v2_fast", HIFIGAN_V2, "hifigan", {}, "fast", 72, 18),
+    ("hifigan_v1_fast", HIFIGAN_V1, "hifigan", {}, "fast", 4 * RES_BF16_LAUNCHES, 0),
+    ("hifigan_v2_fast", HIFIGAN_V2, "hifigan", {}, "fast", 3 * RES_BF16_LAUNCHES + 18, 18),
 )
 # the stages of V1 and V2 at T_mel = 512 (C, T)
 HIFIGAN_STAGES = {"V1": ((256, 4096), (128, 32768), (64, 65536), (32, 131072)),
@@ -4224,6 +4352,7 @@ def phase_other_vocoders(dev, torch):
         if profiled:
             wall_ms, busy, sums, _ = kernel_split(lambda: port_cli(argv), 1,
                                                   {"conv_kernel": "K2/K3 resblock_stage",
+                                                   "unit_kernel": "K2/K3-bf16 resblock_stage",
                                                    "conv_kernel_c8": "K2-bf16 C=8"}, torch)
         else:
             start = time.perf_counter()
@@ -4285,6 +4414,36 @@ def phase_other_vocoders(dev, torch):
     return kern, launches
 
 
+def probe_module():
+    """tools/probe_bf16_kernels.py (the bf16 serving kernels' measurements)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "probe_bf16_kernels.py")
+    spec = importlib.util.spec_from_file_location("probe_bf16_kernels", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe
+
+
+def set_parent(parent_dir: str, torch) -> None:
+    """Builds the earlier version's K1-bf16 and K2/K3-bf16 (its sources, as
+    tools/probe_bf16_kernels.py copies them) for ``PARENT``, and logs that
+    version's split: K1's phases from its stamped chain, the stage's convs."""
+    global PARENT
+    probe = probe_module()
+    plain = probe.parent_sources(parent_dir, False)
+    stamped = probe.parent_sources(parent_dir, True)
+    k1 = probe.ParentK1(probe.build_variant("wavenet_stack_bf16", plain, "PARENT"), torch)
+    stage = probe.ParentStage(probe.build_variant("resblock_bf16", plain, "PARENT"), torch)
+    dev = torch.device("cuda:0")
+    probe.emit = lambda kind, **kw: log(f"earlier design, {kind}: {json.dumps(kw)}")
+    probe.k1_split(probe.ParentK1(probe.build_variant("wavenet_stack_bf16", stamped, "STAMPED"),
+                                  torch), torch, dev)
+    probe.stage_split(stage, torch, dev)
+    PARENT = {"k1": k1, "stage": stage}
+
+
 def main() -> int:
     import argparse
 
@@ -4294,6 +4453,10 @@ def main() -> int:
     parser.add_argument("--fastdiff-kernels", action="store_true",
                         help="build the kernels and run only the FastDiff kernel phase (K4, K6, "
                              "K7 vs their twins, timed), printing its JSON")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a checkout of an earlier version: its K1-bf16 and K2/K3-bf16 are "
+                             "built and timed in turns beside this one's (and split, by "
+                             "tools/probe_bf16_kernels.py)")
     args = parser.parse_args()
     t_script = time.time()
     if not torch.cuda.is_available():
@@ -4315,13 +4478,16 @@ def main() -> int:
     t0 = time.time()
     skips = () if args.fastdiff_kernels else tuple(
         ("ublock", (f"LVCT_SKIP={v}",)) for v in K4_SKIPS.values()) + tuple(
-        ("lvc", (d,)) for d in K6_VARIANTS.values())
+        ("lvc", (d,)) for d in K6_VARIANTS.values()) + (K1_STAMPED,) + tuple(
+        ("resblock_bf16", (d,)) for d in RES_BF16_SKIPS.values())
     cuda_build.load_all(sources + skips)  # one nvcc per library, all at once
     log(f"kernel build (parallel nvcc) {time.time() - t0:.3f} s")
     for name in sources:
         regs = [ln.strip() for ln in cuda_build.build_log(name).splitlines() if "registers" in ln]
         log(f"ptxas {name}: {' | '.join(regs)}")
 
+    if args.parent:
+        set_parent(os.path.abspath(args.parent), torch)
     if args.fastdiff_kernels:
         import prodiff_tpu_torch
 
@@ -4353,6 +4519,8 @@ def main() -> int:
     res_bf16_k["launches"] = res_bf16
     other, other_launches = timed_phase("other_vocoders", phase_other_vocoders)
     log(f"phase seconds: {json.dumps(spent)}; script total {time.time() - t_script:.3f} s")
+    log("the earlier designs' times, H100 80GB HBM3 at 700 W (PERF.md §6; not measured in this "
+        "run): " + json.dumps(EARLIER_BF16_MS))
 
     def entry(name, source, replaces, n, m, counter):
         return dict(name=name, route="cuda", source=f"prodiff_tpu_torch/csrc/{source}",

@@ -12,39 +12,70 @@
 // input is leaky'd in float32 and then rounded to bf16 (yb =
 // y.astype(wdtype)); the taps are bf16; each product of two bf16 values
 // accumulates in float32; the bias, the leaky epilogue, the residual, the
-// stage mean and the activations between convs stay float32. Zero padding
+// stage mean and the activations between units stay float32. Zero padding
 // get_padding(k, d) at the true sequence ends (the TPU kernel re-zeroes its
 // halo rows after each conv).
 //
 // What bounds it on the H100: the bf16 tensor cores. A stage at T_mel = 512
 // and the base config (C = 256 ... 16, 126 taps a stage) is 2 * 126 * T *
 // C^2 a stage, 321 GFLOP for the five (0.325 ms at 989 TFLOP/s), against
-// 17-34 MB of float32 activations a conv.
+// 17-34 MB of float32 activations a pass over the stage's [B, T, C].
 //
-// Design: a direct conv as a tensor-core GEMM, one launch per conv (18 a
-// stage, as resblock.cu). A block owns BM frames x BN output channels, its
-// warps WM x WN tiles of MT 16-row by NT 8-column mma.sync m16n8k16 tiles
-// (mma_bf16.cuh). The input channels run in chunks of BK = 16 (one k step):
-// a chunk stages all K taps' weights ([K][BK][BN] bf16, by cp.async) and the
-// BM + 2 pad frames the taps reach ([rows][BK] bf16, through registers,
-// where the pre-activation leaky, the zeros outside [0, T) and the rounding
-// to bf16 are applied), double-buffered (mma::run_stages), one barrier a
-// chunk. Tap q of a dilated conv is the A tile read q * d rows further
-// down, so the K taps share one staged tile. Both tiles are padded by 8
-// bf16 a row, so ldmatrix reads them without bank conflicts. Epilogues as
-// resblock.cu: leaky (first conv of a unit), + residual (second conv, in
-// place), + residual into the stage mean (last unit of each ResBlock). The
-// tile by C: (BM, BN) = (256, 16), (256, 32), (128, 64) at C >= 64. k is 3,
-// 7 or 11 (a template argument), the halo (k - 1) / 2 * d at most MAX_PAD
-// frames a side. wgmma, TMA and fusing a unit's two convs are later work.
+// Design at C >= 16: one launch per unit, the unit's two convs fused
+// (unit_kernel; 9 launches a stage of three ResBlock1s with three units
+// each). conv2 reads conv1's output only as bf16(leaky(conv1 + bias)), so
+// that tile stays in shared memory as bf16 (the same rounding, no change to
+// the function) and no float32 intermediate goes through HBM. A block owns
+// OUT = M1 - 2 P2 output frames of one sequence and all C channels (P2 =
+// (k - 1) / 2, conv2's halo): it computes conv1 on the M1 frames from t0 -
+// P2 (the halo recomputed, P2 frames a side) and conv2 on M1 frames from
+// t0, of which the first OUT are stored. Shared memory, from a 1024-aligned
+// base:
+//   ring  S stages of weight rows (TMA boxes, swizzled), S * STAGE bytes;
+//   X     M1 + 2 p1 frames of bf16(leaky(h_in)) (p1 = P2 d, conv1's halo),
+//         zero outside [0, T);
+//   Y     M1 + 2 P2 frames of bf16(leaky(conv1 + b1)), zero outside [0, T)
+//         (its last 2 P2 rows zero: they feed only conv2's discarded rows);
+//   the ring's full and empty mbarriers.
+// X and Y are interleaved, [C/8][frames][8]: a 16-byte chunk of channels,
+// frame after frame. A k16 slice of 64 frames from ANY frame is then one
+// no-swizzle K-major wgmma descriptor (8-frame core matrices 128 bytes
+// apart, the two 8-channel halves a chunk apart), so tap q of a dilated
+// conv, the tile q * d frames further down, moves only the descriptor's
+// start address: both operands come from shared memory, and the K taps
+// share one staged tile. At C = 256 and (k, d) = (11, 5): X 57 KB, Y 37 KB,
+// 8 stages of 16 KB, 223 KB of the 227 KB a block may take; at C <= 128 a
+// block stays under 113 KB (two blocks an SM), at C <= 32 under 74 KB
+// (three) (ops/resblock.py:unit_plan mirrors unit_smem, and a CPU test holds
+// every stage shape of the repo's vocoders under the limit). The weights
+// are streamed by the TMA: the stage's tap stacks are one tensor map over
+// [rows = C * sum(k), C] bf16, a ring stage is BKR consecutive rows (taps
+// q, input channels ci: row q C + ci of a conv) in boxes of 64 columns (C
+// >= 64; one box of C columns below), swizzled at the box row's span, the
+// N-contiguous B operand of wgmma (m64nNk16, N = C, or C / 2 a warpgroup at
+// C = 256). One producer warp (its lane 0) runs ahead through both convs'
+// stages; two consumer warpgroups wait on a stage's full mbarrier, issue
+// its slices as one commit group and release the stage on its empty
+// mbarrier once the group is done: no block barrier a stage. At C <= 32 the
+// taps of both convs (under 45 KB) stay resident instead, loaded with X by
+// the consumers: there a stage's fetch latency, not its bytes, was the
+// cost. (Two blocks sharing the stream by TMA multicast measured 1.3-2.3x
+// slower at C >= 64: the pair runs in lockstep.) Between the convs the
+// consumers meet at a named barrier (after a proxy fence: the tensor cores
+// read what the threads wrote); the epilogues are conv1's (leaky, zero
+// outside [0, T),
+// bf16 into Y) and conv2's (+ bias + residual, into h, or into the stage
+// mean for a ResBlock's last unit), straight from the accumulators. A unit
+// reads h_in and writes another buffer (h and tmp alternate: a block's halo
+// rows are other blocks' outputs).
 //
 // C = 8 (the last stage of a HiFiGAN that starts at 128 channels, which the
-// TPU kernel runs at pack 16) has a kernel of its own, conv_kernel_c8: a tap
-// of a C = 8 conv reduces over 8 input channels, half of an m16n8k16 k step.
-// It PAIRS TWO TAPS in one k step rather than zero-padding the staged tile
-// to 16 channels: k 0-7 are tap 2p's channels and k 8-15 tap 2p+1's. The A
-// fragment's second half (the ldmatrix.x4 addresses of lanes 16-31) reads
-// the staged rows d further down, the B fragment's rows 8-15 hold tap
+// TPU kernel runs at pack 16) keeps one launch per conv, conv_kernel_c8: a
+// tap of a C = 8 conv reduces over 8 input channels, half of an m16n8k16 k
+// step. It PAIRS TWO TAPS in one k step rather than zero-padding the staged
+// tile to 16 channels: k 0-7 are tap 2p's channels and k 8-15 tap 2p+1's.
+// The A fragment's second half (the ldmatrix.x4 addresses of lanes 16-31)
+// reads the staged rows d further down, the B fragment's rows 8-15 hold tap
 // 2p+1's weights, and an odd k's last pair has a zero second tap (its A
 // lanes reread tap 2p's rows: finite values times zero weights). So a
 // 16-row tile takes ceil(k / 2) mma, 2/4/6 at k = 3/7/11, where zero-padding
@@ -57,149 +88,273 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 using mma::bf16;
 
-constexpr int BK = 16;       // input channels a staged chunk: one mma k step
 constexpr int MAX_PAD = 32;  // frames of halo a side: (k - 1) / 2 * d <= MAX_PAD
-constexpr int LDA = BK + mma::PAD;
 constexpr float SLOPE = 0.1f;
+constexpr int MAX_STAGES = 8;
+constexpr int CONSUMER_WARPS = 8, CONSUMERS = CONSUMER_WARPS * 32;
+constexpr int UNIT_THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int SMEM_LIMIT = 232448;            // bytes a block may take
+constexpr int SMEM_HALF = 115712;             // bytes a block with another beside it on an SM
+constexpr int SMEM_THIRD = 75776;             // bytes a block with two others beside it
 
 enum Epilogue { EPI_LEAKY = 0, EPI_RESID = 1, EPI_MEAN = 2 };
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : SLOPE * v; }
 
-// A block's tile: WM x WN warps, each MT x NT mma tiles.
-template <int WM, int WN, int MT, int NT>
-struct Tile {
-  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8, THREADS = WM * WN * 32;
-  static constexpr int LDB = BN + mma::PAD;
+// unit_kernel's configuration at C: M1 frames a conv (128; 64 at C = 256),
+// BKR weight rows a ring stage, LIMIT bytes of shared memory a block at most
+// and MINB blocks an SM (the register budget). Its two consumer warpgroups
+// take 64 frames each by all C columns, or at M1 = 64 the same 64 frames by
+// C / 2 columns each.
+template <int C_, int M1_, int BKR_, int LIMIT_, int MINB_>
+struct UnitCfg {
+  static constexpr int C = C_, M1 = M1_, BKR = BKR_, LIMIT = LIMIT_, MINB = MINB_;
+  static constexpr int P = C < 64 ? 2 * C : 128;    // a box row's bytes: the swizzle span
+  static constexpr int SUBS = C < 64 ? 1 : C / 64;  // boxes a stage
+  static constexpr int STAGE = BKR * C * 2;         // bytes, a multiple of 1024
+  static_assert(STAGE % 1024 == 0 && BKR % 16 == 0 && BKR <= 256, "stage");
+  static constexpr int NWG = M1 == 128 ? C : C / 2;  // a warpgroup's columns
+  static_assert(M1 == 128 || NWG % 64 == 0, "a split of N keeps whole 64-column boxes");
+  // C <= 32: both convs' taps stay in shared memory, loaded by the consumers
+  // with X (a few KB: no ring, no producer)
+  static constexpr bool RESIDENT = C <= 32;
 };
 
-// Bytes of shared memory a block uses at halo `pad`: double-buffered
-// [K][BK][LDB] weights and [BM + 2 pad][LDA] activations.
-template <class TL, int K>
-__host__ __device__ constexpr size_t smem_bytes(int pad) {
-  return 2 * ((size_t)K * BK * TL::LDB + (size_t)(TL::BM + 2 * pad) * LDA) * sizeof(bf16);
+using Cfg16 = UnitCfg<16, 128, 256, SMEM_THIRD, 3>;
+using Cfg32 = UnitCfg<32, 128, 256, SMEM_THIRD, 3>;
+using Cfg64 = UnitCfg<64, 128, 128, SMEM_HALF, 2>;
+using Cfg128 = UnitCfg<128, 128, 32, SMEM_HALF, 2>;
+using Cfg256 = UnitCfg<256, 64, 32, SMEM_LIMIT, 1>;
+
+// RESBLOCK_SKIP (0 in the kernel the port runs) leaves a part out, for
+// measuring where the time goes (chip_smoke.py, tools/probe_bf16_kernels.py):
+// bit 0 the taps' loads (no copy, no wait), bit 1 X's loads from h_in
+// (zeros), bit 2 the output's loads and stores. Their outputs are for
+// measurement only.
+#ifndef RESBLOCK_SKIP
+#define RESBLOCK_SKIP 0
+#endif
+constexpr bool RUN_STREAM = !(RESBLOCK_SKIP & 1), RUN_LOADS = !(RESBLOCK_SKIP & 2),
+               RUN_STORES = !(RESBLOCK_SKIP & 4);
+
+// The shared memory of unit_kernel<CF, K> at dilation d and its ring depth
+// (ops/resblock.py:unit_plan computes the same).
+template <class CF, int K>
+__host__ __device__ constexpr int unit_stages(int d) {
+  if (CF::RESIDENT) return 0;
+  const int p2 = (K - 1) / 2, p1 = p2 * d;
+  const int fixed = 1024 + ((CF::M1 + 2 * p1) + (CF::M1 + 2 * p2)) * CF::C * 2;
+  const int per_conv = (K * CF::C + CF::BKR - 1) / CF::BKR;
+  int s = (CF::LIMIT - fixed) / (CF::STAGE + 16);
+  if (s > MAX_STAGES) s = MAX_STAGES;
+  if (s > 2 * per_conv) s = 2 * per_conv;
+  return s;
 }
 
-// dst[b, t, co] = epi(bias[co] + sum_{q, ci} bf16(act(in[b, t - pad + q d, ci])) w[q, ci, co])
-template <int WM, int WN, int MT, int NT, int K>
-__global__ void __launch_bounds__(WM * WN * 32)
-conv_kernel(const float* __restrict__ in, const bf16* __restrict__ w,
-            const float* __restrict__ bias, const float* res, float* dst, int T, int C, int d,
-            int pre_leaky, int epi, int first, int last, float n_res) {
-  using TL = Tile<WM, WN, MT, NT>;
-  constexpr int BM = TL::BM, BN = TL::BN, NTH = TL::THREADS, LDB = TL::LDB;
-  constexpr int TAPS = BK * LDB;                                  // a tap's staged weights
-  constexpr int NB = K * BK * BN / 8;                             // 16-byte copies a chunk
-  constexpr int NA = mma::ceil_div((BM + 2 * MAX_PAD) * (BK / 4), NTH);  // A float4s a thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int pad = (K - 1) / 2 * d, rows = BM + 2 * pad;
-  bf16* Bs[2] = {smem, smem + K * TAPS};
-  bf16* As[2] = {smem + 2 * K * TAPS, smem + 2 * K * TAPS + rows * LDA};
-  const int b = blockIdx.z, t0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = warp % WM * MT * 16;
-  int ncol[NT];
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni) ncol[ni] = warp / WM * NT * 8 + ni * 8;
-  const float* inb = in + (size_t)b * T * C;
+template <class CF, int K>
+__host__ __device__ constexpr int unit_smem(int d) {
+  const int p2 = (K - 1) / 2, p1 = p2 * d;
+  return 1024 + ((CF::M1 + 2 * p1) + (CF::M1 + 2 * p2)) * CF::C * 2 +
+         (CF::RESIDENT ? 2 * K * CF::C * CF::C * 2 : unit_stages<CF, K>(d) * (CF::STAGE + 16));
+}
 
-  uint2 ra[NA];
-  auto fetch = [&](int buf, int i) {
-    for (int f = tid; f < NB; f += NTH) {
-      const int q = f / (BK * BN / 8), k = f / (BN / 8) % BK, n = f % (BN / 8) * 8;
-      mma::cp_async16(Bs[buf] + q * TAPS + k * LDB + n,
-                      w + ((size_t)q * C + i * BK + k) * C + n0 + n, true);
-    }
-    mma::cp_async_commit();
-#pragma unroll
-    for (int s = 0; s < NA; ++s) {
-      const int e = tid + s * NTH, r = e >> 2, t = t0 - pad + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < rows && t >= 0 && t < T) {
-        v = mma::ld4(inb + (size_t)t * C + i * BK + (e & 3) * 4);
-        if (pre_leaky) v = make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
-      }
-      ra[s] = mma::pack4(v);
-    }
+// One conv by wgmma: acc (this warpgroup's 64 x NWG tile at frames mbase..,
+// columns nbase..) = the conv of the staged tile A ([C/8][rows][8] bf16,
+// `cstride` bytes a chunk of 8 channels; tap q reads rows q * dil further
+// down: a no-swizzle K-major descriptor from any row) with the ring's next
+// NST stages (B the stage's swizzled N-contiguous tile). A stage's slices are
+// one commit group, waited for before the stage is released (keeping it in
+// flight across the next stage's wait measured slower).
+template <class CF, int K>
+__device__ __forceinline__ void conv_wgmma(const unsigned char* ring, uint64_t* full,
+                                           uint64_t* empty, int S, int& n, const bf16* A,
+                                           int cstride, int dil, int mbase, int nbase,
+                                           float (&acc)[CF::NWG / 2]) {
+  constexpr int C = CF::C, P = CF::P, BKR = CF::BKR, ROWS_W = K * C, SL = BKR / 16;
+  constexpr int NST = (ROWS_W + BKR - 1) / BKR;
+  const int lane = threadIdx.x & 31;
+  const unsigned char* Ab = reinterpret_cast<const unsigned char*>(A);
+  auto desc_a = [&](int g) {  // the A slice of weight row g: tap g / C, channels g % C ..
+    return hopper::smem_desc_plain(Ab + g % C / 8 * cstride + (mbase + g / C * dil) * 16,
+                                   cstride, 128);
   };
-  auto put = [&](int buf, int) {
 #pragma unroll
-    for (int s = 0; s < NA; ++s) {
-      const int e = tid + s * NTH, r = e >> 2;
-      if (r < rows) *reinterpret_cast<uint2*>(As[buf] + r * LDA + (e & 3) * 4) = ra[s];
+  for (int e = 0; e < CF::NWG / 2; ++e) acc[e] = 0.f;
+  hopper::fence_operand(acc);
+  hopper::wgmma_fence();
+  if constexpr (CF::RESIDENT) {  // `ring` holds this conv's K * C rows of taps
+#pragma unroll
+    for (int g = 0; g < ROWS_W; g += 16)
+      hopper::wgmma_ss<CF::NWG>(acc, desc_a(g), hopper::smem_desc<P>(ring + g * P, 0, 8 * P));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(acc);
+    return;
+  }
+  for (int st = 0; st < NST; ++st, ++n) {
+    if (RUN_STREAM) hopper::mbar_wait(full + n % S, (n / S) & 1);
+    const unsigned char* Bs = ring + n % S * CF::STAGE + (nbase / 64) * BKR * P;
+    hopper::fence_operand(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      const int g = st * BKR + 16 * s;
+      if (g < ROWS_W)
+        hopper::wgmma_ss<CF::NWG>(acc, desc_a(g),
+                                  hopper::smem_desc<P>(Bs + 16 * s * P, BKR * P, 8 * P));
     }
-  };
-  float acc[MT][NT][4] = {};
-  const int arow = lane & 15, akof = (lane >> 4) * 8;  // ldmatrix.x4 of A
-  const int bk = lane & 15, bhalf = lane >> 4;         // ldmatrix.x4.trans of B
-  auto mac = [&](int buf, int) {
-#pragma unroll
-    for (int q = 0; q < K; ++q) {
-      uint32_t bfr[NT][2];
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t r[4];
-        mma::ldsm_x4_trans(r, Bs[buf] + q * TAPS + bk * LDB + ncol[2 * np + bhalf]);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        uint32_t a[4];
-        mma::ldsm_x4(a, As[buf] + (row0 + 16 * mi + q * d + arow) * LDA + akof);
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) mma::mma16816(acc[mi][ni], a, bfr[ni][0], bfr[ni][1]);
-      }
-    }
-  };
-  mma::run_stages(C / BK, fetch, put, mac);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(acc);
+    __syncwarp();
+    if (lane == 0 && RUN_STREAM) hopper::mbar_arrive(empty + n % S);
+  }
+}
 
+// One unit: dst[b, t] = epi(b2 + conv2(bf16(leaky(b1 + conv1_d(bf16(leaky(hin)))))) + hin)
+// for the OUT frames of this block (see the header). wmap: the stage's tap
+// stacks as [rows, C] bf16; row1 / row2: the first row of conv1 / conv2.
+template <class CF, int K>
+__global__ void __launch_bounds__(UNIT_THREADS, CF::MINB)
+unit_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ w,
+            const float* __restrict__ hin, const float* __restrict__ b1,
+            const float* __restrict__ b2, float* dst, int T, int d, int row1, int row2, int S,
+            int epi, int first, int last, float n_res) {
+  constexpr int C = CF::C, M1 = CF::M1, BKR = CF::BKR, P2 = (K - 1) / 2, YR = M1 + 2 * P2;
+  constexpr int NST = (K * C + BKR - 1) / BKR;  // ring stages a conv
+  constexpr int OUT = M1 - 2 * P2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int p1 = P2 * d, xr = M1 + 2 * p1;
+  // X [C/8][xr][8] and Y [C/8][YR][8] bf16: 16-byte chunks of channels, then frames
+  bf16* X = reinterpret_cast<bf16*>(base + (CF::RESIDENT ? 2 * K * C * CF::P : S * CF::STAGE));
+  bf16* Y = X + xr * C;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Y + YR * C);
+  uint64_t* empty = full + S;
+  const int b = blockIdx.y, t0 = blockIdx.x * OUT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, CONSUMER_WARPS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {  // the producer: both convs' weight stages
+    if (lane == 0 && RUN_STREAM && !CF::RESIDENT) {
+      int n = 0;
+      for (int conv = 0; conv < 2; ++conv)
+        for (int st = 0; st < NST; ++st, ++n) {
+          const int slot = n % S;
+          hopper::mbar_wait(empty + slot, ((n / S) & 1) ^ 1);
+          hopper::mbar_expect_tx(full + slot, CF::STAGE);
+          unsigned char* dstp = base + slot * CF::STAGE;
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int t = t0 + row0 + mma::frag_row(mi, half);
-      if (t >= T) continue;
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int co = n0 + mma::frag_col(ncol[ni]);
-        const size_t i = ((size_t)b * T + t) * C + co;
-        const float2 bv = *reinterpret_cast<const float2*>(bias + co);
-        float v0 = acc[mi][ni][2 * half] + bv.x, v1 = acc[mi][ni][2 * half + 1] + bv.y;
-        if (epi == EPI_LEAKY) {
-          v0 = leaky(v0);
-          v1 = leaky(v1);
-        } else {
-          const float2 r = *reinterpret_cast<const float2*>(res + i);
-          v0 += r.x;
-          v1 += r.y;
-          if (epi == EPI_MEAN) {
-            if (!first) {
-              const float2 o = *reinterpret_cast<const float2*>(dst + i);
-              v0 = o.x + v0;
-              v1 = o.y + v1;
-            }
-            if (last) {
-              v0 /= n_res;
-              v1 /= n_res;
-            }
-          }
+          for (int sub = 0; sub < CF::SUBS; ++sub)
+            hopper::tma_load_2d(dstp + sub * BKR * CF::P, &wmap, sub * 64,
+                                (conv ? row2 : row1) + st * BKR, full + slot);
         }
-        *reinterpret_cast<float2*>(dst + i) = make_float2(v0, v1);
+    }
+    return;
+  }
+
+  // X: bf16(leaky(h_in)) on frames t0 - P2 - p1 ..., zero outside [0, T), a
+  // thread a frame's 8 channels (consecutive threads: consecutive frames);
+  // Y's last 2 P2 rows zero. Then to the tensor cores' proxy.
+  const float* hb = hin + (size_t)b * T * C;
+#pragma unroll 4
+  for (int e = tid; e < xr * (C / 8); e += CONSUMERS) {
+    const int chunk = e / xr, r = e % xr, t = t0 - P2 - p1 + r;
+    float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
+    if (RUN_LOADS && t >= 0 && t < T) {
+      v0 = mma::ld4(hb + (size_t)t * C + 8 * chunk);
+      v1 = mma::ld4(hb + (size_t)t * C + 8 * chunk + 4);
+      v0 = make_float4(leaky(v0.x), leaky(v0.y), leaky(v0.z), leaky(v0.w));
+      v1 = make_float4(leaky(v1.x), leaky(v1.y), leaky(v1.z), leaky(v1.w));
+    }
+    const uint2 lo = mma::pack4(v0), hi = mma::pack4(v1);
+    *reinterpret_cast<uint4*>(X + (chunk * xr + r) * 8) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+  for (int e = tid; e < 2 * P2 * (C / 8); e += CONSUMERS)
+    *reinterpret_cast<uint4*>(Y + ((e / (2 * P2)) * YR + M1 + e % (2 * P2)) * 8) =
+        make_uint4(0, 0, 0, 0);
+  if constexpr (CF::RESIDENT) {  // both convs' K * C tap rows, swizzled as a TMA box would be
+    constexpr int CH = C / 8;    // 16-byte chunks a row
+    for (int e = tid; e < 2 * K * C * CH; e += CONSUMERS) {
+      const int conv = e / (K * C * CH), r = e / CH % (K * C), ch = e % CH;
+      const uint4 v = RUN_STREAM ? *reinterpret_cast<const uint4*>(
+                                       w + ((size_t)(conv ? row2 : row1) + r) * C + ch * 8)
+                                 : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(base + conv * K * C * CF::P + hopper::swz<CF::P>(r * CF::P + ch * 16)) = v;
+    }
+  }
+  hopper::fence_async_shared();
+  hopper::bar_sync(1, CONSUMERS);
+
+  // conv1's epilogue at (frame row j of Y, columns co, co + 1): bf16(leaky(v +
+  // b1)), zero outside [0, T)
+  auto to_y = [&](int j, int co, float v0, float v1) {
+    const int t = t0 - P2 + j;
+    const bool inside = t >= 0 && t < T;
+    const float2 bv = *reinterpret_cast<const float2*>(b1 + co);
+    mma::st_bf2(Y + ((co / 8) * YR + j) * 8 + co % 8, inside ? leaky(v0 + bv.x) : 0.f,
+                inside ? leaky(v1 + bv.y) : 0.f);
+  };
+  // conv2's at output row r: + b2 + h_in, into dst (+ the stage mean's running sum)
+  auto to_dst = [&](int r, int co, float v0, float v1) {
+    const int t = t0 + r;
+    if (r >= OUT || t >= T || (!RUN_STORES && T != -1)) return;  // T != -1: the product stays
+    const size_t i = ((size_t)b * T + t) * C + co;
+    const float2 bv = *reinterpret_cast<const float2*>(b2 + co);
+    const float2 res = *reinterpret_cast<const float2*>(hin + i);
+    v0 += bv.x + res.x;
+    v1 += bv.y + res.y;
+    if (epi == EPI_MEAN) {
+      if (!first) {
+        const float2 o = *reinterpret_cast<const float2*>(dst + i);
+        v0 = o.x + v0;
+        v1 = o.y + v1;
+      }
+      if (last) {
+        v0 /= n_res;
+        v1 /= n_res;
       }
     }
+    *reinterpret_cast<float2*>(dst + i) = make_float2(v0, v1);
+  };
+  const int wg = warp / 4, wq = warp % 4;
+  const int mbase = M1 == 128 ? 64 * wg : 0, nbase = M1 == 128 ? 0 : wg * CF::NWG;
+  const int row = mbase + 16 * wq + (lane >> 2), col = nbase + 2 * (lane & 3);
+  float acc[CF::NWG / 2];
+  int n = 0;  // ring stages taken
+  conv_wgmma<CF, K>(base, full, empty, S, n, X, xr * 16, d, mbase, nbase, acc);
+#pragma unroll
+  for (int j = 0; j < CF::NWG / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) to_y(row + 8 * h, col + 8 * j, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  hopper::fence_async_shared();
+  hopper::bar_sync(1, CONSUMERS);
+  conv_wgmma<CF, K>(CF::RESIDENT ? base + K * C * CF::P : base, full, empty, S, n, Y, YR * 16, 1,
+                    mbase, nbase, acc);
+#pragma unroll
+  for (int j = 0; j < CF::NWG / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      to_dst(row + 8 * h, col + 8 * j, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
-// conv_kernel at C = 8 with two taps a k step (see the header): WARPS warps,
+// The C = 8 conv, two taps a k step (see the header): WARPS warps,
 // each MT 16-row tiles of the BM = WARPS * MT * 16 frames a block owns.
 template <int WARPS, int MT, int K>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -307,80 +462,128 @@ int conv_c8(const float* in, const bf16* w, const float* bias, const float* res,
   }
 }
 
-template <int WM, int WN, int MT, int NT, int K>
-int launch_conv(const float* in, const bf16* w, const float* bias, const float* res, float* dst,
-                int B, int T, int C, int d, int pre_leaky, int epi, int first, int last,
+template <class CF, int K>
+int launch_unit(const CUtensorMap& map, const bf16* w, const float* hin, const float* b1, const float* b2,
+                float* dst, int B, int T, int d, int row1, int row2, int epi, int first, int last,
                 float n_res, cudaStream_t stream) {
-  using TL = Tile<WM, WN, MT, NT>;
-  // the largest smem this instantiation takes, allowed once a device
+  // the largest smem an instantiation takes, allowed once a device
   constexpr int MAX_DEVICES = 64;
   static bool allowed[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= MAX_DEVICES || !allowed[dev]) {
-    e = cudaFuncSetAttribute(conv_kernel<WM, WN, MT, NT, K>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes<TL, K>(MAX_PAD));
+    e = cudaFuncSetAttribute(unit_kernel<CF, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CF::LIMIT);
     if (e != cudaSuccess) return (int)e;
     if (dev < MAX_DEVICES) allowed[dev] = true;
   }
-  const size_t smem = smem_bytes<TL, K>((K - 1) / 2 * d);
-  const dim3 grid(C / TL::BN, (T + TL::BM - 1) / TL::BM, B);
-  conv_kernel<WM, WN, MT, NT, K><<<grid, TL::THREADS, smem, stream>>>(
-      in, w, bias, res, dst, T, C, d, pre_leaky, epi, first, last, n_res);
+  const int S = unit_stages<CF, K>(d);
+  if (!CF::RESIDENT && S < 2) return (int)cudaErrorInvalidValue;
+  constexpr int OUT = CF::M1 - (K - 1);
+  unit_kernel<CF, K><<<dim3((T + OUT - 1) / OUT, B), UNIT_THREADS, unit_smem<CF, K>(d), stream>>>(
+      map, w, hin, b1, b2, dst, T, d, row1, row2, S, epi, first, last, n_res);
   return (int)cudaGetLastError();
 }
 
-template <int WM, int WN, int MT, int NT>
-int conv_k(const float* in, const bf16* w, const float* bias, const float* res, float* dst,
-           int B, int T, int C, int k, int d, int pre_leaky, int epi, int first, int last,
+template <class CF>
+int unit_k(const CUtensorMap& map, const bf16* w, const float* hin, const float* b1, const float* b2, float* dst,
+           int B, int T, int k, int d, int row1, int row2, int epi, int first, int last,
            float n_res, cudaStream_t stream) {
   switch (k) {
-#define RESBLOCK_CASE(K)                                                                      \
-  case K:                                                                                     \
-    return launch_conv<WM, WN, MT, NT, K>(in, w, bias, res, dst, B, T, C, d, pre_leaky, epi, \
-                                          first, last, n_res, stream);
-    RESBLOCK_CASE(3) RESBLOCK_CASE(7) RESBLOCK_CASE(11)
-#undef RESBLOCK_CASE
+#define RESBLOCK_UNIT_CASE(K)                                                                   \
+  case K:                                                                                       \
+    return launch_unit<CF, K>(map, w, hin, b1, b2, dst, B, T, d, row1, row2, epi, first, last, \
+                              n_res, stream);
+    RESBLOCK_UNIT_CASE(3) RESBLOCK_UNIT_CASE(7) RESBLOCK_UNIT_CASE(11)
+#undef RESBLOCK_UNIT_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The tile for each C: (WM, WN, MT, NT) warps and mma tiles.
-int conv(const float* in, const bf16* w, const float* bias, const float* res, float* dst, int B,
-         int T, int C, int k, int d, int pre_leaky, int epi, int first, int last, float n_res,
-         cudaStream_t stream) {
-  if (C == 8)
-    return conv_c8<8, 2>(in, w, bias, res, dst, B, T, k, d, pre_leaky, epi, first, last, n_res,
-                         stream);
-  if (C == 16)
-    return conv_k<8, 1, 2, 2>(in, w, bias, res, dst, B, T, C, k, d, pre_leaky, epi, first, last,
-                              n_res, stream);
-  if (C == 32)
-    return conv_k<8, 1, 2, 4>(in, w, bias, res, dst, B, T, C, k, d, pre_leaky, epi, first, last,
-                              n_res, stream);
-  return conv_k<4, 2, 2, 4>(in, w, bias, res, dst, B, T, C, k, d, pre_leaky, epi, first, last,
-                            n_res, stream);
+template <class CF>
+int unit_smem_k(int k, int d) {
+  switch (k) {
+    case 3: return unit_smem<CF, 3>(d);
+    case 7: return unit_smem<CF, 7>(d);
+    case 11: return unit_smem<CF, 11>(d);
+    default: return -1;
+  }
+}
+
+// The stage's units at C >= 16: one tensor map over the tap stacks, one
+// launch a unit.
+template <class CF>
+int stage_units(const float* x, float* out, float* h, float* tmp, const bf16* w, const float* bias,
+                const int* ksizes, const int* nunits, const int* dils, int n_res, int B, int T,
+                cudaStream_t stream) {
+  constexpr int C = CF::C;
+  long long rows = 0;
+  for (int j = 0; j < n_res; ++j) rows += 2LL * nunits[j] * ksizes[j] * C;
+  CUtensorMap map;
+  int err = hopper::make_map_2d(&map, w, (uint64_t)rows, C, CF::BKR, C < 64 ? C : 64,
+                                hopper::swizzle_mode<CF::P>());
+  if (err) return err;
+  int row = 0, ci = 0, di = 0;
+  for (int j = 0; j < n_res; ++j) {
+    const int k = ksizes[j];
+    const float* hin = x;
+    for (int u = 0; u < nunits[j]; ++u) {
+      const int d = dils[di++];
+      if ((k - 1) / 2 * d > MAX_PAD) return (int)cudaErrorInvalidValue;
+      const bool last_unit = u + 1 == nunits[j];
+      float* dst = last_unit ? out : (u % 2 ? tmp : h);
+      err = unit_k<CF>(map, w, hin, bias + (size_t)ci * C, bias + (size_t)(ci + 1) * C, dst, B, T,
+                       k, d, row, row + k * C, last_unit ? EPI_MEAN : EPI_RESID, j == 0,
+                       j == n_res - 1, (float)n_res, stream);
+      if (err) return err;
+      row += 2 * k * C;
+      ci += 2;
+      hin = dst;
+    }
+  }
+  return 0;
 }
 
 }  // namespace
 
+// Shared-memory bytes of the unit kernel at (C, k, d), or -1 where it has no
+// such instance (a check for ops/resblock.py:unit_plan).
+extern "C" int resblock_unit_smem_bf16(int C, int k, int d) {
+  switch (C) {
+    case 16: return unit_smem_k<Cfg16>(k, d);
+    case 32: return unit_smem_k<Cfg32>(k, d);
+    case 64: return unit_smem_k<Cfg64>(k, d);
+    case 128: return unit_smem_k<Cfg128>(k, d);
+    case 256: return unit_smem_k<Cfg256>(k, d);
+    default: return -1;
+  }
+}
+
 // resblock.cu's resblock_stage with bf16 taps: x [B,T,C] float32 input (read
 // only); out [B,T,C] the stage mean; h, tmp [B,T,C] float32 scratch. w: the
 // stage's convs in (resblock, unit, conv1/conv2) order, each [k, C, C] (tap,
-// in, out) bf16; bias [n_convs, C] float32. ksizes[j] / nunits[j] give
-// resblock j's kernel size and unit count, dils the units' dilations in
-// order. Launches 2 * sum(nunits) kernels on `stream`; returns the first
-// launch error (cudaError_t) or 0.
+// in, out) bf16, 16-byte aligned; bias [n_convs, C] float32. ksizes[j] /
+// nunits[j] give resblock j's kernel size and unit count, dils the units'
+// dilations in order. C is 8, 16, 32, 64, 128 or 256. Launches one kernel a
+// unit (sum(nunits)) at C >= 16, one a conv (2 * sum(nunits)) at C = 8, on
+// `stream`; returns the first error (cudaError_t) or 0.
 extern "C" int resblock_stage_bf16(const float* x, float* out, float* h, float* tmp,
                                    const void* w_ptr, const float* bias, const int* ksizes,
                                    const int* nunits, const int* dils, int n_res, int B, int T,
                                    int C, void* stream_ptr) {
-  if (B < 1 || T < 1 || n_res < 1 || !(C == 8 || C == 16 || C == 32 || C % 64 == 0))
-    return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || n_res < 1) return (int)cudaErrorInvalidValue;
   const bf16* w = static_cast<const bf16*>(w_ptr);
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  switch (C) {
+    case 16: return stage_units<Cfg16>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
+    case 32: return stage_units<Cfg32>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
+    case 64: return stage_units<Cfg64>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
+    case 128: return stage_units<Cfg128>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
+    case 256: return stage_units<Cfg256>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
+    case 8: break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   size_t woff = 0;
   int ci = 0, di = 0;
   for (int j = 0; j < n_res; ++j) {
@@ -389,14 +592,15 @@ extern "C" int resblock_stage_bf16(const float* x, float* out, float* h, float* 
     for (int u = 0; u < nunits[j]; ++u) {
       const int d = dils[di++];
       if ((k - 1) / 2 * d > MAX_PAD) return (int)cudaErrorInvalidValue;
-      int err = conv(hin, w + woff, bias + (size_t)ci * C, nullptr, tmp, B, T, C, k, d, 1,
-                     EPI_LEAKY, 0, 0, 1.f, stream);
+      int err = conv_c8<8, 2>(hin, w + woff, bias + (size_t)ci * C, nullptr, tmp, B, T, k, d, 1,
+                              EPI_LEAKY, 0, 0, 1.f, stream);
       if (err) return err;
       woff += (size_t)k * C * C;
       ++ci;
       const bool last_unit = u + 1 == nunits[j];
-      err = conv(tmp, w + woff, bias + (size_t)ci * C, hin, last_unit ? out : h, B, T, C, k, 1, 0,
-                 last_unit ? EPI_MEAN : EPI_RESID, j == 0, j == n_res - 1, (float)n_res, stream);
+      err = conv_c8<8, 2>(tmp, w + woff, bias + (size_t)ci * C, hin, last_unit ? out : h, B, T, k,
+                          1, 0, last_unit ? EPI_MEAN : EPI_RESID, j == 0, j == n_res - 1,
+                          (float)n_res, stream);
       if (err) return err;
       woff += (size_t)k * C * C;
       ++ci;

@@ -4,10 +4,11 @@ Port of ``prodiff_tpu/ops/pallas/resblock.py`` (``resblock_group_packed`` and
 ``resblock_group_streamed``, one entry here): ``mean_j ResBlock1_j(x)`` over
 a stage's ResBlock1s on ``[B, T, C]``. The kernels are ``csrc/resblock.cu``
 (float32 taps) and ``csrc/resblock_bf16.cu`` (bf16 taps, the tap stacks of
-``prepare_resblock_stage(dtype=bfloat16)``, on the tensor cores); the
-weights' dtype picks the route. :func:`resblock_stage_plain` computes the
-same function with ``F.conv1d``. :func:`resblock_stage` takes the plain
-version only for CPU tensors; a CUDA tensor launches the kernel or raises.
+``prepare_resblock_stage(dtype=bfloat16)``, on the tensor cores, a unit's
+two convs in one launch); the weights' dtype picks the route.
+:func:`resblock_stage_plain` computes the same function with ``F.conv1d``.
+:func:`resblock_stage` takes the plain version only for CPU tensors; a CUDA
+tensor launches the kernel or raises.
 
 A stage's weights travel as one flat tensor: the convs in (resblock, unit,
 conv1/conv2) order, each ``[k, C_in, C_out]``, float32 or bfloat16, plus
@@ -31,6 +32,15 @@ from prodiff_tpu_torch.ops import cuda_build
 LRELU_SLOPE = 0.1
 KERNEL_SIZES = (3, 7, 11)  # the kernel's taps (csrc/resblock.cu: a template argument)
 MAX_PAD = 32  # the kernel's largest halo a side, get_padding(k, d)
+BF16_CHANNELS = (8, 16, 32, 64, 128, 256)  # csrc/resblock_bf16.cu's widths
+
+# csrc/resblock_bf16.cu:unit_kernel's configuration by C: frames a conv
+# (M1), weight rows a ring stage and the shared-memory bytes a block may take
+# (a third, a half or all of an SM's)
+SMEM_LIMIT, SMEM_HALF, SMEM_THIRD = 232448, 115712, 75776
+UNIT_TILES = {16: (128, 256, SMEM_THIRD), 32: (128, 256, SMEM_THIRD), 64: (128, 128, SMEM_HALF),
+              128: (128, 32, SMEM_HALF), 256: (64, 32, SMEM_LIMIT)}
+UNIT_MAX_STAGES = 8
 
 
 def channels_supported(c: int) -> bool:
@@ -44,6 +54,39 @@ def channels_supported(c: int) -> bool:
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
+
+
+def unit_plan(c: int, k: int, d: int) -> dict:
+    """The fused-unit bf16 kernel's block at (C, k, d), as
+    ``csrc/resblock_bf16.cu:unit_smem`` computes it: ``rows`` frames a conv
+    (M1), ``out_rows`` stored (M1 less conv2's halo, 2 * (k - 1) / 2),
+    ``halo`` the input frames a side beyond them (conv1's and conv2's
+    padding: conv1 is recomputed on conv2's halo), and ``smem`` the bytes a
+    block takes: X and Y as bf16 rows of C, 1024 of alignment slack, and the
+    taps, either ``resident`` (C <= 32: both convs' k * C rows of C, loaded
+    with X) or streamed through a ring of ``stages`` stages of
+    ``stage_bytes`` and their mbarriers."""
+    rows, bkr, limit = UNIT_TILES[c]
+    p2 = (k - 1) // 2
+    p1 = p2 * d
+    fixed = 1024 + ((rows + 2 * p1) + (rows + 2 * p2)) * c * 2
+    plan = {"rows": rows, "out_rows": rows - 2 * p2, "halo": p1 + p2, "limit": limit,
+            "resident": c <= 32}
+    if plan["resident"]:
+        return dict(plan, stages=0, stage_rows=0, stage_bytes=0, smem=fixed + 2 * k * c * c * 2)
+    stage = bkr * c * 2
+    per_conv = -(-k * c // bkr)
+    stages = min(UNIT_MAX_STAGES, 2 * per_conv, (limit - fixed) // (stage + 16))
+    return dict(plan, stages=stages, stage_rows=bkr, stage_bytes=stage,
+                smem=fixed + stages * (stage + 16))
+
+
+def stage_launches(c: int, tap_dtype: torch.dtype, ksizes: Sequence[int],
+                   dsizes: Sequence[Sequence[int]]) -> int:
+    """Kernel launches of one stage: one a conv with float32 taps or at C =
+    8; one a unit (its two convs fused) with bf16 taps at C >= 16."""
+    n_convs = 2 * sum(len(ds) for ds in dsizes)
+    return n_convs // 2 if tap_dtype == torch.bfloat16 and c != 8 else n_convs
 
 
 def _conv_layout(ksizes: Sequence[int], dsizes: Sequence[Sequence[int]]
@@ -113,10 +156,12 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
     """x [B,T,C] -> mean_j ResBlock1_j(x) [B,T,C].
 
     CPU tensors run :func:`resblock_stage_plain`; CUDA tensors launch the
-    kernel of the weights' dtype, one launch per conv: float32 taps
-    ``csrc/resblock.cu`` (counted in ``resblock_stage.launches``), bf16 taps
-    ``csrc/resblock_bf16.cu`` (``resblock_stage.bf16_launches``); at C = 8
-    also in ``resblock_stage.c8_launches`` / ``.c8_bf16_launches``. ``x`` and
+    kernel of the weights' dtype (:func:`stage_launches`): float32 taps
+    ``csrc/resblock.cu``, one launch a conv (counted in
+    ``resblock_stage.launches``), bf16 taps ``csrc/resblock_bf16.cu``, one
+    launch a unit at C >= 16 and a conv at C = 8
+    (``resblock_stage.bf16_launches``); at C = 8 also in
+    ``resblock_stage.c8_launches`` / ``.c8_bf16_launches``. ``x`` and
     ``biases`` are float32 on both; any other dtype raises."""
     dtype = device.compute_dtype()
     if weights.dtype not in _ENTRIES:
@@ -137,6 +182,8 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
                              f"got {a.device}")
     if not channels_supported(c):
         raise ValueError(f"resblock_stage: C must be 8, 16, 32 or a multiple of 64, got {c}")
+    if weights.dtype == torch.bfloat16 and c not in BF16_CHANNELS:
+        raise ValueError(f"resblock_stage: bf16 taps take C in {BF16_CHANNELS}, got {c}")
     if len(ksizes) != len(dsizes) or any(k not in KERNEL_SIZES for k in ksizes):
         raise ValueError(
             f"resblock_stage: kernel sizes in {KERNEL_SIZES}, one per resblock: {ksizes}")
@@ -168,9 +215,10 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
         )
     cuda_build.check(err, _ENTRIES[weights.dtype][1])
     bf16 = weights.dtype == torch.bfloat16
-    (resblock_stage.bf16_launches if bf16 else resblock_stage.launches).add(len(layout))
+    n = stage_launches(c, weights.dtype, ksizes, dsizes)
+    (resblock_stage.bf16_launches if bf16 else resblock_stage.launches).add(n)
     if c == 8:  # the C = 8 tile (float32) and the two-taps-a-k-step kernel (bf16), apart
-        (resblock_stage.c8_bf16_launches if bf16 else resblock_stage.c8_launches).add(len(layout))
+        (resblock_stage.c8_bf16_launches if bf16 else resblock_stage.c8_launches).add(n)
     return out
 
 

@@ -22,7 +22,8 @@ import torch
 from prodiff_tpu_torch.ops import cuda_build
 from prodiff_tpu_torch.ops import lvc as lvc_ops
 from prodiff_tpu_torch.ops.lvc import lvc, lvc_plain, lvc_plan
-from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
+from prodiff_tpu_torch.ops import resblock as resblock_ops
+from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain, stage_launches
 from prodiff_tpu_torch.ops import ublock as ublock_ops
 from prodiff_tpu_torch.ops.ublock import (
     layer_plan,
@@ -1003,6 +1004,13 @@ def test_infer_mels_on_card_matches_cpu(cuda):
 BF16_TOL = 1e-2
 
 
+def _bf16_launches(b, t, c, n_layers, dev):
+    """K1-bf16's launches for a stack: its schedule at this card's clusters."""
+    lib = wavenet_stack._library(torch.bfloat16)
+    slots = wavenet_stack._chain_slots(lib, dev, torch.bfloat16, c)
+    return stack_launches(b, t, c, n_layers, torch.bfloat16, slots)
+
+
 def assert_peak_close(got, want, name, tol=BF16_TOL):
     got, want = got.float(), want.float()
     peak = max(float(want.abs().max()), 1e-6)
@@ -1011,13 +1019,13 @@ def assert_peak_close(got, want, name, tol=BF16_TOL):
 
 
 @pytest.mark.parametrize("b,t,c,h,n_layers", [
-    (1, 512, 256, 256, 20),  # the render's shape: 32 row tiles of 16
+    (1, 512, 256, 256, 20),  # the render's shape
     (3, 640, 128, 32, 4), (2, 37, 128, 64, 3),  # ragged tiles, B > 1
 ])
 def test_residual_stack_bf16_kernel_matches_twin(cuda, b, t, c, h, n_layers):
-    """K1-bf16 (bf16 weights: step projection, cond GEMM and the cooperative
-    tensor-core chain, 3 launches) vs the plain twin on the same bf16
-    stack; the float32 counter does not move."""
+    """K1-bf16 (bf16 weights: step projection, then a cond GEMM and a cluster
+    chain a layer group, as its schedule groups the layers) vs the plain
+    twin on the same bf16 stack; the float32 counter does not move."""
     rng = np.random.default_rng(30)
     w = wavenet_stack.cast_stack(_stacked(rng, n_layers, c, h, cuda), torch.bfloat16)
     x0, cond, step = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device=cuda)
@@ -1025,9 +1033,61 @@ def test_residual_stack_bf16_kernel_matches_twin(cuda, b, t, c, h, n_layers):
     f32, b16 = residual_stack.launches.count, residual_stack.bf16_launches.count
     got = residual_stack(x0, cond, step, w)
     torch.cuda.synchronize()
-    assert residual_stack.bf16_launches.count - b16 == 3
+    assert residual_stack.bf16_launches.count - b16 == _bf16_launches(b, t, c, n_layers, cuda)
     assert residual_stack.launches.count == f32
     assert_peak_close(got, residual_stack_plain(x0, cond, step, w), "skip")
+
+
+@pytest.mark.parametrize("b,t,c,n_layers", [
+    (2, t, 64, n) for t in (1, 63, 64, 65, 512, 2048) for n in (1, 20, 30)
+] + [(2, 1, 256, 20), (2, 65, 256, 30), (2, 2048, 256, 20), (1, 2048, 256, 30)])
+def test_residual_stack_bf16_edge_shapes(cuda, b, t, c, n_layers):
+    """The cluster chain at the edges of its windows: one frame, T about a
+    16-row tile, a layer and 30 (a halo of up to 30 frames a side), C = 64
+    (two blocks a cluster) and 256 (eight), B = 2; the schedule's launches."""
+    rng = np.random.default_rng(31)
+    w = wavenet_stack.cast_stack(_stacked(rng, n_layers, c, c, cuda), torch.bfloat16)
+    x0, cond, step = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device=cuda)
+                      for s in ((b, t, c), (b, t, c), (b, c)))
+    x_before = x0.clone()
+    b16 = residual_stack.bf16_launches.count
+    got = residual_stack(x0, cond, step, w)
+    torch.cuda.synchronize()
+    assert residual_stack.bf16_launches.count - b16 == _bf16_launches(b, t, c, n_layers, cuda)
+    assert torch.equal(x0, x_before)  # the input residual is read only
+    assert_peak_close(got, residual_stack_plain(x0, cond, step, w), f"skip T={t} L={n_layers}")
+
+
+def test_residual_stack_bf16_runs_layer_groups(cuda, monkeypatch):
+    """Past ZC_BUDGET the bf16 layers run in groups (each a cond and a chain
+    launch; the residual between them in two buffers); still the twin's."""
+    rng = np.random.default_rng(32)
+    b, t, c, h, n_layers = 2, 300, 256, 128, 20
+    monkeypatch.setattr(wavenet_stack, "ZC_BUDGET", 3 * 4 * b * t * 2 * c)
+    assert wavenet_stack.bf16_group(b, t, c, n_layers) == 3
+    w = wavenet_stack.cast_stack(_stacked(rng, n_layers, c, h, cuda), torch.bfloat16)
+    x0, cond, step = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device=cuda)
+                      for s in ((b, t, c), (b, t, h), (b, c)))
+    b16 = residual_stack.bf16_launches.count
+    got = residual_stack(x0, cond, step, w)
+    torch.cuda.synchronize()
+    assert residual_stack.bf16_launches.count - b16 == _bf16_launches(
+        b, t, c, n_layers, cuda) == 1 + 2 * 7
+    assert_peak_close(got, residual_stack_plain(x0, cond, step, w), "skip")
+
+
+def test_bf16_cluster_plan_matches_source(cuda):
+    """The chain's shared memory at every (C, warpgroups) equals
+    ops/wavenet_stack.py:cluster_plan's (0 where it does not fit), and the
+    card fits at least one cluster of every window that does."""
+    lib = wavenet_stack._library(torch.bfloat16)
+    lib.wavenet_cluster_smem_bf16.restype = ctypes.c_int
+    for c in (32, 64, 256, 512):
+        for nwg in range(1, wavenet_stack.CLUSTER_MAX_NWG + 1):
+            plan = wavenet_stack.cluster_plan(c, nwg)
+            fits = plan["stages"] >= wavenet_stack.CLUSTER_MIN_STAGES
+            assert lib.wavenet_cluster_smem_bf16(c, nwg) == (plan["smem"] if fits else 0)
+            assert (lib.wavenet_cluster_slots_bf16(c, nwg) >= 1) == fits
 
 
 @pytest.mark.parametrize("b,t,c,h,n_layers", [(2, 150, 128, 64, 3), (3, 1537, 256, 256, 4)])
@@ -1126,8 +1186,9 @@ RES_BF16_TOL = 7e-3
 @pytest.mark.parametrize("c,t", [(256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049),
                                  (8, 4097), (256, 7), (16, 9), (8, 23)])
 def test_resblock_stage_bf16_kernel_matches_twin(cuda, c, t):
-    """K2/K3-bf16 (bf16 taps: 18 tensor-core launches, on the bf16 counter)
-    vs the bf16 twin on every C's tile, ragged T and halos past both ends."""
+    """K2/K3-bf16 (bf16 taps: a launch a unit, 9 a stage, at C >= 16; a
+    launch a conv, 18, at C = 8; on the bf16 counter) vs the bf16 twin on
+    every C's tile, ragged T and halos past both ends."""
     rng = np.random.default_rng(40)
     ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
     w, bias = _stage(rng, c, ksizes, dsizes, cuda)
@@ -1136,10 +1197,45 @@ def test_resblock_stage_bf16_kernel_matches_twin(cuda, c, t):
     f32, b16 = resblock_stage.launches.count, resblock_stage.bf16_launches.count
     got = resblock_stage(x, w, bias, ksizes, dsizes)
     torch.cuda.synchronize()
-    assert resblock_stage.bf16_launches.count - b16 == 18
+    assert resblock_stage.bf16_launches.count - b16 == (18 if c == 8 else 9)
     assert resblock_stage.launches.count == f32
     assert_peak_close(got, resblock_stage_plain(x, w, bias, ksizes, dsizes), "stage",
                       tol=RES_BF16_TOL)
+
+
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_resblock_unit_bf16_ragged_shapes(cuda, c, k):
+    """The fused unit (conv1 at d = 1, 3, 5, then conv2, one launch) vs the
+    twin at every (C, k), B = 2: T one frame past a whole number of tiles
+    (unit_plan's out_rows), T between tiles, and T shorter than the halo."""
+    rng = np.random.default_rng(41 + k)
+    ksizes, dsizes = (k,), ((1, 3, 5),)
+    w, bias = _stage(rng, c, ksizes, dsizes, cuda)
+    w = w.to(torch.bfloat16)
+    out_rows = resblock_ops.unit_plan(c, k, 1)["out_rows"]
+    for t in (2 * out_rows + 1, out_rows + out_rows // 2, (k - 1) // 2 * 5):
+        x = torch.tensor(rng.normal(size=(2, t, c)), dtype=torch.float32, device=cuda)
+        b16 = resblock_stage.bf16_launches.count
+        got = resblock_stage(x, w, bias, ksizes, dsizes)
+        torch.cuda.synchronize()
+        assert resblock_stage.bf16_launches.count - b16 == 3 == stage_launches(
+            c, torch.bfloat16, ksizes, dsizes)
+        assert_peak_close(got, resblock_stage_plain(x, w, bias, ksizes, dsizes),
+                          f"unit C={c} k={k} T={t}", tol=RES_BF16_TOL)
+
+
+def test_resblock_unit_smem_matches_plan(cuda):
+    """The source's shared memory at every (C, k, d) the kernel takes equals
+    ops/resblock.py:unit_plan's, and fits its limit."""
+    lib = cuda_build.load("resblock_bf16")
+    lib.resblock_unit_smem_bf16.restype = ctypes.c_int
+    for c in (16, 32, 64, 128, 256):
+        for k in (3, 7, 11):
+            for d in range(1, 32 // ((k - 1) // 2) + 1):
+                plan = resblock_ops.unit_plan(c, k, d)
+                assert lib.resblock_unit_smem_bf16(c, k, d) == plan["smem"] <= plan["limit"]
+                assert plan["resident"] or plan["stages"] >= 2
 
 
 @pytest.mark.parametrize("hop,dilation,n_win", [(256, 27, 4), (64, 3, 8), (8, 9, 32), (100, 9, 6),
@@ -1185,9 +1281,11 @@ def test_ublock_block_bf16_kernel_matches_twin(cuda, hop, n_win, step):
 
 
 def test_fast_mode_vocoders_run_the_bf16_kernels(cuda):
-    """Built in fast mode, NSF-HiFiGAN launches K2/K3-bf16 only and FastDiff's
-    fused route K4-bf16 only (its KernelPredictor in bf16), the unfused route
-    the float32 K6; each agrees with its parity build within bf16's bound."""
+    """Built in fast mode, NSF-HiFiGAN launches K2/K3-bf16 only (a launch a
+    fused unit: 6 a stage of two ResBlock1s, against 12 convs a stage in
+    parity) and FastDiff's fused route K4-bf16 only (its KernelPredictor in
+    bf16), the unfused route the float32 K6; each agrees with its parity
+    build within bf16's bound."""
     from prodiff_tpu_torch import device as policy
     from prodiff_tpu_torch.models.fastdiff import FastDiff as FastDiffNet
     from prodiff_tpu_torch.models.nsf_hifigan import Generator
@@ -1232,7 +1330,7 @@ def test_fast_mode_vocoders_run_the_bf16_kernels(cuda):
             fd_unfused.spec2wav(mel, **noise)
             torch.cuda.synchronize()
             ran = [c.count - b for c, b in zip(counters, before)]
-            want = [36, 0, 48, 0, 48] if mode == "parity" else [0, 36, 0, 48, 48]
+            want = [36, 0, 48, 0, 48] if mode == "parity" else [0, 18, 0, 48, 48]
             assert ran == want, (mode, ran)
     finally:
         policy.set_precision("parity")
@@ -1246,8 +1344,9 @@ def test_hifigan_v2_render_matches_cpu(cuda):
     """HiFi-GAN V2 (a 128-channel start: stages 64, 32, 16 and 8) on the card
     vs a CPU copy (the plain modules): 18 K2 launches a stage, the C = 8
     stage included; with bf16 taps (the fast mode's) every stage takes
-    K2-bf16 (72 launches), within the JAX bound for bf16 tap stacks of the
-    float32 wav."""
+    K2-bf16 (45 launches: a launch a fused unit, 9 a stage, at C = 64, 32
+    and 16, and 18 at C = 8), within the JAX bound for bf16 tap stacks of
+    the float32 wav."""
     import copy
 
     from prodiff_tpu_torch.models.hifigan import HifiGanGenerator
@@ -1278,6 +1377,6 @@ def test_hifigan_v2_render_matches_cpu(cuda):
     with torch.no_grad():
         got16 = fast(mel.to(cuda))
     torch.cuda.synchronize()
-    assert [c.count - b for c, b in zip(counters, before)] == [0, 72]
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 45]
     a, b = got16.cpu().numpy().ravel(), got.cpu().numpy().ravel()
     assert np.abs(a - b).max() < 0.05 and np.corrcoef(a, b)[0, 1] > 0.999

@@ -630,9 +630,11 @@ def test_chip_smoke_mirrors_the_other_vocoder_cells():
     """``chip_smoke.py``'s other-vocoders phase: HiFi-GAN V1/V2/V3 as the
     published config_v1/v2/v3.json, PWG as the JAX module's defaults
     (parallel_wavegan.v1), each upsampling to the LJSpeech hop of its audio
-    settings; the launches it expects (18 a ResBlock1 stage, 18 more on the
-    C = 8 counter for V2's last stage, none for ResBlock2 or PWG) and the
-    stage shapes it times at T_mel = 512."""
+    settings; the launches it expects (18 a ResBlock1 stage, or 9 with bf16
+    taps at C >= 16, a launch a fused unit; 18 more on the C = 8 counter for
+    V2's last stage; none for ResBlock2 or PWG) and the stage shapes it times
+    at T_mel = 512."""
+    from prodiff_tpu_torch.ops.resblock import stage_launches
     import chip_smoke as cs
 
     v1 = {"resblock": "1", "upsample_rates": [8, 8, 2, 2],
@@ -660,7 +662,10 @@ def test_chip_smoke_mirrors_the_other_vocoder_cells():
         rates, c0 = cfg["upsample_rates"], cfg["upsample_initial_channel"]
         assert int(np.prod(rates)) == hop
         widths = [c0 // 2 ** (i + 1) for i in range(len(rates))]
-        assert n_res == (18 * len(rates) if cfg["resblock"] == "1" else 0), name
+        taps = torch.bfloat16 if mode == "fast" else torch.float32
+        ks, ds = cfg["resblock_kernel_sizes"], cfg["resblock_dilation_sizes"]
+        assert n_res == (sum(stage_launches(c, taps, ks, ds) for c in widths)
+                         if cfg["resblock"] == "1" else 0), name
         assert n_c8 == (18 * widths.count(8) if cfg["resblock"] == "1" else 0), name
     for model, cfg in (("V1", cs.HIFIGAN_V1), ("V2", cs.HIFIGAN_V2)):
         rates, c0 = cfg["upsample_rates"], cfg["upsample_initial_channel"]

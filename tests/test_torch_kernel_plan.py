@@ -83,6 +83,43 @@ def test_resblock_configs_fit_the_kernel(ksizes, dsizes):
     assert max(resblock.get_padding(k, d) for k, d in layout) <= resblock.MAX_PAD
 
 
+# every ResBlock1 stage the repo's vocoders reach: NSF-HiFiGAN (base and
+# 44.1 kHz) and HiFi-GAN V1 / V2 run C = 256 ... 16 at k = 3, 7, 11 and
+# d = 1, 3, 5 (V2's C = 8 stage keeps the per-conv kernel)
+VOCODER_UNITS = [(c, k, d) for c in (256, 128, 64, 32, 16) for k in (3, 7, 11) for d in (1, 3, 5)]
+
+
+@pytest.mark.parametrize("c,k,d", VOCODER_UNITS)
+def test_resblock_unit_fits_shared_memory(c, k, d):
+    """The fused unit's block at each vocoder shape: X (M1 + 2 p1 frames)
+    and Y (M1 + 2 P2) as bf16 rows of C, and the taps: both convs' resident
+    at C <= 32, else at least two weight stages of the ring, within the
+    block's limit and the H100's 232,448 bytes."""
+    plan = resblock.unit_plan(c, k, d)
+    p2 = (k - 1) // 2
+    assert plan["halo"] == p2 * d + p2  # conv1's padding and conv2's, recomputed
+    assert plan["out_rows"] == plan["rows"] - 2 * p2 > 0
+    assert plan["smem"] <= plan["limit"] <= 232448
+    x_rows, y_rows = plan["rows"] + 2 * p2 * d, plan["rows"] + 2 * p2
+    taps = (2 * k * c * c * 2 if plan["resident"]
+            else plan["stages"] * (plan["stage_bytes"] + 16))
+    assert plan["smem"] == 1024 + (x_rows + y_rows) * c * 2 + taps
+    assert plan["resident"] == (c <= 32)
+    if not plan["resident"]:
+        assert plan["stages"] >= 2
+        assert plan["stage_bytes"] % 1024 == 0 and plan["stage_rows"] % 16 == 0
+
+
+@pytest.mark.parametrize("c,tap_dtype,launches", [
+    (256, torch.bfloat16, 9), (16, torch.bfloat16, 9),  # a launch a unit
+    (8, torch.bfloat16, 18),                             # C = 8: a launch a conv
+    (256, torch.float32, 18), (8, torch.float32, 18),    # float32 taps: a launch a conv
+])
+def test_resblock_stage_launches(c, tap_dtype, launches):
+    ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
+    assert resblock.stage_launches(c, tap_dtype, ksizes, dsizes) == launches
+
+
 @pytest.mark.parametrize("hop,rows,streams,windows", [
     (8, 32, True, 4),      # block 0: a warp streams one window's kernel into registers
     (16, 32, True, 2),
@@ -298,14 +335,77 @@ def test_lvc_units_cover_each_window_in_8_row_slices(hop):
     assert plan["smem"] <= lvc_ops.MAX_SMEM
 
 
-@pytest.mark.parametrize("t,rows", [(512, 16), (640, 32), (2048, 32)])
-def test_bf16_chain_rows_are_whole_mma_row_tiles(t, rows):
-    """The bf16 chain (``csrc/wavenet_stack_bf16.cu``) tiles frames in whole
-    m16n8k16 row tiles, so its choices are 16 and 32 rows (24 is out); the
-    same rounds-of-the-grid rule picks between them (264 co-resident blocks
-    of either here): 16 rows while one round covers the tiles, 32 once 16
-    takes more rounds."""
-    assert set(wn.CHAIN_ROWS_BF16) == {16, 32}
-    assert wn.chain_rows(1, t, 256, {16: 264, 32: 264}, wn.CHAIN_ROWS_BF16) == rows
-    # the zc buffer stays float32, so the layer grouping is the float32 one's
+# co-resident clusters of the bf16 chain at C = 256 by warpgroups, as a
+# card's occupancy query gives them: one block an SM, two clusters of 8 a GPC
+H100_CLUSTERS = {1: 16, 2: 16}
+
+
+@pytest.mark.parametrize("t,group,nwg", [(512, 10, 1), (640, 10, 1), (2048, 20, 2)])
+def test_bf16_chain_rows_are_whole_mma_row_tiles(t, group, nwg):
+    """The bf16 chain (``csrc/wavenet_stack_bf16.cu``) computes windows of
+    whole wgmma row tiles, 64 frames a warpgroup, of which the middle 64 nwg
+    - 2 * group frames are its row tile. The schedule at the renders' shapes
+    (16 clusters on the card): at T = 512 and 640 two groups of 10 layers
+    in one-warpgroup windows (44-frame tiles: 12 and 15 clusters, one round,
+    against one group of 20 in two-warpgroup windows, as many rounds of
+    wider windows), at 2048 one group of 20 in two-warpgroup windows
+    (88-frame tiles, 24 clusters: two rounds, where 44-frame tiles take
+    three)."""
+    assert wn.bf16_schedule(1, t, 256, 20, H100_CLUSTERS) == (group, nwg)
+    assert (64 * nwg) % 16 == 0 and 64 * nwg - 2 * group >= 1
+    # the zc buffer stays float32, so the layer grouping's cap is the float32 one's
     assert wn.layer_group(1, t, 256, 20) == 20 and wn.stack_launches(1, t, 256, 20) == 3
+    assert wn.bf16_group(1, t, 256, 20) == 20
+    assert wn.stack_launches(1, t, 256, 20, torch.bfloat16) == 1 + 2 * (20 // group)
+
+
+@pytest.mark.parametrize("c,widest,stages", [(32, 2, 8), (64, 2, 8), (128, 2, 8), (256, 2, 5),
+                                             (512, 1, 5)])
+def test_bf16_cluster_window_fits_shared_memory(c, widest, stages):
+    """A chain block holds y [C/32][64 nwg + 8][32] and the gate
+    [C/32][64 nwg][32] in bf16 and at least two 16-KB ring stages within the
+    227 KB a block may take; the ring keeps up to 8 stages (a whole layer's
+    weights at C = 256 and one warpgroup: 6 dw stages and 2 ow)."""
+    fits = [m for m in range(1, wn.CLUSTER_MAX_NWG + 1) if wn.cluster_plan(c, m)["stages"] >= wn.CLUSTER_MIN_STAGES]
+    assert max(fits) == widest and wn.cluster_plan(c, widest)["stages"] == stages
+    for m in fits:
+        plan = wn.cluster_plan(c, m)
+        assert plan["smem"] <= wn.SMEM_LIMIT
+        assert wn.CLUSTER_MIN_STAGES <= plan["stages"] <= wn.CLUSTER_MAX_STAGES
+    assert wn.cluster_plan(256, 1)["stages"] == 8
+
+
+@pytest.mark.parametrize("b,t,c,n_layers,group", [
+    (1, 512, 256, 20, 20),   # the render: one group, halo 20
+    (1, 512, 256, 30, 30),
+    (1, 512, 256, 80, 56),   # the widest window (128 frames) keeps 16
+    (1, 512, 512, 40, 24),   # C = 512: 64-frame windows at most
+])
+def test_bf16_group_leaves_a_row_tile(b, t, c, n_layers, group):
+    """A bf16 layer group's halo (its layer count a side) leaves a row tile
+    of at least 16 frames in the widest window that fits; the schedule
+    groups the layers at most that many at a time."""
+    assert wn.bf16_group(b, t, c, n_layers) == group
+    widest = max(64 * m for m in range(1, wn.CLUSTER_MAX_NWG + 1)
+                 if wn.cluster_plan(c, m)["stages"] >= wn.CLUSTER_MIN_STAGES)
+    assert widest - 2 * group >= 16
+    sched_group, nwg = wn.bf16_schedule(b, t, c, n_layers)
+    assert sched_group <= group and 64 * nwg - 2 * sched_group >= 1
+    assert wn.stack_launches(b, t, c, n_layers, torch.bfloat16) == 1 + 2 * -(
+        -n_layers // sched_group)
+
+
+def test_bf16_schedule_follows_the_slots():
+    """Fewer clusters on the card move the choice to wider windows (4 at a
+    time at T = 512: one group of 20 in 128-frame windows, two rounds,
+    against 12 clusters of 44-frame tiles in three); a window that leaves no
+    row tile, or does not fit (two warpgroups at C = 512), is never taken; a
+    batch of 16 x 1536 frames takes groups of 4 in wide windows."""
+    assert wn.bf16_schedule(1, 512, 256, 20, {m: 4 for m in (1, 2)}) == (20, 2)
+    assert wn.bf16_schedule(1, 512, 512, 20) == (10, 1)
+    assert wn.bf16_schedule(1, 512, 256, 1, H100_CLUSTERS) == (1, 1)
+    assert wn.bf16_schedule(16, 1536, 256, 20, H100_CLUSTERS) == (4, 2)
+    with pytest.raises(ValueError):
+        wn.bf16_schedule(1, 512, 256, 20, {m: 0 for m in (1, 2)})
+
+

@@ -1,0 +1,546 @@
+#!/usr/bin/env python3
+"""Where the time of the port's bf16 serving kernels goes, on one CUDA card.
+
+    python3 tools/probe_bf16_kernels.py --parent DIR [--out FILE]
+
+DIR is a checkout of an earlier version of the repository (``git archive``
+unpacked; ``.`` for this one). The probe builds that version's
+``csrc/wavenet_stack_bf16.cu`` (K1-bf16) and ``csrc/resblock_bf16.cu``
+(K2/K3-bf16) beside this checkout's and measures, at ``chip_smoke.py``'s
+shapes (K1 at B=1, T=512/640/2048, L=20, C=H=256; the stage at the five
+NSF-HiFiGAN stages of T_mel=512):
+
+- the earlier version's split: K1's device time by kernel (torch.profiler)
+  and its layer chain by phase, from ``%globaltimer`` stamps that a copy of
+  its source takes at each block's phase edges (the gate phase, the out
+  phase, and the wait at each grid barrier), plus the stack cut to 1, 2, 10
+  and 20 layers (CUDA events); the stage's device time by launch (each of
+  its convs, torch.profiler) beside each conv's operations and bytes;
+- both versions in turns (earlier, this, this, earlier; CUDA events, 3
+  warm-ups, mean of 20 calls a turn), each checked against the plain twin.
+
+Prints one JSON line per measurement and writes them all to FILE
+(default ``build/probe_bf16_kernels.json``). Needs a CUDA card.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+K1_SHAPES = ((1, 512), (1, 640), (1, 2048))
+K1_CUTS = (1, 2, 10, 20)
+L, C, H = 20, 256, 256
+RES_STAGES = ((256, 4096), (128, 32768), (64, 65536), (32, 131072), (16, 262144))
+RES_K, RES_D = (3, 7, 11), ((1, 3, 5),) * 3
+BF16_PEAK, HBM_RATE = 989e12, 3.35e12
+STAMP_MAX_BLOCKS, STAMP_MAX_LAYERS = 2048, 33
+
+# the parent's chain loop, and the same loop with a stamp at each phase edge
+CHAIN_LOOP = """  for (int l = p.l0; l < p.l0 + p.G; ++l) {
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x)
+      gate_tile<BM>(p, l, i / n_pt / n_tt, i / n_pt % n_tt * BM, i % n_pt * BP, smem);
+    grid.sync();
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x)
+      out_tile<BM>(p, l, i / n_pt / n_tt, i / n_pt % n_tt * BM, i % n_pt * BP, smem);
+    if (l + 1 < p.l0 + p.G) grid.sync();
+  }
+"""
+STAMPED_LOOP = """  for (int l = p.l0; l < p.l0 + p.G; ++l) {
+    probe_stamp(l - p.l0, 0);
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x)
+      gate_tile<BM>(p, l, i / n_pt / n_tt, i / n_pt % n_tt * BM, i % n_pt * BP, smem);
+    probe_stamp(l - p.l0, 1);
+    grid.sync();
+    probe_stamp(l - p.l0, 2);
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x)
+      out_tile<BM>(p, l, i / n_pt / n_tt, i / n_pt % n_tt * BM, i % n_pt * BP, smem);
+    probe_stamp(l - p.l0, 3);
+    if (l + 1 < p.l0 + p.G) grid.sync();
+  }
+  probe_stamp(p.G, 0);
+"""
+STAMP_DEFS = f"""
+#include <cstdint>
+__device__ unsigned long long probe_stamps[{STAMP_MAX_BLOCKS} * {STAMP_MAX_LAYERS} * 4];
+__device__ __forceinline__ void probe_stamp(int layer, int edge) {{
+  __syncthreads();
+  if (threadIdx.x == 0 && blockIdx.x < {STAMP_MAX_BLOCKS} && layer < {STAMP_MAX_LAYERS}) {{
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    probe_stamps[(blockIdx.x * {STAMP_MAX_LAYERS} + layer) * 4 + edge] = t;
+  }}
+}}
+extern "C" int probe_read_stamps(unsigned long long* host, int n) {{
+  return (int)cudaMemcpyFromSymbol(host, probe_stamps, n * sizeof(unsigned long long));
+}}
+"""
+
+records = []
+
+
+def emit(kind, **kw):
+    rec = dict(probe=kind, **kw)
+    records.append(rec)
+    print(json.dumps(rec), flush=True)
+
+
+def build_variant(name, src_dir, tag):
+    """Build ``src_dir/{name}.cu`` (with the headers beside it) as a library
+    of its own, through the package's builder."""
+    from prodiff_tpu_torch.ops import cuda_build
+
+    saved = cuda_build.CSRC_DIR
+    cuda_build.CSRC_DIR = src_dir
+    try:
+        return cuda_build.load(name, (f"PROBE_VARIANT_{tag}=1",))
+    finally:
+        cuda_build.CSRC_DIR = saved
+
+
+def parent_sources(parent, stamped):
+    """A copy of the parent's csrc under build/; with ``stamped``, its K1
+    chain takes the stamps."""
+    src = os.path.join(parent, "prodiff_tpu_torch", "csrc")
+    dst = os.path.join(ROOT, "build", "probe_stamped" if stamped else "probe_parent")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    if not stamped:
+        return dst
+    path = os.path.join(dst, "wavenet_stack_bf16.cu")
+    with open(path) as f:
+        text = f.read()
+    if CHAIN_LOOP not in text:
+        raise SystemExit("probe: the parent's chain loop is not the one this probe stamps")
+    text = text.replace(CHAIN_LOOP, STAMPED_LOOP)
+    head = text.index("namespace {")
+    text = text[:head] + STAMP_DEFS + "\n" + text[head:]
+    with open(path, "w") as f:
+        f.write(text)
+    return dst
+
+
+def rand(rng, dev, torch, *shape, scale=1.0):
+    return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+
+def k1_weights(rng, dev, torch, n_layers):
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+
+    w = wn.StackedWaveNet(
+        dilated_w=rand(rng, dev, torch, n_layers, 3, C, 2 * C, scale=(3 * C) ** -0.5),
+        dilated_b=rand(rng, dev, torch, n_layers, 2 * C, scale=0.1),
+        diff_w=rand(rng, dev, torch, n_layers, C, C, scale=C ** -0.5),
+        diff_b=rand(rng, dev, torch, n_layers, C, scale=0.1),
+        cond_w=rand(rng, dev, torch, n_layers, H, 2 * C, scale=H ** -0.5),
+        cond_b=rand(rng, dev, torch, n_layers, 2 * C, scale=0.1),
+        out_w=rand(rng, dev, torch, n_layers, C, 2 * C, scale=C ** -0.5),
+        out_b=rand(rng, dev, torch, n_layers, 2 * C, scale=0.1))
+    return wn.cast_stack(w, torch.bfloat16)
+
+
+class ParentK1:
+    """The parent's K1-bf16 wrapper (ops/wavenet_stack.py at the parent),
+    calling its library."""
+
+    ROWS = {32: 1.0, 16: 1.2}
+
+    def __init__(self, lib, torch):
+        self.lib, self.torch = lib, torch
+        lib.wavenet_residual_stack_bf16.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        lib.wavenet_residual_stack_bf16.restype = ctypes.c_int
+        lib.wavenet_chain_slots_bf16.argtypes = [ctypes.c_int]
+        lib.wavenet_chain_slots_bf16.restype = ctypes.c_int
+        self.slots = None
+        self.grid = None
+
+    def __call__(self, x0, cond, step, w):
+        torch = self.torch
+        b, t, c = x0.shape
+        n_layers, h, _ = w.cond_w.shape
+        if self.slots is None:
+            self.slots = {r: self.lib.wavenet_chain_slots_bf16(r) for r in self.ROWS}
+
+        def cost(rows):
+            tiles = b * -(-t // rows) * (c // 32)
+            return -(-tiles // max(1, self.slots[rows])) * rows * self.ROWS[rows]
+
+        rows = min(self.ROWS, key=cost)
+        group = max(1, min(n_layers, (1 << 30) // (4 * b * t * 2 * c)))
+        self.grid = (min(b * -(-t // rows) * (c // 32), self.slots[rows]), rows, group)
+        x = x0.clone()
+        skip = torch.empty_like(x)
+        gate = torch.empty_like(x, dtype=torch.bfloat16)
+        sp = torch.empty((n_layers, b, c), device=x.device)
+        zc = torch.empty((group, b, t, 2 * c), device=x.device)
+        err = self.lib.wavenet_residual_stack_bf16(
+            x.data_ptr(), skip.data_ptr(), gate.data_ptr(), sp.data_ptr(), zc.data_ptr(),
+            cond.data_ptr(), step.data_ptr(), *(a.data_ptr() for a in w),
+            b, t, c, h, n_layers, group, rows, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K1-bf16: CUDA error {err}")
+        return skip
+
+
+class ParentStage:
+    """The parent's K2/K3-bf16 wrapper (one launch a conv)."""
+
+    def __init__(self, lib, torch):
+        self.fn, self.torch = lib.resblock_stage_bf16, torch
+        self.fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+
+    def __call__(self, x, w, biases, ksizes, dsizes):
+        torch = self.torch
+        b, t, c = x.shape
+        out, h, tmp = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+
+        def arr(v):
+            return (ctypes.c_int * len(v))(*v)
+
+        err = self.fn(x.data_ptr(), out.data_ptr(), h.data_ptr(), tmp.data_ptr(), w.data_ptr(),
+                      biases.data_ptr(), arr(list(ksizes)), arr([len(d) for d in dsizes]),
+                      arr([d for ds in dsizes for d in ds]), len(ksizes), b, t, c,
+                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K2/K3-bf16: CUDA error {err}")
+        return out
+
+
+def timed_ms(fn, reps, torch):
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, n, torch):
+    """(name, microseconds) of every device kernel of ``n`` calls of ``fn``,
+    in launch order (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type.name == "CUDA" and "emcpy" not in e.name
+           and "emset" not in e.name]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.end - e.time_range.start) for e in evs]
+
+
+def peak_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def k1_split(parent, torch, dev):
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+
+    rng = np.random.default_rng(17)
+    w = k1_weights(rng, dev, torch, L)
+    n_stamps = STAMP_MAX_BLOCKS * STAMP_MAX_LAYERS * 4
+    for b, t in K1_SHAPES:
+        x0, cond, step = (rand(rng, dev, torch, b, t, C), rand(rng, dev, torch, b, t, H),
+                          rand(rng, dev, torch, b, C))
+        want = wn.residual_stack_plain(x0, cond, step, w)
+        got = parent(x0, cond, step, w)
+        err = peak_err(got, want)
+        kern = device_kernels(lambda: parent(x0, cond, step, w), 10, torch)
+        by = {}
+        for name, us in kern:
+            key = next((k for k in ("step_proj", "cond_kernel", "chain_kernel") if k in name), name)
+            by[key] = by.get(key, 0.0) + us / 10 / 1e3
+        cuts = {}
+        for n_cut in K1_CUTS:
+            wc = wn.StackedWaveNet(*(a[:n_cut] for a in w))
+            cuts[n_cut] = timed_ms(lambda: parent(x0, cond, step, wc), 20, torch)
+        # the stamped chain: one call after a warm-up
+        parent(x0, cond, step, w)
+        torch.cuda.synchronize()
+        host = (ctypes.c_ulonglong * n_stamps)()
+        if parent.lib.probe_read_stamps(host, n_stamps):
+            raise RuntimeError("probe_read_stamps failed")
+        grid, rows, group = parent.grid
+        s = np.frombuffer(host, dtype=np.uint64).reshape(STAMP_MAX_BLOCKS, STAMP_MAX_LAYERS, 4)
+        s = s[:grid].astype(np.float64)
+        g = min(group, L)
+        gate = s[:, :g, 1] - s[:, :g, 0]
+        wait1 = s[:, :g, 2] - s[:, :g, 1]
+        out = s[:, :g, 3] - s[:, :g, 2]
+        nxt = np.concatenate([s[:, 1:g, 0], s[:, g:g + 1, 0]], axis=1)
+        wait2 = nxt - s[:, :g, 3]
+        span = s[:, g, 0].max() - s[:, 0, 0].min()
+        last1 = np.argmax(s[:, :g, 1], axis=0)  # the last block into each first barrier
+        bar1 = wait1[last1, np.arange(g)]
+        last2 = np.argmax(s[:, :g, 3], axis=0)
+        bar2 = wait2[last2, np.arange(g)]
+        us = 1e-3  # globaltimer is in ns
+        emit("k1_split", b=b, t=t, grid=grid, rows=rows, err_of_peak=err,
+             kernel_ms=by_ms(by), chain_span_ms=span * us / 1e3,
+             per_layer_us=dict(gate_mean=float(gate.mean() * us), gate_max=float(gate.max(0).mean() * us),
+                               out_mean=float(out.mean() * us), out_max=float(out.max(0).mean() * us),
+                               wait_after_gate_mean=float(wait1.mean() * us),
+                               wait_after_out_mean=float(wait2[:, :-1].mean() * us) if g > 1 else 0.0,
+                               barrier_after_gate=float(bar1.mean() * us),
+                               barrier_after_out=float(bar2[:-1].mean() * us) if g > 1 else 0.0),
+             layers_ms={str(k): v for k, v in cuts.items()})
+
+
+def by_ms(by):
+    return {k: round(v, 5) for k, v in by.items()}
+
+
+def stage_split(parent, torch, dev):
+    from prodiff_tpu_torch.ops.resblock import resblock_stage_plain
+
+    rng = np.random.default_rng(19)
+    convs = [(k, d) for k, ds in zip(RES_K, RES_D) for d in ds for d in (d, 1)]
+    for c, t in RES_STAGES:
+        w = torch.cat([rand(rng, dev, torch, k * c * c, scale=(k * c) ** -0.5)
+                       for k in RES_K for _ in range(6)]).to(torch.bfloat16)
+        biases, x = rand(rng, dev, torch, 18, c, scale=0.1), rand(rng, dev, torch, 1, t, c)
+        err = peak_err(parent(x, w, biases, RES_K, RES_D), resblock_stage_plain(x, w, biases, RES_K, RES_D))
+        kern = [us for name, us in device_kernels(lambda: parent(x, w, biases, RES_K, RES_D), 5, torch)
+                if "conv_kernel" in name]
+        if len(kern) != 5 * 18:
+            emit("stage_split", c=c, t=t, note=f"profiler saw {len(kern)} conv launches, not 90")
+            continue
+        per = np.array(kern).reshape(5, 18).mean(0) / 1e3
+        rows = []
+        for i, ((k, d), ms) in enumerate(zip(convs, per)):
+            flops = 2 * t * c * c * k
+            first = i % 2 == 0
+            # conv1: read x/h, write tmp; conv2: read tmp and the residual, write h/out
+            nbytes = 2 * k * c * c + 4 * t * c * (2 if first else 3)
+            rows.append(dict(conv=i, k=k, d=d, ms=round(float(ms), 5),
+                             ops_ms=round(flops / BF16_PEAK * 1e3, 5),
+                             bytes_ms=round(nbytes / HBM_RATE * 1e3, 5)))
+        emit("stage_split", c=c, t=t, err_of_peak=err, total_ms=round(float(per.sum()), 5), convs=rows)
+
+
+def variant_k1(lib, torch):
+    """This checkout's K1-bf16 wrapper calling a variant build of its source."""
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+
+    lib.wavenet_residual_stack_bf16.argtypes = wn._ARGTYPES_BF16
+    lib.wavenet_residual_stack_bf16.restype = ctypes.c_int
+    lib.wavenet_cluster_slots_bf16.argtypes = [ctypes.c_int] * 2
+    lib.wavenet_cluster_slots_bf16.restype = ctypes.c_int
+
+    def call(x0, cond, step, w):
+        saved = wn._library
+        wn._library = lambda dtype=None: lib
+        try:
+            return wn.residual_stack(x0, cond, step, w)
+        finally:
+            wn._library = saved
+
+    return call
+
+
+def stamp_split(stamps):
+    """A layer's phases (us, the mean over the stamped blocks and layers: a
+    layer group's later layers, never stamped, stay 0 and are left out) from
+    the K1_STAMPS build's [block][layer][edge] stamps; ``layer`` the period
+    between consecutive stamped layers' starts."""
+    st = stamps.astype(np.float64)
+    valid = (st > 0).all(axis=2)
+    d = np.diff(st, axis=2)[valid] / 1e3
+    names = ("gate_product", "gate_epilogue", "gate_exchange", "out_product", "out_epilogue_y")
+    split = {k: float(d[:, i].mean()) for i, k in enumerate(names)}
+    both = valid[:, 1:] & valid[:, :-1]
+    split["layer"] = float((st[:, 1:, 0] - st[:, :-1, 0])[both].mean() / 1e3)
+    split["blocks"] = int(valid.any(axis=1).sum())
+    return split
+
+
+def k1_phases(lib, torch, dev):
+    """This checkout's K1-bf16 (a K1_STAMPS build) at chip_smoke.py's shapes:
+    each layer's phases from the blocks' %globaltimer stamps, microseconds,
+    the mean over the stamped blocks and layers."""
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+
+    call = variant_k1(lib, torch)
+    rng = np.random.default_rng(29)
+    w = k1_weights(rng, dev, torch, L)
+    blocks, layers, edges = 64, 64, 6
+    for b, t in K1_SHAPES:
+        x0, cond, step = (rand(rng, dev, torch, b, t, C), rand(rng, dev, torch, b, t, H),
+                          rand(rng, dev, torch, b, C))
+        call(x0, cond, step, w)
+        torch.cuda.synchronize()
+        if lib.wavenet_clear_stamps_bf16():
+            raise RuntimeError("wavenet_clear_stamps_bf16 failed")
+        call(x0, cond, step, w)
+        torch.cuda.synchronize()
+        host = (ctypes.c_ulonglong * (blocks * layers * edges))()
+        if lib.wavenet_read_stamps_bf16(host, blocks * layers * edges):
+            raise RuntimeError("wavenet_read_stamps_bf16 failed")
+        split = stamp_split(np.frombuffer(host, dtype=np.uint64).reshape(blocks, layers, edges))
+        emit("k1_phases", b=b, t=t, per_layer_us={k: round(v, 3) for k, v in split.items()})
+
+
+def k1_schedules(torch, dev, schedules):
+    """This checkout's K1-bf16 at chip_smoke.py's shapes under each forced
+    (layers a group, warpgroups a block) schedule: mean of 20 calls and the
+    error against the plain twin, beside the wrapper's own choice."""
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+
+    lib = wn._library(torch.bfloat16)
+    rng = np.random.default_rng(31)
+    w = k1_weights(rng, dev, torch, L)
+    for b, t in K1_SHAPES:
+        x0, cond, step = (rand(rng, dev, torch, b, t, C), rand(rng, dev, torch, b, t, H),
+                          rand(rng, dev, torch, b, C))
+        want = wn.residual_stack_plain(x0, cond, step, w)
+        row = {}
+        for group, nwg in schedules:
+            if 64 * nwg - 2 * group < 1:
+                continue
+            skip = torch.empty_like(x0)
+            xa, xb = torch.empty_like(x0), torch.empty_like(x0)
+            sp = torch.empty((L, b, C), device=dev)
+            zc = torch.empty((group, b, t, 2 * C), device=dev)
+
+            def call():
+                err = lib.wavenet_residual_stack_bf16(
+                    x0.data_ptr(), xa.data_ptr(), xb.data_ptr(), skip.data_ptr(), sp.data_ptr(),
+                    zc.data_ptr(), cond.data_ptr(), step.data_ptr(), *(a.data_ptr() for a in w),
+                    b, t, C, H, L, group, nwg, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"K1-bf16 ({group}, {nwg}): CUDA error {err}")
+                return skip
+
+            err = peak_err(call(), want)
+            row[f"{group}x{nwg}"] = (round(timed_ms(call, 20, torch), 5), round(err, 6))
+        row["wrapper"] = round(timed_ms(lambda: wn.residual_stack(x0, cond, step, w), 20, torch), 5)
+        emit("k1_schedules", b=b, t=t, ms_err=row)
+
+
+def in_turns(parent_k1, parent_stage, torch, dev, variants=None, k1_variants=None):
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+    from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
+
+    rng = np.random.default_rng(23)
+    w = k1_weights(rng, dev, torch, L)
+    for b, t in K1_SHAPES:
+        x0, cond, step = (rand(rng, dev, torch, b, t, C), rand(rng, dev, torch, b, t, H),
+                          rand(rng, dev, torch, b, C))
+        want = wn.residual_stack_plain(x0, cond, step, w)
+        fns = {"parent": lambda: parent_k1(x0, cond, step, w),
+               "this": lambda: wn.residual_stack(x0, cond, step, w)}
+        for name, fn in (k1_variants or {}).items():
+            fns[name] = lambda fn=fn: fn(x0, cond, step, w)
+        errs = {k: peak_err(f(), want) for k, f in fns.items()}
+        times = {k: [] for k in fns}
+        for k in ("parent", "this", *(k1_variants or {}), "this", "parent"):
+            times[k].append(timed_ms(fns[k], 20, torch))
+        emit("k1_in_turns", b=b, t=t, err_of_peak=errs, ms=times)
+    for c, t in RES_STAGES:
+        w = torch.cat([rand(rng, dev, torch, k * c * c, scale=(k * c) ** -0.5)
+                       for k in RES_K for _ in range(6)]).to(torch.bfloat16)
+        biases, x = rand(rng, dev, torch, 18, c, scale=0.1), rand(rng, dev, torch, 1, t, c)
+        want = resblock_stage_plain(x, w, biases, RES_K, RES_D)
+        fns = {"parent": lambda: parent_stage(x, w, biases, RES_K, RES_D),
+               "this": lambda: resblock_stage(x, w, biases, RES_K, RES_D)}
+        for name, fn in (variants or {}).items():
+            fns[name] = lambda fn=fn: fn(x, w, biases, RES_K, RES_D)
+        errs = {k: peak_err(f(), want) for k, f in fns.items()}
+        times = {k: [] for k in fns}
+        for k in ("parent", "this", *(variants or {}), "this", "parent"):
+            times[k].append(timed_ms(fns[k], 20, torch))
+        emit("stage_in_turns", c=c, t=t, err_of_peak=errs, ms=times)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", required=True, help="a checkout of the earlier version")
+    parser.add_argument("--out", default=os.path.join(ROOT, "build", "probe_bf16_kernels.json"))
+    parser.add_argument("--skip-split", action="store_true", help="only the in-turns times")
+    parser.add_argument("--k1-schedules", default="",
+                        help="group x warpgroups,... (e.g. 20x2,10x1): K1-bf16 timed at each")
+    parser.add_argument("--stage-variants", default="",
+                        help="name=DEFINE[;DEFINE],... : builds of this checkout's "
+                             "resblock_bf16.cu with defines, timed in turns beside it")
+    parser.add_argument("--k1-variants", default="",
+                        help="name=DEFINE,... : the same for wavenet_stack_bf16.cu")
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("probe: no CUDA card")
+    from prodiff_tpu_torch import device as policy
+    from prodiff_tpu_torch.ops import cuda_build
+
+    policy.set_precision(policy.PARITY)
+    dev = torch.device("cuda:0")
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.time()
+    plain = parent_sources(os.path.abspath(args.parent), False)
+    stamped = parent_sources(os.path.abspath(args.parent), True)
+    k1_lib = build_variant("wavenet_stack_bf16", plain, "PARENT")
+    res_lib = build_variant("resblock_bf16", plain, "PARENT")
+    k1_stamped = build_variant("wavenet_stack_bf16", stamped, "STAMPED")
+    emit("build_parent", seconds=round(time.time() - t0, 3))
+    parent_k1, parent_stage = ParentK1(k1_lib, torch), ParentStage(res_lib, torch)
+    if not args.skip_split:
+        k1_split(ParentK1(k1_stamped, torch), torch, dev)
+        stage_split(parent_stage, torch, dev)
+    # name=DEFINE[;DEFINE...]
+    defines = {name: tuple(d.split(";")) for name, d in
+               (item.split("=", 1) for item in filter(None, args.stage_variants.split(",")))}
+    k1_defines = {name: tuple(d.split(";")) for name, d in
+                  (item.split("=", 1) for item in filter(None, args.k1_variants.split(",")))}
+    try:
+        cuda_build.load_all(["wavenet_stack_bf16", "resblock_bf16"]
+                            + [("resblock_bf16", d) for d in defines.values()]
+                            + [("wavenet_stack_bf16", d) for d in k1_defines.values()])
+    except RuntimeError as e:  # this checkout's build: reported, and nothing timed in turns
+        emit("build_this_failed", error=str(e)[-6000:])
+    else:
+        emit("build_this", ptxas={
+            n: [ln.strip() for ln in cuda_build.build_log(n).splitlines() if "registers" in ln
+                or "spill" in ln] for n in ("wavenet_stack_bf16", "resblock_bf16")})
+        variants = {name: ParentStage(cuda_build.load("resblock_bf16", d), torch)
+                    for name, d in defines.items()}
+        k1_variants = {name: variant_k1(cuda_build.load("wavenet_stack_bf16", d), torch)
+                       for name, d in k1_defines.items() if d != ("K1_STAMPS=1",)}
+        if ("K1_STAMPS=1",) in k1_defines.values():
+            lib = cuda_build.load("wavenet_stack_bf16", ("K1_STAMPS=1",))
+            lib.wavenet_read_stamps_bf16.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.wavenet_clear_stamps_bf16.restype = ctypes.c_int
+            k1_phases(lib, torch, dev)
+        if args.k1_schedules:
+            k1_schedules(torch, dev, [tuple(int(v) for v in item.split("x"))
+                                      for item in args.k1_schedules.split(",")])
+        in_turns(parent_k1, parent_stage, torch, dev, variants, k1_variants)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(records, f, indent=1)
+    return 0 if not any(r["probe"] == "build_this_failed" for r in records) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
