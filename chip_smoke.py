@@ -146,10 +146,13 @@ Phases, each printing its lines before the last:
      Every kernel's entry of the JSON line gains ``launches_distillation``.
  13. (``phase_bf16``) the teacher's bf16 policy, then parity mode again: the
      bf16 variants of K1, K5a and K5b (``csrc/*_bf16.cu``, tensor-core
-     mma.sync) against their twins at the table's shapes (K1 at B=1, T=512,
+     wgmma) against their twins at the table's shapes (K1 at B=1, T=512,
      640 and 2048; K5 at B=16, T=1536), timed beside the float32 kernels,
-     each with its bound at the bf16 dense rate; ``train svs`` with ``bf16:
-     true`` by the CLI (41 K5a-bf16 and 40 K5b-bf16 launches a step, its
+     each with its bound at the bf16 dense rate (with ``--parent``: K5a/K5b-
+     bf16 also at vari's H=128, in turns with the earlier design, both
+     split by kernel, beside the same products as bf16 ``torch.matmul``
+     calls); ``train svs`` with ``bf16: true`` by the CLI (K5a-bf16 22 and
+     K5b-bf16 21 launches a step, ``ops/wavenet_train.py:train_launches``; its
      median step beside a float32 run's on the same items), ``train
      svs_rectified --precision fast`` and a ``train svs`` step with ``amp:
      true``; one bf16 teacher step against the same step on the CPU, which
@@ -3374,9 +3377,21 @@ def peak_compare(name, got, want, tol, torch) -> float:
     return grad_compare(name, got.float(), want.float(), tol, torch)
 
 
-# set by main() with --parent: the earlier design's K1-bf16 and K2/K3-bf16
-# wrappers (tools/probe_bf16_kernels.py), timed in turns beside this one's
+# set by main() with --parent: the earlier design's K1-bf16, K2/K3-bf16 and
+# K5a/K5b-bf16 wrappers (tools/probe_bf16_kernels.py), timed in turns beside
+# this one's
 PARENT = None
+
+
+def k5_bf16_launches(n_layers: int = 20) -> dict:
+    """K5a/K5b-bf16's launches a training step (one stack a step), by counter
+    name (ops/wavenet_train.py:train_launches)."""
+    import torch
+
+    from prodiff_tpu_torch.ops.wavenet_train import train_launches
+
+    save, chain = train_launches(TRAIN_B, TRAIN_T, 256, n_layers, torch.bfloat16)
+    return {"residual_stack_save_bf16": save, "residual_stack_chain_bf16": chain}
 
 
 def k1_bf16_launches(b: int, t: int, c: int = 256, n_layers: int = 20) -> int:
@@ -3508,8 +3523,9 @@ def bf16_kernels(dev, torch) -> tuple:
     torch.cuda.synchronize()
     got_n = (wt.residual_stack_save.bf16_launches.count - saves,
              wt.residual_stack_chain.bf16_launches.count - chains)
-    if got_n != (1 + 2 * n_layers, 2 * n_layers):
-        raise AssertionError(f"K5-bf16 launched {got_n}")
+    if got_n != wt.train_launches(b, t, c, n_layers, torch.bfloat16):
+        raise AssertionError(f"K5-bf16 launched {got_n}, not "
+                             f"{wt.train_launches(b, t, c, n_layers, torch.bfloat16)}")
     want = wt.residual_stack_save_plain(x0, cond, step, w16)
     fwd_err = max(peak_compare(f"K5a-bf16 {name} vs its twin, {tag}", got, ref, BF16_KERNEL_TOL, torch)
                   for name, got, ref in zip(("skip", "xs", "zs"), (skip, xs, zs), want))
@@ -3544,7 +3560,33 @@ def bf16_kernels(dev, torch) -> tuple:
             f"{nbytes / 1e9:.3f} GB: {k['bound_by']}), share of bound {k['bound_ms'] / k['ms']:.3f}")
     del xs, zs, dz, dy, dx0, skip
     torch.cuda.empty_cache()
+    if PARENT is not None:
+        k5_parent_in_turns(k5a, k5b, dev, torch)
     return k1, k5a, k5b
+
+
+def k5_parent_in_turns(k5a: dict, k5b: dict, dev, torch) -> None:
+    """K5a/K5b-bf16 and the earlier design's in turns at the training shape
+    (B=16, T=1536, L=20, C=256) with H=256 (the teacher's) and H=128
+    (vari's): each checked against the twins, timed (earlier, this, this,
+    earlier), split by kernel (torch.profiler), beside the same products as
+    bf16 torch.matmul calls (tools/probe_bf16_kernels.py:k5_probe). The
+    teacher shape's turns go into the kernels' entries."""
+    probe = probe_module()
+    recs = probe.k5_probe(PARENT["k5"], torch, dev, emit_fn=lambda kind, **kw: log(
+        f"K5-bf16 and the earlier design, {kind}: {json.dumps(kw)}"))
+    for rec in recs:
+        for who, err in rec["err_of_peak"].items():
+            if not err <= BF16_KERNEL_TOL:
+                raise AssertionError(f"K5-bf16 {who} at H={rec['h']}: {err:.3e} of the peak")
+    first = recs[0]
+    for k, kind in ((k5a, "save"), (k5b, "chain")):
+        k["parent_ms"] = first["ms"][kind]["parent"]
+        k["in_turns_ms"] = first["ms"][kind]["this"]
+        k["vari_ms"] = recs[1]["ms"][kind]
+        k["device_ms_by_kernel"] = {w: first["device_ms_by_kernel"][f"{kind}_{w}"]
+                                    for w in ("parent", "this")}
+        k["products_only_ms"] = first["products_only_ms"][kind]
 
 
 def bf16_train_runs(tmp, dev, torch) -> dict:
@@ -3598,7 +3640,7 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
         reset_counts()
         runs["bf16"] = run("bf16", "svs", BF16_TRAIN_STEPS, bf16=True)
         torch.cuda.synchronize()
-        per_step = {"residual_stack_save_bf16": 41, "residual_stack_chain_bf16": 40}
+        per_step = k5_bf16_launches()
         launches = check_counts(f"train svs with bf16: true ({BF16_TRAIN_STEPS} steps)",
                                 {k: BF16_TRAIN_STEPS * v for k, v in per_step.items()})
         for label, run_calls in runs.items():
@@ -3610,8 +3652,8 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
         med = {k: sorted(ms for ms, _ in v[1:])[(len(v) - 1) // 2] for k, v in runs.items()}
         log(f"train svs (CLI, B={TRAIN_B} x T={TRAIN_T}, {BF16_TRAIN_STEPS} steps each, the same "
             f"items): median step (host clock, synchronised, steps 2-{BF16_TRAIN_STEPS}) float32 "
-            f"{med['f32']:.3f} ms, bf16 {med['bf16']:.3f} ms; every bf16 step launched K5a-bf16 41 "
-            f"and K5b-bf16 40 times and no float32 kernel")
+            f"{med['f32']:.3f} ms, bf16 {med['bf16']:.3f} ms; every bf16 step launched "
+            f"{json.dumps(per_step)} and no float32 kernel")
         amp = run("amp", "svs", 1, bf16=None, amp=True)
         if [d for _, d in amp] != [per_step]:
             raise AssertionError(f"train svs with amp: true launched {amp}")
@@ -3623,7 +3665,7 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
         if [d for _, d in rect] != [per_step] * 2:
             raise AssertionError(f"train svs_rectified --precision fast launched {rect}")
         log(f"train svs with amp: true (1 step) and train svs_rectified --precision fast (bf16: "
-            f"null, 2 steps): each step launched K5a-bf16 41 and K5b-bf16 40 times")
+            f"null, 2 steps): each step launched {json.dumps(per_step)}")
     finally:
         os.chdir(cwd)
     task = SVSTask(dict(hp, bf16=True, work_dir=os.path.join(tmp, "checkpoints", "bf16", "svs"),
@@ -3638,7 +3680,7 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
     launched = step_vs_cpu("SVS teacher in bf16 (bf16: true), the CPU through the kernels' twins",
                            task, task.build_model, batch, draws, dev, torch, tol=BF16_STEP_TOL,
                            cpu_twins=True)
-    if launched != {"residual_stack_save_bf16": 41, "residual_stack_chain_bf16": 40}:
+    if launched != k5_bf16_launches():
         raise AssertionError(f"the bf16 step on the card launched {launched}")
     return launches
 
@@ -4427,21 +4469,33 @@ def probe_module():
 
 
 def set_parent(parent_dir: str, torch) -> None:
-    """Builds the earlier version's K1-bf16 and K2/K3-bf16 (its sources, as
-    tools/probe_bf16_kernels.py copies them) for ``PARENT``, and logs that
-    version's split: K1's phases from its stamped chain, the stage's convs."""
+    """Builds the earlier version's K1-bf16, K2/K3-bf16 and K5a/K5b-bf16 (its
+    sources, as tools/probe_bf16_kernels.py copies them) for ``PARENT``, and
+    logs that version's split: the stage's convs and, where its K1-bf16 is
+    the cooperative chain (the earlier design), that chain's phases from a stamped
+    copy (K5's split by kernel comes with its turns, in the bf16 phase). A
+    K1-bf16 with this checkout's interface (the cluster chain) is called
+    through this checkout's wrapper."""
     global PARENT
     probe = probe_module()
     plain = probe.parent_sources(parent_dir, False)
-    stamped = probe.parent_sources(parent_dir, True)
-    k1 = probe.ParentK1(probe.build_variant("wavenet_stack_bf16", plain, "PARENT"), torch)
+    with open(os.path.join(plain, "wavenet_stack_bf16.cu")) as f:
+        cooperative = probe.CHAIN_LOOP in f.read()
+    k1_lib = probe.build_variant("wavenet_stack_bf16", plain, "PARENT")
+    k1 = probe.ParentK1(k1_lib, torch) if cooperative else probe.variant_k1(k1_lib, torch)
     stage = probe.ParentStage(probe.build_variant("resblock_bf16", plain, "PARENT"), torch)
     dev = torch.device("cuda:0")
     probe.emit = lambda kind, **kw: log(f"earlier design, {kind}: {json.dumps(kw)}")
-    probe.k1_split(probe.ParentK1(probe.build_variant("wavenet_stack_bf16", stamped, "STAMPED"),
-                                  torch), torch, dev)
+    if cooperative:
+        stamped = probe.parent_sources(parent_dir, True)
+        probe.k1_split(probe.ParentK1(probe.build_variant("wavenet_stack_bf16", stamped, "STAMPED"),
+                                      torch), torch, dev)
+    else:
+        log("earlier design's K1-bf16: the cluster chain (this checkout's interface), timed in "
+            "turns, not split")
     probe.stage_split(stage, torch, dev)
-    PARENT = {"k1": k1, "stage": stage}
+    k5 = probe.ParentK5(probe.build_variant("wavenet_train_bf16", plain, "PARENT"), torch)
+    PARENT = {"k1": k1, "stage": stage, "k5": k5}
 
 
 def main() -> int:
@@ -4454,9 +4508,9 @@ def main() -> int:
                         help="build the kernels and run only the FastDiff kernel phase (K4, K6, "
                              "K7 vs their twins, timed), printing its JSON")
     parser.add_argument("--parent", metavar="DIR",
-                        help="a checkout of an earlier version: its K1-bf16 and K2/K3-bf16 are "
-                             "built and timed in turns beside this one's (and split, by "
-                             "tools/probe_bf16_kernels.py)")
+                        help="a checkout of an earlier version: its K1-bf16, K2/K3-bf16 and "
+                             "K5a/K5b-bf16 are built and timed in turns beside this one's (and "
+                             "split, by tools/probe_bf16_kernels.py)")
     args = parser.parse_args()
     t_script = time.time()
     if not torch.cuda.is_available():

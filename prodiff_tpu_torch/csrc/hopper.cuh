@@ -1,5 +1,5 @@
-// Hopper pieces of the redesigned bf16 serving kernels (resblock_bf16.cu,
-// wavenet_stack_bf16.cu): mbarriers, TMA tensor copies into a ring of
+// Hopper pieces of the redesigned bf16 kernels (resblock_bf16.cu,
+// wavenet_stack_bf16.cu, wavenet_train_bf16.cu): mbarriers, TMA tensor copies into a ring of
 // shared-memory stages, the byte swizzle those copies apply, thread-block
 // cluster helpers, and the host side of a TMA tensor map.
 //
@@ -71,6 +71,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A 3-D box of the tensor map at (c0 = inner element, c1, c2) into dst,
+// completing on bar. Coordinates outside the tensor (negative ones too) read
+// as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -236,14 +248,13 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// ---- host: a 2-D bf16 tensor map ------------------------------------------
+// ---- host: 2-D and 3-D bf16 tensor maps ------------------------------------
 
-// rows x cols bf16, row-major (row pitch cols * 2 bytes, a multiple of 16),
-// read in boxes of box_rows x box_cols (box_cols * 2 = the swizzle span for a
-// swizzled mode). Returns a cudaError_t (0 on success).
-inline int make_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                       uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle) {
-  using Encode = decltype(&cuTensorMapEncodeTiled);
+using Encode = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled through the runtime (no link against libcuda); an
+// error where the runtime finds no such entry point.
+inline int encoder(Encode* out) {
   static Encode encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -260,6 +271,17 @@ inline int make_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64
     if (found != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
+  *out = encode;
+  return 0;
+}
+
+// rows x cols bf16, row-major (row pitch cols * 2 bytes, a multiple of 16),
+// read in boxes of box_rows x box_cols (box_cols * 2 = the swizzle span for a
+// swizzled mode). Returns a cudaError_t (0 on success).
+inline int make_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                       uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  Encode encode = nullptr;
+  if (int e = encoder(&encode)) return e;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * 2};
   const cuuint32_t box[2] = {box_cols, box_rows};
@@ -267,6 +289,27 @@ inline int make_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// [n2][n1][n0] bf16, row-major (n0 * 2 bytes a multiple of 16), read in
+// boxes of 1 x box1 x box0: a box lands as box1 rows of box0 * 2 bytes (the
+// swizzle span for a swizzled mode). Out-of-range rows (a box over an edge of
+// n1, or at a negative coordinate) read as zeros. Returns a cudaError_t (0 on
+// success).
+inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t n2, uint64_t n1, uint64_t n0,
+                       uint32_t box1, uint32_t box0,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  Encode encode = nullptr;
+  if (int e = encoder(&encode)) return e;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {n0 * 2, n1 * n0 * 2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -14,8 +14,10 @@ XLA einsums) becomes :class:`ResidualStackFn`:
   into the weight, cond and step gradients with ``torch.matmul`` (cuBLAS),
   where the JAX package uses XLA einsums.
 
-The kernels are ``csrc/wavenet_train.cu``. :func:`residual_stack_save` and
-:func:`residual_stack_chain` take their plain twins
+The kernels are ``csrc/wavenet_train.cu`` (float32) and
+``csrc/wavenet_train_bf16.cu`` (bf16: one launch a layer, planned by
+:func:`save_plan` / :func:`chain_plan`; :func:`train_launches` counts both).
+:func:`residual_stack_save` and :func:`residual_stack_chain` take their plain twins
 (:func:`residual_stack_save_plain`, :func:`residual_stack_chain_plain`) only
 for CPU tensors; a CUDA tensor launches the kernel or raises.
 
@@ -197,8 +199,95 @@ def _carries(dy: Tensor, dx0: Tensor) -> Tensor:
     return carry_in
 
 
+# the bf16 kernels (csrc/wavenet_train_bf16.cu), one launch a layer: a block
+# owns a frame tile of 64 mt frames (mt m64 subtiles: 1 in the save-forward,
+# 2 in the chain where that fits) across all 2C columns;
+# its two warpgroups take turns over the passes (column chunks), each on the
+# whole tile; operands stream through a ring of stages in the shared memory
+# the resident tile (the gate; the chain's dz) leaves free. The chain's
+# stages hold TRAIN_BKR rows (k) of its dgate product or 2 TRAIN_BKR of its
+# dy product.
+TRAIN_BKR = 32
+TRAIN_MAX_STAGES, TRAIN_MIN_STAGES = 8, 2
+TRAIN_MAX_MT = 2
+SMEM_LIMIT = 232448
+
+
+def _halo_rows(rows: int) -> int:
+    """Rows a channel chunk of the chain's dz tile (a one-frame halo a side)
+    keeps: rows + 2, padded so that each chunk (a TMA destination) starts
+    128-byte aligned."""
+    return rows + 8
+
+
+def _stages(fixed: int, stage: int) -> int:
+    return max(0, min(TRAIN_MAX_STAGES, (SMEM_LIMIT - fixed) // (stage + 16)))
+
+
+def save_plan(c: int, h: int) -> dict:
+    """The bf16 save-forward's block at (C, H), as ``wavenet_train_plan_bf16``
+    (kind 0) gives it: ``mt`` = 1 m64 subtile (``rows`` = 64 frames a tile,
+    all stored: ``out``; 0 where no block fits), ``pairs`` column pairs
+    (j, C + j) a pass, ``bk`` reduction rows a ring stage, ``stages`` and
+    ``smem`` bytes: the gate [rows][C] bf16, an mbarrier, 1024 bytes of
+    alignment slack, and the ring's stages (an A slice rows x bk and a weight
+    slice bk x 2 pairs, bf16) with their mbarriers."""
+    pairs = 64 if c % 64 == 0 else 32
+    bk = 64 if c % 64 == 0 and h % 64 == 0 else 32
+    rows = 64  # 64-frame tiles: measured faster than 128 at the training shape
+    fixed = 1024 + rows * c * 2 + 16
+    stage = (rows + 2 * pairs) * bk * 2
+    stages = _stages(fixed, stage)
+    if stages >= TRAIN_MIN_STAGES:
+        return dict(mt=1, rows=rows, out=rows, first=0, pairs=pairs, bk=bk, stages=stages,
+                    smem=fixed + stages * (stage + 16))
+    return dict(mt=0, rows=0, out=0, first=0, pairs=pairs, bk=bk, stages=0, smem=0)
+
+
+def chain_plan(c: int) -> dict:
+    """The bf16 chain's block at C, as ``wavenet_train_plan_bf16`` (kind 1)
+    gives it: ``mt`` m64 subtiles, dgate and dz on ``rows`` = 64 mt frames
+    from ``first`` = -1 frames before the tile, dy stored for the ``out`` =
+    rows - 2 in the middle; ``cols`` output columns a pass, ``bk`` = TRAIN_BKR
+    rows of a dgate stage, ``stages`` and ``smem``: dz [_halo_rows][2C] bf16,
+    three mbarriers, the slack, and the stages (a rows x TRAIN_BKR slice of the
+    dgate operand and a TRAIN_BKR-row weight slice of ``cols`` columns, or a
+    2 TRAIN_BKR-row one of the dy product)."""
+    cols = 128 if c % 128 == 0 else 64
+    for mt in range(TRAIN_MAX_MT, 0, -1):
+        rows = 64 * mt
+        fixed = 1024 + _halo_rows(rows) * 2 * c * 2 + 32
+        stage = max(rows * TRAIN_BKR * 2 + TRAIN_BKR * cols * 2, 2 * TRAIN_BKR * cols * 2)
+        stages = _stages(fixed, stage)
+        if stages >= TRAIN_MIN_STAGES:
+            return dict(mt=mt, rows=rows, out=rows - 2, first=-1, cols=cols, bk=TRAIN_BKR,
+                        stages=stages, smem=fixed + stages * (stage + 16))
+    return dict(mt=0, rows=0, out=0, first=-1, cols=cols, bk=TRAIN_BKR, stages=0, smem=0)
+
+
+def plan_tiles(t: int, plan: dict) -> list:
+    """A layer's tiles of one sequence: (first frame stored, frames stored,
+    first frame computed, frames computed), as the kernels walk them."""
+    out = plan["out"]
+    return [(t0, min(out, t - t0), t0 + plan["first"], plan["rows"]) for t0 in range(0, t, out)]
+
+
+def train_launches(b: int, t: int, c: int, n_layers: int,
+                   dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """Kernel launches of one save-forward and one backward chain: float32
+    1 + 2L and 2L (two a layer); bf16 L + 2 (the step projection, the prep
+    of y0, xs[0] and bf16(cond), one a layer) and L + 1 (the prep of bf16(g /
+    sqrt(L)), one a layer), at every (B, T, C) the plans take."""
+    if dtype == BF16:
+        return n_layers + 2, n_layers + 1
+    return 1 + 2 * n_layers, 2 * n_layers
+
+
 _SAVE_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _CHAIN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the bf16 entries take scratch for the layers' bf16 operands (no gate buffer)
+_SAVE_ARGTYPES_BF16 = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_CHAIN_ARGTYPES_BF16 = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 # the entry points of the float32 and bf16 libraries, by the weights' dtype
@@ -212,42 +301,53 @@ _VARIANTS = {
 def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     source, save, chain = _VARIANTS[dtype]
     lib = cuda_build.load(source)
-    getattr(lib, save).argtypes = _SAVE_ARGTYPES
+    bf16 = dtype == BF16
+    getattr(lib, save).argtypes = _SAVE_ARGTYPES_BF16 if bf16 else _SAVE_ARGTYPES
     getattr(lib, save).restype = ctypes.c_int
-    getattr(lib, chain).argtypes = _CHAIN_ARGTYPES
+    getattr(lib, chain).argtypes = _CHAIN_ARGTYPES_BF16 if bf16 else _CHAIN_ARGTYPES
     getattr(lib, chain).restype = ctypes.c_int
+    if bf16:
+        lib.wavenet_train_plan_bf16.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.wavenet_train_plan_bf16.restype = ctypes.c_int
     return lib
 
 
 def residual_stack_save(x0: Tensor, cond: Tensor, step: Tensor,
                         w: StackedWaveNet) -> Tuple[Tensor, Tensor, Tensor]:
     """(skip / sqrt(L), xs, zs) as :func:`residual_stack_save_plain`. CUDA
-    tensors launch the save-forward kernel (1 + 2L launches, counted in
-    ``residual_stack_save.launches``, or ``.bf16_launches`` for bf16
-    weights, whose saves are bf16); CPU tensors run the plain twin."""
+    tensors launch the save-forward kernels (:func:`train_launches`, counted
+    in ``residual_stack_save.launches``, or ``.bf16_launches`` for bf16
+    weights, whose saves are bf16; bf16 needs a block of :func:`save_plan`
+    that fits); CPU tensors run the plain twin."""
     if x0.device.type == "cpu":
         return residual_stack_save_plain(x0, cond, step, w)
     b, t, c, h, n_layers = check_operands("residual_stack_save", x0, cond, step, w)
     wdt = operand_dtype(w)
+    if wdt == BF16 and not save_plan(c, h)["mt"]:
+        raise ValueError(f"residual_stack_save: no bf16 block fits C={c}, H={h}")
     cond, step = cond.contiguous(), step.contiguous()
     w = StackedWaveNet(*(a.contiguous() for a in w))
     x = x0.contiguous().clone()
-    skip, gate = torch.empty_like(x), torch.empty_like(x, dtype=wdt)
+    skip = torch.empty_like(x)
     step_proj = x.new_empty((n_layers, b, c))
     xs = x.new_empty((n_layers, b, t, c), dtype=wdt)
     zs = x.new_empty((n_layers, b, t, 2 * c), dtype=wdt)
+    if wdt == BF16:  # the layers' y in two buffers, and bf16(cond)
+        scratch = (x.new_empty((2, b, t, c), dtype=wdt), x.new_empty((b, t, h), dtype=wdt))
+    else:  # the gate between a layer's two launches
+        scratch = (torch.empty_like(x),)
     lib = _library(wdt)
     entry = _VARIANTS[wdt][1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
-            x.data_ptr(), skip.data_ptr(), gate.data_ptr(), step_proj.data_ptr(),
-            xs.data_ptr(), zs.data_ptr(), cond.data_ptr(), step.data_ptr(),
+            x.data_ptr(), skip.data_ptr(), *(a.data_ptr() for a in scratch),
+            step_proj.data_ptr(), xs.data_ptr(), zs.data_ptr(), cond.data_ptr(), step.data_ptr(),
             *(a.data_ptr() for a in w), b, t, c, h, n_layers, stream,
         )
     cuda_build.check(err, entry)
     counter = residual_stack_save.bf16_launches if wdt == BF16 else residual_stack_save.launches
-    counter.add(1 + 2 * n_layers)
+    counter.add(train_launches(b, t, c, n_layers, wdt)[0])
     return skip, xs, zs
 
 
@@ -258,11 +358,11 @@ residual_stack_save.bf16_launches = cuda_build.LaunchCounter()
 def residual_stack_chain(zs: Tensor, g: Tensor,
                          w: StackedWaveNet) -> Tuple[Tensor, Tensor, Tensor]:
     """(dz, dy, dx0) as :func:`residual_stack_chain_plain`. CUDA tensors
-    launch the chain kernel (2L launches, counted in
+    launch the chain kernels (:func:`train_launches`, counted in
     ``residual_stack_chain.launches``, or ``.bf16_launches`` for bf16
-    weights and saves, which give bf16 ``dz``/``dy``); its ``dz`` is a
-    permuted view of ``[B,T,L,2C]`` storage. CPU tensors run the plain
-    twin."""
+    weights and saves, which give bf16 ``dz``/``dy`` and need a block of
+    :func:`chain_plan` that fits); its ``dz`` is a permuted view of
+    ``[B,T,L,2C]`` storage. CPU tensors run the plain twin."""
     if g.device.type == "cpu":
         return residual_stack_chain_plain(zs, g, w)
     n_layers, b, t, c2 = zs.shape
@@ -280,6 +380,8 @@ def residual_stack_chain(zs: Tensor, g: Tensor,
                              f"{g.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
     if c2 != 2 * c or c % 64:
         raise ValueError(f"residual_stack_chain: needs C % 64 == 0 (C={c})")
+    if wdt == BF16 and not chain_plan(c)["mt"]:
+        raise ValueError(f"residual_stack_chain: no bf16 block fits C={c}")
     zs, g = zs.contiguous(), g.contiguous()
     # the chain's B tiles read W_d and W_o transposed: [L,3,2C,C], [L,2C,C]
     dwt = w.dilated_w.transpose(2, 3).contiguous()
@@ -287,17 +389,21 @@ def residual_stack_chain(zs: Tensor, g: Tensor,
     dx = torch.zeros_like(g)
     dz = g.new_empty((b, t, n_layers, c2), dtype=wdt)
     dy = g.new_empty((n_layers, b, t, c), dtype=wdt)
+    # bf16: the layers' bf16(dx / sqrt(2)) in two buffers, and bf16(g / sqrt(L))
+    scratch = ((g.new_empty((2, b, t, c), dtype=wdt), g.new_empty((b, t, c), dtype=wdt))
+               if wdt == BF16 else ())
     lib = _library(wdt)
     entry = _VARIANTS[wdt][2]
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = getattr(lib, entry)(
             zs.data_ptr(), g.data_ptr(), dwt.data_ptr(), owt.data_ptr(), dx.data_ptr(),
-            dz.data_ptr(), dy.data_ptr(), b, t, c, n_layers, stream,
+            dz.data_ptr(), dy.data_ptr(), *(a.data_ptr() for a in scratch), b, t, c, n_layers,
+            stream,
         )
     cuda_build.check(err, entry)
     counter = residual_stack_chain.bf16_launches if wdt == BF16 else residual_stack_chain.launches
-    counter.add(2 * n_layers)
+    counter.add(train_launches(b, t, c, n_layers, wdt)[1])
     return dz.permute(2, 0, 1, 3), dy, dx
 
 

@@ -45,7 +45,9 @@ from prodiff_tpu_torch.ops.wavenet_train import (
     residual_stack_chain_plain,
     residual_stack_save,
     residual_stack_save_plain,
+    train_launches,
 )
+from prodiff_tpu_torch.ops import wavenet_train
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 1e-4, 1e-4
@@ -1090,29 +1092,75 @@ def test_bf16_cluster_plan_matches_source(cuda):
             assert (lib.wavenet_cluster_slots_bf16(c, nwg) >= 1) == fits
 
 
-@pytest.mark.parametrize("b,t,c,h,n_layers", [(2, 150, 128, 64, 3), (3, 1537, 256, 256, 4)])
+@pytest.mark.parametrize("b,t,c,h,n_layers", [
+    (2, 150, 128, 64, 3), (3, 1537, 256, 256, 4),
+    (1, 50, 256, 256, 2),     # B = 1, T shorter than a tile (128 frames; a chain tile 126)
+    (2, 257, 256, 256, 3),    # one frame past two save tiles
+    (2, 253, 256, 256, 3),    # one frame past two chain tiles
+    (2, 300, 256, 128, 3),    # vari's (C, H)
+    (2, 1536, 256, 256, 20),  # L = 20 at the training length
+    (2, 70, 96, 32, 2),       # C % 64 != 0: the save-forward alone (16 pairs a pass)
+])
 def test_wavenet_train_bf16_kernels_match_twin(cuda, b, t, c, h, n_layers):
     """K5a-bf16 (skip, bf16 xs/zs) and K5b-bf16 (bf16 dz/dy, float32 dx0) vs
-    their twins; 1 + 2L and 2L launches on the bf16 counters."""
+    their twins; ``train_launches`` on the bf16 counters (one launch a layer
+    and the preps), none on the float32 ones. C % 64 != 0 has no chain: it
+    raises."""
     rng = np.random.default_rng(31)
     w = wavenet_stack.cast_stack(_stacked(rng, n_layers, c, h, cuda), torch.bfloat16)
     x0, cond, step, g = (torch.tensor(rng.normal(size=s), dtype=torch.float32, device=cuda)
                          for s in ((b, t, c), (b, t, h), (b, c), (b, t, c)))
+    want_save, want_chain = train_launches(b, t, c, n_layers, torch.bfloat16)
+    f32 = residual_stack_save.launches.count + residual_stack_chain.launches.count
     saves, chains = residual_stack_save.bf16_launches.count, residual_stack_chain.bf16_launches.count
     skip, xs, zs = residual_stack_save(x0, cond, step, w)
     torch.cuda.synchronize()
-    assert residual_stack_save.bf16_launches.count - saves == 1 + 2 * n_layers
+    assert residual_stack_save.bf16_launches.count - saves == want_save
     assert xs.dtype == zs.dtype == torch.bfloat16
     for name, got, want in zip(("skip", "xs", "zs"), (skip, xs, zs),
                                residual_stack_save_plain(x0, cond, step, w)):
         assert_peak_close(got, want, name)
+    if c % 64:
+        with pytest.raises(ValueError, match="C % 64"):
+            residual_stack_chain(zs, g, w)
+        return
     dz, dy, dx0 = residual_stack_chain(zs, g, w)
     torch.cuda.synchronize()
-    assert residual_stack_chain.bf16_launches.count - chains == 2 * n_layers
+    assert residual_stack_chain.bf16_launches.count - chains == want_chain
+    assert residual_stack_save.launches.count + residual_stack_chain.launches.count == f32
     assert dz.dtype == dy.dtype == torch.bfloat16 and dx0.dtype == torch.float32
     for name, got, want in zip(("dz", "dy", "dx0"), (dz, dy, dx0),
                                residual_stack_chain_plain(zs, g, w)):
         assert_peak_close(got, want, name)
+
+
+def test_train_plan_bf16_matches_source(cuda):
+    """The bf16 training kernels' blocks (m64 subtiles, ring stages, shared
+    memory, columns a pass, rows a stage) at every (C, H) equal
+    ops/wavenet_train.py's save_plan / chain_plan (0 subtiles where none
+    fits, and the wrappers refuse those shapes)."""
+    lib = wavenet_train._library(torch.bfloat16)
+    out = (ctypes.c_int * 5)()
+    for c in (32, 64, 96, 128, 256, 512, 768, 1024, 2048):
+        for h in (32, 64, 128, 256, 512):
+            assert lib.wavenet_train_plan_bf16(0, c, h, out) == 0
+            plan = wavenet_train.save_plan(c, h)
+            assert list(out) == [plan[k] for k in ("mt", "stages", "smem", "pairs", "bk")]
+        if c % 64 == 0:
+            assert lib.wavenet_train_plan_bf16(1, c, 0, out) == 0
+            plan = wavenet_train.chain_plan(c)
+            assert list(out) == [plan[k] for k in ("mt", "stages", "smem", "cols", "bk")]
+    for c, kind in ((2048, "save"), (1024, "chain")):
+        w = wavenet_stack.cast_stack(_stacked(np.random.default_rng(3), 1, c, 32, cuda),
+                                     torch.bfloat16)
+        x = torch.zeros((1, 8, c), device=cuda)
+        with pytest.raises(ValueError, match="no bf16 block fits"):
+            if kind == "save":
+                residual_stack_save(x, torch.zeros((1, 8, 32), device=cuda),
+                                    torch.zeros((1, c), device=cuda), w)
+            else:
+                residual_stack_chain(torch.zeros((1, 1, 8, 2 * c), device=cuda,
+                                                 dtype=torch.bfloat16), x, w)
 
 
 def test_residual_stack_fn_bf16_grads_match_cpu(cuda):

@@ -2,7 +2,8 @@
 stack (K1) groups its layers and picks its chain tile, the resblock stage's
 contract on kernel sizes and halos, the FastDiff LVC kernels' (K4, K7)
 work units, persistent grid, buffers and gate, and the LVC kernel's (K6)
-hop contract and work units. The kernels themselves are
+hop contract and work units, and the bf16 training kernels' (K5a/K5b-bf16)
+tiles, shared memory and launches. The kernels themselves are
 held against their plain twins in ``tests/test_torch_cuda.py`` (on the
 card)."""
 
@@ -13,6 +14,7 @@ from prodiff_tpu_torch.ops import lvc as lvc_ops
 from prodiff_tpu_torch.ops import resblock
 from prodiff_tpu_torch.ops import ublock
 from prodiff_tpu_torch.ops import wavenet_stack as wn
+from prodiff_tpu_torch.ops import wavenet_train as wt
 
 H100_SLOTS = {32: 264, 24: 264, 16: 264}  # two co-resident chain blocks on each of 132 SMs
 
@@ -409,3 +411,75 @@ def test_bf16_schedule_follows_the_slots():
         wn.bf16_schedule(1, 512, 256, 20, {m: 0 for m in (1, 2)})
 
 
+
+
+# ---- the bf16 training kernels (csrc/wavenet_train_bf16.cu) ----------------
+
+
+@pytest.mark.parametrize("c,h,mt,pairs,bk,stages", [
+    (256, 256, 1, 64, 64, 8),   # the teacher and the student
+    (256, 128, 1, 64, 64, 8),   # vari
+    (128, 64, 1, 64, 64, 8),    # the card tests
+    (96, 32, 1, 32, 32, 8),     # C % 64 != 0: 32 pairs a pass, 32 rows a stage
+    (512, 512, 1, 64, 64, 6),
+    (1024, 1024, 1, 64, 64, 4),
+    (2048, 32, 0, 64, 32, 0),
+])
+def test_train_save_plan_fits_shared_memory(c, h, mt, pairs, bk, stages):
+    """The save-forward's block: 64-frame tiles (one m64 subtile a
+    warpgroup) where the gate and at least two ring stages (an A slice and a
+    weight slice) fit in the 232,448 bytes a block may take; 64 column pairs
+    a pass where C % 64 == 0, 64-row stages where C and H are multiples of
+    64. ``wavenet_train_plan_bf16`` gives the same on the card."""
+    plan = wt.save_plan(c, h)
+    assert (plan["mt"], plan["pairs"], plan["bk"], plan["stages"]) == (mt, pairs, bk, stages)
+    if mt:
+        assert plan["smem"] <= wt.SMEM_LIMIT and plan["rows"] == plan["out"] == 64 * mt
+        rows = plan["rows"]
+        assert plan["smem"] >= rows * c * 2 + stages * (rows + 2 * pairs) * bk * 2
+        assert c % pairs == 0 and c % bk == 0 and h % bk == 0
+
+
+@pytest.mark.parametrize("c,mt,cols,stages", [
+    (256, 2, 128, 5), (128, 2, 128, 8), (64, 2, 64, 8), (512, 1, 128, 5), (1024, 0, 128, 0),
+])
+def test_train_chain_plan_fits_shared_memory(c, mt, cols, stages):
+    """The chain's block: dz on 64 mt + 2 frames by 2C channels and at least
+    two stages (a 64 mt x 32 slice of the dgate operand and a 32-row weight
+    slice, or 64 rows of the dy product's) within the limit; 128 output
+    columns a pass where C % 128 == 0."""
+    plan = wt.chain_plan(c)
+    assert (plan["mt"], plan["cols"], plan["stages"]) == (mt, cols, stages)
+    if mt:
+        assert plan["smem"] <= wt.SMEM_LIMIT
+        assert (plan["rows"], plan["out"], plan["first"]) == (64 * mt, 64 * mt - 2, -1)
+        assert plan["smem"] >= (plan["rows"] + 2) * 2 * c * 2 + stages * max(
+            plan["rows"] * wt.TRAIN_BKR * 2 + wt.TRAIN_BKR * cols * 2,
+            2 * wt.TRAIN_BKR * cols * 2)
+
+
+@pytest.mark.parametrize("kind", ["save", "chain"])
+@pytest.mark.parametrize("t", [1, 50, 125, 126, 127, 128, 129, 150, 1536, 1537])
+def test_train_tiles_cover_every_frame_once(kind, t):
+    """A layer's tiles store every frame of a sequence exactly once; a
+    chain tile computes dz on its stored frames and one more a side (the dy
+    conv's taps), so no tile needs another's dz."""
+    plan = wt.save_plan(256, 256) if kind == "save" else wt.chain_plan(256)
+    stored = []
+    for t0, n, first, rows in wt.plan_tiles(t, plan):
+        stored += range(t0, t0 + n)
+        need = (t0 - 1, t0 + n + 1) if kind == "chain" else (t0, t0 + n)
+        assert first <= need[0] and need[1] <= first + rows
+    assert stored == list(range(t))
+    assert len(wt.plan_tiles(1536, plan)) == (24 if kind == "save" else 13)
+
+
+@pytest.mark.parametrize("n_layers", [1, 4, 20])
+def test_train_launches(n_layers):
+    """Launches of a save-forward and a chain: float32 two a layer (and the
+    step projection), bf16 one a layer plus the step projection and the
+    prep (save-forward) or the prep (chain), at any (B, T, C)."""
+    assert wt.train_launches(16, 1536, 256, n_layers) == (1 + 2 * n_layers, 2 * n_layers)
+    for b, t, c in ((16, 1536, 256), (1, 1, 128), (3, 1537, 512)):
+        assert wt.train_launches(b, t, c, n_layers, torch.bfloat16) == (n_layers + 2,
+                                                                         n_layers + 1)

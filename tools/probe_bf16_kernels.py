@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of the port's bf16 serving kernels goes, on one CUDA card.
+"""Where the time of the port's bf16 kernels goes, on one CUDA card.
 
     python3 tools/probe_bf16_kernels.py --parent DIR [--out FILE]
+    python3 tools/probe_bf16_kernels.py --parent DIR --k5-only
 
 DIR is a checkout of an earlier version of the repository (``git archive``
 unpacked; ``.`` for this one). The probe builds that version's
-``csrc/wavenet_stack_bf16.cu`` (K1-bf16) and ``csrc/resblock_bf16.cu``
-(K2/K3-bf16) beside this checkout's and measures, at ``chip_smoke.py``'s
-shapes (K1 at B=1, T=512/640/2048, L=20, C=H=256; the stage at the five
-NSF-HiFiGAN stages of T_mel=512):
+``csrc/wavenet_stack_bf16.cu`` (K1-bf16), ``csrc/resblock_bf16.cu``
+(K2/K3-bf16) and ``csrc/wavenet_train_bf16.cu`` (K5a/K5b-bf16) beside this
+checkout's and measures, at ``chip_smoke.py``'s shapes (K1 at B=1,
+T=512/640/2048, L=20, C=H=256; the stage at the five NSF-HiFiGAN stages of
+T_mel=512; K5 at B=16, T=1536, L=20, C=256 with H=256, the teacher's, and
+H=128, vari's):
+
+- K5a/K5b-bf16 of both versions (``--k5-only``: only these): each checked
+  against its plain twin, timed in turns (earlier, this, this, earlier), its
+  device time by kernel name (torch.profiler), and beside them the same
+  products as bf16 ``torch.matmul`` calls on prebuilt operands, 20 layers
+  with no epilogues (a yardstick of the products alone, not one call that
+  computes the same function);
 
 - the earlier version's split: K1's device time by kernel (torch.profiler)
   and its layer chain by phase, from ``%globaltimer`` stamps that a copy of
@@ -215,6 +225,191 @@ class ParentStage:
         if err:
             raise RuntimeError(f"parent K2/K3-bf16: CUDA error {err}")
         return out
+
+
+K5_SHAPES = ((16, 1536, 256, 256), (16, 1536, 256, 128))  # the teacher's and vari's
+K5_NAMES = ("step_proj", "save_gate", "save_out", "save_prep", "save_layer", "chain_gate",
+            "chain_dy", "chain_prep", "chain_layer")
+
+
+class ParentK5:
+    """The parent's K5a/K5b-bf16 wrappers (ops/wavenet_train.py of the earlier design:
+    1 + 2L and 2L launches, a bf16 gate scratch), calling its library."""
+
+    def __init__(self, lib, torch):
+        self.lib, self.torch = lib, torch
+        lib.wavenet_stack_save_forward_bf16.argtypes = [ctypes.c_void_p] * 16 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.wavenet_stack_save_forward_bf16.restype = ctypes.c_int
+        lib.wavenet_stack_backward_chain_bf16.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.wavenet_stack_backward_chain_bf16.restype = ctypes.c_int
+
+    def save(self, x0, cond, step, w):
+        torch = self.torch
+        b, t, c = x0.shape
+        n_layers, h, _ = w.cond_w.shape
+        x = x0.clone()
+        skip, gate = torch.empty_like(x), torch.empty_like(x, dtype=torch.bfloat16)
+        sp = torch.empty((n_layers, b, c), device=x.device)
+        xs = torch.empty((n_layers, b, t, c), device=x.device, dtype=torch.bfloat16)
+        zs = torch.empty((n_layers, b, t, 2 * c), device=x.device, dtype=torch.bfloat16)
+        err = self.lib.wavenet_stack_save_forward_bf16(
+            x.data_ptr(), skip.data_ptr(), gate.data_ptr(), sp.data_ptr(), xs.data_ptr(),
+            zs.data_ptr(), cond.data_ptr(), step.data_ptr(), *(a.data_ptr() for a in w),
+            b, t, c, h, n_layers, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K5a-bf16: CUDA error {err}")
+        return skip, xs, zs
+
+    def chain(self, zs, g, w):
+        torch = self.torch
+        n_layers, b, t, c2 = zs.shape
+        c = c2 // 2
+        dwt = w.dilated_w.transpose(2, 3).contiguous()
+        owt = w.out_w.transpose(1, 2).contiguous()
+        dx = torch.zeros_like(g)
+        dz = torch.empty((b, t, n_layers, c2), device=g.device, dtype=torch.bfloat16)
+        dy = torch.empty((n_layers, b, t, c), device=g.device, dtype=torch.bfloat16)
+        err = self.lib.wavenet_stack_backward_chain_bf16(
+            zs.data_ptr(), g.data_ptr(), dwt.data_ptr(), owt.data_ptr(), dx.data_ptr(),
+            dz.data_ptr(), dy.data_ptr(), b, t, c, n_layers, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K5b-bf16: CUDA error {err}")
+        return dz.permute(2, 0, 1, 3), dy, dx
+
+
+def k5_by_kernel(fn, torch, n=3):
+    """Device ms a call of ``fn`` by kernel (K5_NAMES), and the launches a
+    call (torch.profiler over ``n`` calls)."""
+    kern = device_kernels(fn, n, torch)
+    by = {}
+    for name, us in kern:
+        key = next((k for k in K5_NAMES if k + "_kernel" in name), name[:60])
+        by[key] = by.get(key, 0.0) + us / n / 1e3
+    return {k: round(v, 5) for k, v in by.items()}, len(kern) / n
+
+
+def k5_products_ms(b, t, c, h, n_layers, torch, dev):
+    """The save-forward's and the chain's products alone, as bf16
+    torch.matmul calls on prebuilt operands over ``n_layers`` layers (the
+    conv and cond product as one [BT, 3C + H] x [3C + H, 2C], the out product
+    [BT, C] x [C, 2C]; the chain's [BT, 2C] x [2C, C] and [BT, 6C] x [6C,
+    C]): a yardstick of what the tensor cores take through cuBLAS for the
+    same operations, with no epilogue and no halo. Not one call that
+    computes the same function."""
+    bt = b * t
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, dtype=torch.bfloat16, generator=gen)
+
+    a_in, a_gate = r(bt, 3 * c + h), r(bt, c)
+    w_in, w_out = r(n_layers, 3 * c + h, 2 * c), r(n_layers, c, 2 * c)
+    a_do, a_dz = r(bt, 2 * c), r(bt, 6 * c)
+    w_do, w_dz = r(n_layers, 2 * c, c), r(n_layers, 6 * c, c)
+
+    def save():
+        for l in range(n_layers):
+            torch.matmul(a_in, w_in[l])
+            torch.matmul(a_gate, w_out[l])
+
+    def chain():
+        for l in range(n_layers):
+            torch.matmul(a_do, w_do[l])
+            torch.matmul(a_dz, w_dz[l])
+
+    return timed_ms(save, 10, torch), timed_ms(chain, 10, torch)
+
+
+def variant_k5(lib):
+    """This checkout's K5a/K5b-bf16 wrappers calling a variant build of its
+    source: (save, chain)."""
+    from prodiff_tpu_torch.ops import wavenet_train as wt
+
+    lib.wavenet_stack_save_forward_bf16.argtypes = wt._SAVE_ARGTYPES_BF16
+    lib.wavenet_stack_save_forward_bf16.restype = ctypes.c_int
+    lib.wavenet_stack_backward_chain_bf16.argtypes = wt._CHAIN_ARGTYPES_BF16
+    lib.wavenet_stack_backward_chain_bf16.restype = ctypes.c_int
+
+    def through(fn):
+        def run(*args):
+            saved = wt._library
+            wt._library = lambda dtype=None: lib
+            try:
+                return fn(*args)
+            finally:
+                wt._library = saved
+        return run
+
+    return through(wt.residual_stack_save), through(wt.residual_stack_chain)
+
+
+def k5_probe(parent, torch, dev, shapes=K5_SHAPES, emit_fn=None, variants=None):
+    """Both versions of K5a/K5b-bf16 at ``shapes``: errors against the twins,
+    times in turns, device time by kernel, the products' yardstick; and
+    ``variants`` (name: (save, chain) of variant builds) timed in the same
+    turns. Returns one record a shape."""
+    from prodiff_tpu_torch.ops import wavenet_stack as wn
+    from prodiff_tpu_torch.ops import wavenet_train as wt
+
+    emit_fn = emit_fn or emit
+    out = []
+    for b, t, c, h in shapes:
+        rng = np.random.default_rng(41)
+        w32 = wn.StackedWaveNet(
+            dilated_w=rand(rng, dev, torch, L, 3, c, 2 * c, scale=(3 * c) ** -0.5),
+            dilated_b=rand(rng, dev, torch, L, 2 * c, scale=0.1),
+            diff_w=rand(rng, dev, torch, L, c, c, scale=c ** -0.5),
+            diff_b=rand(rng, dev, torch, L, c, scale=0.1),
+            cond_w=rand(rng, dev, torch, L, h, 2 * c, scale=h ** -0.5),
+            cond_b=rand(rng, dev, torch, L, 2 * c, scale=0.1),
+            out_w=rand(rng, dev, torch, L, c, 2 * c, scale=c ** -0.5),
+            out_b=rand(rng, dev, torch, L, 2 * c, scale=0.1))
+        w = wn.cast_stack(w32, torch.bfloat16)
+        del w32
+        x0, cond, step, g = (rand(rng, dev, torch, b, t, c), rand(rng, dev, torch, b, t, h),
+                             rand(rng, dev, torch, b, c), rand(rng, dev, torch, b, t, c))
+        want = wt.residual_stack_save_plain(x0, cond, step, w)
+        variants = variants or {}
+        saves = {"parent": parent.save, "this": wt.residual_stack_save,
+                 **{k: v[0] for k, v in variants.items()}}
+        chains = {"parent": parent.chain, "this": wt.residual_stack_chain,
+                  **{k: v[1] for k, v in variants.items()}}
+        errs = {}
+        for name, fn in saves.items():
+            got = fn(x0, cond, step, w)
+            errs[f"save_{name}"] = max(peak_err(a, b_) for a, b_ in zip(got, want))
+            del got
+        zs = want[2]
+        del want
+        want = wt.residual_stack_chain_plain(zs, g, w)
+        for name, fn in chains.items():
+            got = fn(zs, g, w)
+            errs[f"chain_{name}"] = max(peak_err(a, b_) for a, b_ in zip(got, want))
+            del got
+        del want
+        fns = {"save": {k: (lambda f=f: f(x0, cond, step, w)) for k, f in saves.items()},
+               "chain": {k: (lambda f=f: f(zs, g, w)) for k, f in chains.items()}}
+        times, split, launches = {}, {}, {}
+        for kind, pair in fns.items():
+            times[kind] = {k: [] for k in pair}
+            for who in ("parent", "this", *variants, "this", "parent"):
+                times[kind][who].append(round(timed_ms(pair[who], 10, torch), 5))
+            for who in ("parent", "this"):
+                split[f"{kind}_{who}"], launches[f"{kind}_{who}"] = k5_by_kernel(pair[who], torch)
+        save_mm, chain_mm = k5_products_ms(b, t, c, h, L, torch, dev)
+        rec = dict(b=b, t=t, c=c, h=h, n_layers=L, err_of_peak=errs, ms=times,
+                   device_ms_by_kernel=split, launches=launches,
+                   products_only_ms={"save": round(save_mm, 5), "chain": round(chain_mm, 5),
+                                     "note": "bf16 torch.matmul of the same products on "
+                                             "prebuilt operands, no epilogues: not one call "
+                                             "for the same function"})
+        emit_fn("k5_in_turns", **rec)
+        out.append(rec)
+        del x0, cond, step, g, zs, w
+        torch.cuda.empty_cache()
+    return out
 
 
 def timed_ms(fn, reps, torch):
@@ -475,6 +670,11 @@ def main():
     parser.add_argument("--parent", required=True, help="a checkout of the earlier version")
     parser.add_argument("--out", default=os.path.join(ROOT, "build", "probe_bf16_kernels.json"))
     parser.add_argument("--skip-split", action="store_true", help="only the in-turns times")
+    parser.add_argument("--k5-only", action="store_true",
+                        help="only K5a/K5b-bf16: both versions in turns, split by kernel")
+    parser.add_argument("--k5-variants", default="",
+                        help="name=DEFINE[;DEFINE],... : builds of this checkout's "
+                             "wavenet_train_bf16.cu with defines, timed in turns beside it")
     parser.add_argument("--k1-schedules", default="",
                         help="group x warpgroups,... (e.g. 20x2,10x1): K1-bf16 timed at each")
     parser.add_argument("--stage-variants", default="",
@@ -499,6 +699,27 @@ def main():
     emit("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.time()
     plain = parent_sources(os.path.abspath(args.parent), False)
+    if args.k5_only:
+        k5_lib = build_variant("wavenet_train_bf16", plain, "PARENT")
+        emit("build_parent", seconds=round(time.time() - t0, 3))
+        k5_defines = {name: tuple(d.split(";")) for name, d in
+                      (item.split("=", 1) for item in filter(None, args.k5_variants.split(",")))}
+        try:
+            cuda_build.load_all(["wavenet_train_bf16"]
+                                + [("wavenet_train_bf16", d) for d in k5_defines.values()])
+        except RuntimeError as e:
+            emit("build_this_failed", error=str(e)[-6000:])
+        else:
+            emit("build_this", ptxas=[ln.strip() for ln in cuda_build.build_log(
+                "wavenet_train_bf16").splitlines() if "registers" in ln or "spill" in ln])
+            k5_probe(ParentK5(k5_lib, torch), torch, dev,
+                     shapes=K5_SHAPES[:1] if k5_defines else K5_SHAPES, variants={
+                name: variant_k5(cuda_build.load("wavenet_train_bf16", d))
+                for name, d in k5_defines.items()})
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(records, f, indent=1)
+        return 0 if not any(r["probe"] == "build_this_failed" for r in records) else 1
     stamped = parent_sources(os.path.abspath(args.parent), True)
     k1_lib = build_variant("wavenet_stack_bf16", plain, "PARENT")
     res_lib = build_variant("resblock_bf16", plain, "PARENT")
