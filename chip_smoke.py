@@ -180,17 +180,19 @@ Phases, each printing its lines before the last:
      windows), and the fast FastDiff vocoder against the parity one on one
      mel and injected noise (2e-2 of the wav's peak).
  15. (``phase_other_vocoders``) the other vocoders: K2 and K2-bf16 at C = 8
-     (HiFi-GAN V2's last stage at T_mel=512, T=131,072; the bf16 build pairs
-     two taps in each k16 step) against the twin, K2/K3 at every stage of
-     HiFi-GAN V1 and V2 in both tap dtypes, timed with their bounds; then
+     (HiFi-GAN V2's last stage at T_mel=512, T=131,072: the whole stage in
+     one launch; the bf16 build pairs two taps in each k16 step) against the
+     twin, timed as the kernel alone (a CUDA graph) and eagerly, K2/K3 at
+     every stage of HiFi-GAN V1 and V2 in both tap dtypes, timed with their
+     bounds (with ``--parent``: the earlier version's in turns); then
      ``vocode wav2wav`` (in-process) on a 6.0 s tone at the LJSpeech audio
      settings with ACF pitch through HiFi-GAN V1, V2, V3 (ResBlock2), V1
      with its NSF source and Parallel WaveGAN (parallel_wavegan.v1) in
      parity mode, and V1 and V2 in fast mode, on seeded checkpoints in the
      three layouts the wrappers read, the random draws injected: each
-     render's launches (K2/K3 72 for V1 and V2, 18 of V2's at C = 8; none
-     for V3 and PWG; in fast mode K2/K3-bf16 36 for V1 and 45 for V2, 18
-     of them at C = 8), host clock, kernel time and idle share
+     render's launches (K2/K3 72 for V1, 55 for V2, 1 of V2's at C = 8;
+     none for V3 and PWG; in fast mode K2/K3-bf16 36 for V1 and 28 for V2,
+     1 of them at C = 8), host clock, kernel time and idle share
      (torch.profiler), each parity render held against the CPU on a
      32-frame tone, fast against parity at the bound for bf16 tap stacks.
 Each path runs with every launch count set to 0 just before it and read just
@@ -3377,9 +3379,9 @@ def peak_compare(name, got, want, tol, torch) -> float:
     return grad_compare(name, got.float(), want.float(), tol, torch)
 
 
-# set by main() with --parent: the earlier design's K1-bf16, K2/K3-bf16 and
-# K5a/K5b-bf16 wrappers (tools/probe_bf16_kernels.py), timed in turns beside
-# this one's
+# set by main() with --parent: the earlier design's K1-bf16, K2/K3 (float32
+# and bf16 taps) and K5a/K5b-bf16 wrappers (tools/probe_bf16_kernels.py),
+# timed in turns beside this one's
 PARENT = None
 
 
@@ -3560,7 +3562,7 @@ def bf16_kernels(dev, torch) -> tuple:
             f"{nbytes / 1e9:.3f} GB: {k['bound_by']}), share of bound {k['bound_ms'] / k['ms']:.3f}")
     del xs, zs, dz, dy, dx0, skip
     torch.cuda.empty_cache()
-    if PARENT is not None:
+    if PARENT is not None and PARENT["k5"] is not None:
         k5_parent_in_turns(k5a, k5b, dev, torch)
     return k1, k5a, k5b
 
@@ -4210,25 +4212,40 @@ OTHER_CPU_FRAMES = 32  # the card vs CPU renders run a 32-frame tone
 # (name, config, vocoder, hparams, precision mode, K2/K3 launches a render and at C = 8)
 OTHER_CELLS = (
     ("hifigan_v1", HIFIGAN_V1, "hifigan", {}, "parity", 72, 0),
-    ("hifigan_v2", HIFIGAN_V2, "hifigan", {}, "parity", 72, 18),
+    ("hifigan_v2", HIFIGAN_V2, "hifigan", {}, "parity", 3 * 18 + 1, 1),
     ("hifigan_v3", HIFIGAN_V3, "hifigan", {}, "parity", 0, 0),
     ("hifigan_v1_nsf", dict(HIFIGAN_V1, use_pitch_embed=True), "hifigan", {"use_nsf": True},
      "parity", 72, 0),
     ("pwg", PWG_V1, "pwg", {}, "parity", 0, 0),
     ("hifigan_v1_fast", HIFIGAN_V1, "hifigan", {}, "fast", 4 * RES_BF16_LAUNCHES, 0),
-    ("hifigan_v2_fast", HIFIGAN_V2, "hifigan", {}, "fast", 3 * RES_BF16_LAUNCHES + 18, 18),
+    ("hifigan_v2_fast", HIFIGAN_V2, "hifigan", {}, "fast", 3 * RES_BF16_LAUNCHES + 1, 1),
 )
 # the stages of V1 and V2 at T_mel = 512 (C, T)
 HIFIGAN_STAGES = {"V1": ((256, 4096), (128, 32768), (64, 65536), (32, 131072)),
                   "V2": ((64, 4096), (32, 32768), (16, 65536), (8, 131072))}
 
 
+# NSF-HiFiGAN's last stage at T_mel = 512 (its others are V1's shapes): with
+# --parent, timed in turns too
+NSF_LAST_STAGE = (16, 262144)
+C8_TIMED = ("ms: the kernel alone, 10 replays of a CUDA graph of 4 calls; eager_ms: through "
+            "the wrapper, CUDA events, 3 warm-ups, mean of 20")
+PARENT_KEYS = ("parent_ms", "in_turns_ms", "parent_graph_ms", "in_turns_graph_ms")
+
+
 def other_vocoder_kernels(dev, torch) -> dict:
-    """K2 and K2-bf16 at C = 8 (V2's last stage, T_mel = 512) against the
-    plain twin (float32 at ``KERNEL_TOL``, bf16 at ``RES_BF16_TOL`` of the
-    peak), then K2/K3 at every stage of V1 and V2 in both tap dtypes, timed
-    (CUDA events, 3 warm-ups, mean of 20) beside the twin and the bound.
-    Returns the C = 8 rows and the stage table."""
+    """K2 and K2-bf16 at C = 8 (V2's last stage, T_mel = 512: the whole
+    stage in one launch) against the plain twin (float32 at ``KERNEL_TOL``,
+    bf16 at ``RES_BF16_TOL`` of the peak), one launch each on its counters,
+    timed as the kernel alone (``ms``: ``graph_ms`` of 4 calls, as K4/K6/K7:
+    the wrapper's Python is longer than the kernel) and eagerly through the
+    wrapper (``eager_ms``: CUDA events, 3 warm-ups, mean of 20); then K2/K3
+    at every stage of V1 and V2 in both tap dtypes, timed (CUDA events, 3
+    warm-ups, mean of 20) beside the twin and the bound. With ``--parent``,
+    the earlier version's in turns (earlier, this, this, earlier): its
+    per-conv C = 8 kernels both ways, and its float32 K2/K3 at every stage
+    of V1, V2 and NSF-HiFiGAN's last. Returns the C = 8 rows and the stage
+    table."""
     from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
 
     rng = np.random.default_rng(SEED + 16)
@@ -4238,41 +4255,78 @@ def other_vocoder_kernels(dev, torch) -> dict:
 
     taps = 6 * sum(RES_K)
     out = {"stages": {}}
-    for model, stages in HIFIGAN_STAGES.items():
+    stages = dict(HIFIGAN_STAGES)
+    if PARENT is not None:
+        stages["NSF-HiFiGAN last"] = (NSF_LAST_STAGE,)
+    for model, shapes in stages.items():
         rows = []
-        for c, t in stages:
+        for c, t in shapes:
             w32 = torch.cat([rand(k * c * c, scale=(k * c) ** -0.5) for k in RES_K for _ in range(6)])
             w16, biases, x = w32.to(torch.bfloat16), rand(18, c, scale=0.1), rand(1, t, c)
             flops = 2 * taps * c * c * t
             row = {"C": c, "T": t}
             for dt, w in (("float32", w32), ("bf16", w16)):
+                if model not in HIFIGAN_STAGES and dt == "bf16":
+                    continue
                 nbytes = 4 * (2 * t * c + 18 * c) + w.element_size() * taps * c * c
                 lim = bound(flops, nbytes, FP32_PEAK if dt == "float32" else BF16_PEAK)
-                ms = timed_ms(lambda: resblock_stage(x, w, biases, RES_K, RES_D), 20, torch)
+
+                def call():
+                    return resblock_stage(x, w, biases, RES_K, RES_D)
+
+                ms = timed_ms(call, 20, torch)
                 row[dt] = dict(ms=ms, **lim, share=lim["bound_ms"] / ms)
+                earlier = None if PARENT is None else PARENT["stage" if dt == "bf16" else "stage32"]
                 if c == 8:
                     name = f"K2{'-bf16' if dt == 'bf16' else ''} C=8 T={t}"
-                    got = resblock_stage(x, w, biases, RES_K, RES_D)
+                    counter = counters()["resblock_stage_c8_bf16" if dt == "bf16" else "resblock_stage_c8"]
+                    before = counter.count
+                    got = call()
+                    torch.cuda.synchronize()
+                    if counter.count - before != 1:
+                        raise AssertionError(f"{name}: {counter.count - before} launches, not 1")
                     want = resblock_stage_plain(x, w, biases, RES_K, RES_D)
                     if dt == "float32":
                         err = compare(f"{name} vs its twin", got, want, torch)["max_abs_err"]
                     else:
                         err = peak_compare(f"{name} vs its twin", got, want, RES_BF16_TOL, torch)
+                    graph = graph_ms([call] * 4, torch)
                     plain_ms = timed_ms(lambda: resblock_stage_plain(x, w, biases, RES_K, RES_D),
                                         20, torch)
-                    out[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **lim)
-                    log(f"{name}: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
-                        f"{lim['bound_ms']:.4f} ms ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB: "
-                        f"{lim['bound_by']}), share of bound {lim['bound_ms'] / ms:.3f}")
-            log(f"HiFi-GAN {model} stage C={c} T={t}: float32 K2/K3 {row['float32']['ms']:.4f} ms "
-                f"(bound {row['float32']['bound_ms']:.4f}, share {row['float32']['share']:.3f}), "
-                f"K2/K3-bf16 {row['bf16']['ms']:.4f} ms (bound {row['bf16']['bound_ms']:.4f}, "
-                f"share {row['bf16']['share']:.3f})")
+                    parent = {}
+                    if earlier is not None:
+                        parent = earlier_in_turns(f"{name}, eager",
+                                                  lambda: earlier(x, w, biases, RES_K, RES_D),
+                                                  call, 20, torch)
+                        parent.update(
+                            parent_graph_ms=[graph_ms([lambda: earlier(x, w, biases, RES_K, RES_D)]
+                                                      * 4, torch)],
+                            in_turns_graph_ms=[graph_ms([call] * 4, torch) for _ in range(2)])
+                        parent["parent_graph_ms"].append(graph_ms(
+                            [lambda: earlier(x, w, biases, RES_K, RES_D)] * 4, torch))
+                        log(f"{name} by CUDA graph in turns with the earlier design: earlier "
+                            f"{parent['parent_graph_ms']}, this {parent['in_turns_graph_ms']} ms")
+                    out[dt] = dict(max_abs_err=err, ms=graph, eager_ms=ms, plain_ms=plain_ms,
+                                   **parent, **lim)
+                    row[dt].update(ms=graph, eager_ms=ms, share=lim["bound_ms"] / graph)
+                    log(f"{name}: kernel {graph:.4f} ms (CUDA graph), eager {ms:.4f} ms, plain "
+                        f"twin {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({flops / 1e9:.3f} "
+                        f"GFLOP, {nbytes / 1e6:.2f} MB: {lim['bound_by']}), share of bound "
+                        f"{lim['bound_ms'] / graph:.3f}")
+                elif earlier is not None and dt == "float32":
+                    row[dt].update(earlier_in_turns(f"K2/K3 {model} C={c} T={t}",
+                                                    lambda: earlier(x, w, biases, RES_K, RES_D),
+                                                    call, 20, torch))
+            log(f"HiFi-GAN {model} stage C={c} T={t}: "
+                + ", ".join(f"{'float32 K2/K3' if dt == 'float32' else 'K2/K3-bf16'} "
+                            f"{row[dt]['ms']:.4f} ms (bound {row[dt]['bound_ms']:.4f}, share "
+                            f"{row[dt]['share']:.3f})" for dt in ("float32", "bf16") if dt in row))
             rows.append(row)
         out["stages"][model] = rows
-        log(f"HiFi-GAN {model}, its 4 stages at T_mel=512: float32 "
-            f"{sum(r['float32']['ms'] for r in rows):.4f} ms, bf16 "
-            f"{sum(r['bf16']['ms'] for r in rows):.4f} ms")
+        if model in HIFIGAN_STAGES:
+            log(f"HiFi-GAN {model}, its 4 stages at T_mel=512: float32 "
+                f"{sum(r['float32']['ms'] for r in rows):.4f} ms, bf16 "
+                f"{sum(r['bf16']['ms'] for r in rows):.4f} ms")
     torch.cuda.empty_cache()
     return out
 
@@ -4299,8 +4353,8 @@ def phase_other_vocoders(dev, torch):
     ``config.json`` + ``generator_v1``, ``checkpoint-*steps.pkl``), on the
     6.0 s tone at 22.05 kHz with ACF pitch and the random draws injected
     (the NSF source's phases and noise, PWG's ``z``, made on the CPU from one
-    seed). Each render's launches (72 K2/K3 for V1 and V2, 18 of them at
-    C = 8 for V2; none for V3 and PWG), its host clock and, in a second run
+    seed). Each render's launches (72 K2/K3 for V1, 55 for V2, 1 of them at
+    C = 8; none for V3 and PWG), its host clock and, in a second run
     under torch.profiler, its kernel time and the device's idle share; each
     parity cell held against the same command on the CPU on a 32-frame tone;
     fast V1/V2 against parity at the bound for bf16 tap stacks. Before them,
@@ -4395,7 +4449,7 @@ def phase_other_vocoders(dev, torch):
             wall_ms, busy, sums, _ = kernel_split(lambda: port_cli(argv), 1,
                                                   {"conv_kernel": "K2/K3 resblock_stage",
                                                    "unit_kernel": "K2/K3-bf16 resblock_stage",
-                                                   "conv_kernel_c8": "K2-bf16 C=8"}, torch)
+                                                   "c8_stage_kernel": "K2 / K2-bf16 C=8"}, torch)
         else:
             start = time.perf_counter()
             port_cli(argv)
@@ -4469,7 +4523,7 @@ def probe_module():
 
 
 def set_parent(parent_dir: str, torch) -> None:
-    """Builds the earlier version's K1-bf16, K2/K3-bf16 and K5a/K5b-bf16 (its
+    """Builds the earlier version's K1-bf16, K2/K3 (both tap dtypes) and K5a/K5b-bf16 (its
     sources, as tools/probe_bf16_kernels.py copies them) for ``PARENT``, and
     logs that version's split: the stage's convs and, where its K1-bf16 is
     the cooperative chain (the earlier design), that chain's phases from a stamped
@@ -4484,6 +4538,8 @@ def set_parent(parent_dir: str, torch) -> None:
     k1_lib = probe.build_variant("wavenet_stack_bf16", plain, "PARENT")
     k1 = probe.ParentK1(k1_lib, torch) if cooperative else probe.variant_k1(k1_lib, torch)
     stage = probe.ParentStage(probe.build_variant("resblock_bf16", plain, "PARENT"), torch)
+    stage32 = probe.ParentStage(probe.build_variant("resblock", plain, "PARENT"), torch,
+                                "resblock_stage")
     dev = torch.device("cuda:0")
     probe.emit = lambda kind, **kw: log(f"earlier design, {kind}: {json.dumps(kw)}")
     if cooperative:
@@ -4494,8 +4550,16 @@ def set_parent(parent_dir: str, torch) -> None:
         log("earlier design's K1-bf16: the cluster chain (this checkout's interface), timed in "
             "turns, not split")
     probe.stage_split(stage, torch, dev)
-    k5 = probe.ParentK5(probe.build_variant("wavenet_train_bf16", plain, "PARENT"), torch)
-    PARENT = {"k1": k1, "stage": stage, "k5": k5}
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prodiff_tpu_torch", "csrc")
+    with open(os.path.join(plain, "wavenet_train_bf16.cu")) as f, \
+            open(os.path.join(here, "wavenet_train_bf16.cu")) as g:
+        same_k5 = f.read() == g.read()
+    k5 = None
+    if same_k5:
+        log("earlier design's K5a/K5b-bf16: this checkout's source, not timed in turns")
+    else:
+        k5 = probe.ParentK5(probe.build_variant("wavenet_train_bf16", plain, "PARENT"), torch)
+    PARENT = {"k1": k1, "stage": stage, "stage32": stage32, "k5": k5}
 
 
 def main() -> int:
@@ -4508,9 +4572,10 @@ def main() -> int:
                         help="build the kernels and run only the FastDiff kernel phase (K4, K6, "
                              "K7 vs their twins, timed), printing its JSON")
     parser.add_argument("--parent", metavar="DIR",
-                        help="a checkout of an earlier version: its K1-bf16, K2/K3-bf16 and "
-                             "K5a/K5b-bf16 are built and timed in turns beside this one's (and "
-                             "split, by tools/probe_bf16_kernels.py)")
+                        help="a checkout of an earlier version: its K1-bf16, K2/K3 (both tap "
+                             "dtypes, C = 8 included) and K5a/K5b-bf16 are built and timed in "
+                             "turns beside this one's (and split, by "
+                             "tools/probe_bf16_kernels.py)")
     args = parser.parse_args()
     t_script = time.time()
     if not torch.cuda.is_available():
@@ -4608,8 +4673,10 @@ def main() -> int:
         dict(entry("resblock_stage_c8", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
                    other_launches["hifigan_v2"]["resblock_stage_c8"], other["float32"],
                    "resblock_stage_c8"),
-             shape="HiFi-GAN V2's last stage: B=1, T=131072, C=8 (T_mel=512); the TPU kernel's "
-                   "pack 16"),
+             eager_ms=other["float32"]["eager_ms"], timed=C8_TIMED,
+             **{k: other["float32"][k] for k in PARENT_KEYS if k in other["float32"]},
+             shape="HiFi-GAN V2's last stage: B=1, T=131072, C=8 (T_mel=512), the whole stage "
+                   "in one launch; the TPU kernel's pack 16"),
         dict(entry("ublock_layer", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
                    fd_launches["ublock_layer"], fd["ublock_layer"], "ublock_layer"),
              bound_sum_of_blocks_ms=fd["ublock_layer"]["bound_sum_of_blocks_ms"],
@@ -4650,15 +4717,17 @@ def main() -> int:
              launches_other_vocoders={k: v["resblock_stage_bf16"]
                                       for k, v in other_launches.items()},
              hifigan_stages={m: [dict(C=r["C"], T=r["T"], **r["bf16"]) for r in rows]
-                             for m, rows in other["stages"].items()}),
+                             for m, rows in other["stages"].items() if m in HIFIGAN_STAGES}),
         dict(entry("resblock_stage_c8_bf16", "resblock_bf16.cu",
                    "prodiff_tpu/ops/pallas/resblock.py:357",
                    other_launches["hifigan_v2_fast"]["resblock_stage_c8_bf16"], other["bf16"],
                    "resblock_stage_c8_bf16"),
              f32_ms=other["float32"]["ms"],
              bound_rate="bf16 dense tensor cores, 989 TFLOP/s; HBM 3.35 TB/s",
-             shape="HiFi-GAN V2's last stage: B=1, T=131072, C=8 (T_mel=512), two taps a "
-                   "k16 step"),
+             eager_ms=other["bf16"]["eager_ms"], timed=C8_TIMED,
+             **{k: other["bf16"][k] for k in PARENT_KEYS if k in other["bf16"]},
+             shape="HiFi-GAN V2's last stage: B=1, T=131072, C=8 (T_mel=512), the whole stage "
+                   "in one launch, two taps a k16 step"),
         dict(bf16_entry("ublock_layer_bf16", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
                         k4_bf16, "ublock_layer_bf16",
                         "FP32 FMA, 67 TFLOP/s; HBM 3.35 TB/s (bf16 window bytes)"),

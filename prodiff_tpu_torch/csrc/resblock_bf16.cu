@@ -70,26 +70,43 @@
 // rows are other blocks' outputs).
 //
 // C = 8 (the last stage of a HiFiGAN that starts at 128 channels, which the
-// TPU kernel runs at pack 16) keeps one launch per conv, conv_kernel_c8: a
-// tap of a C = 8 conv reduces over 8 input channels, half of an m16n8k16 k
-// step. It PAIRS TWO TAPS in one k step rather than zero-padding the staged
-// tile to 16 channels: k 0-7 are tap 2p's channels and k 8-15 tap 2p+1's.
-// The A fragment's second half (the ldmatrix.x4 addresses of lanes 16-31)
-// reads the staged rows d further down, the B fragment's rows 8-15 hold tap
+// TPU kernel runs at pack 16): the whole stage in one launch
+// (c8_stage_kernel; the block plan and its walk in resblock_c8.cuh), as the
+// Pallas kernel runs it. It replaces one launch a conv (conv_kernel_c8, 18
+// a stage: 0.1042 ms at B = 1, T = 131,072 against a 2.5 us bound of
+// bytes), where each conv read and wrote the [B, T, 8] activations and the
+// launches' chain, not the products, set the time. A block keeps in
+// shared memory x (float32, the first unit's residual), the staged conv
+// input (S: bf16(leaky(h)), rows of 16 bytes), conv1's output (Y:
+// bf16(leaky(conv1 + b1)), conv2's input) and all the stage's taps (16
+// KB); the running h and the mean stay in registers, in the mma
+// accumulators' layout (a frame keeps its lane). A tap of a C = 8 conv
+// reduces over 8 input channels, half of an m16n8k16 k step, so each k step
+// PAIRS TWO TAPS: k 0-7 are tap 2p's channels and k 8-15 tap 2p+1's. The A
+// fragment's second half (the ldmatrix.x4 addresses of lanes 16-31) reads
+// the staged rows d further down, the B fragment's rows 8-15 hold tap
 // 2p+1's weights, and an odd k's last pair has a zero second tap (its A
 // lanes reread tap 2p's rows: finite values times zero weights). So a
-// 16-row tile takes ceil(k / 2) mma, 2/4/6 at k = 3/7/11, where zero-padding
-// would take k mma with half of each wasted. The staged rows are 8 bf16 (16
-// bytes) with no padding: the 8 rows of an ldmatrix phase are 128
-// contiguous bytes, in distinct banks. One chunk holds all 8 input
-// channels, so nothing is double-buffered; each lane builds its B fragments
-// once from global memory (at most 6 pairs, 12 registers).
+// 16-row tile takes ceil(k / 2) mma, 2/4/6 at k = 3/7/11. The staged rows
+// are 8 bf16 with no padding: the 8 rows of an ldmatrix phase are 128
+// contiguous bytes, in distinct banks. mma.sync from ldmatrix, not wgmma: a
+// conv is 2-6 k16 steps on 8 output columns, and a warp's tiles run from
+// registers with no descriptor or fence between the 18 convs. The bound is
+// bytes (x and out once: 8.4 MB, 2.5 us at T = 131,072); what the kernel
+// takes is the chain of 18 convs with a barrier after each, at two blocks an
+// SM (the 123 registers of 256 threads): measured on an H100 80GB HBM3 at
+// 700 W (C8_SKIP builds, tools/probe_bf16_kernels.py --c8-only) ~0.037 ms,
+// of which the products (ldmatrix, mma and their B fragments) ~0.016, the
+// epilogues ~0.015, the loads, copies and barriers ~0.006. 3 or 2 tiles a
+// warp (more warps, one block an SM) and 256- or 1024-frame blocks were
+// slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "resblock_c8.cuh"
 
 namespace {
 
@@ -354,20 +371,33 @@ unit_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ w
       to_dst(row + 8 * h, col + 8 * j, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
-// The C = 8 conv, two taps a k step (see the header): WARPS warps,
-// each MT 16-row tiles of the BM = WARPS * MT * 16 frames a block owns.
-template <int WARPS, int MT, int K>
-__global__ void __launch_bounds__(WARPS * 32)
-conv_kernel_c8(const float* __restrict__ in, const bf16* __restrict__ w,
-               const float* __restrict__ bias, const float* res, float* dst, int T, int d,
-               int pre_leaky, int epi, int first, int last, float n_res) {
-  constexpr int C = 8, BM = WARPS * MT * 16, NTH = WARPS * 32, NP = (K + 1) / 2;
-  __shared__ __align__(16) bf16 As[(BM + 2 * MAX_PAD) * C];
-  const int pad = (K - 1) / 2 * d, rows = BM + 2 * pad;
-  const int b = blockIdx.y, t0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, lane = tid & 31, row0 = (tid >> 5) * MT * 16;
-  const float* inb = in + (size_t)b * T * C;
+// ---- C = 8: the whole stage in one launch (see the header) ----
 
+// C8_SKIP (0 in the kernel the port runs) leaves a part out, for measuring
+// where the time goes (tools/probe_bf16_kernels.py --c8-only): bit 0 the
+// convs' products and their operand loads, bit 1 the convs' epilogues, bit 2
+// the global loads of x and the taps, bit 3 the ResBlocks' staged copies of x.
+// Its output is for measurement only.
+#ifndef C8_SKIP
+#define C8_SKIP 0
+#endif
+
+// a block's bytes: bf16 taps; x (float32) and the two bf16 staging tiles a row
+constexpr c8::Bytes BF16_BYTES = {2, 32 + 2 * 16};
+
+// acc[i] (the m16n8 accumulators of the warp's tile i) = the conv of the
+// staged rows A ([nr][8] bf16, tile row r at r + GUARD) with taps w
+// ([K][8][8] bf16, in x out) at dilation d, two taps a k16 step, for the
+// warp's tiles that meet rows [lo, hi).
+template <int K>
+__device__ __forceinline__ void c8_conv(const bf16* __restrict__ A, const bf16* __restrict__ w,
+                                        int d, int lo, int hi, int warp, int nwarps,
+                                        float (&acc)[c8::TILES][4]) {
+  constexpr int NP = (K + 1) / 2;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < c8::TILES; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  if (C8_SKIP & 1) return;
   // B fragments: b0 holds k rows kr, kr + 1 of column lane / 4 (tap 2p's
   // channels kr, kr + 1), b1 the same rows of tap 2p + 1 (k rows 8 + kr).
   uint32_t bfr[NP][2];
@@ -379,87 +409,175 @@ conv_kernel_c8(const float* __restrict__ in, const bf16* __restrict__ w,
       const int q = 2 * p + h;
       __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
       if (q < K) {
-        v.x = w[((size_t)q * C + kr) * C + col];
-        v.y = w[((size_t)q * C + kr + 1) * C + col];
+        v.x = w[(q * 8 + kr) * 8 + col];
+        v.y = w[(q * 8 + kr + 1) * 8 + col];
       }
       bfr[p][h] = *reinterpret_cast<uint32_t*>(&v);
     }
-
-  // the frames the taps reach, leaky'd and rounded to bf16, zero outside [0, T)
-  for (int e = tid; e < rows * 2; e += NTH) {
-    const int r = e >> 1, t = t0 - pad + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t >= 0 && t < T) {
-      v = mma::ld4(inb + (size_t)t * C + (e & 1) * 4);
-      if (pre_leaky) v = make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
-    }
-    *reinterpret_cast<uint2*>(As + r * C + (e & 1) * 4) = mma::pack4(v);
-  }
-  __syncthreads();
-
-  float acc[MT][4] = {};
-  const int arow = lane & 15, second = lane >> 4;
+  // tap pairs outside, tiles inside: a pair's mma on the warp's tiles are
+  // independent, so they issue back to back
+  const int arow = c8::GUARD + (lane & 15) - (K - 1) / 2 * d, second = lane >> 4;
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
     const int q = 2 * p + second < K ? 2 * p + second : 2 * p;
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
+    for (int i = 0; i < c8::TILES; ++i) {
+      const int base = 16 * (warp + i * nwarps);
+      if (base + 16 <= lo || base >= hi) continue;  // warp-uniform
       uint32_t a[4];
-      mma::ldsm_x4(a, As + (row0 + 16 * mi + arow + q * d) * C);
-      mma::mma16816(acc[mi], a, bfr[p][0], bfr[p][1]);
+      mma::ldsm_x4(a, A + (base + arow + q * d) * 8);
+      mma::mma16816(acc[i], a, bfr[p][0], bfr[p][1]);
     }
   }
+}
 
-  const int co = mma::frag_col(0);
-  const float2 bv = *reinterpret_cast<const float2*>(bias + co);
+__device__ __forceinline__ void c8_conv_k(int k, const bf16* A, const bf16* w, int d, int lo,
+                                          int hi, int warp, int nwarps,
+                                          float (&acc)[c8::TILES][4]) {
+  if (k == 3)
+    c8_conv<3>(A, w, d, lo, hi, warp, nwarps, acc);
+  else if (k == 7)
+    c8_conv<7>(A, w, d, lo, hi, warp, nwarps, acc);
+  else
+    c8_conv<11>(A, w, d, lo, hi, warp, nwarps, acc);
+}
+
+__device__ __forceinline__ float4 leaky4(float4 v) {
+  return make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
+}
+
+// out[b, t0 .. t0 + M) = the stage mean, for x [B, T, 8]; wg the taps of
+// every conv ([k][8][8] bf16 each, in weight order), bg the float32 biases
+// [n_convs][8]. Shared memory: X [nr][8] float32, S and Y [nr][8] bf16, the
+// taps, the biases. A lane's accumulators hold rows g and g + 8 (g = lane /
+// 4) of each tile, columns 2 (lane % 4) and + 1.
+__global__ void __launch_bounds__(32 * c8::MAX_WARPS)
+c8_stage_kernel(const float* __restrict__ x, float* __restrict__ out, const bf16* __restrict__ wg,
+                const float* __restrict__ bg, const __grid_constant__ c8::Stage st) {
+  extern __shared__ float4 sm4[];
+  const int nr = st.rows + 2 * c8::GUARD;
+  float* X = reinterpret_cast<float*>(sm4);
+  bf16* S = reinterpret_cast<bf16*>(X + nr * 8);
+  bf16* Y = S + nr * 8;
+  bf16* W = Y + nr * 8;
+  float* Bs = reinterpret_cast<float*>(W + st.n_w);
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nwarps = nt >> 5;
+  const int lane = tid & 31, g = lane >> 2, co = 2 * (lane & 3);
+  const int b = blockIdx.y, T = st.T, H = st.halo, t0 = blockIdx.x * st.M;
+  const float* xb = x + (size_t)b * T * 8;
+
+  // the taps, the biases and x on rows [-GUARD, rows + GUARD) (zero outside
+  // [0, T)) by cp.async, every copy in flight at once
+  for (int e = tid; e < (C8_SKIP & 4 ? 0 : st.n_w / 8); e += nt)
+    mma::cp_async16(W + 8 * e, wg + 8 * e, true);
+  for (int e = tid; e < st.n_b / 4; e += nt) mma::cp_async16(Bs + 4 * e, bg + 4 * e, true);
+  for (int e = tid; e < 2 * nr; e += nt) {
+    const int r = e >> 1, c = e & 1, t = t0 - H - c8::GUARD + r;
+    const bool inside = t >= 0 && t < T;
+    if (!(C8_SKIP & 4))
+      mma::cp_async16(X + 8 * r + 4 * c, inside ? xb + (size_t)t * 8 + 4 * c : xb, inside);
+    *reinterpret_cast<uint2*>(Y + 8 * r + 4 * c) = make_uint2(0, 0);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait_all();
+
+  float h[c8::TILES][4], mean[c8::TILES][4], acc[c8::TILES][4];
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
+  for (int i = 0; i < c8::TILES; ++i) mean[i][0] = mean[i][1] = mean[i][2] = mean[i][3] = 0.f;
+  int wo = 0, ci = 0;
+  for (int u = 0; u < st.n_units;) {
+    int reach = 0, end = u;  // this ResBlock's units [u, end) and its reach
+    do {
+      const int k = c8::unit_k(st.unit[end]);
+      reach += (k - 1) / 2 * (c8::unit_d(st.unit[end]) + 1);
+    } while (!c8::unit_last(st.unit[end++]));
+    __syncthreads();  // X is in (and the last ResBlock's reads of S are done)
+    for (int e = tid; e < (C8_SKIP & 8 ? 0 : 2 * nr); e += nt)
+      *reinterpret_cast<uint2*>(S + 4 * e) =
+          mma::pack4(leaky4(*reinterpret_cast<const float4*>(X + 4 * e)));
+    __syncthreads();
+    int lo = H - reach, hi = H + st.M + reach;
+    for (; u < end; ++u) {
+      const int k = c8::unit_k(st.unit[u]), d = c8::unit_d(st.unit[u]);
+      const bool first = c8::unit_first(st.unit[u]), last = u + 1 == end;
+      lo += (k - 1) / 2 * d;
+      hi -= (k - 1) / 2 * d;
+      c8_conv_k(k, S, W + wo, d, lo, hi, warp, nwarps, acc);
+      wo += k * 64;
+      const float2 b1 = *reinterpret_cast<const float2*>(Bs + 8 * ci + co);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int t = t0 + row0 + mma::frag_row(mi, half);
-      if (t >= T) continue;
-      const size_t i = ((size_t)b * T + t) * C + co;
-      float v0 = acc[mi][2 * half] + bv.x, v1 = acc[mi][2 * half + 1] + bv.y;
-      if (epi == EPI_LEAKY) {
-        v0 = leaky(v0);
-        v1 = leaky(v1);
-      } else {
-        const float2 r = *reinterpret_cast<const float2*>(res + i);
-        v0 += r.x;
-        v1 += r.y;
-        if (epi == EPI_MEAN) {
-          if (!first) {
-            const float2 o = *reinterpret_cast<const float2*>(dst + i);
-            v0 = o.x + v0;
-            v1 = o.y + v1;
-          }
+      for (int i = 0; i < c8::TILES; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * (warp + i * nwarps) + g + 8 * half, t = t0 - H + r;
+          if (r < lo || r >= hi || (C8_SKIP & 2)) continue;
+          const bool inside = t >= 0 && t < T;
+          mma::st_bf2(Y + 8 * (r + c8::GUARD) + co,
+                      inside ? leaky(acc[i][2 * half] + b1.x) : 0.f,
+                      inside ? leaky(acc[i][2 * half + 1] + b1.y) : 0.f);
+        }
+      ++ci;
+      __syncthreads();
+      lo += (k - 1) / 2;
+      hi -= (k - 1) / 2;
+      c8_conv_k(k, Y, W + wo, 1, lo, hi, warp, nwarps, acc);
+      wo += k * 64;
+      const float2 b2 = *reinterpret_cast<const float2*>(Bs + 8 * ci + co);
+#pragma unroll
+      for (int i = 0; i < c8::TILES; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * (warp + i * nwarps) + g + 8 * half, t = t0 - H + r;
+          if (r < lo || r >= hi || (C8_SKIP & 2)) continue;
+          const bool inside = t >= 0 && t < T;
+          float* hv = h[i] + 2 * half;
+          float2 res = make_float2(hv[0], hv[1]);
+          if (first) res = *reinterpret_cast<const float2*>(X + 8 * (r + c8::GUARD) + co);
+          hv[0] = (inside ? acc[i][2 * half] + b2.x : 0.f) + res.x;
+          hv[1] = (inside ? acc[i][2 * half + 1] + b2.y : 0.f) + res.y;
           if (last) {
-            v0 /= n_res;
-            v1 /= n_res;
+            mean[i][2 * half] += hv[0];
+            mean[i][2 * half + 1] += hv[1];
+          } else {
+            mma::st_bf2(S + 8 * (r + c8::GUARD) + co, leaky(hv[0]), leaky(hv[1]));
           }
         }
-      }
-      *reinterpret_cast<float2*>(dst + i) = make_float2(v0, v1);
+      ++ci;
+      __syncthreads();
+    }
+  }
+  const float n_res = (float)st.n_res;
+#pragma unroll
+  for (int i = 0; i < c8::TILES; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * (warp + i * nwarps) + g + 8 * half, t = t0 - H + r;
+      if (r < H || r >= H + st.M || t >= T) continue;
+      *reinterpret_cast<float2*>(out + ((size_t)b * T + t) * 8 + co) =
+          make_float2(mean[i][2 * half] / n_res, mean[i][2 * half + 1] / n_res);
     }
 }
 
-template <int WARPS, int MT>
-int conv_c8(const float* in, const bf16* w, const float* bias, const float* res, float* dst,
-            int B, int T, int k, int d, int pre_leaky, int epi, int first, int last, float n_res,
-            cudaStream_t stream) {
-  constexpr int BM = WARPS * MT * 16;
-  const dim3 grid((T + BM - 1) / BM, B);
-  switch (k) {
-#define RESBLOCK_C8_CASE(K)                                                                  \
-  case K:                                                                                    \
-    conv_kernel_c8<WARPS, MT, K><<<grid, WARPS * 32, 0, stream>>>(in, w, bias, res, dst, T, \
-                                                                  d, pre_leaky, epi, first, \
-                                                                  last, n_res);             \
-    return (int)cudaGetLastError();
-    RESBLOCK_C8_CASE(3) RESBLOCK_C8_CASE(7) RESBLOCK_C8_CASE(11)
-#undef RESBLOCK_C8_CASE
-    default: return (int)cudaErrorInvalidValue;
+int c8_stage(const float* x, float* out, const bf16* w, const float* bias, const int* ksizes,
+             const int* nunits, const int* dils, int n_res, int B, int T, cudaStream_t stream) {
+  c8::Stage st;
+  c8::Plan plan;
+  int err = c8::plan_stage(&st, &plan, ksizes, nunits, dils, n_res, B, T, BF16_BYTES);
+  if (err) return err;
+  constexpr int MAX_DEVICES = 64;
+  static bool allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES || !allowed[dev]) {
+    e = cudaFuncSetAttribute(c8_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             c8::SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < MAX_DEVICES) allowed[dev] = true;
   }
+  c8_stage_kernel<<<dim3((T + plan.M - 1) / plan.M, B), 32 * plan.warps, plan.smem, stream>>>(
+      x, out, w, bias, st);
+  return (int)cudaGetLastError();
 }
 
 template <class CF, int K>
@@ -560,14 +678,23 @@ extern "C" int resblock_unit_smem_bf16(int C, int k, int d) {
   }
 }
 
+// The C = 8 stage's block plan (resblock_c8.cuh:plan_stage with bf16 taps):
+// out = {M, halo, rows, warps, smem, blocks}; returns its error (a check for
+// ops/resblock.py:c8_plan).
+extern "C" int resblock_c8_plan_bf16(const int* ksizes, const int* nunits, const int* dils,
+                                     int n_res, int B, int T, int* out) {
+  return c8::export_plan(ksizes, nunits, dils, n_res, B, T, BF16_BYTES, out);
+}
+
 // resblock.cu's resblock_stage with bf16 taps: x [B,T,C] float32 input (read
-// only); out [B,T,C] the stage mean; h, tmp [B,T,C] float32 scratch. w: the
+// only); out [B,T,C] the stage mean; h, tmp [B,T,C] float32 scratch (unused
+// at C = 8). w: the
 // stage's convs in (resblock, unit, conv1/conv2) order, each [k, C, C] (tap,
 // in, out) bf16, 16-byte aligned; bias [n_convs, C] float32. ksizes[j] /
 // nunits[j] give resblock j's kernel size and unit count, dils the units'
 // dilations in order. C is 8, 16, 32, 64, 128 or 256. Launches one kernel a
-// unit (sum(nunits)) at C >= 16, one a conv (2 * sum(nunits)) at C = 8, on
-// `stream`; returns the first error (cudaError_t) or 0.
+// unit (sum(nunits)) at C >= 16, one a stage at C = 8, on `stream`; returns
+// the first error (cudaError_t) or 0.
 extern "C" int resblock_stage_bf16(const float* x, float* out, float* h, float* tmp,
                                    const void* w_ptr, const float* bias, const int* ksizes,
                                    const int* nunits, const int* dils, int n_res, int B, int T,
@@ -581,31 +708,7 @@ extern "C" int resblock_stage_bf16(const float* x, float* out, float* h, float* 
     case 64: return stage_units<Cfg64>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
     case 128: return stage_units<Cfg128>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
     case 256: return stage_units<Cfg256>(x, out, h, tmp, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
-    case 8: break;
+    case 8: return c8_stage(x, out, w, bias, ksizes, nunits, dils, n_res, B, T, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  size_t woff = 0;
-  int ci = 0, di = 0;
-  for (int j = 0; j < n_res; ++j) {
-    const int k = ksizes[j];
-    const float* hin = x;
-    for (int u = 0; u < nunits[j]; ++u) {
-      const int d = dils[di++];
-      if ((k - 1) / 2 * d > MAX_PAD) return (int)cudaErrorInvalidValue;
-      int err = conv_c8<8, 2>(hin, w + woff, bias + (size_t)ci * C, nullptr, tmp, B, T, k, d, 1,
-                              EPI_LEAKY, 0, 0, 1.f, stream);
-      if (err) return err;
-      woff += (size_t)k * C * C;
-      ++ci;
-      const bool last_unit = u + 1 == nunits[j];
-      err = conv_c8<8, 2>(tmp, w + woff, bias + (size_t)ci * C, hin, last_unit ? out : h, B, T, k,
-                          1, 0, last_unit ? EPI_MEAN : EPI_RESID, j == 0, j == n_res - 1,
-                          (float)n_res, stream);
-      if (err) return err;
-      woff += (size_t)k * C * C;
-      ++ci;
-      hin = h;
-    }
-  }
-  return 0;
 }

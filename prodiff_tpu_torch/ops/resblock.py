@@ -5,7 +5,9 @@ Port of ``prodiff_tpu/ops/pallas/resblock.py`` (``resblock_group_packed`` and
 a stage's ResBlock1s on ``[B, T, C]``. The kernels are ``csrc/resblock.cu``
 (float32 taps) and ``csrc/resblock_bf16.cu`` (bf16 taps, the tap stacks of
 ``prepare_resblock_stage(dtype=bfloat16)``, on the tensor cores, a unit's
-two convs in one launch); the weights' dtype picks the route.
+two convs in one launch); the weights' dtype picks the route. At C = 8 both
+run the whole stage in one launch (``csrc/resblock_c8.cuh``, planned by
+:func:`c8_plan`).
 :func:`resblock_stage_plain` computes the same function with ``F.conv1d``.
 :func:`resblock_stage` takes the plain version only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
@@ -21,6 +23,7 @@ residual, the mean and the activations between convs stay float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Iterator, Sequence, Tuple
 
 import torch
@@ -41,6 +44,18 @@ SMEM_LIMIT, SMEM_HALF, SMEM_THIRD = 232448, 115712, 75776
 UNIT_TILES = {16: (128, 256, SMEM_THIRD), 32: (128, 256, SMEM_THIRD), 64: (128, 128, SMEM_HALF),
               128: (128, 32, SMEM_HALF), 256: (64, 32, SMEM_LIMIT)}
 UNIT_MAX_STAGES = 8
+
+# csrc/resblock.cu:pick_tile: the float32 per-conv kernel's tiles (BM frames,
+# BN channels, FM frames a thread), and those a width may take in order of
+# preference; a tile is taken where its grid has MIN_BLOCKS blocks
+F32_TILES = ((512, 16, 4), (256, 32, 4), (256, 64, 8), (128, 64, 4), (64, 32, 4))
+MIN_BLOCKS = 128  # about one block an SM of the H100's 132
+
+# csrc/resblock_c8.cuh: the C = 8 stage kernels' block (16-row tiles a warp,
+# warps at most, guard rows a side, the frames a block may own)
+C8_TILES, C8_MAX_WARPS, C8_GUARD, C8_MAX_UNITS = 5, 16, 16, 512
+C8_MAX_ROWS = 16 * C8_TILES * C8_MAX_WARPS  # 1280: M + 2 halo at most
+C8_BLOCK_FRAMES = (512, 256, 128, 64)
 
 
 def channels_supported(c: int) -> bool:
@@ -81,12 +96,94 @@ def unit_plan(c: int, k: int, d: int) -> dict:
                 smem=fixed + stages * (stage + 16))
 
 
+def f32_tile(c: int, b: int, t: int) -> Tuple[int, int, int]:
+    """The float32 per-conv kernel's tile (BM, BN, FM) at C >= 16, as
+    ``csrc/resblock.cu:pick_tile`` takes it: the first of the width's list
+    whose grid (B x C / BN x ceil(T / BM) blocks) has ``MIN_BLOCKS`` blocks,
+    else the one with the most."""
+    order = (0,) if c == 16 else (1, 4) if c == 32 else (2, 3, 4) if c <= 128 else (3, 4)
+    grids = [b * (c // F32_TILES[i][1]) * -(-t // F32_TILES[i][0]) for i in order]
+    for i, n in zip(order, grids):
+        if n >= MIN_BLOCKS:
+            return F32_TILES[i]
+    return F32_TILES[order[grids.index(max(grids))]]
+
+
+def c8_plan(b: int, t: int, ksizes: Sequence[int], dsizes: Sequence[Sequence[int]],
+            tap_dtype: torch.dtype) -> dict:
+    """The C = 8 stage kernel's block, as ``csrc/resblock_c8.cuh:plan_stage``
+    computes it: ``halo`` the largest ResBlock's reach (sum over its units
+    of get_padding(k, d) + get_padding(k, 1), the Pallas ``stage_meta``'s at
+    pack 1 without its rounding to 8 rows), ``rows_per_block`` (M) the
+    largest of ``C8_BLOCK_FRAMES`` whose grid (B x ceil(T / M)) has
+    ``MIN_BLOCKS`` blocks among those that fit, else the smallest that fits;
+    ``rows`` = M + 2 halo (at most ``C8_MAX_ROWS``), ``warps`` to own them in
+    16-row tiles, ``smem`` the bytes (``rows + 2 C8_GUARD`` rows of x and two
+    staging tiles, every conv's taps, the biases; at most ``SMEM_LIMIT``),
+    ``blocks``. Raises ValueError where no M fits."""
+    if any(len(ds) < 1 for ds in dsizes) or not ksizes:
+        raise ValueError("resblock_stage: a C = 8 stage needs a unit in every ResBlock")
+    layout = list(_conv_layout(ksizes, dsizes))
+    if len(layout) // 2 > C8_MAX_UNITS:
+        raise ValueError(f"resblock_stage: a C = 8 stage takes at most {C8_MAX_UNITS} units, "
+                         f"got {len(layout) // 2}")
+    halo = max(sum(get_padding(k, d) + get_padding(k, 1) for d in ds)
+               for k, ds in zip(ksizes, dsizes))
+    # bytes: a tap element; a row (x, and the leaky'd h and conv1's output
+    # in float32 or the two bf16 staging tiles)
+    tap_bytes, row_bytes = (2, 32 + 2 * 16) if tap_dtype == torch.bfloat16 else (4, 3 * 32)
+    fixed = sum(k for k, _ in layout) * 64 * tap_bytes + len(layout) * 8 * 4
+
+    def smem(m):
+        return (m + 2 * halo + 2 * C8_GUARD) * row_bytes + fixed
+
+    fits = [m for m in C8_BLOCK_FRAMES if m + 2 * halo <= C8_MAX_ROWS and smem(m) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"resblock_stage: no C = 8 block fits this stage: a block of M frames takes M + 2 x "
+            f"{halo} (its halo) rows, at most {C8_MAX_ROWS}, and {row_bytes} bytes a row plus "
+            f"{fixed} of taps and biases, at most {SMEM_LIMIT} bytes of shared memory, for M in "
+            f"{C8_BLOCK_FRAMES}")
+    m = next((m for m in fits if b * -(-t // m) >= MIN_BLOCKS), fits[-1])
+    rows = m + 2 * halo
+    return {"rows_per_block": m, "halo": halo, "rows": rows,
+            "warps": -(-rows // (16 * C8_TILES)),
+            "smem": smem(m), "blocks": b * -(-t // m)}
+
+
+_c8_plan_cached = functools.lru_cache(maxsize=256)(c8_plan)  # the wrapper's, by shape
+
+
+@functools.lru_cache(maxsize=256)
+def _stage_args(c: int, tap_dtype: torch.dtype, ksizes: Tuple[int, ...],
+                dsizes: Tuple[Tuple[int, ...], ...]) -> tuple:
+    """A stage's checks that do not depend on its tensors' data, once per
+    shape: (weight elements, convs, the kernel's int arrays); raises
+    ValueError on a stage the kernels do not take."""
+    if not channels_supported(c):
+        raise ValueError(f"resblock_stage: C must be 8, 16, 32 or a multiple of 64, got {c}")
+    if tap_dtype == torch.bfloat16 and c not in BF16_CHANNELS:
+        raise ValueError(f"resblock_stage: bf16 taps take C in {BF16_CHANNELS}, got {c}")
+    if len(ksizes) != len(dsizes) or any(k not in KERNEL_SIZES for k in ksizes):
+        raise ValueError(
+            f"resblock_stage: kernel sizes in {KERNEL_SIZES}, one per resblock: {ksizes}")
+    layout = list(_conv_layout(ksizes, dsizes))
+    if any(get_padding(k, d) > MAX_PAD for k, d in layout):
+        raise ValueError(f"resblock_stage: a conv's halo exceeds {MAX_PAD} frames: {dsizes}")
+    arrays = (_int_array(list(ksizes)), _int_array([len(ds) for ds in dsizes]),
+              _int_array([d for ds in dsizes for d in ds]))
+    return sum(k * c * c for k, _ in layout), len(layout), arrays
+
+
 def stage_launches(c: int, tap_dtype: torch.dtype, ksizes: Sequence[int],
                    dsizes: Sequence[Sequence[int]]) -> int:
-    """Kernel launches of one stage: one a conv with float32 taps or at C =
-    8; one a unit (its two convs fused) with bf16 taps at C >= 16."""
+    """Kernel launches of one stage: one at C = 8 (the whole stage, either
+    tap dtype); one a unit (its two convs fused) with bf16 taps at C >= 16;
+    one a conv with float32 taps at C >= 16."""
+    if c == 8:
+        return 1
     n_convs = 2 * sum(len(ds) for ds in dsizes)
-    return n_convs // 2 if tap_dtype == torch.bfloat16 and c != 8 else n_convs
+    return n_convs // 2 if tap_dtype == torch.bfloat16 else n_convs
 
 
 def _conv_layout(ksizes: Sequence[int], dsizes: Sequence[Sequence[int]]
@@ -159,8 +256,9 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
     kernel of the weights' dtype (:func:`stage_launches`): float32 taps
     ``csrc/resblock.cu``, one launch a conv (counted in
     ``resblock_stage.launches``), bf16 taps ``csrc/resblock_bf16.cu``, one
-    launch a unit at C >= 16 and a conv at C = 8
-    (``resblock_stage.bf16_launches``); at C = 8 also in
+    launch a unit (``resblock_stage.bf16_launches``); at C = 8 either runs
+    the whole stage in one launch (its block by :func:`c8_plan`, which
+    raises before any launch where none fits), counted also in
     ``resblock_stage.c8_launches`` / ``.c8_bf16_launches``. ``x`` and
     ``biases`` are float32 on both; any other dtype raises."""
     dtype = device.compute_dtype()
@@ -180,44 +278,35 @@ def resblock_stage(x: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor,
         if a.device != x.device:
             raise ValueError(f"resblock_stage: every operand must be on {x.device}, "
                              f"got {a.device}")
-    if not channels_supported(c):
-        raise ValueError(f"resblock_stage: C must be 8, 16, 32 or a multiple of 64, got {c}")
-    if weights.dtype == torch.bfloat16 and c not in BF16_CHANNELS:
-        raise ValueError(f"resblock_stage: bf16 taps take C in {BF16_CHANNELS}, got {c}")
-    if len(ksizes) != len(dsizes) or any(k not in KERNEL_SIZES for k in ksizes):
-        raise ValueError(
-            f"resblock_stage: kernel sizes in {KERNEL_SIZES}, one per resblock: {ksizes}")
-    layout = list(_conv_layout(ksizes, dsizes))
-    if any(get_padding(k, d) > MAX_PAD for k, d in layout):
-        raise ValueError(f"resblock_stage: a conv's halo exceeds {MAX_PAD} frames: {dsizes}")
-    n_w = sum(k * c * c for k, _ in layout)
-    if weights.numel() != n_w or tuple(biases.shape) != (len(layout), c):
+    ksizes, dsizes = tuple(ksizes), tuple(tuple(ds) for ds in dsizes)
+    n_w, n_convs, arrays = _stage_args(c, weights.dtype, ksizes, dsizes)
+    if weights.numel() != n_w or tuple(biases.shape) != (n_convs, c):
         raise ValueError(
             f"resblock_stage: weights {tuple(weights.shape)} / biases "
-            f"{tuple(biases.shape)} do not match {len(layout)} convs at C={c}"
+            f"{tuple(biases.shape)} do not match {n_convs} convs at C={c}"
         )
+    if c == 8:
+        _c8_plan_cached(b, t, ksizes, dsizes, weights.dtype)
     x = x.contiguous()
     weights, biases = weights.contiguous(), biases.contiguous()
     if weights.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError("resblock_stage: x and the weights must be 16-byte aligned")
+    if biases.data_ptr() % 16:  # the kernels read them as float4s
+        biases = biases.clone()
     out = torch.empty_like(x)
-    h = torch.empty_like(x)
-    tmp = torch.empty_like(x)
+    h, tmp = (out, out) if c == 8 else (torch.empty_like(x), torch.empty_like(x))
     entry = _entry(weights.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = entry(
             x.data_ptr(), out.data_ptr(), h.data_ptr(), tmp.data_ptr(),
-            weights.data_ptr(), biases.data_ptr(),
-            _int_array(list(ksizes)), _int_array([len(ds) for ds in dsizes]),
-            _int_array([d for ds in dsizes for d in ds]),
-            len(ksizes), b, t, c, stream,
+            weights.data_ptr(), biases.data_ptr(), *arrays, len(ksizes), b, t, c, stream,
         )
     cuda_build.check(err, _ENTRIES[weights.dtype][1])
     bf16 = weights.dtype == torch.bfloat16
     n = stage_launches(c, weights.dtype, ksizes, dsizes)
     (resblock_stage.bf16_launches if bf16 else resblock_stage.launches).add(n)
-    if c == 8:  # the C = 8 tile (float32) and the two-taps-a-k-step kernel (bf16), apart
+    if c == 8:  # the one-launch C = 8 stage kernels, apart
         (resblock_stage.c8_bf16_launches if bf16 else resblock_stage.c8_launches).add(n)
     return out
 

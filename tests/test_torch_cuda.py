@@ -149,7 +149,8 @@ def _stage(rng, c, ksizes, dsizes, dev):
 ])
 def test_resblock_stage_kernel_matches_plain(cuda, c, t):
     """Every C's tile, B = 2, ragged T; 12 of the 18 convs take the d = 1
-    route (each tap's rows read once for all taps)."""
+    route (each tap's rows read once for all taps); C = 8 the whole stage in
+    one launch."""
     rng = np.random.default_rng(1)
     ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
     w, bias = _stage(rng, c, ksizes, dsizes, cuda)
@@ -157,7 +158,7 @@ def test_resblock_stage_kernel_matches_plain(cuda, c, t):
     before = resblock_stage.launches.count
     got = resblock_stage(x, w, bias, ksizes, dsizes)
     torch.cuda.synchronize()
-    assert resblock_stage.launches.count - before == 18
+    assert resblock_stage.launches.count - before == (1 if c == 8 else 18)
     want = resblock_stage_plain(x, w, bias, ksizes, dsizes)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
@@ -227,6 +228,104 @@ def test_modules_route_through_the_kernels(cuda):
         want = ref(mel, f0)
     assert resblock_stage.launches.count - before == 3 * 18
     torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
+
+
+# ---- C = 8: the whole stage in one launch (K2 and K2-bf16) -------------------
+
+# ragged stages the one-launch kernels take: V2's, other dilations (the
+# largest padding MAX_PAD), one ResBlock alone
+C8_CASES = [((3, 7, 11), ((1, 3, 5),) * 3), ((3, 11), ((1, 32), (6, 2))), ((7,), ((1, 2, 4, 3),))]
+
+
+@pytest.mark.parametrize("tap_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ksizes,dsizes", C8_CASES, ids=["v2", "dilations", "one_resblock"])
+def test_resblock_c8_stage_matches_twin(cuda, tap_dtype, ksizes, dsizes):
+    """K2 / K2-bf16 at C = 8 vs the twin, B = 2: T shorter than the halo (23,
+    61), one frame past a whole number of blocks and between two (at the
+    smallest block, 64 frames, and at 512), and V2's T = 131,072; one launch
+    a stage on its counters (float32 at the kernel tolerance, bf16 at
+    RES_BF16_TOL of the peak)."""
+    rng = np.random.default_rng(50)
+    w, bias = _stage(rng, 8, ksizes, dsizes, cuda)
+    w = w.to(tap_dtype)
+    bf16 = tap_dtype == torch.bfloat16
+    counters = (resblock_stage.launches, resblock_stage.bf16_launches,
+                resblock_stage.c8_launches, resblock_stage.c8_bf16_launches)
+    for t in (23, 61, 2 * 64 + 1, 64 + 32, 64 * 512 + 1, 64 * 512 + 256, 131072):
+        m = resblock_ops.c8_plan(2, t, ksizes, dsizes, tap_dtype)["rows_per_block"]
+        assert m == (512 if t > 64 * 512 else 64), (t, m)
+        x = torch.tensor(rng.normal(size=(2, t, 8)), dtype=torch.float32, device=cuda)
+        before = [c.count for c in counters]
+        got = resblock_stage(x, w, bias, ksizes, dsizes)
+        torch.cuda.synchronize()
+        assert [c.count - b for c, b in zip(counters, before)] == (
+            [0, 1, 0, 1] if bf16 else [1, 0, 1, 0]), t
+        want = resblock_stage_plain(x, w, bias, ksizes, dsizes)
+        if bf16:
+            assert_peak_close(got, want, f"K2-bf16 C=8 T={t}", tol=RES_BF16_TOL)
+        else:
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_resblock_c8_plan_matches_source(cuda):
+    """The libraries' C = 8 block plans (resblock_c8_plan,
+    resblock_c8_plan_bf16) equal ops/resblock.py:c8_plan at every case the
+    CPU tests name, and both refuse a stage that no block fits."""
+    fns = {}
+    for dt, (lib, fn) in {torch.float32: ("resblock", "resblock_c8_plan"),
+                          torch.bfloat16: ("resblock_bf16", "resblock_c8_plan_bf16")}.items():
+        f = getattr(cuda_build.load(lib), fn)
+        f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        f.restype = ctypes.c_int
+        fns[dt] = f
+
+    def arr(v):
+        return (ctypes.c_int * max(1, len(v)))(*v)
+
+    stages = C8_CASES + [((11,), ((6,) * 12,)), ((11,), ((6,) * 18,)), ((7,) * 120, ((1,),) * 120)]
+    for ksizes, dsizes in stages:
+        for b, t in ((1, 131072), (1, 8192), (2, 23), (4, 40000)):
+            for dt, f in fns.items():
+                out = (ctypes.c_int * 6)()
+                err = f(arr(list(ksizes)), arr([len(d) for d in dsizes]),
+                        arr([d for ds in dsizes for d in ds]), len(ksizes), b, t, out)
+                try:
+                    plan = resblock_ops.c8_plan(b, t, ksizes, dsizes, dt)
+                except ValueError:
+                    assert err != 0, (ksizes, dsizes, dt)
+                    continue
+                assert err == 0 and list(out) == [plan[k] for k in (
+                    "rows_per_block", "halo", "rows", "warps", "smem", "blocks")], (ksizes, dt)
+
+
+def test_resblock_tile_matches_source(cuda):
+    """The float32 per-conv kernel's tile (resblock_tile) equals
+    ops/resblock.py:f32_tile at every width and at T around each tile's
+    MIN_BLOCKS edge."""
+    lib = cuda_build.load("resblock")
+    lib.resblock_tile.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.resblock_tile.restype = ctypes.c_int
+    for c in (16, 32, 64, 128, 256, 512):
+        for b in (1, 2):
+            for t in (1, 100, 256, 4096, 8192, 16384, 32768, 65536, 131072):
+                out = (ctypes.c_int * 3)()
+                assert lib.resblock_tile(c, b, t, out) == 0
+                assert tuple(out) == resblock_ops.f32_tile(c, b, t), (c, b, t)
+    assert lib.resblock_tile(8, 1, 4096, (ctypes.c_int * 3)()) == -1
+
+
+def test_resblock_c8_refuses_before_launch(cuda):
+    """A C = 8 stage that no block fits raises before any launch, naming the
+    limit."""
+    rng = np.random.default_rng(51)
+    ksizes, dsizes = (11,), ((6,) * 18,)
+    w, bias = _stage(rng, 8, ksizes, dsizes, cuda)
+    x = torch.zeros((1, 4096, 8), device=cuda)
+    before = resblock_stage.launches.count
+    with pytest.raises(ValueError, match="at most 1280"):
+        resblock_stage(x, w, bias, ksizes, dsizes)
+    assert resblock_stage.launches.count == before
 
 
 def _layer_operands(rng, b, n_win, hop, dev, stack=None):
@@ -1234,9 +1333,9 @@ RES_BF16_TOL = 7e-3
 @pytest.mark.parametrize("c,t", [(256, 300), (128, 513), (64, 700), (32, 1025), (16, 2049),
                                  (8, 4097), (256, 7), (16, 9), (8, 23)])
 def test_resblock_stage_bf16_kernel_matches_twin(cuda, c, t):
-    """K2/K3-bf16 (bf16 taps: a launch a unit, 9 a stage, at C >= 16; a
-    launch a conv, 18, at C = 8; on the bf16 counter) vs the bf16 twin on
-    every C's tile, ragged T and halos past both ends."""
+    """K2/K3-bf16 (bf16 taps: a launch a unit, 9 a stage, at C >= 16; the
+    whole stage in one launch at C = 8; on the bf16 counter) vs the bf16
+    twin on every C's tile, ragged T and halos past both ends."""
     rng = np.random.default_rng(40)
     ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
     w, bias = _stage(rng, c, ksizes, dsizes, cuda)
@@ -1245,7 +1344,7 @@ def test_resblock_stage_bf16_kernel_matches_twin(cuda, c, t):
     f32, b16 = resblock_stage.launches.count, resblock_stage.bf16_launches.count
     got = resblock_stage(x, w, bias, ksizes, dsizes)
     torch.cuda.synchronize()
-    assert resblock_stage.bf16_launches.count - b16 == (18 if c == 8 else 9)
+    assert resblock_stage.bf16_launches.count - b16 == (1 if c == 8 else 9)
     assert resblock_stage.launches.count == f32
     assert_peak_close(got, resblock_stage_plain(x, w, bias, ksizes, dsizes), "stage",
                       tol=RES_BF16_TOL)
@@ -1390,11 +1489,11 @@ def test_fast_mode_vocoders_run_the_bf16_kernels(cuda):
 
 def test_hifigan_v2_render_matches_cpu(cuda):
     """HiFi-GAN V2 (a 128-channel start: stages 64, 32, 16 and 8) on the card
-    vs a CPU copy (the plain modules): 18 K2 launches a stage, the C = 8
-    stage included; with bf16 taps (the fast mode's) every stage takes
-    K2-bf16 (45 launches: a launch a fused unit, 9 a stage, at C = 64, 32
-    and 16, and 18 at C = 8), within the JAX bound for bf16 tap stacks of
-    the float32 wav."""
+    vs a CPU copy (the plain modules): 18 K2 launches a stage, one for the
+    whole C = 8 stage (55); with bf16 taps (the fast mode's) every stage
+    takes K2-bf16 (28 launches: a launch a fused unit, 9 a stage, at C = 64,
+    32 and 16, and one at C = 8), within the JAX bound for bf16 tap stacks
+    of the float32 wav."""
     import copy
 
     from prodiff_tpu_torch.models.hifigan import HifiGanGenerator
@@ -1416,7 +1515,7 @@ def test_hifigan_v2_render_matches_cpu(cuda):
         got = gen.to(cuda)(mel.to(cuda))
         want = ref(mel)
     torch.cuda.synchronize()
-    assert [c.count - b for c, b in zip(counters, before)] == [72, 0]
+    assert [c.count - b for c, b in zip(counters, before)] == [55, 0]
     torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=RTOL)
     fast = HifiGanGenerator.from_config(h, tap_dtype=torch.bfloat16).eval().to(cuda)
     fast.load_state_dict(gen.state_dict())
@@ -1425,6 +1524,6 @@ def test_hifigan_v2_render_matches_cpu(cuda):
     with torch.no_grad():
         got16 = fast(mel.to(cuda))
     torch.cuda.synchronize()
-    assert [c.count - b for c, b in zip(counters, before)] == [0, 45]
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 28]
     a, b = got16.cpu().numpy().ravel(), got.cpu().numpy().ravel()
     assert np.abs(a - b).max() < 0.05 and np.corrcoef(a, b)[0, 1] > 0.999

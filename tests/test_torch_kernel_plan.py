@@ -114,12 +114,114 @@ def test_resblock_unit_fits_shared_memory(c, k, d):
 
 @pytest.mark.parametrize("c,tap_dtype,launches", [
     (256, torch.bfloat16, 9), (16, torch.bfloat16, 9),  # a launch a unit
-    (8, torch.bfloat16, 18),                             # C = 8: a launch a conv
-    (256, torch.float32, 18), (8, torch.float32, 18),    # float32 taps: a launch a conv
+    (8, torch.bfloat16, 1),                              # C = 8: the stage in one launch
+    (256, torch.float32, 18), (8, torch.float32, 1),     # float32 taps: a launch a conv; C = 8 one
 ])
 def test_resblock_stage_launches(c, tap_dtype, launches):
     ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
     assert resblock.stage_launches(c, tap_dtype, ksizes, dsizes) == launches
+
+
+# the ResBlock1 stages the C = 8 kernels are planned for: HiFi-GAN V2's (the
+# repo's vocoders all run (3, 7, 11) x (1, 3, 5)), a stage with other
+# dilations, the NSF test generator's two ResBlocks, and one ResBlock alone
+C8_STAGES = [
+    ((3, 7, 11), ((1, 3, 5),) * 3),
+    ((3, 7, 11), ((1, 3, 5), (1, 3, 5), (1, 2, 6))),
+    ((3, 7), ((1, 3, 5), (1, 3, 5))),
+    ((3,), ((1, 3, 5),)), ((7,), ((1, 3, 5),)), ((11,), ((1, 3, 5),)),
+    ((11, 3), ((6, 2, 1), (32, 1))),
+]
+
+
+@pytest.mark.parametrize("ksizes,dsizes", C8_STAGES)
+@pytest.mark.parametrize("tap_dtype", [torch.float32, torch.bfloat16])
+def test_c8_plan_halo_is_the_pallas_reach(ksizes, dsizes, tap_dtype):
+    """The C = 8 block's halo is the Pallas kernel's largest ResBlock reach
+    (``stage_meta`` at pack 1, before its rounding to 8 rows: 60 frames for
+    V2), and its shared memory (rows + 2 guards of x and two staging tiles,
+    the taps, the biases) fits the H100's 232,448 bytes; a block's warps own
+    its rows in 16-row tiles."""
+    from prodiff_tpu.ops.pallas.resblock import stage_meta
+
+    _, reaches, _ = stage_meta(ksizes, dsizes, 1)
+    for b, t in ((1, 131072), (1, 8192), (2, 23)):
+        plan = resblock.c8_plan(b, t, ksizes, dsizes, tap_dtype)
+        assert plan["halo"] == max(reaches)
+        assert plan["rows"] == plan["rows_per_block"] + 2 * plan["halo"] <= resblock.C8_MAX_ROWS
+        assert plan["smem"] <= resblock.SMEM_LIMIT
+        assert 16 * resblock.C8_TILES * (plan["warps"] - 1) < plan["rows"]
+        assert plan["rows"] <= 16 * resblock.C8_TILES * plan["warps"]
+        assert plan["blocks"] == b * -(-t // plan["rows_per_block"])
+    if ksizes == (3, 7, 11) and dsizes == ((1, 3, 5),) * 3:
+        assert max(reaches) == 60
+
+
+@pytest.mark.parametrize("b,t,frames,blocks", [
+    (1, 131072, 512, 256),  # V2's last stage at T_mel = 512: two blocks an SM
+    (1, 8192, 64, 128),     # at T_mel = 32
+    (2, 23, 64, 2),         # shorter than the halo: the smallest block
+    (4, 40000, 512, 316),
+])
+def test_c8_plan_fills_the_card(b, t, frames, blocks):
+    """M is the largest block whose grid has MIN_BLOCKS blocks (about one an
+    SM), else the smallest; the same M for both tap dtypes at V2's stage."""
+    ksizes, dsizes = (3, 7, 11), ((1, 3, 5),) * 3
+    for dt in (torch.float32, torch.bfloat16):
+        plan = resblock.c8_plan(b, t, ksizes, dsizes, dt)
+        assert (plan["rows_per_block"], plan["blocks"]) == (frames, blocks)
+    assert resblock.c8_plan(1, 131072, ksizes, dsizes, torch.float32)["smem"] == 96576
+    assert resblock.c8_plan(1, 131072, ksizes, dsizes, torch.bfloat16)["smem"] == 59200
+
+
+def test_c8_plan_shrinks_the_block_for_a_wide_halo():
+    """A reach past the largest block's rows takes a smaller M; a stage that
+    no M fits raises before any launch, naming the limit (M + 2 halo rows at
+    most C8_MAX_ROWS = 1280, and 232,448 bytes of shared memory)."""
+    wide = ((11,), ((6,) * 12,))  # reach 12 x (30 + 5) = 420 a side
+    plan = resblock.c8_plan(1, 131072, *wide, torch.float32)
+    assert plan["halo"] == 420 and plan["rows_per_block"] == 256
+    assert plan["rows"] == 256 + 840 <= resblock.C8_MAX_ROWS
+    too_wide = ((11,), ((6,) * 18,))  # 630 a side: 64 + 1260 rows
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=r"halo\) rows, at most 1280.*232448 bytes"):
+            resblock.c8_plan(1, 131072, *too_wide, dt)
+        with pytest.raises(ValueError, match="a unit in every ResBlock"):
+            resblock.c8_plan(1, 64, (3,), ((),), dt)
+    # the taps count too: 120 ResBlocks of one k = 7 unit take 215,040 bytes
+    # of float32 taps, so no block fits beside them; bf16 taps take half
+    many = ((7,) * 120, ((1,),) * 120)
+    with pytest.raises(ValueError, match="no C = 8 block fits"):
+        resblock.c8_plan(1, 4096, *many, torch.float32)
+    assert resblock.c8_plan(1, 4096, *many, torch.bfloat16)["smem"] <= resblock.SMEM_LIMIT
+
+
+# every ResBlock1 stage of the repo's vocoders (C, T) at T_mel = 512:
+# NSF-HiFiGAN (base and 44.1 kHz), HiFi-GAN V1 and V2 (C = 8 runs the stage kernel)
+F32_STAGES_512 = [(256, 4096), (128, 32768), (64, 65536), (32, 131072), (16, 262144),
+                  (64, 4096), (32, 32768), (16, 65536)]
+
+
+@pytest.mark.parametrize("c,t", F32_STAGES_512 + [(c, t // 16) for c, t in F32_STAGES_512])
+def test_f32_tile_fills_the_card(c, t):
+    """The float32 per-conv kernel's tile: the width's first tile whose grid
+    has about one block an SM (MIN_BLOCKS), else the one with the most; at
+    T_mel = 512 every stage keeps its earlier tile but V2's C = 64 stage at
+    T = 4,096, whose (256, 64, 8) grid had 16 blocks."""
+    wide = [(256, 64, 8), (128, 64, 4), (64, 32, 4)]
+    choices = {16: [(512, 16, 4)], 32: [(256, 32, 4), (64, 32, 4)], 64: wide, 128: wide,
+               256: wide[1:]}[c]  # the width's tiles, in order of preference
+    tile = resblock.f32_tile(c, 1, t)
+    assert tile in resblock.F32_TILES and all(c % n == 0 for _, n, _ in choices)
+    grids = [(c // n) * -(-t // m) for m, n, _ in choices]
+    grid = grids[choices.index(tile)]
+    enough = [g >= resblock.MIN_BLOCKS for g in grids]
+    assert (choices.index(tile) == enough.index(True) if any(enough)
+            else grid == max(grids) and choices.index(tile) == grids.index(grid))
+    if (c, t) in F32_STAGES_512 and (c, t) != (64, 4096):
+        assert tile == choices[0]
+    if (c, t) == (64, 4096):
+        assert tile + (grid,) == (64, 32, 4, 128)
 
 
 @pytest.mark.parametrize("hop,rows,streams,windows", [

@@ -3,6 +3,7 @@
 
     python3 tools/probe_bf16_kernels.py --parent DIR [--out FILE]
     python3 tools/probe_bf16_kernels.py --parent DIR --k5-only
+    python3 tools/probe_bf16_kernels.py --parent DIR --c8-only [--c8-variants no_products=C8_SKIP=1]
 
 DIR is a checkout of an earlier version of the repository (``git archive``
 unpacked; ``.`` for this one). The probe builds that version's
@@ -19,6 +20,17 @@ H=128, vari's):
   products as bf16 ``torch.matmul`` calls on prebuilt operands, 20 layers
   with no epilogues (a yardstick of the products alone, not one call that
   computes the same function);
+
+- K2 and K2-bf16 at C = 8 (``--c8-only``: only these; B=1, T=131,072,
+  V2's last stage), the earlier version's and this one's: each checked
+  against its twin, its time split into the launch chain (the same calls at
+  T = 64), the device-memory traffic (a build without the products: for the
+  earlier per-conv kernels a copy of their source with the FMA loop / the
+  mma taken out, for this checkout a ``--c8-variants`` build with
+  ``C8_SKIP=1``) and the products (the rest), its device time a call
+  (torch.profiler: the mean kernel's times the launches a call makes), and
+  both in turns; other ``C8_SKIP`` bits leave out the epilogues (2), the
+  global loads (4) and the ResBlocks' copies of x (8);
 
 - the earlier version's split: K1's device time by kernel (torch.profiler)
   and its layer chain by phase, from ``%globaltimer`` stamps that a copy of
@@ -202,10 +214,12 @@ class ParentK1:
 
 
 class ParentStage:
-    """The parent's K2/K3-bf16 wrapper (one launch a conv)."""
+    """A resblock stage entry of another build (the parent's, or a variant of
+    this checkout's), called as ops/resblock.py calls it: ``fn`` is
+    ``resblock_stage_bf16`` (bf16 taps) or ``resblock_stage`` (float32)."""
 
-    def __init__(self, lib, torch):
-        self.fn, self.torch = lib.resblock_stage_bf16, torch
+    def __init__(self, lib, torch, fn="resblock_stage_bf16"):
+        self.fn, self.torch = getattr(lib, fn), torch
         self.fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         self.fn.restype = ctypes.c_int
@@ -223,7 +237,7 @@ class ParentStage:
                       arr([d for ds in dsizes for d in ds]), len(ksizes), b, t, c,
                       torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"parent K2/K3-bf16: CUDA error {err}")
+            raise RuntimeError(f"resblock stage ({self.fn.__name__}): CUDA error {err}")
         return out
 
 
@@ -531,6 +545,96 @@ def stage_split(parent, torch, dev):
         emit("stage_split", c=c, t=t, err_of_peak=err, total_ms=round(float(per.sum()), 5), convs=rows)
 
 
+# A copy of the earlier per-conv C = 8 kernels without their products: the
+# float32 conv's FMA loop (run_chunks' mac) and the bf16 conv's mma (its
+# ldmatrix kept), as (source, the text replaced, its replacement).
+C8_NO_PRODUCTS = (
+    ("resblock", "  tile::run_chunks(C / BK, fetch, put, mac);",
+     "  tile::run_chunks(C / BK, fetch, put, [](int, int) {});"),
+    ("resblock_bf16", "      mma::mma16816(acc[mi], a, bfr[p][0], bfr[p][1]);", "      (void)a;"),
+)
+C8_T, C8_TINY_T = 131072, 64  # V2's last stage at T_mel = 512; one block a launch
+C8_ENTRIES = {"float32": ("resblock", "resblock_stage"),
+              "bf16": ("resblock_bf16", "resblock_stage_bf16")}
+
+
+def c8_sources(parent):
+    """The earlier csrc with its C = 8 products taken out (build/probe_c8)."""
+    src = os.path.join(parent, "prodiff_tpu_torch", "csrc")
+    dst = os.path.join(ROOT, "build", "probe_c8")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    for name, old, new in C8_NO_PRODUCTS:
+        path = os.path.join(dst, f"{name}.cu")
+        with open(path) as f:
+            text = f.read()
+        if old not in text:
+            return None  # not the per-conv design this copy edits
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    return dst
+
+
+def c8_probe(parent, torch, dev, this_variants=None, emit_fn=None):
+    """K2 and K2-bf16 at C = 8 (B=1, T=131,072, V2's (3, 7, 11) x (1, 3, 5)):
+    for the earlier build and this checkout's, each checked against the
+    twin; the time split into the launch chain (the same calls at T = 64,
+    one block a launch), the device-memory traffic (a build without the
+    products) and the products (the rest); the device time by kernel
+    (torch.profiler); then both in turns (earlier, this, this, earlier).
+    ``this_variants``: {dtype: {name: stage}}, builds of this checkout's
+    sources without a part (``C8_SKIP``)."""
+    from prodiff_tpu_torch.ops.resblock import resblock_stage, resblock_stage_plain
+
+    emit_fn = emit_fn or emit
+    plain = parent_sources(parent, False)
+    bare = c8_sources(parent)
+    rng = np.random.default_rng(29)
+    w32 = torch.cat([rand(rng, dev, torch, k * 64, scale=(k * 8) ** -0.5)
+                     for k in RES_K for _ in range(6)])
+    biases = rand(rng, dev, torch, 18, 8, scale=0.1)
+    x, tiny = rand(rng, dev, torch, 1, C8_T, 8), rand(rng, dev, torch, 1, C8_TINY_T, 8)
+    out = {}
+    for dt, (name, fn) in C8_ENTRIES.items():
+        w = w32 if dt == "float32" else w32.to(torch.bfloat16)
+        earlier = ParentStage(build_variant(name, plain, "PARENT"), torch, fn)
+        stages = {"earlier": earlier,
+                  "this": lambda *a: resblock_stage(*a)}
+        if bare is not None:
+            stages["earlier_no_products"] = ParentStage(build_variant(name, bare, "C8_BARE"),
+                                                        torch, fn)
+        stages.update((this_variants or {}).get(dt, {}))
+        want = resblock_stage_plain(x, w, biases, RES_K, RES_D)
+        rec = {"dtype": dt, "ms": {}, "tiny_ms": {}, "device_ms": {}, "launches": {},
+               "err_of_peak": {}}
+        for key, st in stages.items():
+            rec["err_of_peak"][key] = peak_err(st(x, w, biases, RES_K, RES_D), want)
+            rec["ms"][key] = timed_ms(lambda: st(x, w, biases, RES_K, RES_D), 20, torch)
+            rec["tiny_ms"][key] = timed_ms(lambda: st(tiny, w, biases, RES_K, RES_D), 20, torch)
+            # the profiler may miss the first few kernels of its window: a
+            # call's device time is the mean kernel's times the launches a
+            # call makes (18 for the per-conv design, 1 for the stage kernel)
+            kern = device_kernels(lambda: st(x, w, biases, RES_K, RES_D), 5, torch)
+            per_call = 18 if key.startswith("earlier") else 1
+            rec["launches"][key] = len(kern) / 5
+            rec["device_ms"][key] = sum(us for _, us in kern) / len(kern) * per_call / 1e3
+        for who in ("earlier", "this"):
+            ms, tiny_ms = rec["ms"][who], rec["tiny_ms"][who]
+            if f"{who}_no_products" in rec["ms"]:
+                bare_ms = rec["ms"][f"{who}_no_products"]
+                rec[f"{who}_split_ms"] = {"launch_chain": tiny_ms,
+                                          "memory_round_trips": bare_ms - tiny_ms,
+                                          "products": ms - bare_ms,
+                                          "launch_gaps": ms - rec["device_ms"][who]}
+        turns = {"earlier": [], "this": []}
+        for who in ("earlier", "this", "this", "earlier"):
+            turns[who].append(timed_ms(lambda: stages[who](x, w, biases, RES_K, RES_D), 20, torch))
+        rec["in_turns_ms"] = turns
+        emit_fn("c8_probe", **rec)
+        out[dt] = rec
+    return out
+
+
 def variant_k1(lib, torch):
     """This checkout's K1-bf16 wrapper calling a variant build of its source."""
     from prodiff_tpu_torch.ops import wavenet_stack as wn
@@ -672,6 +776,11 @@ def main():
     parser.add_argument("--skip-split", action="store_true", help="only the in-turns times")
     parser.add_argument("--k5-only", action="store_true",
                         help="only K5a/K5b-bf16: both versions in turns, split by kernel")
+    parser.add_argument("--c8-only", action="store_true",
+                        help="only K2 / K2-bf16 at C = 8: both versions split and in turns")
+    parser.add_argument("--c8-variants", default="",
+                        help="name=DEFINE[;DEFINE],... : builds of this checkout's resblock.cu "
+                             "and resblock_bf16.cu with defines (C8_SKIP), split beside it")
     parser.add_argument("--k5-variants", default="",
                         help="name=DEFINE[;DEFINE],... : builds of this checkout's "
                              "wavenet_train_bf16.cu with defines, timed in turns beside it")
@@ -699,6 +808,25 @@ def main():
     emit("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.time()
     plain = parent_sources(os.path.abspath(args.parent), False)
+    if args.c8_only:
+        defines = {name: tuple(d.split(";")) for name, d in
+                   (item.split("=", 1) for item in filter(None, args.c8_variants.split(",")))}
+        try:
+            cuda_build.load_all(["resblock", "resblock_bf16"]
+                                + [(n, d) for d in defines.values() for n, _ in C8_ENTRIES.values()])
+        except RuntimeError as e:
+            emit("build_this_failed", error=str(e)[-6000:])
+        else:
+            emit("build_this", ptxas={n: [ln.strip() for ln in cuda_build.build_log(n).splitlines()
+                                          if "registers" in ln or "spill" in ln]
+                                      for n in ("resblock", "resblock_bf16")})
+            variants = {dt: {f"this_{v}": ParentStage(cuda_build.load(n, d), torch, fn)
+                             for v, d in defines.items()} for dt, (n, fn) in C8_ENTRIES.items()}
+            c8_probe(os.path.abspath(args.parent), torch, dev, variants)
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(records, f, indent=1)
+        return 0 if not any(r["probe"] == "build_this_failed" for r in records) else 1
     if args.k5_only:
         k5_lib = build_variant("wavenet_train_bf16", plain, "PARENT")
         emit("build_parent", seconds=round(time.time() - t0, 3))
