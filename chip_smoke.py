@@ -195,6 +195,36 @@ Phases, each printing its lines before the last:
      1 of them at C = 8), host clock, kernel time and idle share
      (torch.profiler), each parity render held against the CPU on a
      32-frame tone, fast against parity at the bound for bf16 tap stacks.
+ 16. (``phase_multi_gpu``) multi-GPU training on the one card, the training
+     cell's config (the flagship teacher, 20 x 256 WaveNet) with dropout off
+     and the denoiser's output projection seeded, on a seeded synthetic set
+     of 48 items (three global batches of B=16, T=1536): (a) data parallel,
+     two spawned ranks over gloo (NCCL refuses two ranks on one device),
+     both on cuda:0, 8 rows each loaded per process: 3 steps (K5a 41 + K5b
+     40 launches a rank a step, K1 3 for a validation batch), step 1's total
+     loss and gradient norm within 1e-5 relative of the one-process
+     trainer's on the same card and global batches and its reduced
+     gradients, and every parameter after 3 steps, within 1e-4 of each
+     tensor's peak, each tensor's 3-step update within 1e-3 of the
+     one-process update's norm, rank 0's checkpoint restored by the
+     one-process trainer;
+     (b) ``model_parallel: 2`` on the same two ranks (the denoiser 128
+     channels a rank, the encoder one head a rank, no kernel: torch.matmul
+     as the JAX TP route): one forward's x0 prediction within 1e-4 of its
+     peak, step 1's gathered gradients within 1e-3 of each tensor's peak of
+     the one-process step on the plain route (the module loop, no K5; a
+     different summation order end to end, as the card against the CPU),
+     steps 1 and 2's total loss and gradient norm within 1e-4 relative of
+     the plain route's, each tensor's 2-step update within 1e-3 of the plain
+     route's update's norm (a rank that left a tensor unchanged reads 1), the gathered
+     checkpoint the one-process layout key for key; every run of the phase
+     under deterministic algorithms; (c) NCCL, the
+     default backend under torchrun's environment, as a world of one: one
+     step within 1e-6 relative of the one-process step, and an NCCL
+     all-reduce of the gradient bucket. The per-rank step times (CUDA
+     events) are printed beside the card's name and power limit, as two
+     ranks sharing one card, not a scaling figure. The K1/K5 entries of the
+     JSON line gain the per-rank launches of this phase.
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -204,6 +234,7 @@ non-zero before printing anything.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -4510,6 +4541,449 @@ def phase_other_vocoders(dev, torch):
     return kern, launches
 
 
+# The multi-GPU phase: the training path's data and model axes on the one
+# card, two ranks over gloo (NCCL refuses two ranks on one device), then
+# NCCL, the default backend on the card, as a world of one
+MG_ITEMS, MG_STEPS, MG_TP_STEPS = 48, 3, 2  # three global batches of B=16, T=1536
+MG_JOIN_S = 300  # a rank that has not finished by then fails the phase
+MG_STEP_RTOL, MG_PARAM_TOL, MG_NCCL_RTOL = 1e-5, 1e-4, 1e-6
+# the tensor-parallel step against the one-process plain route (another
+# summation order): step 1's and 2's total loss and gradient norm, relative,
+# and each tensor's two-step update ||tp - one|| / ||one||, so a run that
+# left a tensor unchanged reads 1
+MG_TP_RTOL, MG_UPDATE_TOL = 1e-4, 1e-3
+
+
+def seed_output_projection(model, torch) -> None:
+    """The denoiser's zero-initialised output projection drawn from a seeded
+    normal (std 0.02), so the first step's gradients reach every layer."""
+    p = dict(model.named_parameters())["diffusion.denoise_fn.output_projection.weight"]
+    with torch.no_grad():
+        p.copy_(0.02 * torch.randn(p.shape, generator=torch.Generator().manual_seed(SEED)))
+
+
+def multi_gpu_hparams(data_dir: str, work_dir: str, config: dict, **kw) -> dict:
+    """``config`` (the training cell's), dropout off: a rank's dropout masks
+    are drawn from (seed, step, data rank), not the rows of one global draw."""
+    from prodiff_tpu_torch.utils.synthetic import small_hparams
+
+    return small_hparams(data_dir, **dict(config, dropout=0.0, work_dir=work_dir,
+                                          num_sanity_val_steps=0, **kw))
+
+
+def multi_gpu_rank(rank: int, world: int, port: int, parts: tuple, data_dir: str,
+                   out_dir: str, device: str, config: dict) -> None:
+    """One rank of each of ``parts`` in turn on ``device``; writes its
+    results under ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)  # as the one-process runs
+    # gloo, named: NCCL refuses two ranks on one device, and this card is one
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=MG_JOIN_S))
+    try:
+        for part in parts:
+            multi_gpu_part(rank, part, data_dir, out_dir, dev, config)
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_gpu_part(rank: int, part: str, data_dir: str, out_dir: str, dev, config: dict) -> None:
+    """Part ``dp`` (data parallel: MG_STEPS steps, a validation batch, a
+    checkpoint) or ``tp`` (``model_parallel: 2``: a forward on seeded draws,
+    MG_TP_STEPS steps, a checkpoint) of one rank, the denoiser's output
+    projection seeded."""
+    import torch
+
+    from prodiff_tpu_torch.parallel.megatron import gather_state_dict
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    hp = multi_gpu_hparams(data_dir, os.path.join(out_dir, f"work_{part}"), config,
+                           model_parallel=2 if part == "tp" else 1)
+    trainer = Trainer(hp, device=dev)
+    task = get_task_cls("svs")(hp)
+    trainer.build(task)
+    seed_output_projection(trainer.model, torch)
+    trainer.replicate()
+    batches = trainer._prefetcher(task.train_iterator(trainer.n_devices,
+                                                      local_block=trainer._local_block()))
+    res = {"rank": rank, "rows": [], "step_ms": [], "metrics": []}
+    out = {}
+    if part == "tp":
+        whole = trainer._prefetcher(task.train_iterator(trainer.n_devices))
+        _, first = next(iter(whole))
+        whole.close()
+        out["forward"] = multi_gpu_forward(trainer, first, torch).cpu()
+    reset_counts()
+    for _, (_, batch) in zip(range(MG_STEPS if part == "dp" else MG_TP_STEPS), batches):
+        res["rows"].append(list(batch["_local_rows"]))
+        ms, metrics = event_timed(lambda: trainer.train_step(batch), dev, torch)
+        if trainer.global_step == 0:  # step 1's gradients, slices gathered
+            grads = {n: p.grad for n, p in trainer.model.named_parameters()}
+            if trainer.tp_kinds:
+                grads = gather_state_dict(grads, trainer.tp_kinds, trainer.mesh.tp)
+            out["grads1"] = {n: g.detach().cpu() for n, g in grads.items()}
+        trainer.global_step += 1
+        res["step_ms"].append(ms)
+        res["metrics"].append({k: float(v) for k, v in metrics.items()})
+    batches.close()
+    res["train_launches"] = {k: c.count for k, c in counters().items() if c.count}
+    if part == "dp":
+        reset_counts()
+        res["val_losses"] = {k: float(v) for k, v in trainer.val_step(batch).items()}
+        res["val_launches"] = {k: c.count for k, c in counters().items() if c.count}
+    tree = trainer.params_tree()  # every rank of the model axis gathers
+    if rank == 0:
+        out["params"] = task.state_dict_of(tree)
+    res["checkpoint"] = trainer.save_checkpoint()
+    res["shapes"] = {n: list(p.shape) for n, p in trainer.model.named_parameters()}
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, f"{part}_tensors.pt"))
+    with open(os.path.join(out_dir, f"{part}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def event_timed(fn, dev, torch):
+    """(milliseconds by CUDA events, ``fn()``): one call on the card, timed
+    between two synchronisations (0.0 off the card)."""
+    if dev.type != "cuda":
+        return 0.0, fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def multi_gpu_forward(trainer, batch, torch):
+    """The teacher's training forward (x0 prediction) in eval mode on the
+    batch's seeded draws: t and noise from the generator seeded for step 0."""
+    from prodiff_tpu_torch.parallel.mesh import batch_rows
+
+    batch = dict(batch)
+    rows = batch.pop("_local_rows", None)
+    args, kwargs = trainer.task.model_inputs(batch)
+    trainer.model.eval()
+    with torch.no_grad(), batch_rows(rows):
+        pred, _ = trainer.model(*args, gt_spec=batch["mel"], generator=trainer._seeded(0), **kwargs)
+    return pred
+
+
+def spawn_ranks(parts: tuple, data_dir: str, out_dir: str, dev, config: dict) -> dict:
+    """Two spawned ranks that run ``parts`` in turn, joined within
+    MG_JOIN_S; a rank that fails or hangs fails the phase. Returns each
+    part's results, rank by rank."""
+    import torch.multiprocessing as mp
+
+    from prodiff_tpu_torch.parallel.mesh import free_port
+
+    t0 = time.time()
+    ctx = mp.start_processes(multi_gpu_rank, nprocs=2, join=False, start_method="spawn",
+                             args=(2, free_port(), parts, data_dir, out_dir, str(dev), config))
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > MG_JOIN_S:
+                raise AssertionError(f"multi_gpu: the ranks did not finish in {MG_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    log(f"multi_gpu {' + '.join(parts)}: two ranks (spawned, gloo, both on {dev}) ran in "
+        f"{time.time() - t0:.3f} s with start-up")
+    return {part: [json.load(open(os.path.join(out_dir, f"{part}_rank{r}.json")))
+                   for r in range(2)] for part in parts}
+
+
+def peak_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+
+def params_vs(label: str, got: dict, want: dict, tol: float) -> float:
+    """Every tensor of ``got`` within ``tol`` of ``want``'s peak; logs the
+    three worst and returns the worst."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: the parameter names differ")
+    errs = sorted(((peak_err(got[n].cpu(), want[n].cpu()), n, float(want[n].abs().max()))
+                   for n in want), reverse=True)
+    log(f"{label}: the worst tensors (error / its peak, peak): " + "; ".join(
+        f"{n} {e:.3e}, {p:.3e}" for e, n, p in errs[:3]))
+    if not errs[0][0] <= tol:
+        raise AssertionError(f"{label}: {errs[0][0]:.3e} x a tensor's peak, beyond {tol}")
+    return errs[0][0]
+
+
+def updates_vs(label: str, got: dict, want: dict, before: dict, tol: float) -> float:
+    """Each tensor's update from ``before`` in ``got`` against ``want``'s:
+    ||(got - before) - (want - before)|| within ``tol`` x ||want - before||
+    (a run that left a tensor unchanged reads 1); logs the three worst and
+    returns the worst."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: the parameter names differ")
+    errs = []
+    for n in want:
+        moved = want[n].cpu() - before[n].cpu()
+        off = float((got[n].cpu() - before[n].cpu() - moved).norm())
+        size = float(moved.norm())
+        errs.append((off / size if size else (0.0 if off == 0 else math.inf), n, size))
+    errs.sort(reverse=True)
+    log(f"{label}: the worst tensors (||update error|| / ||update||, ||update||): " + "; ".join(
+        f"{n} {e:.3e}, {m:.3e}" for e, n, m in errs[:3]))
+    if not errs[0][0] <= tol:
+        raise AssertionError(f"{label}: {errs[0][0]:.3e} of a tensor's update, beyond {tol}")
+    return errs[0][0]
+
+
+def multi_gpu_launches(dp: list, tp: list) -> dict:
+    """Each rank's launches: K5a/K5b on every data-parallel step, K1 in its
+    validation batch; none on the tensor-parallel route."""
+    per_step = {"residual_stack_save": 41, "residual_stack_chain": 40}
+    for r in dp:
+        if r["train_launches"] != {k: MG_STEPS * v for k, v in per_step.items()}:
+            raise AssertionError(f"dp rank {r['rank']}: K5 launched {r['train_launches']}")
+        if r["val_launches"] != {"residual_stack": K1_LAUNCHES}:
+            raise AssertionError(f"dp rank {r['rank']}: validation launched {r['val_launches']}")
+    for r in tp:
+        if r["train_launches"]:
+            raise AssertionError(f"tp rank {r['rank']} launched {r['train_launches']}: the "
+                                 "tensor-parallel route runs no kernel")
+    return per_step
+
+
+def phase_multi_gpu(dev, torch, config=None):
+    """Data and tensor parallelism on the one card (two ranks over gloo),
+    held against the one-process trainer on the same batches, and NCCL as a
+    world of one. ``config``: the training cell's hparams (TRAIN_HPARAMS)."""
+    import shutil
+    import tempfile
+
+    from unittest import mock
+
+    from prodiff_tpu_torch.models import wavenet
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+    from prodiff_tpu_torch.utils import ckpt_utils
+    from prodiff_tpu_torch.utils.synthetic import make_svs_dataset
+
+    tmp = tempfile.mkdtemp(prefix="prodiff_torch_multi_gpu_")
+    data_dir = os.path.join(tmp, "data")
+    # every run of the phase (the ranks' and the one-process ones) under
+    # deterministic algorithms: the embeddings' gather-backward atomics left
+    # 2.6e-5 of a peak between two identical runs after 3 steps (PERF.md §7)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        make_svs_dataset(data_dir, n_train=MG_ITEMS, n_valid=TRAIN_N_VALID, n_mels=128, seed=7,
+                         t_ph_range=(32, 33), dur_range=(45, 49))
+        config = TRAIN_HPARAMS if config is None else config
+        ranks = spawn_ranks(("dp", "tp"), data_dir, tmp, dev, config)
+        dp, tp = ranks["dp"], ranks["tp"]
+        dp_t = torch.load(os.path.join(tmp, "dp_tensors.pt"), weights_only=False)
+        tp_t = torch.load(os.path.join(tmp, "tp_tensors.pt"), weights_only=False)
+
+        # the one-process trainer on the same card and global batches
+        hp = multi_gpu_hparams(data_dir, os.path.join(tmp, "work_one"), config)
+        one = Trainer(hp, device=dev)
+        task = get_task_cls("svs")(hp)
+        one.build(task)
+        seed_output_projection(one.model, torch)
+        batches = [b for _, (_, b) in zip(range(MG_STEPS), one._prefetcher(task.train_iterator(2)))]
+        forward = multi_gpu_forward(one, batches[0], torch)
+        one_metrics = []
+        snapshots = {0: {k: v.detach().cpu().clone() for k, v in one.model.state_dict().items()}}
+        for i, batch in enumerate(batches):
+            one_metrics.append({k: float(v) for k, v in one.train_step(batch).items()})
+            if i == 0:
+                grads1 = {n: p.grad.detach().cpu() for n, p in one.model.named_parameters()}
+            one.global_step += 1
+            snapshots[one.global_step] = {k: v.detach().cpu().clone()
+                                          for k, v in one.model.state_dict().items()}
+        one_ckpt = ckpt_utils.load_checkpoint_file(one.save_checkpoint())
+        shape = tuple(batches[0]["mel"].shape)
+        # the tensor-parallel route runs no kernel: its steps are held against
+        # the one-process steps on the plain route (the module loop, no K5)
+        plain = Trainer(dict(hp, work_dir=os.path.join(tmp, "work_plain")), device=dev)
+        plain.build(get_task_cls("svs")(plain.hparams))
+        seed_output_projection(plain.model, torch)
+        plain_metrics = []
+        with mock.patch.object(wavenet, "on_kernels", lambda x, cycle: False):
+            for batch in batches[:MG_TP_STEPS]:
+                plain_metrics.append({k: float(v) for k, v in plain.train_step(batch).items()})
+                if plain.global_step == 0:
+                    grads1_plain = {n: p.grad.detach().cpu()
+                                    for n, p in plain.model.named_parameters()}
+                plain.global_step += 1
+        plain_after = {k: v.detach().cpu() for k, v in plain.model.state_dict().items()}
+        del plain
+
+        # (a) data parallel
+        want = one_metrics[0]
+        for r in dp:
+            if r["rows"] != [[8 * r["rank"], 16]] * MG_STEPS:
+                raise AssertionError(f"dp rank {r['rank']} took rows {r['rows']}")
+            for key in ("total_loss", "grad_norm"):
+                err = abs(r["metrics"][0][key] - want[key]) / abs(want[key])
+                if not err <= MG_STEP_RTOL:
+                    raise AssertionError(f"dp step 1 {key}: {err:.3e} relative, beyond {MG_STEP_RTOL}")
+        dp_grad = params_vs("dp step-1 gradients", dp_t["grads1"], grads1, MG_PARAM_TOL)
+        dp_worst = params_vs("dp params after 3 steps", dp_t["params"], snapshots[MG_STEPS],
+                             MG_PARAM_TOL)
+        dp_update = updates_vs("dp updates after 3 steps", dp_t["params"], snapshots[MG_STEPS],
+                               snapshots[0], MG_UPDATE_TOL)
+        per_step = multi_gpu_launches(dp, tp)
+        log(f"multi_gpu (a) data parallel, 2 ranks x 8 rows of global B=16 x T={shape[1]} on "
+            f"{dev} over gloo: step 1 total loss {dp[0]['metrics'][0]['total_loss']:.7f} vs one "
+            f"process {want['total_loss']:.7f}, grad norm {dp[0]['metrics'][0]['grad_norm']:.7f} "
+            f"vs {want['grad_norm']:.7f} (within {MG_STEP_RTOL} relative); its gradients max "
+            f"{dp_grad:.3e} x a tensor's peak; params after "
+            f"{MG_STEPS} steps: max {dp_worst:.3e} x a tensor's peak (tolerance {MG_PARAM_TOL}), "
+            f"their updates max {dp_update:.3e} of their own (tolerance {MG_UPDATE_TOL}); "
+            f"per rank K5a {per_step['residual_stack_save']} + K5b "
+            f"{per_step['residual_stack_chain']} launches a step, K1 {K1_LAUNCHES} for one "
+            f"validation batch")
+        restored = Trainer(dict(hp, work_dir=os.path.join(tmp, "work_dp")), device=dev)
+        restored.build(get_task_cls("svs")(restored.hparams))
+        if not restored.restore_checkpoint() or restored.global_step != MG_STEPS:
+            raise AssertionError("the one-process trainer did not restore the dp checkpoint")
+        sd = restored.model.state_dict()
+        if not all(torch.equal(sd[n].cpu(), dp_t["params"][n].cpu()) for n in sd):
+            raise AssertionError("the restored dp checkpoint differs from rank 0's params")
+        log(f"multi_gpu (a): the dp checkpoint (rank 0's) restored in the one-process trainer at "
+            f"step {restored.global_step}, {len(sd)} tensors equal to rank 0's")
+        del restored, sd
+
+        # (b) tensor parallel
+        fwd = peak_err(tp_t["forward"], forward.cpu())
+        if not fwd <= MG_PARAM_TOL:
+            raise AssertionError(f"tp forward: {fwd:.3e} x its peak, beyond {MG_PARAM_TOL}")
+        # the ranks' matmuls and split sums against the module loop's convs: a
+        # different summation order end to end, held as the card's step is
+        # held against the CPU's (STEP_TOL)
+        tp_grad = params_vs("tp step-1 gradients (gathered) vs the plain route's",
+                            tp_t["grads1"], grads1_plain, STEP_TOL)
+        k5_vs_plain = max(peak_err(grads1[n], grads1_plain[n]) for n in grads1)
+        tp_vs_k5 = max(peak_err(tp_t["grads1"][n], grads1[n]) for n in grads1)
+        log(f"multi_gpu (b): step 1's gradients, the one-process K5 route vs its plain route "
+            f"{k5_vs_plain:.3e}, the tensor-parallel ranks vs the K5 route {tp_vs_k5:.3e} of a "
+            f"tensor's peak (K5 is held to its twin at {GRAD_TOL})")
+        tp_metric_err = 0.0
+        for r in tp:
+            for i, want_i in enumerate(plain_metrics):
+                for key in ("total_loss", "grad_norm"):
+                    err = abs(r["metrics"][i][key] - want_i[key]) / abs(want_i[key])
+                    if not err <= MG_TP_RTOL:
+                        raise AssertionError(f"tp step {i + 1} {key} on rank {r['rank']}: "
+                                             f"{err:.3e} relative, beyond {MG_TP_RTOL}")
+                    tp_metric_err = max(tp_metric_err, err)
+        tp_worst = updates_vs("tp updates after 2 steps vs the plain route's", tp_t["params"],
+                              plain_after, snapshots[0], MG_UPDATE_TOL)
+        half = tp[0]["shapes"]["diffusion.denoise_fn.residual_layers.0.dilated_conv.weight"]
+        tp_ckpt = ckpt_utils.load_checkpoint_file(os.path.join(tmp, "work_tp",
+                                                               f"model_ckpt_steps_{MG_TP_STEPS}.ckpt"))
+        flat = dict(tree_leaves(tp_ckpt["state_dict"]))
+        one_flat = dict(tree_leaves(ckpt_utils.load_checkpoint_file(
+            os.path.join(tmp, "work_one", f"model_ckpt_steps_{MG_STEPS}.ckpt"))["state_dict"]))
+        if {k: v.shape for k, v in flat.items()} != {k: v.shape for k, v in one_flat.items()}:
+            raise AssertionError("the tp checkpoint's layout differs from the one-process one")
+        opt_keys = {k for k, _ in tree_leaves(tp_ckpt["optimizer_state"])}
+        if opt_keys != {k for k, _ in tree_leaves(one_ckpt["optimizer_state"])}:
+            raise AssertionError("the tp checkpoint's optimizer state differs in layout")
+        log(f"multi_gpu (b) model_parallel 2 on 2 ranks (denoiser {half[0] // 2} channels a rank, "
+            f"one attention head a rank): the forward's x0 prediction within {fwd:.3e} of its "
+            f"peak, step 1's gathered gradients max {tp_grad:.3e} x a tensor's peak of the "
+            f"one-process plain route's (tolerance {STEP_TOL}); steps 1-{MG_TP_STEPS}: total "
+            f"loss {tp[0]['metrics'][0]['total_loss']:.7f} vs {plain_metrics[0]['total_loss']:.7f}"
+            f", grad norm {tp[0]['metrics'][0]['grad_norm']:.7f} vs "
+            f"{plain_metrics[0]['grad_norm']:.7f} at step 1, max {tp_metric_err:.3e} relative "
+            f"(tolerance {MG_TP_RTOL}); each tensor's update after {MG_TP_STEPS} steps within "
+            f"{tp_worst:.3e} of the plain route's (tolerance {MG_UPDATE_TOL}); the gathered "
+            f"checkpoint holds the one-process layout "
+            f"key for key ({len(flat)} weights, {len(opt_keys)} optimizer leaves); no kernel "
+            f"launched (the tensor-parallel route is torch.matmul, as the JAX TP route runs no "
+            f"Pallas kernel)")
+
+        # (c) NCCL, the default backend on the card, as a world of one
+        multi_gpu_nccl(hp, tmp, batches[0], one_metrics[0], snapshots[1], dev, torch)
+
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+        for part, ranks in (("dp", dp), ("tp", tp)):
+            log(f"multi_gpu {part}: step times by CUDA events, two ranks sharing one card ({smi}; "
+                "not a scaling figure): " + "; ".join(
+                    f"rank {r['rank']} " + ", ".join(f"{ms:.3f}" for ms in r["step_ms"]) + " ms"
+                    for r in ranks))
+        return {"k5_per_rank_step": per_step, "k1_per_rank_val_batch": K1_LAUNCHES,
+                "dp_grad_err": dp_grad, "tp_grad_err": tp_grad, "dp_param_err": dp_worst,
+                "dp_update_err": dp_update, "tp_update_err": tp_worst,
+                "tp_metric_err": tp_metric_err, "tp_forward_err": fwd,
+                "dp_step_ms": [r["step_ms"] for r in dp], "tp_step_ms": [r["step_ms"] for r in tp]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def multi_gpu_nccl(hp: dict, tmp: str, batch, want: dict, after: dict, dev, torch) -> None:
+    """(c): NCCL, the default backend on the card, as a world of one under
+    torchrun's environment: one step on ``batch`` held against the
+    one-process step's metrics ``want`` and params ``after``, and an NCCL
+    all-reduce of the gradient bucket."""
+    import torch.distributed as dist
+
+    from prodiff_tpu_torch.parallel.mesh import LAUNCHER_ENV, collective, free_port
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    before = {k: os.environ.get(k) for k in LAUNCHER_ENV}
+    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    try:
+        solo = Trainer(dict(hp, work_dir=os.path.join(tmp, "work_nccl")))
+        if dist.get_backend() != "nccl" or solo.device != dev:
+            raise AssertionError(f"the default backend is {dist.get_backend()} on {solo.device}")
+        solo.build(get_task_cls("svs")(solo.hparams))
+        seed_output_projection(solo.model, torch)
+        got = {k: float(v) for k, v in solo.train_step(batch).items()}
+        grads = [p.grad for p in solo.model.parameters() if p.grad is not None]
+        flat_g = torch._utils._flatten_dense_tensors(grads)
+        reduced = collective(dist.all_reduce, flat_g.clone(), dist.group.WORLD)
+        if not torch.equal(reduced, flat_g):
+            raise AssertionError("NCCL's all-reduce over a world of one changed the bucket")
+        errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("total_loss", "grad_norm")}
+        worst = params_vs("nccl params after 1 step", solo.model.state_dict(), after,
+                          MG_NCCL_RTOL)
+        if not max(errs.values()) <= MG_NCCL_RTOL:
+            raise AssertionError(f"nccl step 1 vs one process: {errs}")
+        log(f"multi_gpu (c) NCCL (the default backend, torchrun's environment, world of one): "
+            f"one step, loss/grad norm within {max(errs.values()):.3e} relative, params within "
+            f"{worst:.3e} of each peak (tolerance {MG_NCCL_RTOL}); an NCCL all-reduce of the "
+            f"{flat_g.numel():,}-element gradient bucket")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (k,))
+    else:
+        yield "/".join(path), np.asarray(tree)
+
+
 def probe_module():
     """tools/probe_bf16_kernels.py (the bf16 serving kernels' measurements)."""
     import importlib.util
@@ -4637,6 +5111,7 @@ def main() -> int:
     res_bf16_k, k4_bf16, k7_bf16 = timed_phase("bf16_vocoders", phase_bf16_vocoders)
     res_bf16_k["launches"] = res_bf16
     other, other_launches = timed_phase("other_vocoders", phase_other_vocoders)
+    mg = timed_phase("multi_gpu", phase_multi_gpu)
     log(f"phase seconds: {json.dumps(spent)}; script total {time.time() - t_script:.3f} s")
     log("the earlier designs' times, H100 80GB HBM3 at 700 W (PERF.md §6; not measured in this "
         "run): " + json.dumps(EARLIER_BF16_MS))
@@ -4663,7 +5138,8 @@ def main() -> int:
              by_shape=k1["by_shape"],
              launches_variance_render=variance_launches["residual_stack"],
              launches_variance_train=vt_launches["residual_stack"],
-             launches_data_pipeline=dp_launches["residual_stack"]),
+             launches_data_pipeline=dp_launches["residual_stack"],
+             launches_multi_gpu_per_rank_val_batch=mg["k1_per_rank_val_batch"]),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
                    launches["resblock_stage"], res, "resblock_stage"), stages=res["stages"],
              launches_data_pipeline=dp_launches["resblock_stage"],
@@ -4692,12 +5168,14 @@ def main() -> int:
                    "prodiff_tpu/ops/pallas/wavenet_train.py:71",
                    train_launches["residual_stack_save"], k5a, "residual_stack_save"),
              launches_variance_train=vt_launches["residual_stack_save"],
-             launches_data_pipeline=dp_launches["residual_stack_save"]),
+             launches_data_pipeline=dp_launches["residual_stack_save"],
+             launches_multi_gpu_per_rank_step=mg["k5_per_rank_step"]["residual_stack_save"]),
         dict(entry("wavenet_stack_backward_chain", "wavenet_train.cu",
                    "prodiff_tpu/ops/pallas/wavenet_train.py:161",
                    train_launches["residual_stack_chain"], k5b, "residual_stack_chain"),
              launches_variance_train=vt_launches["residual_stack_chain"],
-             launches_data_pipeline=dp_launches["residual_stack_chain"]),
+             launches_data_pipeline=dp_launches["residual_stack_chain"],
+             launches_multi_gpu_per_rank_step=mg["k5_per_rank_step"]["residual_stack_chain"]),
         dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
                    vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"], "ublock_block"),
              k4_chain_ms=fd["ublock_block"]["k4_chain_ms"], by_block=fd["ublock_block"]["by_block"]),

@@ -18,6 +18,13 @@ as a checkpoint of this format (no optimizer state). The
 experiment directory (``checkpoints/{exp_name}/{task}``: ``config.yaml``,
 the maps and the checkpoints, written by either package) is read without
 JAX. ``binarize`` and ``train`` need PyYAML, ``train`` msgpack too.
+
+``train`` on several cards: under torchrun (``torchrun --nproc_per_node N
+-m prodiff_tpu_torch train ...``, or one such command a host with
+``--nnodes``) each process joins the group as a rank on ``cuda:LOCAL_RANK``;
+one process on a host with several visible cards spawns one worker a card
+(``--device cuda:K`` keeps it on card K alone). ``model_parallel`` and
+``per_process_loading`` come from the config, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -216,14 +223,22 @@ def run(args) -> None:
     elif args.command == "train":
         from prodiff_tpu_torch.config import set_hparams
         from prodiff_tpu_torch.device import resolve_device
-        from prodiff_tpu_torch.tasks import get_task_cls
-        from prodiff_tpu_torch.training.trainer import Trainer
+        import torch
+
+        from prodiff_tpu_torch.parallel.mesh import launch_local, launcher_env
+        from prodiff_tpu_torch.training.trainer import train
 
         device = resolve_device(args.device)  # no card: stop before any file is written
+        # under a launcher rank 0 writes the work dir's config
         hparams = set_hparams(args.exp_name, args.train_task, config_fn=args.config,
-                              make_work_dir=True)
-        task = get_task_cls(args.train_task)(hparams)
-        Trainer(hparams, device=device).fit(task, max_steps=args.max_steps)
+                              make_work_dir=os.environ.get("RANK", "0") == "0")
+        n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+        if launcher_env() is None and device.index is None and n_cards > 1:
+            # one process and several cards: one worker a card, as the JAX
+            # trainer's mesh takes every local device
+            launch_local(n_cards, train, (hparams, args.train_task, args.max_steps))
+        else:
+            train(hparams, args.train_task, args.max_steps, device)
     elif args.command == "merge_rectified":
         print(f"| merged -> {merge_rectified(args.target_ckpt, args.component_ckpt)}")
     elif args.command == "convert_ckpt":

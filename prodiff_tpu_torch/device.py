@@ -151,32 +151,23 @@ def kernel_predictor_dtype(fused_layer: bool, device: Optional[Device]) -> torch
     return torch.bfloat16 if fused_layer and _on_card(device) else torch.float32
 
 
-def refuse_multi_gpu(hp: Dict[str, Any]) -> None:
-    """Raise for the keys that ask for more than one device: ``model_parallel
-    > 1`` (the JAX trainer's (data, model) mesh and the teacher's tensor
-    parallelism) and ``multi_host: true`` (its ``jax.distributed``
-    initialisation). The port runs one GPU (ROADMAP queue 1, "Multi-GPU").
-    Where ``dilation_cycle_length != 1`` the JAX teacher's own refusal of
-    ``model_parallel > 1`` comes first, word for word
-    (``prodiff_tpu/models/wavenet.py:100-112``)."""
-    mp = hp.get("model_parallel", 1)
+def check_tp_dilation(hp: Dict[str, Any]) -> None:
+    """``model_parallel > 1`` with ``dilation_cycle_length != 1`` raises the
+    JAX teacher's ``ValueError``, word for word
+    (``prodiff_tpu/models/wavenet.py:100-112``): the tensor-parallel
+    denoiser needs one dilation in every layer."""
     cycle = hp.get("dilation_cycle_length", 1)
-    if mp > 1 and cycle != 1:
+    if hp.get("model_parallel", 1) > 1 and cycle != 1:
         raise ValueError(
             "model_parallel > 1 requires dilation_cycle_length == 1 "
             f"(got {cycle}); the TP denoiser stacks "
             "per-layer params and needs uniform dilation"
         )
-    if mp > 1 or hp.get("multi_host", False):
-        raise NotImplementedError(
-            f"model_parallel={mp}, multi_host={hp.get('multi_host', False)}: the PyTorch port "
-            "runs on one GPU; tensor parallelism and multi-host training are ROADMAP queue 1, "
-            '"Multi-GPU" (set model_parallel: 1 and multi_host: false)'
-        )
 
 
-def resolve_device(device: Optional[Device] = None) -> torch.device:
-    """``None`` means the CUDA card. The CPU is used only when named; asking
+def resolve_device(device: Optional[Device] = None, local_rank: Optional[int] = None) -> torch.device:
+    """``None`` means the CUDA card: ``cuda:local_rank`` where a launcher
+    gave the process a local rank. The CPU is used only when named; asking
     for a card where there is none raises."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -184,6 +175,8 @@ def resolve_device(device: Optional[Device] = None) -> torch.device:
             "no CUDA card (torch.cuda.is_available() is false): the port runs on "
             "the card unless the caller names the CPU (device='cpu', --device cpu)"
         )
+    if device.type == "cuda" and device.index is None and local_rank is not None:
+        device = torch.device("cuda", local_rank)
     return device
 
 

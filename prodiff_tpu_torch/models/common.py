@@ -18,6 +18,12 @@ parameters stay float32 ``nn.Parameter``s. The casts are explicit, not
 own: attention scores accumulate and the softmax runs in float32, and the
 LayerNorms (no dtype) promote a bf16 input to float32, as bf16 + f32 does
 in both frameworks.
+
+``tp`` (a ``parallel.megatron.TensorParallel``, the JAX modules' ``tp_axis``)
+splits the attention's heads and the FFN's filter channels over the model
+axis: a column-parallel ``in_proj``/``ffn_1`` and a row-parallel
+``out_proj``/``ffn_2``, each module holding its rank's slices under the
+one-process names (listed in ``tp_kinds``).
 """
 
 from __future__ import annotations
@@ -120,21 +126,30 @@ class MultiheadSelfAttention(nn.Module):
 
     Plain matmul + softmax: the JAX package has no kernel for it either. In
     bf16 the scores accumulate in float32 (``preferred_element_type``) and
-    the float32 softmax is cast to the query's dtype."""
+    the float32 softmax is cast to the query's dtype. With ``tp`` a rank
+    computes its share of the heads and the out_proj's partial sum."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, embed_dim: int, num_heads: int, dtype: Optional[torch.dtype] = None,
+                 tp=None):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
-        self.dtype = dtype
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
-        self.out_proj = Linear(embed_dim, embed_dim, bias=False, dtype=dtype)
+        self.dtype, self.tp = dtype, tp
+        width = embed_dim if tp is None else tp.split(embed_dim)
+        if tp is not None:
+            tp.split(num_heads, "heads")
+            self.tp_kinds = {"in_proj_weight": "qkv", "out_proj.weight": "in"}
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, embed_dim))
+        self.out_proj = Linear(width, embed_dim, bias=False, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, _ = x.shape
-        h, d = self.num_heads, self.embed_dim // self.num_heads
+        d = self.embed_dim // self.num_heads
+        if self.tp is not None:
+            x = self.tp.copy(x)
         x, w = cast(self.dtype, x, self.in_proj_weight)
         q, k, v = (x @ w.t()).chunk(3, dim=-1)
+        h = q.shape[-1] // d  # this rank's heads
         q = q.reshape(b, t, h, d) * d ** -0.5
         k = k.reshape(b, t, h, d)
         v = v.reshape(b, t, h, d)
@@ -142,41 +157,52 @@ class MultiheadSelfAttention(nn.Module):
         if key_padding_mask is not None:
             attn = attn.masked_fill(key_padding_mask[:, None, None, :], torch.finfo(attn.dtype).min)
         attn = torch.softmax(attn, dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, self.embed_dim)
-        return self.out_proj(out)
+        out = self.out_proj(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, h * d))
+        return out if self.tp is None else self.tp.reduce(out)
 
 
 class TransformerFFNLayer(nn.Module):
-    """Conv(k) -> *k^-0.5 -> GELU -> Linear FFN (reference ``common_layers.py:542-585``)."""
+    """Conv(k) -> *k^-0.5 -> GELU -> Linear FFN (reference ``common_layers.py:542-585``).
+    With ``tp`` a rank holds its slice of the filter channels: ``ffn_1``
+    column-parallel, ``ffn_2`` row-parallel (its bias added after the reduce)."""
 
     def __init__(self, hidden_size: int, filter_size: int, kernel_size: int = 9,
-                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None, tp=None):
         super().__init__()
         self.kernel_size = kernel_size
-        self.dtype = dtype
+        self.dtype, self.tp = dtype, tp
+        if tp is not None:
+            filter_size = tp.split(filter_size)
+            self.tp_kinds = {"ffn_1.weight": "out", "ffn_1.bias": "out", "ffn_2.weight": "in"}
         self.ffn_1 = nn.Conv1d(hidden_size, filter_size, kernel_size, padding=kernel_size // 2)
         self.dropout = nn.Dropout(dropout)
         self.ffn_2 = Linear(filter_size, hidden_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.copy(x)
         x, w, b = cast(self.dtype, x, self.ffn_1.weight, self.ffn_1.bias)
         x = F.conv1d(x.transpose(1, 2), w, b, padding=self.kernel_size // 2).transpose(1, 2)
-        x = F.gelu(x * self.kernel_size ** -0.5)
-        return self.ffn_2(self.dropout(x))
+        x = self.dropout(F.gelu(x * self.kernel_size ** -0.5))
+        if self.tp is None:
+            return self.ffn_2(x)
+        x, w, b = cast(self.dtype, x, self.ffn_2.weight, self.ffn_2.bias)
+        return self.tp.reduce(F.linear(x, w)) + b
 
 
 class EncSALayer(nn.Module):
     """Pre-LN encoder layer: LN->MHA->res->mask, LN->FFN->res->mask."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None, tp=None):
         super().__init__()
         self.num_heads = num_heads
         if num_heads > 0:
             self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-            self.self_attn = MultiheadSelfAttention(hidden_size, num_heads, dtype=dtype)
+            self.self_attn = MultiheadSelfAttention(hidden_size, num_heads, dtype=dtype, tp=tp)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.ffn = TransformerFFNLayer(hidden_size, 4 * hidden_size, kernel_size, dropout, dtype)
+        self.ffn = TransformerFFNLayer(hidden_size, 4 * hidden_size, kernel_size, dropout, dtype,
+                                       tp=tp)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
@@ -194,9 +220,9 @@ class TransformerEncoderLayer(nn.Module):
     """The reference's wrapper that names each layer's body ``op``."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None, tp=None):
         super().__init__()
-        self.op = EncSALayer(hidden_size, num_heads, kernel_size, dropout, dtype)
+        self.op = EncSALayer(hidden_size, num_heads, kernel_size, dropout, dtype, tp=tp)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         return self.op(x, padding_mask)
@@ -208,11 +234,12 @@ class FFTBlocks(nn.Module):
     encoder that owns the stack, as on the slice's path."""
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2, dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
+                 num_heads: int = 2, dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 tp=None):
         super().__init__()
         self.dtype = dtype
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, dropout, dtype)
+            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, dropout, dtype, tp)
             for _ in range(num_layers)
         )
         self.layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)

@@ -27,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from prodiff_tpu_torch.parallel.mesh import draw_rows
 from prodiff_tpu_torch.ops.schedules import DiffusionCoefficients
 
 
@@ -93,11 +94,11 @@ class GaussianDiffusion(nn.Module):
         are drawn from ``generator`` where not given."""
         x_0 = self.norm_spec(gt_spec)
         if t is None:
-            t = torch.randint(0, self.timesteps + 1, (x_0.shape[0],), generator=generator,
-                              device=x_0.device)
+            t = draw_rows(lambda s: torch.randint(0, self.timesteps + 1, s, generator=generator,
+                                                  device=x_0.device), x_0.shape[:1])
         if noise is None:
-            noise = torch.randn(x_0.shape, generator=generator, device=x_0.device,
-                                dtype=x_0.dtype)
+            noise = draw_rows(lambda s: torch.randn(s, generator=generator, device=x_0.device,
+                                                    dtype=x_0.dtype), x_0.shape)
         x_t = self.q_sample(x_0, t, noise)
         return self._denoise(x_t, t, cond), x_0
 

@@ -16,12 +16,13 @@ class FastspeechEncoder(FFTBlocks):
     positions -> FFT blocks. Padding = token id 0. Like the reference, the
     encoder IS the block stack, so its state-dict names are
     ``embed_tokens``, ``layers.{i}.op...`` and ``layer_norm``. ``dtype`` is
-    the blocks' compute dtype (flax's); the embeddings stay float32."""
+    the blocks' compute dtype (flax's); the embeddings stay float32. ``tp``
+    splits the blocks' heads and filter channels over the model axis."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  kernel_size: int = 9, num_heads: int = 2, dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(hidden_size, num_layers, kernel_size, num_heads, dropout, dtype)
+                 dtype: Optional[torch.dtype] = None, tp=None):
+        super().__init__(hidden_size, num_layers, kernel_size, num_heads, dropout, dtype, tp)
         self.hidden_size = hidden_size
         self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
         self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)

@@ -17,6 +17,12 @@ encoder and the WaveNet with ``dtype=bfloat16``; the embeddings, the
 duration/pitch/curve projections and every parameter stay float32. The
 WaveNet's kernel route also reads ``pallas_wavenet_dtype``
 (``device.kernel_operand_dtype``).
+
+``tp`` (a ``parallel.megatron.TensorParallel``; the trainer's at
+``model_parallel > 1``) goes to the encoder and the WaveNet, as the JAX
+teacher gives both its ``model`` axis (``prodiff_tpu/models/prodiff.py:76-78,
+109-111``). Without it the teacher is the one-process model, whatever
+``model_parallel`` says (a render of a tensor-parallel run's checkpoint).
 """
 
 from __future__ import annotations
@@ -36,10 +42,10 @@ from prodiff_tpu_torch.ops.seq import mel2ph_to_dur, regulate_hidden
 
 
 class ProDiffTeacher(nn.Module):
-    def __init__(self, vocab_size: int, hparams: Dict[str, Any]):
+    def __init__(self, vocab_size: int, hparams: Dict[str, Any], tp=None):
         super().__init__()
         hp = hparams
-        device.refuse_multi_gpu(hp)
+        device.check_tp_dilation(hp)
         self.diff_type = hp.get("diff_type", "prodiff")
         if self.diff_type not in ("prodiff", "reflow"):
             raise NotImplementedError(f"diff_type {self.diff_type!r}")
@@ -48,7 +54,7 @@ class ProDiffTeacher(nn.Module):
         dtype = device.module_dtype(hp)
         self.encoder = FastspeechEncoder(
             vocab_size, hidden, hp["enc_layers"], hp["enc_ffn_kernel_size"], hp["num_heads"],
-            hp.get("dropout", 0.1), dtype=dtype,
+            hp.get("dropout", 0.1), dtype=dtype, tp=tp,
         )
         self.with_dur_embed = hp.get("use_dur_embed", True)
         if self.with_dur_embed:
@@ -74,7 +80,7 @@ class ProDiffTeacher(nn.Module):
             residual_layers=hp["residual_layers"],
             residual_channels=hp["residual_channels"],
             dilation_cycle_length=hp["dilation_cycle_length"],
-            dtype=dtype, stream_dtype=device.stream_dtype(hp),
+            dtype=dtype, stream_dtype=device.stream_dtype(hp), tp=tp,
         )
         if self.diff_type == "prodiff":
             self.diffusion = GaussianDiffusion(

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from prodiff_tpu_torch.parallel.mesh import draw_rows
+
 
 class RectifiedFlow(nn.Module):
     def __init__(self, denoise_fn: nn.Module, out_dims: int, time_scale: float = 1000,
@@ -75,10 +77,11 @@ class RectifiedFlow(nn.Module):
         are drawn from ``generator`` where not given."""
         x_end = self.norm_spec(gt_spec)
         if t is None:
-            t = torch.rand(x_end.shape[0], generator=generator, device=x_end.device)
+            t = draw_rows(lambda s: torch.rand(s, generator=generator, device=x_end.device),
+                          x_end.shape[:1])
         if noise is None:
-            noise = torch.randn(x_end.shape, generator=generator, device=x_end.device,
-                                dtype=x_end.dtype)
+            noise = draw_rows(lambda s: torch.randn(s, generator=generator, device=x_end.device,
+                                                    dtype=x_end.dtype), x_end.shape)
         x_t = noise + t[:, None, None, None] * (x_end - noise)
         v_pred = self._velocity(x_t, t * self.time_scale, cond)
         return v_pred, x_end - noise, t

@@ -11,6 +11,12 @@ same function:
   otherwise the trainable stack (K5's save-forward and backward chain), so
   a backward pass reaches every parameter and ``cond``.
 
+A third, with ``tp`` (a ``parallel.megatron.TensorParallel``, the JAX
+module's ``tp_axis``/``tp_size``), takes precedence over both, as the JAX TP
+route does: each residual layer holds its rank's slice of the channels and
+the stack runs ``parallel/tp_wavenet.py:wavenet_apply_tp`` in float32, the
+projections around it too, whatever ``dtype`` is.
+
 ``dtype`` is flax's ``dtype=`` of the JAX module (the teacher's bf16
 policy): the linen route casts every conv's operands to it and carries the
 residual and skip sums in it, the diffusion projection and the step MLP stay
@@ -38,6 +44,7 @@ from prodiff_tpu_torch import device
 from prodiff_tpu_torch.models.common import Linear, SinusoidalPosEmb, cast, mish, params_key, widen
 from prodiff_tpu_torch.ops.wavenet_stack import StackedWaveNet, cast_stack
 from prodiff_tpu_torch.ops.wavenet_train import differentiable_stack
+from prodiff_tpu_torch.parallel.tp_wavenet import wavenet_apply_tp
 
 
 class Mish(nn.Module):
@@ -64,15 +71,26 @@ def on_kernels(x: torch.Tensor, dilation_cycle_length: int) -> bool:
 
 
 class ResidualBlock(nn.Module):
+    """One residual layer; with ``tp`` its rank's slices: the rows
+    ``[g_i; f_i]`` of the dilated conv and the conditioner projection, the
+    input channels ``i`` of the output projection."""
+
+    TP_KINDS = {"dilated_conv.weight": "gate", "dilated_conv.bias": "gate",
+                "conditioner_projection.weight": "gate", "conditioner_projection.bias": "gate",
+                "output_projection.weight": "in"}
+
     def __init__(self, hidden_size: int, residual_channels: int, dilation: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, tp=None):
         super().__init__()
         c = residual_channels
+        s = c if tp is None else tp.split(c)
         self.dtype = dtype
-        self.dilated_conv = _conv(c, 2 * c, 3, dilation)
+        if tp is not None:
+            self.tp_kinds = self.TP_KINDS
+        self.dilated_conv = _conv(c, 2 * s, 3, dilation)
         self.diffusion_projection = Linear(c, c)
-        self.conditioner_projection = _conv(hidden_size, 2 * c)
-        self.output_projection = _conv(c, 2 * c)
+        self.conditioner_projection = _conv(hidden_size, 2 * s)
+        self.output_projection = _conv(s, 2 * c)
 
     def forward(self, x, cond, step):
         """x [B,T,C], cond [B,T,H], step [B,C] -> (residual out, skip)."""
@@ -93,21 +111,29 @@ class WaveNet(nn.Module):
 
     ``dtype``: the compute dtype (flax's, None = float32); ``stream_dtype``:
     the weight stream of the kernel route at inference in ``fast`` mode
-    (``pallas_wavenet_dtype``, bfloat16 as the JAX module's default)."""
+    (``pallas_wavenet_dtype``, bfloat16 as the JAX module's default);
+    ``tp``: the model axis of the tensor-parallel route."""
 
     def __init__(self, in_dims: int, hidden_size: int, residual_layers: int = 20,
                  residual_channels: int = 256, dilation_cycle_length: int = 1,
                  dtype: Optional[torch.dtype] = None,
-                 stream_dtype: torch.dtype = torch.bfloat16):
+                 stream_dtype: torch.dtype = torch.bfloat16, tp=None):
         super().__init__()
         c = residual_channels
+        if tp is not None and tp.size > 1 and dilation_cycle_length != 1:
+            # the JAX module's words (prodiff_tpu/models/wavenet.py:100-112)
+            raise ValueError(
+                "model_parallel > 1 requires dilation_cycle_length == 1 "
+                f"(got {dilation_cycle_length}); the TP denoiser stacks "
+                "per-layer params and needs uniform dilation"
+            )
         self.dilation_cycle_length = dilation_cycle_length
-        self.dtype, self.stream_dtype = dtype, stream_dtype
+        self.dtype, self.stream_dtype, self.tp = dtype, stream_dtype, tp
         self.input_projection = _conv(in_dims, c)
         self.diffusion_embedding = SinusoidalPosEmb(c)
         self.mlp = nn.Sequential(Linear(c, 4 * c), Mish(), Linear(4 * c, c))
         self.residual_layers = nn.ModuleList(
-            ResidualBlock(hidden_size, c, 2 ** (i % dilation_cycle_length), dtype)
+            ResidualBlock(hidden_size, c, 2 ** (i % dilation_cycle_length), dtype, tp)
             for i in range(residual_layers)
         )
         self.skip_projection = _conv(c, c)
@@ -158,6 +184,12 @@ class WaveNet(nn.Module):
 
     def forward(self, spec: torch.Tensor, diffusion_step: torch.Tensor,
                 cond: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = F.relu(conv1x1(widen(spec), self.input_projection))
+            step = self.mlp(self.diffusion_embedding(diffusion_step))
+            x = wavenet_apply_tp(self.stacked_weights(), x, widen(cond), step, self.tp)
+            x = F.relu(conv1x1(x, self.skip_projection))
+            return conv1x1(x, self.output_projection)
         dt = self.dtype
         x = F.relu(conv1x1(spec, self.input_projection, dt))
         step = self.mlp(self.diffusion_embedding(diffusion_step))

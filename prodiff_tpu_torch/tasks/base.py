@@ -84,6 +84,9 @@ class BaseTask:
     # where the model trains, set by the trainer before build_model: it
     # decides the bf16 policy of ``bf16: null`` (device.resolve_train_bf16)
     device = None
+    # the model axis (parallel.megatron.TensorParallel) at model_parallel > 1,
+    # set by the trainer: the teacher's encoder and WaveNet split over it
+    tp = None
 
     def __init__(self, hparams: dict):
         self.hparams = hparams
@@ -131,15 +134,20 @@ class BaseTask:
         """Figures of the first validation batch under ``out_dir`` (and in
         ``writer``'s TensorBoard); none for this task."""
 
-    def train_iterator(self) -> BatchIterator:
+    def train_iterator(self, n_devices: int = 1, local_block=None) -> BatchIterator:
+        """Global batches of ``max_tokens`` a device, their rows a multiple of
+        ``n_devices``; ``local_block`` as ``BatchIterator``'s."""
         ds: BaseDataset = self.dataset_cls(
             prefix=self.hparams.get("train_set_name", "train"), shuffle=True,
             hparams=self.hparams)
-        return BatchIterator(ds, max_tokens=self.max_tokens, max_sentences=self.max_sentences)
+        return BatchIterator(ds, max_tokens=self.max_tokens * n_devices,
+                             max_sentences=self.max_sentences,
+                             required_batch_size_multiple=n_devices, local_block=local_block)
 
-    def val_iterator(self) -> BatchIterator:
+    def val_iterator(self, n_devices: int = 1, local_block=None) -> BatchIterator:
         ds: BaseDataset = self.dataset_cls(
             prefix=self.hparams.get("valid_set_name", "valid"), shuffle=False,
             hparams=self.hparams)
         return BatchIterator(ds, max_tokens=self.max_valid_tokens,
-                             max_sentences=self.max_valid_sentences)
+                             max_sentences=self.max_valid_sentences,
+                             required_batch_size_multiple=n_devices, local_block=local_block)

@@ -53,6 +53,7 @@ class PitchPredictorDataset(BaseDataset):
     time_keys = {"ph_seq": 1, "mel2ph": 1, "note_midi": 1, "note_rest": 1, "mel2note": 1,
                  "pitch": 1, "base_pitch": 1, "pitch_retake": 1}
     pad_values = {"note_midi": -1.0, "note_rest": True}
+    length_source = {"pitch_retake": "mel2note"}  # a derived mask on the mel axis
 
     def collater(self, samples: List[dict]) -> Dict[str, np.ndarray]:
         if len(samples) == 0:

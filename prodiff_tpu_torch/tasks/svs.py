@@ -108,7 +108,8 @@ class SVSTask(BaseTask):
     def build_model(self) -> ProDiffTeacher:
         self.build_phone_encoder()
         self.model = ProDiffTeacher(len(self.ph_encoder),
-                                    policy.resolve_train_bf16(self.hparams, self.device))
+                                    policy.resolve_train_bf16(self.hparams, self.device),
+                                    tp=self.tp)
         return self.model
 
     @staticmethod

@@ -22,6 +22,10 @@ The state (``state_dict``) is the tree of optax's state that the JAX
 trainer checkpoints (``utils/convert.py:optimizer_flax_state``), its moments
 carried by the task's weight carrier; ``load_state_dict`` also reads the
 port's older layout (``count``, ``mini_step``, ``mu``, ``nu``, ``acc``).
+
+On a tensor-parallel model a ``layout`` (``parallel.megatron.ShardLayout``)
+makes the clip's global norm count each slice once, and the state the
+one-process tree: the moments gathered on save and cut on load.
 """
 
 from __future__ import annotations
@@ -61,13 +65,15 @@ class Optimizer:
     """AdamW + clipping + accumulation over ``named_params`` (name ->
     parameter); :meth:`step` reads each parameter's ``.grad``. ``carrier``
     maps a name -> tensor map to the JAX param tree and back (the task's;
-    by default the names are the tree's keys)."""
+    by default the names are the tree's keys). ``layout``: a tensor-parallel
+    model's (its parameters are slices), or None."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], hparams: dict,
-                 carrier: Optional[Carrier] = None):
+                 carrier: Optional[Carrier] = None, layout=None):
         self.params = {n: p for n, p in named_params if p.requires_grad}
         self.hparams = hparams
         self.carrier = carrier or flat_carrier()
+        self.layout = layout
         self._carrier_checked = False
         self.schedule = build_lr_schedule(hparams)
         self.clip_value = hparams.get("clip_grad_value", 0) or 0
@@ -111,7 +117,7 @@ class Optimizer:
         if self.clip_value:
             grads = {n: g.clamp(-self.clip_value, self.clip_value) for n, g in grads.items()}
         if self.clip_norm:
-            norm = global_norm(grads.values())
+            norm = self.global_norm(grads)
             keep = norm < self.clip_norm  # a device flag: no host sync
             grads = {n: torch.where(keep, g, (g / norm) * self.clip_norm)
                      for n, g in grads.items()}
@@ -129,17 +135,26 @@ class Optimizer:
             p.add_(neg_lr * upd)
         self.count = k
 
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm the clip reads: of the one-process gradients."""
+        if self.layout is not None:
+            return self.layout.global_norm(grads)
+        return global_norm(grads.values())
+
     def _check_carrier(self) -> None:
         """Once: the carrier moves the moments' elements without combining them."""
         if not self._carrier_checked:
-            check_permutation(self.carrier, {n: tuple(p.shape) for n, p in self.params.items()})
+            full = self.layout.full_shape if self.layout is not None else lambda n, s: tuple(s)
+            check_permutation(self.carrier, {n: full(n, p.shape) for n, p in self.params.items()})
             self._carrier_checked = True
 
     def state_dict(self) -> dict:
-        """Optax's state tree for ``build_optimizer(hparams)``, host arrays."""
+        """Optax's state tree for ``build_optimizer(hparams)``, host arrays
+        (with a layout: gathered, on every rank of the model axis)."""
         self._check_carrier()
-        state = {"count": self.count, "mini_step": self.mini_step, "mu": self.mu,
-                 "nu": self.nu, "acc": self.acc}
+        whole = self.layout.gather if self.layout is not None else lambda d: d
+        state = {"count": self.count, "mini_step": self.mini_step, "mu": whole(self.mu),
+                 "nu": whole(self.nu), "acc": None if self.acc is None else whole(self.acc)}
         return optimizer_flax_state(state, self.carrier, self.hparams)
 
     def load_state_dict(self, state: dict) -> None:
@@ -154,8 +169,11 @@ class Optimizer:
             dst = getattr(self, key)
             if dst is None:
                 continue
+            src = {n: torch.as_tensor(np.array(state[key][n])) for n in dst}
+            if self.layout is not None:
+                src = self.layout.shard(src)
             for n, t in dst.items():
-                t.copy_(torch.as_tensor(np.array(state[key][n])))
+                t.copy_(src[n])
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:

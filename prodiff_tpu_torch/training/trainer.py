@@ -1,4 +1,5 @@
-"""The trainer (port of ``prodiff_tpu/training/trainer.py``) on one card.
+"""The trainer (port of ``prodiff_tpu/training/trainer.py``), on one card
+or on every rank of a process group.
 
 ``Trainer(hparams, device=None)`` runs on the CUDA card unless the caller
 names the CPU (``device.resolve_device``). Per step: the task's losses,
@@ -31,8 +32,32 @@ trainer:
 The diffusion step ``t`` and noise come from a ``torch.Generator`` seeded
 from (seed, step), and dropout draws from the device's generator seeded so
 for the step, so a resumed run draws what an unbroken one would.
-Not ported here: multi-host loading and data-parallel training (later
-slices).
+
+Several processes (torchrun's environment, ``parallel/mesh.py:init_distributed``;
+the JAX trainer's mesh and ``multi_host``) lay out as a (data, model) mesh
+of ``model_parallel`` columns. The step is the one-process step on the
+global batch:
+
+- each rank loads its rows of the global batch (``per_process_loading``,
+  the default: ``BatchIterator(local_block=...)``; otherwise the global
+  batch, cut by ``shard_batch``), padded to the global batch's shapes;
+- its ``t`` and noise are its rows of the global batch's draws
+  (``mesh.batch_rows``);
+- the gradients' mean over the data axis is one all-reduce of one flat
+  bucket before the clip reads their norm; the logged losses are the data
+  axis's means;
+- at ``model_parallel > 1`` the teacher's encoder and WaveNet are
+  tensor-parallel over the model axis (``parallel/megatron.py``), built as
+  slices of the one-process model made from the seed;
+- the parameters and the optimizer state are broadcast over the data axis
+  at build and after a restore; rank 0 writes the checkpoints (the
+  one-process layout, tensor-parallel slices gathered) and the logs, and
+  reads the checkpoint a restore sends to every rank; the
+  validation losses are the data axis's means weighted by ``nsamples``.
+
+Dropout differs: a rank draws its masks from (seed, step, its data rank),
+not the rows of one global draw, and the FFN's sliced dropout repeats its
+mask on each model rank.
 """
 
 from __future__ import annotations
@@ -51,8 +76,26 @@ import numpy as np
 import torch
 
 from prodiff_tpu_torch.data.dataset import drain
-from prodiff_tpu_torch.device import refuse_multi_gpu, resolve_device
-from prodiff_tpu_torch.training.optim import Optimizer, global_norm
+from prodiff_tpu_torch.device import check_tp_dilation
+from prodiff_tpu_torch.parallel.mesh import (
+    agree,
+    all_reduce_gradients,
+    batch_rows,
+    create_mesh,
+    data_mean,
+    from_rank0,
+    init_distributed,
+    process_data_blocks,
+    replicate,
+    shard_batch,
+)
+from prodiff_tpu_torch.parallel.megatron import (
+    ShardLayout,
+    gather_state_dict,
+    shard_for_rank,
+    sharded_names,
+)
+from prodiff_tpu_torch.training.optim import Optimizer
 from prodiff_tpu_torch.utils import ckpt_utils
 
 log = logging.getLogger("prodiff_tpu_torch.trainer")
@@ -95,9 +138,12 @@ class MetricsWriter:
 
 def host_tensors(batch: Dict[str, np.ndarray], pin: bool) -> Dict[str, torch.Tensor]:
     """numpy batch -> torch tensors (integers as int64, masks stay bool),
-    pinned if asked."""
+    pinned if asked; ``_local_rows`` stays a tuple."""
     out = {}
     for k, v in batch.items():
+        if k == "_local_rows":
+            out[k] = v
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v))
         if not t.is_floating_point() and t.dtype != torch.bool:
             t = t.long()
@@ -112,23 +158,30 @@ class DevicePrefetcher:
     handed over, so they overlap its step. Before a batch is handed over
     the current stream waits for the side stream, and its tensors are
     recorded on the current stream for the allocator. On the CPU the
-    batches pass through without a thread."""
+    batches pass through without a thread. With a ``mesh`` each batch is
+    this rank's rows (``shard_batch``), ``_local_rows`` beside them."""
 
-    def __init__(self, batch_iter, device: torch.device, depth: int = 2):
+    def __init__(self, batch_iter, device: torch.device, depth: int = 2, mesh=None):
         self.batch_iter = batch_iter
         self.device = device
         self.depth = max(int(depth), 1)
+        self.mesh = mesh
         self._stop = threading.Event()
         self._queue: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
+
+    def _host(self, batch, pin: bool):
+        nsamples = batch.pop("nsamples", None)
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        return nsamples, host_tensors(batch, pin=pin)
 
     def _produce(self) -> None:
         try:
             for batch in self.batch_iter:
                 if self._stop.is_set():
                     return
-                nsamples = batch.pop("nsamples", None)
-                self._queue.put((nsamples, host_tensors(batch, pin=True)))
+                self._queue.put(self._host(batch, pin=True))
         except BaseException as e:  # surface loader errors in the train loop
             self._queue.put(e)
         finally:
@@ -137,8 +190,7 @@ class DevicePrefetcher:
     def __iter__(self):
         if self.device.type != "cuda":
             for batch in self.batch_iter:
-                nsamples = batch.pop("nsamples", None)
-                yield nsamples, host_tensors(batch, pin=False)
+                yield self._host(batch, pin=False)
             return
         self._queue = queue.Queue(maxsize=self.depth)
         self._thread = threading.Thread(target=self._produce, daemon=True)
@@ -157,6 +209,7 @@ class DevicePrefetcher:
                     nsamples, host = item
                     with torch.cuda.stream(side):
                         pending = (nsamples, {k: v.to(self.device, non_blocking=True)
+                                              if isinstance(v, torch.Tensor) else v
                                               for k, v in host.items()})
                 else:
                     pending = None
@@ -172,7 +225,8 @@ class DevicePrefetcher:
         current = torch.cuda.current_stream(side.device)
         current.wait_stream(side)
         for t in batch.values():
-            t.record_stream(current)
+            if isinstance(t, torch.Tensor):
+                t.record_stream(current)
         return nsamples, batch
 
     def close(self) -> None:
@@ -188,9 +242,13 @@ class DevicePrefetcher:
 
 class Trainer:
     def __init__(self, hparams: dict, device=None):
-        refuse_multi_gpu(hparams)
+        check_tp_dilation(hparams)
         self.hparams = hparams
-        self.device = resolve_device(device)
+        self.device = init_distributed(hparams, device=device)
+        self.mesh = create_mesh(model_parallel=hparams.get("model_parallel", 1),
+                                device=self.device)
+        self.n_devices = self.mesh.size
+        self.is_main = self.mesh.rank == 0
         self.work_dir = hparams["work_dir"]
         self.seed = hparams.get("seed", 1234)
         self.max_updates = hparams.get("max_updates", 200000)
@@ -215,62 +273,109 @@ class Trainer:
     def build(self, task) -> None:
         """Model and optimizer on the device. A torch module has its shapes
         without an example batch (the JAX trainer initialises from the
-        first batch)."""
+        first batch). A tensor-parallel rank takes its slices of the
+        one-process model made from the seed."""
         self.task = task
         task.device = self.device
+        task.tp = None
         torch.manual_seed(self.seed)
-        self.model = task.build_model().to(self.device)
+        self.model = task.build_model()
+        tp = self.mesh.tp
+        self.tp_kinds: Dict[str, str] = {}
+        layout = None
+        if tp is not None:
+            whole = self.model.state_dict()
+            task.tp = tp
+            self.model = task.build_model()
+            self.tp_kinds = sharded_names(self.model)
+            self.model.load_state_dict(shard_for_rank(whole, self.tp_kinds, tp.rank, tp.size))
+            layout = ShardLayout(self.tp_kinds, tp) if self.tp_kinds else None
+        self.model.to(self.device)
         self.optimizer = Optimizer(self.model.named_parameters(), self.hparams,
-                                   carrier=task.carrier())
+                                   carrier=task.carrier(), layout=layout)
         self.generator = torch.Generator(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
-        log.info("| model params: %.2fM on %s", n_params / 1e6, self.device)
+        log.info("| model params: %.2fM on %s (rank %d of %d, model axis %d)", n_params / 1e6,
+                 self.device, self.mesh.rank, self.mesh.size, self.mesh.model_parallel)
+
+    def replicate(self) -> None:
+        """Every replica of the data axis takes the first one's parameters
+        and optimizer moments."""
+        opt = self.optimizer
+        moments = [*opt.mu.values(), *opt.nu.values(), *(opt.acc or {}).values()]
+        replicate([*self.model.parameters(), *moments], self.mesh)
 
     def _seeded(self, stream: int) -> torch.Generator:
         return self.generator.manual_seed(self.seed * 2 ** 32 + stream)
 
+    def _data_mean(self, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return dict(zip(losses, data_mean(list(losses.values()), self.mesh)))
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimizer step; returns the losses, ``total_loss`` and the
-        raw gradients' global norm, as device tensors."""
+        raw gradients' global norm, as device tensors (of the global batch
+        on a data axis). A batch with ``_local_rows`` is this rank's rows."""
         self.model.train()
+        batch = dict(batch)
+        rows = batch.pop("_local_rows", None)
         cuda = [self.device.index or 0] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=cuda):
-            torch.manual_seed(self.seed * 2 ** 32 + 2 ** 30 + self.global_step)  # dropout
+        with torch.random.fork_rng(devices=cuda), batch_rows(rows):
+            # dropout: the model axis's ranks draw alike (its replicated regions)
+            torch.manual_seed(self.seed * 2 ** 32 + 2 ** 30 + self.global_step
+                              + self.mesh.data_rank * 2 ** 24)
             losses = self.task.compute_losses(self.model, batch, self._seeded(self.global_step))
         total = sum(losses.values())
         for p in self.optimizer.params.values():
             p.grad = None
         total.backward()
-        grad_norm = global_norm(p.grad for p in self.optimizer.params.values()
-                                if p.grad is not None)
+        all_reduce_gradients(list(self.optimizer.params.values()), self.mesh)
+        grad_norm = self.optimizer.global_norm(
+            {n: p.grad for n, p in self.optimizer.params.items() if p.grad is not None})
         self.optimizer.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
+        metrics = self._data_mean({**{k: v.detach() for k, v in losses.items()},
+                                   "total_loss": total.detach()})
         metrics["grad_norm"] = grad_norm
         return metrics
 
     @torch.no_grad()
     def val_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         self.model.eval()
+        batch = dict(batch)
+        rows = batch.pop("_local_rows", None)
         # one fixed stream for every validation batch, so evaluations compare
-        losses = self.task.compute_losses(self.model, batch, self._seeded(2 ** 31))
+        with batch_rows(rows):
+            losses = self.task.compute_losses(self.model, batch, self._seeded(2 ** 31))
         losses["total_loss"] = sum(losses.values())
-        return losses
+        return self._data_mean(losses)
 
     # ---- checkpointing ------------------------------------------------------
 
-    def save_checkpoint(self, block: bool = True) -> str:
+    def params_tree(self) -> dict:
+        """The model's weights as the JAX param tree of the one-process
+        model (tensor-parallel slices gathered: every rank of the model
+        axis calls it)."""
+        sd = self.model.state_dict()
+        if self.tp_kinds:
+            sd = gather_state_dict(sd, self.tp_kinds, self.mesh.tp)
+        return self.task.flax_tree(sd)
+
+    def save_checkpoint(self, block: bool = True) -> Optional[str]:
         """Snapshot the weights and the optimizer state to the host, then
         write ``model_ckpt_steps_{step}.ckpt``: at once, or with
         ``async_save`` and ``block=False`` on a thread (the next save, the
-        best copy and the end of ``fit`` join it)."""
+        best copy and the end of ``fit`` join it). Rank 0 writes; the other
+        ranks of its model axis gather with it, the rest return None."""
+        if self.mesh.data_rank != 0:
+            return None
         payload = {
             "global_step": int(self.global_step),
             "epoch": int(self.current_epoch),
             "checkpoint_callback_best": float(self.best_val),
-            "state_dict": self.task.params_tree(self.model),
+            "state_dict": self.params_tree(),
             "optimizer_state": self.optimizer.state_dict(),
         }
+        if not self.is_main:
+            return None
         self.join_pending_save()
         step = self.global_step
 
@@ -304,8 +409,12 @@ class Trainer:
         """Resume from the newest checkpoint in the work dir, written by
         either package (or by the port before its optimizer state took
         optax's layout). An empty optimizer state (``convert_ckpt``'s) is
-        refused, as the JAX trainer's ``from_state_dict`` refuses it."""
-        payload = ckpt_utils.load_last_checkpoint(self.work_dir)
+        refused, as the JAX trainer's ``from_state_dict`` refuses it. Rank 0
+        reads its work dir, where it wrote the checkpoints, and every rank
+        takes what it read: the ranks resume at one step without a shared
+        disk."""
+        payload = from_rank0(
+            ckpt_utils.load_last_checkpoint(self.work_dir) if self.is_main else None, self.mesh)
         if payload is None:
             return False
         opt_state = payload["optimizer_state"]
@@ -315,15 +424,18 @@ class Trainer:
         self.global_step = int(payload["global_step"])
         self.current_epoch = int(payload.get("epoch", 0))
         self.best_val = float(payload.get("checkpoint_callback_best", self.best_val))
-        self.task.load_params_tree(self.model, payload["state_dict"])
+        sd = self.task.state_dict_of(payload["state_dict"])
+        if self.tp_kinds:
+            sd = shard_for_rank(sd, self.tp_kinds, self.mesh.tp.rank, self.mesh.tp.size)
+        self.model.load_state_dict(sd)
         self.optimizer.load_state_dict(opt_state)
         log.info("| restored checkpoint at step %d", self.global_step)
         return True
 
     def _profile(self, steps_this_session: int) -> None:
         """Start the profiler before this session's step 10, stop it
-        ``profile_steps`` steps later."""
-        if not self.profile_steps:
+        ``profile_steps`` steps later (rank 0's)."""
+        if not self.profile_steps or not self.is_main:
             return
         if steps_this_session == PROFILE_AT and self._profiler is None:
             from torch.profiler import ProfilerActivity, profile
@@ -357,7 +469,8 @@ class Trainer:
         max_steps = max_steps or self.max_updates
         self.build(task)
         restored = self.restore_checkpoint()
-        writer = MetricsWriter(self.work_dir)
+        self.replicate()
+        writer = MetricsWriter(self.work_dir) if self.is_main else None
         if not restored and self.num_sanity_val_steps != 0:
             n = None if self.num_sanity_val_steps < 0 else self.num_sanity_val_steps
             sanity = self.evaluate(task, max_batches=n)
@@ -381,13 +494,14 @@ class Trainer:
         # global_step may be past 10 already)
         steps_this_session = 0
         try:
-            while self.global_step < max_steps and not preempted.is_set():
+            while self.global_step < max_steps and not agree(preempted.is_set(), self.mesh):
                 self.current_epoch += 1
-                prefetcher = DevicePrefetcher(task.train_iterator(), self.device,
-                                              depth=self.hparams.get("prefetch_to_device", 2))
+                prefetcher = self._prefetcher(
+                    task.train_iterator(self.n_devices, local_block=self._local_block()),
+                    depth=self.hparams.get("prefetch_to_device", 2))
                 try:
                     for _, batch in prefetcher:
-                        if self.global_step >= max_steps or preempted.is_set():
+                        if self.global_step >= max_steps or agree(preempted.is_set(), self.mesh):
                             break
                         self._profile(steps_this_session)
                         metrics = self.train_step(batch)
@@ -397,10 +511,11 @@ class Trainer:
                             self._log_train(metrics, writer)
                         if self.global_step % self.val_check_interval == 0:
                             val = self.evaluate(task, writer=writer)
-                            writer.add_scalars(val, self.global_step, prefix="val/")
                             improved = self._update_best(val.get("total_loss"))
                             self.save_checkpoint(block=False)
-                            if improved:
+                            if self.is_main:
+                                writer.add_scalars(val, self.global_step, prefix="val/")
+                            if improved and self.is_main:
                                 self.join_pending_save()
                                 ckpt_utils.save_best_copy(self.work_dir, self.global_step)
                 finally:
@@ -414,10 +529,11 @@ class Trainer:
                 self._stop_profile()
                 self.join_pending_save()
             finally:
-                writer.close()
+                if writer is not None:
+                    writer.close()
                 for sig, handler in prev_handlers.items():
                     signal.signal(sig, handler)
-        if preempted.is_set() or self.global_step % self.val_check_interval != 0:
+        if agree(preempted.is_set(), self.mesh) or self.global_step % self.val_check_interval != 0:
             self.save_checkpoint()
         log.info("| training done: %d steps in %.1fs", self.global_step, time.time() - t_start)
 
@@ -426,24 +542,44 @@ class Trainer:
         values["lr"] = self.optimizer.schedule(self.global_step)
         if self.check_nans and not math.isfinite(values["grad_norm"]):
             raise FloatingPointError(f"non-finite grad norm at step {self.global_step}")
-        writer.add_scalars(values, self.global_step, prefix="tr/")
+        if writer is not None:
+            writer.add_scalars(values, self.global_step, prefix="tr/")
+
+    def _prefetcher(self, batch_iter, depth: int = 2) -> DevicePrefetcher:
+        return DevicePrefetcher(batch_iter, self.device, depth=depth,
+                                mesh=self.mesh if self.mesh.size > 1 else None)
+
+    def _local_block(self):
+        """This process's data blocks where it loads only its rows
+        (``per_process_loading``, default true, on a world of several);
+        None loads the global batch."""
+        if self.mesh.size == 1 or not self.hparams.get("per_process_loading", True):
+            return None
+        return process_data_blocks(self.mesh)
 
     def evaluate(self, task, max_batches: Optional[int] = None,
                  writer: Optional[MetricsWriter] = None) -> Dict[str, float]:
         """The validation losses, weighted by each batch's ``nsamples``; the
-        task's plots of the first batch under ``work_dir/plots``."""
+        task's plots of the first batch under ``work_dir/plots`` (rank 0's
+        rows; none at ``model_parallel > 1``, whose renders need every rank
+        of the model axis)."""
         sums: Dict[str, float] = {}
         weights: Dict[str, float] = {}
-        for i, (nsamples, batch) in enumerate(DevicePrefetcher(task.val_iterator(), self.device)):
+        batches = task.val_iterator(self.n_devices, local_block=self._local_block())
+        for i, (nsamples, batch) in enumerate(self._prefetcher(batches)):
             if max_batches is not None and i >= max_batches:
                 break
             nsamples = nsamples or 1
             for k, v in self.val_step(batch).items():
                 sums[k] = sums.get(k, 0.0) + float(v) * nsamples
                 weights[k] = weights.get(k, 0.0) + nsamples
-            if i == 0:
+            if i == 0 and self.is_main and self.mesh.model_parallel == 1:
+                batch.pop("_local_rows", None)
                 task.validation_plots(self.model, batch, self.global_step,
                                       os.path.join(self.work_dir, "plots"), writer=writer)
+            elif i == 0 and self.is_main:
+                log.info("| validation plots off at model_parallel=%d",
+                         self.mesh.model_parallel)
         return {k: sums[k] / max(weights[k], 1) for k in sums}
 
     def _update_best(self, val_loss: Optional[float]) -> bool:
@@ -456,3 +592,15 @@ class Trainer:
             self.best_val = val_loss
             return True
         return False
+
+
+def train(hparams: dict, task_name: str, max_steps: Optional[int] = None, device=None) -> None:
+    """``train TASK``: fit ``task_name`` on this process's rank (a world of
+    one without a launcher's environment), then leave the process group."""
+    from prodiff_tpu_torch.parallel.mesh import shutdown_distributed
+    from prodiff_tpu_torch.tasks import get_task_cls
+
+    try:
+        Trainer(hparams, device=device).fit(get_task_cls(task_name)(hparams), max_steps=max_steps)
+    finally:
+        shutdown_distributed()

@@ -307,7 +307,8 @@ def test_port_imports_no_jax():
         "             'binarize.pitch_predictor', 'binarize.dur_predictor',\n"
         "             'tasks.dur_predictor', 'tasks.pitch_predictor', 'tasks.vari_predictor',\n"
         "             'ops.stft_extras', 'models.rmvpe', 'models.vr', 'pe.rmvpe', 'separation',\n"
-        "             'preprocess', 'binarize.svs', 'binarize.vari_predictor'):\n"
+        "             'preprocess', 'binarize.svs', 'binarize.vari_predictor',\n"
+        "             'parallel.mesh', 'parallel.megatron', 'parallel.tp_wavenet'):\n"
         "    assert 'prodiff_tpu_torch.' + name in sys.modules, name\n"
         "print('ok')\n"
     )

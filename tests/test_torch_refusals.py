@@ -1,13 +1,16 @@
-"""The PyTorch port refuses the keys that ask for more than one device,
-beside the JAX package's own refusals of the same hparams, on the CPU.
+"""The multi-device keys where one device cannot honour them, in the
+PyTorch port beside the JAX package, on the CPU.
 
 The JAX package acts on ``model_parallel`` (a (data, model) mesh, asserted
 to divide the device count, and a tensor-parallel teacher that raises for
 ``dilation_cycle_length != 1``) and on ``multi_host`` (``jax.distributed``
-initialisation, which raises without a coordinator). The port runs one GPU:
-its ``Trainer`` and its teacher build raise for ``model_parallel > 1`` and
-``multi_host: true`` (``device.refuse_multi_gpu``), the JAX teacher's
-``ValueError`` first where the dilation cycle is not 1. ``model_parallel:
+initialisation, which raises without a coordinator). So does the port: its
+``Trainer`` lays the process group out as that mesh (``parallel/mesh.py``),
+so ``model_parallel: 2`` on a world of one raises the JAX mesh's
+assertion, and ``multi_host: true`` without a launcher's environment raises
+(``init_distributed``); the JAX teacher's ``ValueError`` comes first where
+the dilation cycle is not 1 (``device.check_tp_dilation``). Without a
+process group the teacher builds the one-process model. ``model_parallel:
 1`` and ``multi_host: false`` build as before.
 """
 
@@ -18,8 +21,9 @@ import pytest
 from prodiff_tpu.models.prodiff import ProDiffTeacher as JaxTeacher
 from prodiff_tpu.parallel.mesh import create_mesh
 from prodiff_tpu.training.trainer import Trainer as JaxTrainer
-from prodiff_tpu_torch.device import refuse_multi_gpu
+from prodiff_tpu_torch.device import check_tp_dilation
 from prodiff_tpu_torch.models.prodiff import ProDiffTeacher
+from prodiff_tpu_torch.parallel.mesh import LAUNCHER_ENV
 from prodiff_tpu_torch.training.trainer import Trainer
 
 HP = {"audio_num_mel_bins": 16, "hidden_size": 32, "enc_layers": 1, "enc_ffn_kernel_size": 3,
@@ -38,16 +42,22 @@ def _jax_teacher_init(hp):
                       spk_embed_id=jnp.zeros((1,), jnp.int32), infer=True)
 
 
-def test_model_parallel_on_one_device_is_refused(tmp_path):
-    """``model_parallel: 2`` at dilation cycle 1: the JAX mesh asserts that
-    one device does not divide it; the port's trainer and teacher raise,
-    naming the roadmap's multi-GPU queue."""
-    with pytest.raises(AssertionError, match="not divisible by model_parallel=2"):
+def test_model_parallel_on_one_device_is_refused(tmp_path, monkeypatch):
+    """``model_parallel: 2`` at dilation cycle 1 on a world of one: the JAX
+    mesh asserts that one device does not divide it, and the port's trainer
+    raises the same assertion; the teacher without a process group builds
+    the one-process model."""
+    for k in LAUNCHER_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(AssertionError) as jax_err:
         create_mesh(n_devices=1, model_parallel=2)
     hp = dict(HP, model_parallel=2, work_dir=str(tmp_path))
-    for build in (lambda: Trainer(hp, device="cpu"), lambda: ProDiffTeacher(8, hp)):
-        with pytest.raises(NotImplementedError, match='queue 1, "Multi-GPU"'):
-            build()
+    with pytest.raises(AssertionError) as err:
+        Trainer(hp, device="cpu")
+    assert str(err.value) == str(jax_err.value) == "1 devices not divisible by model_parallel=2"
+    shapes = {n: tuple(p.shape) for n, p in ProDiffTeacher(8, hp).named_parameters()}
+    assert shapes == {n: tuple(p.shape) for n, p in
+                      ProDiffTeacher(8, dict(hp, model_parallel=1)).named_parameters()}
 
 
 def test_model_parallel_with_a_dilation_cycle_raises_the_jax_error(tmp_path):
@@ -59,28 +69,33 @@ def test_model_parallel_with_a_dilation_cycle_raises_the_jax_error(tmp_path):
         _jax_teacher_init(hp)
     assert "requires dilation_cycle_length == 1 (got 5)" in str(jax_err.value)
     for build in (lambda: Trainer(hp, device="cpu"), lambda: ProDiffTeacher(8, hp),
-                  lambda: refuse_multi_gpu(hp)):
+                  lambda: check_tp_dilation(hp)):
         with pytest.raises(ValueError) as err:
             build()
         assert str(err.value) == str(jax_err.value)
 
 
-def test_multi_host_is_refused(tmp_path):
-    """``multi_host: true``: the JAX trainer's ``jax.distributed.initialize()``
-    raises here (no coordinator, or a backend this process already started);
-    the port's trainer and teacher raise."""
+def test_multi_host_is_refused(tmp_path, monkeypatch):
+    """``multi_host: true`` without a launcher: the JAX trainer's
+    ``jax.distributed.initialize()`` raises here (no coordinator, or a
+    backend this process already started), and the port's trainer raises
+    for the missing torchrun environment, as for a half-set one."""
+    for k in LAUNCHER_ENV:
+        monkeypatch.delenv(k, raising=False)
     hp = dict(HP, multi_host=True, work_dir=str(tmp_path))
     with pytest.raises((ValueError, RuntimeError),
                        match="coordinator_address|jax.distributed.initialize"):
         JaxTrainer(hp)
-    for build in (lambda: Trainer(hp, device="cpu"), lambda: ProDiffTeacher(8, hp)):
-        with pytest.raises(NotImplementedError, match="multi_host=True"):
-            build()
+    with pytest.raises(RuntimeError, match="multi_host: true needs a launcher's environment"):
+        Trainer(hp, device="cpu")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    with pytest.raises(RuntimeError, match="half set"):
+        Trainer(hp, device="cpu")
 
 
 def test_one_device_keys_still_build(tmp_path):
     """``model_parallel: 1`` and ``multi_host: false`` build as without them."""
     hp = dict(HP, model_parallel=1, multi_host=False, work_dir=str(tmp_path))
-    refuse_multi_gpu(hp)
+    check_tp_dilation(hp)
     assert Trainer(hp, device="cpu").device.type == "cpu"
     assert sum(p.numel() for p in ProDiffTeacher(8, hp).parameters()) > 0

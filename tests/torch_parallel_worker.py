@@ -1,0 +1,155 @@
+"""Worker of the port's multi-process tests (``tests/test_torch_parallel.py``).
+
+    python tests/torch_parallel_worker.py CASE N OUTDIR [ARG ...]
+
+starts N ranks through ``parallel.mesh.launch_local`` (torchrun's
+environment, ``gloo`` on the CPU) and runs ``CASE`` on each; the ranks write
+what the test compares under OUTDIR. It imports torch and the port only.
+
+Cases:
+- ``dp_step DATA_DIR``: one data-parallel ``Trainer.train_step`` on the first
+  global batch, loaded per process and, from a second trainer, as the
+  global batch cut by ``shard_batch`` (the denoiser's output projection
+  seeded: ``seed_output_projection``): the reduced gradients, the params
+  after the update, the metrics and the rank's rows;
+- ``tp_module NAME NPZ``: a two-rank tensor-parallel ``WaveNet`` or
+  ``FastspeechEncoder`` (``NAME``) on the one-process weights and inputs of
+  ``NPZ``: the output, and the gradients of ``sum(out * probe)`` gathered
+  into the one-process layout;
+- ``fit DATA_DIR``: ``Trainer.fit`` of 2 steps at ``model_parallel`` N, a
+  constant learning rate of 1e-3: each step's metrics;
+- ``resume DATA_DIR WORK_DIR``: data-parallel ``Trainer.fit`` to step 3,
+  rank 0 in WORK_DIR (which holds a checkpoint) and the others in empty
+  work dirs of their own: the step each rank reached and its params.
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+
+OUT_PROJ = "diffusion.denoise_fn.output_projection.weight"
+
+
+def seed_output_projection(model: torch.nn.Module) -> None:
+    """The denoiser's zero-initialised output projection drawn from a seeded
+    normal (std 0.02), so the first step's gradients reach every layer."""
+    p = dict(model.named_parameters())[OUT_PROJ]
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+
+
+def _hp(data_dir: str, outdir: str, **kw) -> dict:
+    from prodiff_tpu_torch.utils.synthetic import small_hparams
+
+    return small_hparams(data_dir, dropout=0.0, work_dir=os.path.join(outdir, "work"), **kw)
+
+
+def dp_step(outdir: str, data_dir: str) -> None:
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    for per_process in (True, False):
+        hp = _hp(data_dir, outdir, per_process_loading=per_process)
+        trainer = Trainer(hp, device="cpu")
+        task = get_task_cls("svs")(hp)
+        trainer.build(task)
+        seed_output_projection(trainer.model)
+        trainer.replicate()
+        batches = trainer._prefetcher(task.train_iterator(trainer.n_devices,
+                                                          local_block=trainer._local_block()))
+        _, batch = next(iter(batches))
+        rows = batch["_local_rows"]
+        metrics = trainer.train_step(batch)
+        out[per_process] = {
+            "rows": rows, "mel": batch["mel"],
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.clone() for n, p in trainer.model.named_parameters()},
+            "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
+        }
+    torch.save(out, os.path.join(outdir, f"rank{trainer.mesh.rank}.pt"))
+
+
+def tp_module(outdir: str, name: str, npz: str) -> None:
+    from prodiff_tpu_torch.models.encoder import FastspeechEncoder
+    from prodiff_tpu_torch.models.wavenet import WaveNet
+    from prodiff_tpu_torch.parallel.megatron import gather_state_dict, shard_for_rank, sharded_names
+    from prodiff_tpu_torch.parallel.mesh import create_mesh, init_distributed
+
+    data = dict(np.load(npz))
+    mesh = create_mesh(model_parallel=2, device=init_distributed({}, device="cpu"))
+    tp = mesh.tp
+    if name == "wavenet":
+        model = WaveNet(16, 32, 4, 128, 1, tp=tp)
+        inputs = [torch.from_numpy(data.pop(k)) for k in ("in.x", "in.t", "in.cond")]
+    else:
+        model = FastspeechEncoder(32, 64, 2, num_heads=2, dropout=0.0, tp=tp)
+        inputs = [torch.from_numpy(data.pop("in.tokens"))]
+    probe = torch.from_numpy(data.pop("in.probe"))
+    kinds = sharded_names(model)
+    full = {k: torch.from_numpy(v) for k, v in data.items()}
+    model.load_state_dict(shard_for_rank(full, kinds, tp.rank, tp.size))
+    out = model(*inputs)
+    (out * probe).sum().backward()
+    grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()}, kinds, tp)
+    back = gather_state_dict(model.state_dict(), kinds, tp)
+    torch.save({"out": out.detach(), "grads": grads, "kinds": kinds,
+                "round_trip": all(torch.equal(back[k], full[k]) for k in full)},
+               os.path.join(outdir, f"rank{mesh.rank}.pt"))
+
+
+def fit(outdir: str, data_dir: str) -> None:
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    # a constant learning rate: step 1 moves the zero-initialised output
+    # projection, so step 2's gradients reach every layer
+    hp = _hp(data_dir, outdir, model_parallel=int(os.environ["WORLD_SIZE"]),
+             val_check_interval=1000, scheduler="constant", lr=1e-3)
+    trainer = Trainer(hp, device="cpu")
+    metrics = []
+    step = trainer.train_step
+
+    def recorded(batch):
+        out = step(batch)
+        metrics.append({k: float(v) for k, v in out.items()})
+        return out
+
+    trainer.train_step = recorded
+    trainer.fit(get_task_cls("svs")(hp), max_steps=2)
+    shapes = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
+    torch.save({"shapes": shapes, "kinds": trainer.tp_kinds, "metrics": metrics},
+               os.path.join(outdir, f"rank{trainer.mesh.rank}.pt"))
+
+
+def resume(outdir: str, data_dir: str, work_dir: str) -> None:
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    rank = int(os.environ["RANK"])
+    own = work_dir if rank == 0 else os.path.join(outdir, f"work_rank{rank}")
+    hp = dict(_hp(data_dir, outdir, val_check_interval=1000), work_dir=own)
+    trainer = Trainer(hp, device="cpu")
+    trainer.fit(get_task_cls("svs")(hp), max_steps=3)
+    files = sorted(os.listdir(own)) if os.path.isdir(own) else []
+    torch.save({"global_step": trainer.global_step, "files": files,
+                "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()}},
+               os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def run(case: str, outdir: str, args: tuple) -> None:
+    torch.set_num_threads(2)
+    {"dp_step": dp_step, "tp_module": tp_module, "fit": fit, "resume": resume}[case](outdir, *args)
+
+
+if __name__ == "__main__":
+    from prodiff_tpu_torch.parallel.mesh import launch_local
+
+    case, n, outdir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    launch_local(n, run, (case, outdir, tuple(sys.argv[4:])))
