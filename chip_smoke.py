@@ -221,10 +221,22 @@ Phases, each printing its lines before the last:
      under deterministic algorithms; (c) NCCL, the
      default backend under torchrun's environment, as a world of one: one
      step within 1e-6 relative of the one-process step, and an NCCL
-     all-reduce of the gradient bucket. The per-rank step times (CUDA
-     events) are printed beside the card's name and power limit, as two
-     ranks sharing one card, not a scaling figure. The K1/K5 entries of the
-     JSON line gain the per-rank launches of this phase.
+     all-reduce of the gradient bucket; (d) sequence parallelism of the
+     base config's denoiser (128 mel bins, hidden 256, 20 x 256, cycle 1,
+     seeded weights) on the same two ranks (``WaveNet(sp=Mesh.sp)``: each
+     rank its block of frames and a 20-frame halo exchanged point to
+     point): the gathered forward at B=1, T=8,192 and at T=8,191 (uneven
+     blocks) within 1e-4 of the output's peak of the one-process K1 forward
+     and of its plain twin on the card, and at B=2, T=2,048 the gradients of
+     ``sum(out * probe)`` (every parameter, summed over the ranks, and the
+     gathered spec and cond) within 1e-4 of each tensor's peak of the
+     one-process K5 route; each rank's K1 launches for one forward of its
+     window and K5a + K5b for one backward, as ``stack_launches`` and
+     ``train_launches`` count them there; each rank's window, the halo
+     exchange's time and K1's on its window printed. The per-rank step
+     times (CUDA events) are printed beside the card's name and power
+     limit, as two ranks sharing one card, not a scaling figure. The K1/K5
+     entries of the JSON line gain the per-rank launches of this phase.
 Each path runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that did not launch, or one off the path that
 did, fails the run. The second-to-last line is the kernels' JSON summary; the last line is
@@ -4580,11 +4592,15 @@ def multi_gpu_rank(rank: int, world: int, port: int, parts: tuple, data_dir: str
     import torch
     import torch.distributed as dist
 
+    from prodiff_tpu_torch.parallel.mesh import AGENT_STORE_ENV
+
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     torch.use_deterministic_algorithms(True, warn_only=True)  # as the one-process runs
-    # gloo, named: NCCL refuses two ranks on one device, and this card is one
+    # gloo, named: NCCL refuses two ranks on one device, and this card is one;
+    # every rank a client of the store the launcher holds on ``port``
+    os.environ[AGENT_STORE_ENV] = "True"
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
                             rank=rank, timeout=datetime.timedelta(seconds=MG_JOIN_S))
     try:
@@ -4598,9 +4614,11 @@ def multi_gpu_part(rank: int, part: str, data_dir: str, out_dir: str, dev, confi
     """Part ``dp`` (data parallel: MG_STEPS steps, a validation batch, a
     checkpoint) or ``tp`` (``model_parallel: 2``: a forward on seeded draws,
     MG_TP_STEPS steps, a checkpoint) of one rank, the denoiser's output
-    projection seeded."""
+    projection seeded; or ``sp`` (:func:`multi_gpu_sp`)."""
     import torch
 
+    if part == "sp":
+        return multi_gpu_sp(rank, out_dir, dev, torch)
     from prodiff_tpu_torch.parallel.megatron import gather_state_dict
     from prodiff_tpu_torch.tasks import get_task_cls
     from prodiff_tpu_torch.training.trainer import Trainer
@@ -4650,6 +4668,151 @@ def multi_gpu_part(rank: int, part: str, data_dir: str, out_dir: str, dev, confi
         json.dump(res, f)
 
 
+# (d) sequence parallelism: the forward at one long segment, even and
+# uneven over the two ranks, and the gradients at B=2
+MG_SP_T, MG_SP_T_ODD, MG_SP_GRAD_B, MG_SP_GRAD_T = 8192, 8191, 2, 2048
+MG_SP_TOL, MG_SP_REPS = 1e-4, 5
+
+
+def sp_wavenet(dev, torch, sp=None):
+    """The base config's denoiser (``prodiff_tpu_torch/assets/base_config.yaml``:
+    128 mel bins, hidden 256, 20 layers x 256 channels, cycle 1) on weights
+    seeded from SEED, its zero-initialised output projection drawn from a
+    seeded normal (std 0.02) so every layer reaches the output."""
+    from prodiff_tpu_torch.config import load_base_config
+    from prodiff_tpu_torch.models.wavenet import WaveNet
+
+    hp = load_base_config()
+    torch.manual_seed(SEED)
+    net = WaveNet(hp["audio_num_mel_bins"], hp["hidden_size"], hp["residual_layers"],
+                  hp["residual_channels"], hp["dilation_cycle_length"], sp=sp)
+    w = net.output_projection.weight
+    with torch.no_grad():
+        w.copy_(0.02 * torch.randn(w.shape, generator=torch.Generator().manual_seed(SEED)))
+    return net.to(dev)
+
+
+def sp_inputs(b: int, t: int, net, torch):
+    """Seeded host inputs of one segment: spec [b, t, 128], the steps [b],
+    cond [b, t, 256] and the probe of ``sum(out * probe)``."""
+    gen = torch.Generator().manual_seed(SEED + t)
+    in_dims = net.input_projection.in_channels
+    hidden = net.residual_layers[0].conditioner_projection.in_channels
+    return (torch.randn(b, t, in_dims, generator=gen), torch.randint(0, 4, (b,), generator=gen),
+            torch.randn(b, t, hidden, generator=gen), torch.randn(b, t, in_dims, generator=gen))
+
+
+def multi_gpu_sp(rank: int, out_dir: str, dev, torch) -> None:
+    """Part ``sp`` of one rank: the sequence-parallel denoiser's forward at
+    T=MG_SP_T and MG_SP_T_ODD (B=1) and its gradients at MG_SP_GRAD_B x
+    MG_SP_GRAD_T, each with the rank's launches counted around it alone;
+    then the halo exchange and K1 on the rank's window timed. Rank 0 writes
+    the gathered outputs and gradients."""
+    import torch.nn.functional as F
+
+    from prodiff_tpu_torch.models.wavenet import conv1x1
+    from prodiff_tpu_torch.ops.wavenet_stack import residual_stack, stack_launches
+    from prodiff_tpu_torch.ops.wavenet_train import train_launches
+    from prodiff_tpu_torch.parallel.halo import (
+        gather_frames, gather_window, halo_width, split_frames, window_of)
+    from prodiff_tpu_torch.parallel.mesh import create_mesh, sum_model_gradients
+
+    mesh = create_mesh(model_parallel=2, device=dev)
+    sp = mesh.sp
+    net = sp_wavenet(dev, torch, sp)
+    n_layers, c = len(net.residual_layers), net.residual_layers[0].dilated_conv.in_channels
+    h = halo_width(n_layers, net.dilation_cycle_length)
+    res, out = {"rank": rank, "halo": h, "forward": {}}, {}
+    for t in (MG_SP_T, MG_SP_T_ODD):
+        spec, steps, cond, _ = sp_inputs(1, t, net, torch)
+        xs, cs, steps = split_frames(spec, sp).to(dev), split_frames(cond, sp).to(dev), steps.to(dev)
+        win = window_of(xs.shape[1], sp, h, dev)
+        with torch.no_grad():
+            reset_counts()
+            y = net(xs, steps, cs)
+            torch.cuda.synchronize(dev)
+            launches = {k: v.count for k, v in counters().items() if v.count}
+            out[f"forward_{t}"] = gather_frames(y, sp).cpu()
+            # the parts, timed on this rank's window (both ranks in step)
+            exchange_ms = timed_ms(lambda: gather_window(win, sp, [xs, cs]), MG_SP_REPS, torch)
+            spec_w, cond_w = gather_window(win, sp, [xs, cs])
+            x0 = F.relu(conv1x1(spec_w, net.input_projection))
+            step = net.mlp(net.diffusion_embedding(steps))
+            w = net.stacked_weights()
+            k1_ms = timed_ms(lambda: residual_stack(x0, cond_w, step, w), MG_SP_REPS, torch)
+            forward_ms = timed_ms(lambda: net(xs, steps, cs), MG_SP_REPS, torch)
+        res["forward"][str(t)] = dict(
+            block=list(win.block), window=list(win.span), launches=launches,
+            want={"residual_stack": stack_launches(1, win.span[1] - win.span[0], c, n_layers)},
+            exchange_ms=exchange_ms, k1_ms=k1_ms, forward_ms=forward_ms)
+    spec, steps, cond, probe = sp_inputs(MG_SP_GRAD_B, MG_SP_GRAD_T, net, torch)
+    xs = split_frames(spec, sp).to(dev).requires_grad_()
+    cs = split_frames(cond, sp).to(dev).requires_grad_()
+    win = window_of(xs.shape[1], sp, h, dev)
+    reset_counts()
+    y = net(xs, steps.to(dev), cs)
+    (y * split_frames(probe, sp).to(dev)).sum().backward()
+    torch.cuda.synchronize(dev)
+    launches = {k: v.count for k, v in counters().items() if v.count}
+    save, chain = train_launches(MG_SP_GRAD_B, win.span[1] - win.span[0], c, n_layers)
+    res["grad"] = dict(block=list(win.block), window=list(win.span), launches=launches,
+                       want={"residual_stack_save": save, "residual_stack_chain": chain})
+    sum_model_gradients(list(net.parameters()), mesh)
+    out["grads"] = {n: p.grad.cpu() for n, p in net.named_parameters()}
+    out["spec_grad"], out["cond_grad"] = (gather_frames(g, sp).cpu() for g in (xs.grad, cs.grad))
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "sp_tensors.pt"))
+    with open(os.path.join(out_dir, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def multi_gpu_sp_check(ranks: list, tmp: str, dev, torch) -> dict:
+    """(d): the ranks' gathered forwards against the one-process K1 forward
+    and its plain twin on the card, their gradients against the one-process
+    K5 route's, each rank's launches against the counts of its window."""
+    from unittest import mock
+
+    from prodiff_tpu_torch.models import wavenet
+
+    got = torch.load(os.path.join(tmp, "sp_tensors.pt"), weights_only=False)
+    net = sp_wavenet(dev, torch)
+    report = {"forward_err": {}, "plain_err": {}}
+    for t in (MG_SP_T, MG_SP_T_ODD):
+        spec, steps, cond, _ = sp_inputs(1, t, net, torch)
+        args = (spec.to(dev), steps.to(dev), cond.to(dev))
+        with torch.no_grad():
+            k1 = net(*args).cpu()
+            with mock.patch.object(wavenet, "on_kernels", lambda x, cycle: False):
+                plain = net(*args).cpu()
+        sharded = got[f"forward_{t}"]
+        for key, want in (("forward_err", k1), ("plain_err", plain)):
+            err = peak_err(sharded, want)
+            if not err <= MG_SP_TOL:
+                raise AssertionError(f"sp forward at T={t} vs the one-process "
+                                     f"{'K1' if key == 'forward_err' else 'plain'} forward: "
+                                     f"{err:.3e} x its peak, beyond {MG_SP_TOL}")
+            report[key][str(t)] = err
+    spec, steps, cond, probe = sp_inputs(MG_SP_GRAD_B, MG_SP_GRAD_T, net, torch)
+    spec, cond = spec.to(dev).requires_grad_(), cond.to(dev).requires_grad_()
+    (net(spec, steps.to(dev), cond) * probe.to(dev)).sum().backward()
+    want = {n: p.grad.cpu() for n, p in net.named_parameters()}
+    want.update(spec_grad=spec.grad.cpu(), cond_grad=cond.grad.cpu())
+    report["grad_err"] = params_vs("sp gradients (params summed over the ranks, spec and cond "
+                                   "gathered) vs the one-process K5 route",
+                                   {**got["grads"], "spec_grad": got["spec_grad"],
+                                    "cond_grad": got["cond_grad"]}, want, MG_SP_TOL)
+    for r in ranks:
+        for what, run in [(f"forward T={t}", r["forward"][t]) for t in r["forward"]] + [
+                ("gradient", r["grad"])]:
+            if run["launches"] != run["want"]:
+                raise AssertionError(f"sp rank {r['rank']} {what}: launched {run['launches']}, "
+                                     f"its window {run['window']} counts {run['want']}")
+    report["launches"] = {str(r["rank"]): {"forward": {t: v["launches"] for t, v in
+                                                       r["forward"].items()},
+                                           "gradient": r["grad"]["launches"]} for r in ranks}
+    return report
+
+
 def event_timed(fn, dev, torch):
     """(milliseconds by CUDA events, ``fn()``): one call on the card, timed
     between two synchronisations (0.0 off the card)."""
@@ -4680,24 +4843,26 @@ def multi_gpu_forward(trainer, batch, torch):
 
 def spawn_ranks(parts: tuple, data_dir: str, out_dir: str, dev, config: dict) -> dict:
     """Two spawned ranks that run ``parts`` in turn, joined within
-    MG_JOIN_S; a rank that fails or hangs fails the phase. Returns each
-    part's results, rank by rank."""
+    MG_JOIN_S, clients of the store this process holds (``rendezvous``); a
+    rank that fails or hangs fails the phase. Returns each part's results,
+    rank by rank."""
     import torch.multiprocessing as mp
 
-    from prodiff_tpu_torch.parallel.mesh import free_port
+    from prodiff_tpu_torch.parallel.mesh import rendezvous
 
     t0 = time.time()
-    ctx = mp.start_processes(multi_gpu_rank, nprocs=2, join=False, start_method="spawn",
-                             args=(2, free_port(), parts, data_dir, out_dir, str(dev), config))
-    try:
-        while not ctx.join(timeout=5):
-            if time.time() - t0 > MG_JOIN_S:
-                raise AssertionError(f"multi_gpu: the ranks did not finish in {MG_JOIN_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    with rendezvous() as port:
+        ctx = mp.start_processes(multi_gpu_rank, nprocs=2, join=False, start_method="spawn",
+                                 args=(2, port, parts, data_dir, out_dir, str(dev), config))
+        try:
+            while not ctx.join(timeout=5):
+                if time.time() - t0 > MG_JOIN_S:
+                    raise AssertionError(f"multi_gpu: the ranks did not finish in {MG_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
     log(f"multi_gpu {' + '.join(parts)}: two ranks (spawned, gloo, both on {dev}) ran in "
         f"{time.time() - t0:.3f} s with start-up")
     return {part: [json.load(open(os.path.join(out_dir, f"{part}_rank{r}.json")))
@@ -4785,8 +4950,8 @@ def phase_multi_gpu(dev, torch, config=None):
         make_svs_dataset(data_dir, n_train=MG_ITEMS, n_valid=TRAIN_N_VALID, n_mels=128, seed=7,
                          t_ph_range=(32, 33), dur_range=(45, 49))
         config = TRAIN_HPARAMS if config is None else config
-        ranks = spawn_ranks(("dp", "tp"), data_dir, tmp, dev, config)
-        dp, tp = ranks["dp"], ranks["tp"]
+        ranks = spawn_ranks(("dp", "tp", "sp"), data_dir, tmp, dev, config)
+        dp, tp, sp = ranks["dp"], ranks["tp"], ranks["sp"]
         dp_t = torch.load(os.path.join(tmp, "dp_tensors.pt"), weights_only=False)
         tp_t = torch.load(os.path.join(tmp, "tp_tensors.pt"), weights_only=False)
 
@@ -4914,6 +5079,18 @@ def phase_multi_gpu(dev, torch, config=None):
         # (c) NCCL, the default backend on the card, as a world of one
         multi_gpu_nccl(hp, tmp, batches[0], one_metrics[0], snapshots[1], dev, torch)
 
+        # (d) sequence parallelism of the denoiser
+        del one
+        sp_report = multi_gpu_sp_check(sp, tmp, dev, torch)
+        log(f"multi_gpu (d) sequence parallel, the base config's denoiser on 2 ranks (halo "
+            f"{sp[0]['halo']} frames a side): the gathered forward vs the one-process K1 forward "
+            + ", ".join(f"T={t} {e:.3e}" for t, e in sp_report["forward_err"].items())
+            + " and vs its plain twin " + ", ".join(f"T={t} {e:.3e}" for t, e in
+                                                   sp_report["plain_err"].items())
+            + f" of the output's peak; B={MG_SP_GRAD_B}, T={MG_SP_GRAD_T}: the gradients within "
+            f"{sp_report['grad_err']:.3e} of each tensor's peak of the one-process K5 route "
+            f"(tolerance {MG_SP_TOL}); launches per rank " + json.dumps(sp_report["launches"]))
+
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=60, check=True).stdout.strip()
         for part, ranks in (("dp", dp), ("tp", tp)):
@@ -4921,7 +5098,17 @@ def phase_multi_gpu(dev, torch, config=None):
                 "not a scaling figure): " + "; ".join(
                     f"rank {r['rank']} " + ", ".join(f"{ms:.3f}" for ms in r["step_ms"]) + " ms"
                     for r in ranks))
+        for r in sp:
+            for t, run in r["forward"].items():
+                log(f"multi_gpu sp rank {r['rank']} T={t}: block {run['block']}, window "
+                    f"{run['window']}; halo exchange (gloo, staged through the host) "
+                    f"{run['exchange_ms']:.4f} ms, K1 on the window {run['k1_ms']:.4f} ms, the "
+                    f"rank's whole forward {run['forward_ms']:.4f} ms, CUDA events, mean of "
+                    f"{MG_SP_REPS} (two ranks sharing one card, {smi}; not a scaling figure)")
+            log(f"multi_gpu sp rank {r['rank']} gradient B={MG_SP_GRAD_B} T={MG_SP_GRAD_T}: block "
+                f"{r['grad']['block']}, window {r['grad']['window']}")
         return {"k5_per_rank_step": per_step, "k1_per_rank_val_batch": K1_LAUNCHES,
+                "sp": sp_report, "sp_ranks": sp,
                 "dp_grad_err": dp_grad, "tp_grad_err": tp_grad, "dp_param_err": dp_worst,
                 "dp_update_err": dp_update, "tp_update_err": tp_worst,
                 "tp_metric_err": tp_metric_err, "tp_forward_err": fwd,
@@ -4938,42 +5125,43 @@ def multi_gpu_nccl(hp: dict, tmp: str, batch, want: dict, after: dict, dev, torc
     all-reduce of the gradient bucket."""
     import torch.distributed as dist
 
-    from prodiff_tpu_torch.parallel.mesh import LAUNCHER_ENV, collective, free_port
+    from prodiff_tpu_torch.parallel.mesh import AGENT_STORE_ENV, LAUNCHER_ENV, collective, rendezvous
     from prodiff_tpu_torch.tasks import get_task_cls
     from prodiff_tpu_torch.training.trainer import Trainer
 
-    before = {k: os.environ.get(k) for k in LAUNCHER_ENV}
-    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
-                      MASTER_PORT=str(free_port()))
-    try:
-        solo = Trainer(dict(hp, work_dir=os.path.join(tmp, "work_nccl")))
-        if dist.get_backend() != "nccl" or solo.device != dev:
-            raise AssertionError(f"the default backend is {dist.get_backend()} on {solo.device}")
-        solo.build(get_task_cls("svs")(solo.hparams))
-        seed_output_projection(solo.model, torch)
-        got = {k: float(v) for k, v in solo.train_step(batch).items()}
-        grads = [p.grad for p in solo.model.parameters() if p.grad is not None]
-        flat_g = torch._utils._flatten_dense_tensors(grads)
-        reduced = collective(dist.all_reduce, flat_g.clone(), dist.group.WORLD)
-        if not torch.equal(reduced, flat_g):
-            raise AssertionError("NCCL's all-reduce over a world of one changed the bucket")
-        errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("total_loss", "grad_norm")}
-        worst = params_vs("nccl params after 1 step", solo.model.state_dict(), after,
-                          MG_NCCL_RTOL)
-        if not max(errs.values()) <= MG_NCCL_RTOL:
-            raise AssertionError(f"nccl step 1 vs one process: {errs}")
-        log(f"multi_gpu (c) NCCL (the default backend, torchrun's environment, world of one): "
-            f"one step, loss/grad norm within {max(errs.values()):.3e} relative, params within "
-            f"{worst:.3e} of each peak (tolerance {MG_NCCL_RTOL}); an NCCL all-reduce of the "
-            f"{flat_g.numel():,}-element gradient bucket")
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in before.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    before = {k: os.environ.get(k) for k in LAUNCHER_ENV + (AGENT_STORE_ENV,)}
+    with rendezvous() as port:
+        os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port), **{AGENT_STORE_ENV: "True"})
+        try:
+            solo = Trainer(dict(hp, work_dir=os.path.join(tmp, "work_nccl")))
+            if dist.get_backend() != "nccl" or solo.device != dev:
+                raise AssertionError(f"the default backend is {dist.get_backend()} on {solo.device}")
+            solo.build(get_task_cls("svs")(solo.hparams))
+            seed_output_projection(solo.model, torch)
+            got = {k: float(v) for k, v in solo.train_step(batch).items()}
+            grads = [p.grad for p in solo.model.parameters() if p.grad is not None]
+            flat_g = torch._utils._flatten_dense_tensors(grads)
+            reduced = collective(dist.all_reduce, flat_g.clone(), dist.group.WORLD)
+            if not torch.equal(reduced, flat_g):
+                raise AssertionError("NCCL's all-reduce over a world of one changed the bucket")
+            errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("total_loss", "grad_norm")}
+            worst = params_vs("nccl params after 1 step", solo.model.state_dict(), after,
+                              MG_NCCL_RTOL)
+            if not max(errs.values()) <= MG_NCCL_RTOL:
+                raise AssertionError(f"nccl step 1 vs one process: {errs}")
+            log(f"multi_gpu (c) NCCL (the default backend, torchrun's environment, world of one): "
+                f"one step, loss/grad norm within {max(errs.values()):.3e} relative, params within "
+                f"{worst:.3e} of each peak (tolerance {MG_NCCL_RTOL}); an NCCL all-reduce of the "
+                f"{flat_g.numel():,}-element gradient bucket")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
 
 def tree_leaves(tree, path=()):
@@ -5139,7 +5327,10 @@ def main() -> int:
              launches_variance_render=variance_launches["residual_stack"],
              launches_variance_train=vt_launches["residual_stack"],
              launches_data_pipeline=dp_launches["residual_stack"],
-             launches_multi_gpu_per_rank_val_batch=mg["k1_per_rank_val_batch"]),
+             launches_multi_gpu_per_rank_val_batch=mg["k1_per_rank_val_batch"],
+             launches_multi_gpu_sp_per_rank_forward={
+                 f"rank{r['rank']}_T{t}": v["launches"]["residual_stack"]
+                 for r in mg["sp_ranks"] for t, v in r["forward"].items()}),
         dict(entry("resblock_stage", "resblock.cu", "prodiff_tpu/ops/pallas/resblock.py:357",
                    launches["resblock_stage"], res, "resblock_stage"), stages=res["stages"],
              launches_data_pipeline=dp_launches["resblock_stage"],
@@ -5169,13 +5360,17 @@ def main() -> int:
                    train_launches["residual_stack_save"], k5a, "residual_stack_save"),
              launches_variance_train=vt_launches["residual_stack_save"],
              launches_data_pipeline=dp_launches["residual_stack_save"],
-             launches_multi_gpu_per_rank_step=mg["k5_per_rank_step"]["residual_stack_save"]),
+             launches_multi_gpu_per_rank_step=mg["k5_per_rank_step"]["residual_stack_save"],
+             launches_multi_gpu_sp_per_rank_backward={
+                 f"rank{r['rank']}": r["grad"]["launches"]["residual_stack_save"] for r in mg["sp_ranks"]}),
         dict(entry("wavenet_stack_backward_chain", "wavenet_train.cu",
                    "prodiff_tpu/ops/pallas/wavenet_train.py:161",
                    train_launches["residual_stack_chain"], k5b, "residual_stack_chain"),
              launches_variance_train=vt_launches["residual_stack_chain"],
              launches_data_pipeline=dp_launches["residual_stack_chain"],
-             launches_multi_gpu_per_rank_step=mg["k5_per_rank_step"]["residual_stack_chain"]),
+             launches_multi_gpu_per_rank_step=mg["k5_per_rank_step"]["residual_stack_chain"],
+             launches_multi_gpu_sp_per_rank_backward={
+                 f"rank{r['rank']}": r["grad"]["launches"]["residual_stack_chain"] for r in mg["sp_ranks"]}),
         dict(entry("ublock_block", "ublock_block.cu", "prodiff_tpu/ops/pallas/ublock.py:583",
                    vocode_launches["fastdiff"]["ublock_block"], fd["ublock_block"], "ublock_block"),
              k4_chain_ms=fd["ublock_block"]["k4_chain_ms"], by_block=fd["ublock_block"]["by_block"]),

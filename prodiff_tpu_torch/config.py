@@ -1,5 +1,6 @@
 """Experiment config loading (the port's copy of ``load_config``,
-``load_base_config`` and ``set_hparams`` of ``prodiff_tpu/config.py``).
+``load_base_config``, ``apply_overrides`` and ``set_hparams`` of
+``prodiff_tpu/config.py``).
 
 :func:`predictor_hparams` resolves an auxiliary predictor's config as the
 JAX package's ``infer/inferers.py:_resolve_hparams`` does.
@@ -55,12 +56,29 @@ def load_base_config() -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
+def apply_overrides(cfg: Dict[str, Any], overrides: str) -> Dict[str, Any]:
+    """Apply ``"a=1,b.c=2"`` dotted overrides to ``cfg`` in place (each value
+    read as YAML, an empty one as None) and return it."""
+    for item in (overrides or "").split(","):
+        item = item.strip()
+        if not item:
+            continue
+        key, _, raw = item.partition("=")
+        node = cfg
+        parts = key.strip().split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = yaml.safe_load(raw) if raw != "" else None
+    return cfg
+
+
 def set_hparams(exp_name: Optional[str] = None, task: Optional[str] = None,
                 checkpoints_root: str = "checkpoints", config_fn: Optional[str] = None,
-                make_work_dir: bool = False) -> Dict[str, Any]:
+                make_work_dir: bool = False, *, overrides: str = "") -> Dict[str, Any]:
     """``config_fn`` when it exists, else the work dir's ``config.yaml``
     (``checkpoints_root/exp_name/task``, or ``checkpoints_root/task`` without
-    an experiment, as for ``vocode``), with ``task``, ``exp_name`` (when
+    an experiment, as for ``vocode``), with ``overrides``
+    (:func:`apply_overrides`) applied and ``task``, ``exp_name`` (when
     given) and ``work_dir`` stamped in. ``make_work_dir`` creates the work dir
     and writes the merged config there as ``config.yaml``, as the JAX trainer
     does."""
@@ -72,7 +90,7 @@ def set_hparams(exp_name: Optional[str] = None, task: Optional[str] = None,
         config_fn = os.path.join(work_dir, "config.yaml")
     if not os.path.exists(config_fn):
         raise FileNotFoundError(f"Config file not found: {config_fn}")
-    hp = load_config(config_fn)
+    hp = apply_overrides(load_config(config_fn), overrides)
     hp.update(task=task, work_dir=work_dir)
     if exp_name is not None:
         hp["exp_name"] = exp_name

@@ -44,6 +44,7 @@ from prodiff_tpu_torch import device
 from prodiff_tpu_torch.models.common import Linear, SinusoidalPosEmb, cast, mish, params_key, widen
 from prodiff_tpu_torch.ops.wavenet_stack import StackedWaveNet, cast_stack
 from prodiff_tpu_torch.ops.wavenet_train import differentiable_stack
+from prodiff_tpu_torch.parallel.halo import halo_width, on_window
 from prodiff_tpu_torch.parallel.tp_wavenet import wavenet_apply_tp
 
 
@@ -112,12 +113,14 @@ class WaveNet(nn.Module):
     ``dtype``: the compute dtype (flax's, None = float32); ``stream_dtype``:
     the weight stream of the kernel route at inference in ``fast`` mode
     (``pallas_wavenet_dtype``, bfloat16 as the JAX module's default);
-    ``tp``: the model axis of the tensor-parallel route."""
+    ``tp``: the model axis of the tensor-parallel route; ``sp``: the
+    process group of the sequence-parallel one (spec and cond are then this
+    rank's block of frames, and so is the output)."""
 
     def __init__(self, in_dims: int, hidden_size: int, residual_layers: int = 20,
                  residual_channels: int = 256, dilation_cycle_length: int = 1,
                  dtype: Optional[torch.dtype] = None,
-                 stream_dtype: torch.dtype = torch.bfloat16, tp=None):
+                 stream_dtype: torch.dtype = torch.bfloat16, tp=None, sp=None):
         super().__init__()
         c = residual_channels
         if tp is not None and tp.size > 1 and dilation_cycle_length != 1:
@@ -128,7 +131,7 @@ class WaveNet(nn.Module):
                 "per-layer params and needs uniform dilation"
             )
         self.dilation_cycle_length = dilation_cycle_length
-        self.dtype, self.stream_dtype, self.tp = dtype, stream_dtype, tp
+        self.dtype, self.stream_dtype, self.tp, self.sp = dtype, stream_dtype, tp, sp
         self.input_projection = _conv(in_dims, c)
         self.diffusion_embedding = SinusoidalPosEmb(c)
         self.mlp = nn.Sequential(Linear(c, 4 * c), Mish(), Linear(4 * c, c))
@@ -190,6 +193,15 @@ class WaveNet(nn.Module):
             x = wavenet_apply_tp(self.stacked_weights(), x, widen(cond), step, self.tp)
             x = F.relu(conv1x1(x, self.skip_projection))
             return conv1x1(x, self.output_projection)
+        if self.sp is not None:
+            h = halo_width(len(self.residual_layers), self.dilation_cycle_length)
+            return on_window(lambda s, c: self._denoise(s, diffusion_step, c), self.sp, h,
+                             spec, cond)
+        return self._denoise(spec, diffusion_step, cond)
+
+    def _denoise(self, spec: torch.Tensor, diffusion_step: torch.Tensor,
+                 cond: torch.Tensor) -> torch.Tensor:
+        """The kernel route or the module loop on the frames given."""
         dt = self.dtype
         x = F.relu(conv1x1(spec, self.input_projection, dt))
         step = self.mlp(self.diffusion_embedding(diffusion_step))

@@ -13,6 +13,17 @@ import torch
 import torch.nn.functional as F
 
 
+def length_regulator(dur: torch.Tensor, max_frames: int, alpha: float = 1.0) -> torch.Tensor:
+    """Integer token durations [B, T_txt] (padding tokens 0) -> the frame to
+    token map [B, max_frames] (int32): 1-indexed token ids, 0 past the total.
+    ``alpha`` rescales the durations (rounded half to even, as ``jnp.round``)."""
+    dur = torch.round(dur.float() * alpha).int()
+    cumsum = torch.cumsum(dur, dim=1)
+    pos = torch.arange(max_frames, dtype=cumsum.dtype, device=dur.device).expand(dur.shape[0], -1)
+    mel2ph = torch.searchsorted(cumsum.contiguous(), pos.contiguous(), right=True).int() + 1
+    return torch.where(pos < cumsum[:, -1:], mel2ph, torch.zeros_like(mel2ph))
+
+
 def mel2ph_to_dur(mel2ph: torch.Tensor, t_txt: int, max_dur: Optional[int] = None) -> torch.Tensor:
     """[B, T_mel] token map -> per-token frame counts [B, t_txt] (int64)."""
     dur = torch.zeros(mel2ph.shape[0], t_txt + 1, dtype=torch.long, device=mel2ph.device)

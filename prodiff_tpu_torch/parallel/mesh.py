@@ -25,7 +25,11 @@ minor one and a model group holds adjacent ranks.
 - :func:`agree` and :func:`from_rank0` go over a ``gloo`` group on host
   tensors (``Mesh.host_group``), so a per-step signal check costs no device
   synchronisation under NCCL;
-- :func:`launch_local` starts one worker process a local card.
+- :func:`sum_model_gradients` sums the gradients over the model axis, where
+  each rank of a sequence-parallel denoiser (``Mesh.sp``,
+  ``parallel/halo.py``) holds its frames' share;
+- :func:`rendezvous` holds the process group's store for spawned ranks, and
+  :func:`launch_local` starts one worker process a local card under it.
 
 Without a process group every function acts on a world of one.
 """
@@ -35,10 +39,9 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-import socket
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +50,8 @@ import torch.distributed as dist
 from prodiff_tpu_torch.device import Device, resolve_device
 
 LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# torchrun's agent sets it where the agent, not rank 0, serves the store
+AGENT_STORE_ENV = "TORCHELASTIC_USE_AGENT_STORE"
 JOIN_TIMEOUT = datetime.timedelta(minutes=10)
 
 
@@ -150,6 +155,16 @@ class Mesh:
 
         return TensorParallel(self.model_group, self.model_rank, self.model_parallel)
 
+    @property
+    def sp(self):
+        """The model axis as a ``halo.SequenceParallel`` (the frame axis
+        split over it), or None at ``model_parallel: 1``."""
+        if self.model_parallel == 1:
+            return None
+        from prodiff_tpu_torch.parallel.halo import SequenceParallel
+
+        return SequenceParallel(self.model_group, self.model_rank, self.model_parallel)
+
 
 def create_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
                 device: Optional[Device] = None) -> Mesh:
@@ -238,17 +253,30 @@ def replicate(tensors: Iterable[torch.Tensor], mesh: Mesh) -> None:
             collective(dist.broadcast, t, mesh.data_group, src=src)
 
 
-def all_reduce_gradients(params: Sequence[torch.nn.Parameter], mesh: Mesh) -> None:
-    """Each gradient becomes its mean over the data axis: one all-reduce of
-    all of them flattened into one bucket."""
-    if mesh.n_data == 1:
-        return
+def _sum_bucket(params: Sequence[torch.nn.Parameter], group, divisor: int = 1) -> None:
+    """Each gradient becomes its sum over ``group`` over ``divisor``: one
+    all-reduce of all of them flattened into one bucket."""
     grads = [p.grad for p in params if p.grad is not None]
     flat = torch._utils._flatten_dense_tensors(grads)
-    collective(dist.all_reduce, flat, mesh.data_group)
-    flat /= mesh.n_data
+    collective(dist.all_reduce, flat, group)
+    if divisor != 1:
+        flat /= divisor
     for g, r in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
         g.copy_(r)
+
+
+def all_reduce_gradients(params: Sequence[torch.nn.Parameter], mesh: Mesh) -> None:
+    """Each gradient becomes its mean over the data axis."""
+    if mesh.n_data > 1:
+        _sum_bucket(params, mesh.data_group, mesh.n_data)
+
+
+def sum_model_gradients(params: Sequence[torch.nn.Parameter], mesh: Mesh) -> None:
+    """Each gradient becomes its sum over the model axis: a sequence-parallel
+    rank's gradients are its frames' share of the loss's, and their sum is
+    the unsharded gradient."""
+    if mesh.model_parallel > 1:
+        _sum_bucket(params, mesh.model_group)
 
 
 def data_mean(values: Sequence[torch.Tensor], mesh: Mesh) -> list:
@@ -306,28 +334,47 @@ def draw_rows(fn: Callable[[Tuple[int, ...]], torch.Tensor], shape: Sequence[int
     return fn((b, *shape[1:]))[row0:row0 + shape[0]]
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def rendezvous() -> Iterator[int]:
+    """Within: a ``TCPStore`` server on a port the system picked when it was
+    bound, held by this process; yields that port. Ranks started within join
+    it as clients (``AGENT_STORE_ENV``, as under torchrun's agent), so no port
+    is chosen, released and bound again later by rank 0, when another
+    process may hold it."""
+    store = dist.TCPStore("localhost", 0, is_master=True, wait_for_workers=False,
+                          timeout=JOIN_TIMEOUT)
+    try:
+        yield store.port
+    finally:
+        del store
 
 
 def _worker(i: int, n: int, port: int, precision: str, fn: Callable, args: tuple) -> None:
+    """Rank ``i``: ``fn(*args)``, then leave the process group it joined.
+    A rank that exits still in a gloo group whose peer is still running can
+    abort in the group's teardown ("terminate called without an active
+    exception")."""
     os.environ.update(WORLD_SIZE=str(n), RANK=str(i), LOCAL_RANK=str(i),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port), **{AGENT_STORE_ENV: "True"})
     from prodiff_tpu_torch import device
 
     device.set_precision(precision)
-    fn(*args)
+    try:
+        fn(*args)
+    finally:
+        shutdown_distributed()
 
 
 def launch_local(n: int, fn: Callable, args: tuple = ()) -> None:
     """Run ``fn(*args)`` in ``n`` spawned processes with torchrun's
     environment (rank ``i`` on local card ``i``) and the caller's precision
-    mode; a failing worker raises here."""
+    mode, joined to the store this process holds (:func:`rendezvous`), each
+    leaving its process group when ``fn`` returns; a failing worker raises
+    here."""
     import torch.multiprocessing as mp
 
     from prodiff_tpu_torch import device
 
-    mp.start_processes(_worker, args=(n, free_port(), device.precision(), fn, args),
-                       nprocs=n, join=True, start_method="spawn")
+    with rendezvous() as port:
+        mp.start_processes(_worker, args=(n, port, device.precision(), fn, args),
+                           nprocs=n, join=True, start_method="spawn")

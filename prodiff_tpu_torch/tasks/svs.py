@@ -156,13 +156,18 @@ class SVSTask(BaseTask):
     def validation_plots(self, model, batch, step: int, out_dir, writer=None) -> None:
         """``mel_{i}_step{step}.png``: the ground truth beside the sampled mel
         (draws seeded from (seed, step)), for the first ``num_valid_plots``
-        items."""
-        plt = pyplot() if out_dir is not None else None
+        items. With ``out_dir`` None the mels are rendered and not drawn, as
+        by a rank of a tensor-parallel model axis whose rank 0 draws: the
+        render needs every rank of the axis (they share one installation,
+        so matplotlib imports on all of them or on none)."""
+        plt = pyplot()
         if plt is None:
             return
         model.eval()
         gen = plot_generator(self.hparams, step, batch["mel"].device)
         mel_pred = self.infer_mels(model, batch, gen).cpu().numpy()
+        if out_dir is None:
+            return
         mel_gt = batch["mel"].cpu().numpy()
         os.makedirs(out_dir, exist_ok=True)
         for i in range(min(self.hparams.get("num_valid_plots", 10), len(mel_gt))):

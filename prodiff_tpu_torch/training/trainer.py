@@ -39,8 +39,12 @@ of ``model_parallel`` columns. The step is the one-process step on the
 global batch:
 
 - each rank loads its rows of the global batch (``per_process_loading``,
-  the default: ``BatchIterator(local_block=...)``; otherwise the global
-  batch, cut by ``shard_batch``), padded to the global batch's shapes;
+  the default: ``BatchIterator(local_block=...)``), padded to the global
+  batch's shapes; otherwise, and where the dataset lacks the
+  ``{prefix}_item_lengths.npz`` sidecar without ``multi_host`` (the JAX
+  trainer's one process loads the global batch there), the global batch,
+  cut by ``shard_batch``. ``multi_host`` without the sidecar raises, as the
+  JAX multi-process path does;
 - its ``t`` and noise are its rows of the global batch's draws
   (``mesh.batch_rows``);
 - the gradients' mean over the data axis is one all-reduce of one flat
@@ -53,7 +57,9 @@ global batch:
   at build and after a restore; rank 0 writes the checkpoints (the
   one-process layout, tensor-parallel slices gathered) and the logs, and
   reads the checkpoint a restore sends to every rank; the
-  validation losses are the data axis's means weighted by ``nsamples``.
+  validation losses are the data axis's means weighted by ``nsamples``; the
+  validation plots render data rank 0's rows on every rank of its model
+  axis (a tensor-parallel render needs them all), and rank 0 draws them.
 
 Dropout differs: a rank draws its masks from (seed, step, its data rank),
 not the rows of one global draw, and the FFN's sliced dropout repeats its
@@ -264,6 +270,7 @@ class Trainer:
         self._save_error: Optional[BaseException] = None
         self._profiler = None
         self._profile_from = 0
+        self._loading_logged: set = set()
         self.global_step = 0
         self.current_epoch = 0
         self.best_val = math.inf if self.monitor_mode == "min" else -math.inf
@@ -496,9 +503,8 @@ class Trainer:
         try:
             while self.global_step < max_steps and not agree(preempted.is_set(), self.mesh):
                 self.current_epoch += 1
-                prefetcher = self._prefetcher(
-                    task.train_iterator(self.n_devices, local_block=self._local_block()),
-                    depth=self.hparams.get("prefetch_to_device", 2))
+                prefetcher = self._prefetcher(self._batches(task.train_iterator),
+                                              depth=self.hparams.get("prefetch_to_device", 2))
                 try:
                     for _, batch in prefetcher:
                         if self.global_step >= max_steps or agree(preempted.is_set(), self.mesh):
@@ -557,29 +563,48 @@ class Trainer:
             return None
         return process_data_blocks(self.mesh)
 
+    def _batches(self, make):
+        """``make(n_devices, local_block=...)`` (a task's train or val
+        iterator) loading this rank's rows where :meth:`_local_block` asks,
+        unless the dataset lacks the item-lengths sidecar on one host: then
+        the global batch, which the prefetcher cuts by ``shard_batch``.
+        Logs once a dataset which way its batches are loaded."""
+        block = self._local_block()
+        batches = make(self.n_devices)
+        if block is None:
+            return batches
+        ds = batches.dataset
+        if ds.item_lengths is None and not self.hparams.get("multi_host", False):
+            how = (f"the global batch on every rank, cut by shard_batch (no "
+                   f"{ds.prefix}_item_lengths.npz sidecar)")
+        else:
+            batches = make(self.n_devices, local_block=block)  # raises without the sidecar
+            how = f"this rank's rows (per-process loading, data blocks {block})"
+        if ds.prefix not in self._loading_logged:
+            self._loading_logged.add(ds.prefix)
+            log.info("| %s batches: %s", ds.prefix, how)
+        return batches
+
     def evaluate(self, task, max_batches: Optional[int] = None,
                  writer: Optional[MetricsWriter] = None) -> Dict[str, float]:
         """The validation losses, weighted by each batch's ``nsamples``; the
-        task's plots of the first batch under ``work_dir/plots`` (rank 0's
-        rows; none at ``model_parallel > 1``, whose renders need every rank
-        of the model axis)."""
+        task's plots of the first batch (data rank 0's rows), rendered by
+        every rank of data rank 0's model axis, whose tensor-parallel model
+        needs them all, and drawn under ``work_dir/plots`` by rank 0."""
         sums: Dict[str, float] = {}
         weights: Dict[str, float] = {}
-        batches = task.val_iterator(self.n_devices, local_block=self._local_block())
-        for i, (nsamples, batch) in enumerate(self._prefetcher(batches)):
+        for i, (nsamples, batch) in enumerate(self._prefetcher(self._batches(task.val_iterator))):
             if max_batches is not None and i >= max_batches:
                 break
             nsamples = nsamples or 1
             for k, v in self.val_step(batch).items():
                 sums[k] = sums.get(k, 0.0) + float(v) * nsamples
                 weights[k] = weights.get(k, 0.0) + nsamples
-            if i == 0 and self.is_main and self.mesh.model_parallel == 1:
+            if i == 0 and self.mesh.data_rank == 0:
                 batch.pop("_local_rows", None)
-                task.validation_plots(self.model, batch, self.global_step,
-                                      os.path.join(self.work_dir, "plots"), writer=writer)
-            elif i == 0 and self.is_main:
-                log.info("| validation plots off at model_parallel=%d",
-                         self.mesh.model_parallel)
+                task.validation_plots(
+                    self.model, batch, self.global_step,
+                    os.path.join(self.work_dir, "plots") if self.is_main else None, writer=writer)
         return {k: sums[k] / max(weights[k], 1) for k in sums}
 
     def _update_best(self, val_loss: Optional[float]) -> bool:

@@ -2,8 +2,8 @@
 JAX package's mesh, on the CPU.
 
 The ranks run in worker processes (``tests/torch_parallel_worker.py``: two
-ranks over ``gloo`` on a free localhost port, started by
-``parallel.mesh.launch_local`` with torchrun's environment, each call killed
+ranks over ``gloo``, started by ``parallel.mesh.launch_local`` with
+torchrun's environment and joined to the store it holds, each call killed
 after 60 s); the JAX side runs here, on conftest's 8 virtual devices.
 
 - the (data, model) layout and ``process_data_blocks`` vs JAX
@@ -25,7 +25,15 @@ after 60 s); the JAX side runs here, on conftest's 8 virtual devices.
   restored by the JAX trainer on a (4, 2) mesh;
 - a data-parallel resume where only rank 0's work dir holds the checkpoint
   (no shared disk): every rank resumes at its step, as the one-process
-  trainer does.
+  trainer does;
+- a data-parallel fit on a dataset without the item-lengths sidecar loads
+  the global batch and cuts it, as the JAX trainer's one process loads it:
+  its step vs the one-process step; with ``multi_host: true`` it raises;
+- the validation plots at ``model_parallel: 2``: both ranks of the model
+  axis render, rank 0 draws, the mel equal to the one-process render;
+- the ranks join a store the launcher bound before it started them (no
+  port chosen, released and bound again), and leave their group when their
+  function returns.
 
 Dropout is off throughout: a rank draws its masks from (seed, step, data
 rank), not the rows of one global draw.
@@ -287,7 +295,33 @@ def _leaves(tree, path=()):
         yield "/".join(path), np.asarray(tree)
 
 
-def test_model_parallel_fit_matches_one_process_and_restores_in_jax(svs_data, tmp_path):
+@pytest.fixture(scope="module")
+def mp_fit(svs_data, tmp_path_factory):
+    """One ``fit`` run of two ranks at ``model_parallel: 2``: its ranks'
+    results and their directory."""
+    out = tmp_path_factory.mktemp("mp_fit") / "ranks"
+    return run_ranks("fit", 2, out, svs_data), out
+
+
+def _one_process_steps(svs_data, tmp_path, n):
+    """The port's one-process trainer after ``n`` steps on the two-rank
+    run's global batches (constant learning rate 1e-3): the trainer, its
+    task, the state before, each step's metrics and learning rate."""
+    hp = small_hparams(svs_data, dropout=0.0, work_dir=str(tmp_path / "one"),
+                       scheduler="constant", lr=1e-3)
+    one = Trainer(hp, device="cpu")
+    task = get_task_cls("svs")(hp)
+    one.build(task)
+    before = {k: v.clone() for k, v in one.model.state_dict().items()}
+    steps = []
+    for _, (_, batch) in zip(range(n), one._prefetcher(task.train_iterator(2))):
+        lr = one.optimizer.lr()
+        steps.append(({k: float(v) for k, v in one.train_step(batch).items()}, lr))
+        one.global_step += 1
+    return one, task, before, steps
+
+
+def test_model_parallel_fit_matches_one_process_and_restores_in_jax(mp_fit, svs_data, tmp_path):
     """``model_parallel: 2`` on two ranks (the encoder one head a rank, the
     denoiser 8 of 16 channels), 2 steps through ``Trainer.fit`` at a
     constant learning rate (step 1 moves the zero-initialised output
@@ -295,29 +329,22 @@ def test_model_parallel_fit_matches_one_process_and_restores_in_jax(svs_data, tm
     checkpoint holds the one-process layout, equal to the port's
     one-process steps on the same global batches, and the JAX trainer on a
     (4, 2) mesh restores it exactly."""
-    ranks = run_ranks("fit", 2, tmp_path / "ranks", svs_data)
+    ranks, out = mp_fit
     assert ranks[0]["kinds"] == ranks[1]["kinds"]
     assert ranks[0]["shapes"]["diffusion.denoise_fn.residual_layers.0.dilated_conv.weight"] \
         == (16, 16, 3)
-    work = str(tmp_path / "ranks" / "work")
+    work = str(out / "work")
     written = ckpt_utils.load_checkpoint_file(os.path.join(work, "model_ckpt_steps_2.ckpt"))
     assert written["global_step"] == 2
 
-    hp = small_hparams(svs_data, dropout=0.0, work_dir=str(tmp_path / "one"),
-                       scheduler="constant", lr=1e-3)
-    one = Trainer(hp, device="cpu")
-    task = get_task_cls("svs")(hp)
-    one.build(task)
-    before = {k: v.clone() for k, v in one.model.state_dict().items()}
-    lrs = []
-    for i, (_, batch) in zip(range(2), one._prefetcher(task.train_iterator(2))):
-        lrs.append(one.optimizer.lr())
-        metrics = one.train_step(batch)
+    one, task, before, steps = _one_process_steps(svs_data, tmp_path, 2)
+    hp = one.hparams
+    lrs = [lr for _, lr in steps]
+    for i, (metrics, _) in enumerate(steps):
         for r in ranks:
             for key in ("total_loss", "grad_norm"):
-                np.testing.assert_allclose(r["metrics"][i][key], float(metrics[key]),
+                np.testing.assert_allclose(r["metrics"][i][key], metrics[key],
                                            rtol=1e-4, err_msg=f"step {i + 1} {key}")
-        one.global_step += 1
     got = dict(_leaves(written["optimizer_state"]))
     want = dict(_leaves(one.optimizer.state_dict()))
     assert set(got) == set(want)
@@ -370,3 +397,107 @@ def test_ranks_resume_from_rank_0s_checkpoint(svs_data, tmp_path):
         assert torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]), n
         np.testing.assert_allclose(ranks[0]["params"][n], p.detach(), atol=1e-6, rtol=1e-5,
                                    err_msg=n)
+
+
+def test_model_parallel_fit_draws_validation_plots(mp_fit, svs_data, tmp_path):
+    """The validation at step 2 of the ``model_parallel: 2`` fit: both ranks
+    of the model axis render the first validation batch (the tensor-parallel
+    model needs them both) to one mel, rank 0 draws it, and it is the
+    one-process render after the same 2 steps (draws seeded from (seed,
+    step)) within 1e-4 of its peak."""
+    from prodiff_tpu_torch.tasks.base import plot_generator
+
+    ranks, out = mp_fit
+    m0, m1 = (r["mels"] for r in ranks)
+    assert len(m0) == len(m1) == 1
+    assert torch.equal(m0[0], m1[0])
+    plots = sorted(os.listdir(out / "work" / "plots"))
+    assert "mel_0_step2.png" in plots and all(p.endswith("_step2.png") for p in plots)
+    one, task, _, _ = _one_process_steps(svs_data, tmp_path, 2)
+    _, batch = next(iter(one._prefetcher(task.val_iterator(2))))
+    one.model.eval()
+    with torch.no_grad():
+        want = task.infer_mels(one.model, batch, plot_generator(one.hparams, 2, "cpu"))
+    assert m0[0].shape == want.shape
+    grad_close(m0[0], want, "validation mel")
+
+
+# ---- loading without the item-lengths sidecar -----------------------------------------
+
+@pytest.fixture(scope="module")
+def no_sidecar(tmp_path_factory):
+    """A dataset written without ``{prefix}_item_lengths.npz`` (as the
+    reference's binarizer writes it) and one ``dp_fit`` run of two ranks."""
+    data_dir = str(tmp_path_factory.mktemp("no_sidecar_data"))
+    make_svs_dataset(data_dir, n_train=16, n_valid=4)
+    task_dir = os.path.join(data_dir, "svs")
+    for name in os.listdir(task_dir):
+        if name.endswith("_item_lengths.npz"):
+            os.remove(os.path.join(task_dir, name))
+    out = tmp_path_factory.mktemp("no_sidecar") / "ranks"
+    return data_dir, run_ranks("dp_fit", 2, out, data_dir)
+
+
+def test_fit_without_sidecar_loads_the_global_batch(no_sidecar, tmp_path):
+    """Two data-parallel ranks fit one step on the dataset without the
+    sidecar: each takes its half of the global batch (``shard_batch``), and
+    the step's loss, gradient norm, gradients and params are the
+    one-process step's on that batch (the output projection seeded)."""
+    data_dir, ranks = no_sidecar
+    hp = small_hparams(data_dir, dropout=0.0, work_dir=str(tmp_path / "one"))
+    one = Trainer(hp, device="cpu")
+    task = get_task_cls("svs")(hp)
+    one.build(task)
+    seed_output_projection(one.model)
+    _, batch = next(iter(one._prefetcher(task.train_iterator(2))))
+    b = batch["mel"].shape[0]
+    metrics = {k: float(v) for k, v in one.train_step(batch).items()}
+    assert [r["rows"] for r in ranks] == [[(0, b)], [(b // 2, b)]]
+    for r in ranks:
+        for key in ("total_loss", "grad_norm"):
+            grad_close(r["metrics"][0][key], metrics[key], key)
+        for n, p in one.model.named_parameters():
+            assert torch.equal(r["grads"][n], ranks[0]["grads"][n]), n
+            grad_close(r["grads"][n], p.grad, n)
+            grad_close(r["params"][n], p.detach(), n)
+
+
+def test_multi_host_without_sidecar_raises(no_sidecar):
+    """``multi_host: true`` under torchrun's environment still needs the
+    sidecar, as the JAX multi-process path does."""
+    _, ranks = no_sidecar
+    for r in ranks:
+        assert "train_item_lengths.npz sidecar" in (r["multi_host_error"] or "")
+
+
+# ---- the rendezvous -------------------------------------------------------------------
+
+def test_worker_leaves_the_group_when_it_returns(monkeypatch):
+    """``launch_local``'s rank body, run here as a world of one: after its
+    function returns the rank has left the group it joined (a rank that
+    exits still in a gloo group whose peer runs on aborted in the group's
+    teardown, about one exit in twenty under load)."""
+    import torch.distributed as dist
+
+    from prodiff_tpu_torch.parallel import mesh
+
+    for k in (*LAUNCHER_ENV, mesh.AGENT_STORE_ENV):
+        monkeypatch.setenv(k, "")
+    joined = []
+
+    def join():
+        init_distributed({}, device="cpu")
+        joined.append(dist.get_world_size())
+
+    with mesh.rendezvous() as port:
+        mesh._worker(0, 1, port, "parity", join, ())
+    assert joined == [1] and not dist.is_initialized()
+
+
+def test_launcher_holds_the_rendezvous_store(tmp_path):
+    """``launch_local``'s ranks find the store's port already bound and
+    listening before any of them joins (the launcher holds it, as torchrun's
+    agent does), join it as clients and reduce over the group."""
+    ranks = run_ranks("rendezvous", 2, tmp_path / "ranks")
+    for r in ranks:
+        assert r["listening"] and r["agent_store"] == "True" and r["world"] == 2.0

@@ -17,13 +17,31 @@ Cases:
   ``NPZ``: the output, and the gradients of ``sum(out * probe)`` gathered
   into the one-process layout;
 - ``fit DATA_DIR``: ``Trainer.fit`` of 2 steps at ``model_parallel`` N, a
-  constant learning rate of 1e-3: each step's metrics;
+  constant learning rate of 1e-3, validated at step 2: each step's metrics
+  and the mels the validation plots rendered;
 - ``resume DATA_DIR WORK_DIR``: data-parallel ``Trainer.fit`` to step 3,
   rank 0 in WORK_DIR (which holds a checkpoint) and the others in empty
-  work dirs of their own: the step each rank reached and its params.
+  work dirs of their own: the step each rank reached and its params;
+- ``dp_fit DATA_DIR``: data-parallel ``Trainer.fit`` of one step (the
+  output projection seeded) on a dataset without the item-lengths sidecar:
+  the step's metrics, gradients and params; then the same with
+  ``multi_host: true``, whose error it records;
+- ``rendezvous``: before joining the group, whether the store's port
+  (``MASTER_PORT``) already accepts a connection and whether the rank joins
+  as a client of the launcher's store; then an all-reduce of the ranks;
+- ``linger SECONDS``: 20 all-reduces, then rank 0 stays SECONDS longer
+  than the others before it returns (how often a rank's exit aborts while
+  its peer runs on: run it in a loop, against an earlier checkout too);
+- ``sp_module NPZ [NPZ ...]``: a sequence-parallel ``WaveNet`` over the N
+  ranks (``Mesh.sp``) on each NPZ's one-process weights, config and inputs
+  (``in.kernels`` set: the card's stack route, its plain twins on the CPU):
+  this rank's block length, the gathered output, the gradients of ``sum(out *
+  probe)`` of the parameters (summed over the ranks) and of the gathered
+  inputs.
 """
 
 import os
+import socket
 import sys
 
 import numpy as np
@@ -104,15 +122,8 @@ def tp_module(outdir: str, name: str, npz: str) -> None:
                os.path.join(outdir, f"rank{mesh.rank}.pt"))
 
 
-def fit(outdir: str, data_dir: str) -> None:
-    from prodiff_tpu_torch.tasks import get_task_cls
-    from prodiff_tpu_torch.training.trainer import Trainer
-
-    # a constant learning rate: step 1 moves the zero-initialised output
-    # projection, so step 2's gradients reach every layer
-    hp = _hp(data_dir, outdir, model_parallel=int(os.environ["WORLD_SIZE"]),
-             val_check_interval=1000, scheduler="constant", lr=1e-3)
-    trainer = Trainer(hp, device="cpu")
+def _recorded(trainer) -> list:
+    """Each train step's metrics, appended as ``trainer`` takes it."""
     metrics = []
     step = trainer.train_step
 
@@ -122,9 +133,32 @@ def fit(outdir: str, data_dir: str) -> None:
         return out
 
     trainer.train_step = recorded
-    trainer.fit(get_task_cls("svs")(hp), max_steps=2)
+    return metrics
+
+
+def fit(outdir: str, data_dir: str) -> None:
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    # a constant learning rate: step 1 moves the zero-initialised output
+    # projection, so step 2's gradients reach every layer; the validation
+    # at step 2 renders the plots on both ranks of the model axis
+    hp = _hp(data_dir, outdir, model_parallel=int(os.environ["WORLD_SIZE"]),
+             val_check_interval=2, scheduler="constant", lr=1e-3)
+    trainer = Trainer(hp, device="cpu")
+    metrics = _recorded(trainer)
+    task = get_task_cls("svs")(hp)
+    mels = []
+    infer = task.infer_mels
+
+    def rendered(*args, **kwargs):
+        mels.append(infer(*args, **kwargs).detach().clone())
+        return mels[-1]
+
+    task.infer_mels = rendered
+    trainer.fit(task, max_steps=2)
     shapes = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
-    torch.save({"shapes": shapes, "kinds": trainer.tp_kinds, "metrics": metrics},
+    torch.save({"shapes": shapes, "kinds": trainer.tp_kinds, "metrics": metrics, "mels": mels},
                os.path.join(outdir, f"rank{trainer.mesh.rank}.pt"))
 
 
@@ -143,9 +177,117 @@ def resume(outdir: str, data_dir: str, work_dir: str) -> None:
                os.path.join(outdir, f"rank{rank}.pt"))
 
 
+def dp_fit(outdir: str, data_dir: str) -> None:
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    def seeded(task):
+        build = task.build_model
+
+        def build_seeded():
+            model = build()
+            seed_output_projection(model)
+            return model
+
+        task.build_model = build_seeded
+        return task
+
+    hp = _hp(data_dir, outdir, val_check_interval=1000)
+    trainer = Trainer(hp, device="cpu")
+    metrics = _recorded(trainer)
+    step = trainer.train_step
+    rows, grads = [], {}
+
+    def kept(batch):
+        rows.append(batch["_local_rows"])
+        out = step(batch)
+        grads.update({n: p.grad.clone() for n, p in trainer.model.named_parameters()})
+        return out
+
+    trainer.train_step = kept
+    trainer.fit(seeded(get_task_cls("svs")(hp)), max_steps=1)
+    out = {"metrics": metrics, "rows": rows, "grads": grads,
+           "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()}}
+    multi = dict(hp, multi_host=True, work_dir=os.path.join(outdir, "work_multi_host"))
+    try:
+        Trainer(multi, device="cpu").fit(get_task_cls("svs")(multi), max_steps=1)
+        out["multi_host_error"] = None
+    except ValueError as e:
+        out["multi_host_error"] = str(e)
+    torch.save(out, os.path.join(outdir, f"rank{trainer.mesh.rank}.pt"))
+
+
+def rendezvous(outdir: str) -> None:
+    import torch.distributed as dist
+
+    from prodiff_tpu_torch.parallel.mesh import AGENT_STORE_ENV, init_distributed
+
+    try:
+        socket.create_connection(("localhost", int(os.environ["MASTER_PORT"])), timeout=5).close()
+        listening = True
+    except OSError:
+        listening = False
+    agent = os.environ.get(AGENT_STORE_ENV)
+    init_distributed({}, device="cpu")
+    total = torch.ones(1)
+    dist.all_reduce(total)
+    torch.save({"listening": listening, "agent_store": agent, "world": float(total)},
+               os.path.join(outdir, f"rank{dist.get_rank()}.pt"))
+
+
+def linger(outdir: str, seconds: str) -> None:
+    import time
+
+    import torch.distributed as dist
+
+    from prodiff_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed({}, device="cpu")
+    t = torch.ones(1000)
+    for _ in range(20):
+        dist.all_reduce(t)
+    if dist.get_rank() == 0:
+        time.sleep(float(seconds))
+    torch.save({"sum": float(t[0])}, os.path.join(outdir, f"rank{dist.get_rank()}.pt"))
+
+
+def sp_module(outdir: str, *npzs: str) -> None:
+    from unittest import mock
+
+    from prodiff_tpu_torch.models import wavenet
+    from prodiff_tpu_torch.parallel.halo import gather_frames, split_frames
+    from prodiff_tpu_torch.parallel.mesh import create_mesh, init_distributed, sum_model_gradients
+
+    mesh = create_mesh(model_parallel=int(os.environ["WORLD_SIZE"]),
+                       device=init_distributed({}, device="cpu"))
+    sp = mesh.sp
+    results = []
+    for npz in npzs:
+        data = dict(np.load(npz))
+        in_dims, hidden, layers, channels, cycle = (int(v) for v in data.pop("cfg"))
+        kernels = bool(data.pop("in.kernels", False))
+        x, t, cond, probe = (torch.from_numpy(data.pop(f"in.{k}"))
+                             for k in ("x", "t", "cond", "probe"))
+        model = wavenet.WaveNet(in_dims, hidden, layers, channels, cycle, sp=sp)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in data.items()})
+        xs = split_frames(x, sp).clone().requires_grad_()
+        cs = split_frames(cond, sp).clone().requires_grad_()
+        with mock.patch.object(wavenet, "on_kernels", lambda a, c: kernels):
+            out = model(xs, t, cs)
+            (out * split_frames(probe, sp)).sum().backward()
+        sum_model_gradients(list(model.parameters()), mesh)
+        results.append({
+            "out": gather_frames(out.detach(), sp), "block": out.shape[1],
+            "grads": {n: p.grad for n, p in model.named_parameters()},
+            "x_grad": gather_frames(xs.grad, sp), "cond_grad": gather_frames(cs.grad, sp)})
+    torch.save(results, os.path.join(outdir, f"rank{mesh.rank}.pt"))
+
+
 def run(case: str, outdir: str, args: tuple) -> None:
     torch.set_num_threads(2)
-    {"dp_step": dp_step, "tp_module": tp_module, "fit": fit, "resume": resume}[case](outdir, *args)
+    {"dp_step": dp_step, "tp_module": tp_module, "fit": fit, "resume": resume,
+     "dp_fit": dp_fit, "rendezvous": rendezvous, "linger": linger,
+     "sp_module": sp_module}[case](outdir, *args)
 
 
 if __name__ == "__main__":
