@@ -196,8 +196,9 @@ Phases, each printing its lines before the last:
      (torch.profiler), each parity render held against the CPU on a
      32-frame tone, fast against parity at the bound for bf16 tap stacks.
  16. (``phase_multi_gpu``) multi-GPU training on the one card, the training
-     cell's config (the flagship teacher, 20 x 256 WaveNet) with dropout off
-     and the denoiser's output projection seeded, on a seeded synthetic set
+     cell's config (the flagship teacher, 20 x 256 WaveNet), dropout off in
+     parts (a)-(c) and on in (e), and the denoiser's output projection
+     seeded, on a seeded synthetic set
      of 48 items (three global batches of B=16, T=1536): (a) data parallel,
      two spawned ranks over gloo (NCCL refuses two ranks on one device),
      both on cuda:0, 8 rows each loaded per process: 3 steps (K5a 41 + K5b
@@ -233,7 +234,20 @@ Phases, each printing its lines before the last:
      one-process K5 route; each rank's K1 launches for one forward of its
      window and K5a + K5b for one backward, as ``stack_launches`` and
      ``train_launches`` count them there; each rank's window, the halo
-     exchange's time and K1's on its window printed. The per-rank step
+     exchange's time and K1's on its window printed; (e) dropout on, at the
+     cell's rate 0.1: two data-parallel steps of the two ranks (K5a 41 + K5b
+     40 launches a rank a step) and two ``model_parallel: 2`` steps, each
+     against the one-process steps on the same card and global batches with
+     dropout 0.1 (the K5 route, and part (b)'s plain route): every mask a
+     rank drew is its rows and, on the FFN's split hidden, its columns of
+     the one-process step's, exactly, and part (b)'s bounds hold (each
+     step's total loss and gradient norm within 1e-4 relative, step 1's
+     gradients within 1e-3 of each tensor's peak, each tensor's two-step
+     update within 1e-3 of the one-process update's norm: step 1 alone runs
+     at the schedule's floor rate, where Adam's update is about lr *
+     sign(g)); the ranks' and the one-process steps' dropout draws timed
+     (CUDA events) beside each step, with the numbers a rank draws at the
+     global shape against those it keeps. The per-rank step
      times (CUDA events) are printed beside the card's name and power
      limit, as two ranks sharing one card, not a scaling figure. The K1/K5
      entries of the JSON line gain the per-rank launches of this phase.
@@ -4564,6 +4578,9 @@ MG_STEP_RTOL, MG_PARAM_TOL, MG_NCCL_RTOL = 1e-5, 1e-4, 1e-6
 # and each tensor's two-step update ||tp - one|| / ||one||, so a run that
 # left a tensor unchanged reads 1
 MG_TP_RTOL, MG_UPDATE_TOL = 1e-4, 1e-3
+# (e): MG_TP_STEPS steps of each layout with the training cell's dropout (the
+# base config's rate), held to part (b)'s bounds against the one-process steps
+MG_DROPOUT = 0.1
 
 
 def seed_output_projection(model, torch) -> None:
@@ -4575,12 +4592,57 @@ def seed_output_projection(model, torch) -> None:
 
 
 def multi_gpu_hparams(data_dir: str, work_dir: str, config: dict, **kw) -> dict:
-    """``config`` (the training cell's), dropout off: a rank's dropout masks
-    are drawn from (seed, step, data rank), not the rows of one global draw."""
+    """``config`` (the training cell's), dropout off unless ``kw`` names a
+    rate (parts (a)-(c) hold the steps to the one-process step with dropout
+    off, as before; part (e) with the cell's rate)."""
     from prodiff_tpu_torch.utils.synthetic import small_hparams
 
-    return small_hparams(data_dir, **dict(config, dropout=0.0, work_dir=work_dir,
-                                          num_sanity_val_steps=0, **kw))
+    return small_hparams(data_dir, **{**config, "dropout": 0.0, "work_dir": work_dir,
+                                      "num_sanity_val_steps": 0, **kw})
+
+
+def recording_dropout(torch, dev):
+    """A patch of ``Dropout.keep`` that keeps every mask drawn under it (on
+    the device, with whether its module splits its columns over the model
+    axis) and CUDA events around each draw (none off the card); and what it
+    records."""
+    from unittest import mock
+
+    from prodiff_tpu_torch.models.common import Dropout
+
+    rec = {"masks": [], "events": []}
+    keep = Dropout.keep
+
+    def recorded(self, shape, device):
+        if dev.type != "cuda":
+            mask = keep(self, shape, device)
+        else:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            mask = keep(self, shape, device)
+            end.record()
+            rec["events"].append((start, end))
+        rec["masks"].append((self.tp is not None, mask))
+        return mask
+
+    return rec, mock.patch.object(Dropout, "keep", recorded)
+
+
+def dropout_record(rec, torch, n_data: int = 1) -> dict:
+    """What :func:`recording_dropout` kept since the last call (one step),
+    after a synchronisation, then forgotten: the draws' summed time (ms,
+    CUDA events; 0.0 off the card), the masks on the host, the elements
+    kept and those drawn at the global shape (``n_data`` times the rows,
+    twice the columns of a mask split over the two model ranks)."""
+    if rec["events"]:
+        torch.cuda.synchronize()
+    out = {"draw_ms": sum(a.elapsed_time(b) for a, b in rec["events"]),
+           "masks": [(tp, m.cpu()) for tp, m in rec["masks"]],
+           "kept_elements": sum(m.numel() for _, m in rec["masks"]),
+           "drawn_elements": n_data * sum(m.numel() * (2 if tp else 1) for tp, m in rec["masks"])}
+    rec["masks"].clear()
+    rec["events"].clear()
+    return out
 
 
 def multi_gpu_rank(rank: int, world: int, port: int, parts: tuple, data_dir: str,
@@ -4614,7 +4676,11 @@ def multi_gpu_part(rank: int, part: str, data_dir: str, out_dir: str, dev, confi
     """Part ``dp`` (data parallel: MG_STEPS steps, a validation batch, a
     checkpoint) or ``tp`` (``model_parallel: 2``: a forward on seeded draws,
     MG_TP_STEPS steps, a checkpoint) of one rank, the denoiser's output
-    projection seeded; or ``sp`` (:func:`multi_gpu_sp`)."""
+    projection seeded; ``dp_dropout`` / ``tp_dropout`` (MG_TP_STEPS steps of
+    each layout with the cell's dropout, its masks and each step's draws'
+    time kept); or ``sp`` (:func:`multi_gpu_sp`)."""
+    import contextlib
+
     import torch
 
     if part == "sp":
@@ -4623,8 +4689,10 @@ def multi_gpu_part(rank: int, part: str, data_dir: str, out_dir: str, dev, confi
     from prodiff_tpu_torch.tasks import get_task_cls
     from prodiff_tpu_torch.training.trainer import Trainer
 
+    layout, _, dropout = part.partition("_")
     hp = multi_gpu_hparams(data_dir, os.path.join(out_dir, f"work_{part}"), config,
-                           model_parallel=2 if part == "tp" else 1)
+                           model_parallel=2 if layout == "tp" else 1,
+                           **({"dropout": MG_DROPOUT} if dropout else {}))
     trainer = Trainer(hp, device=dev)
     task = get_task_cls("svs")(hp)
     trainer.build(task)
@@ -4639,10 +4707,19 @@ def multi_gpu_part(rank: int, part: str, data_dir: str, out_dir: str, dev, confi
         _, first = next(iter(whole))
         whole.close()
         out["forward"] = multi_gpu_forward(trainer, first, torch).cpu()
+    rec, patch = recording_dropout(torch, dev)
+    masks = []
+    n_steps = MG_STEPS if part == "dp" else MG_TP_STEPS
     reset_counts()
-    for _, (_, batch) in zip(range(MG_STEPS if part == "dp" else MG_TP_STEPS), batches):
+    for _, (_, batch) in zip(range(n_steps), batches):
         res["rows"].append(list(batch["_local_rows"]))
-        ms, metrics = event_timed(lambda: trainer.train_step(batch), dev, torch)
+        with patch if dropout else contextlib.nullcontext():
+            ms, metrics = event_timed(lambda: trainer.train_step(batch), dev, torch)
+        if dropout:
+            drawn = dropout_record(rec, torch, trainer.mesh.n_data)
+            masks += drawn.pop("masks")
+            for k, v in drawn.items():
+                res.setdefault(k, []).append(v)
         if trainer.global_step == 0:  # step 1's gradients, slices gathered
             grads = {n: p.grad for n, p in trainer.model.named_parameters()}
             if trainer.tp_kinds:
@@ -4657,10 +4734,12 @@ def multi_gpu_part(rank: int, part: str, data_dir: str, out_dir: str, dev, confi
         reset_counts()
         res["val_losses"] = {k: float(v) for k, v in trainer.val_step(batch).items()}
         res["val_launches"] = {k: c.count for k, c in counters().items() if c.count}
+    if dropout:
+        torch.save(masks, os.path.join(out_dir, f"{part}_masks_rank{rank}.pt"))
     tree = trainer.params_tree()  # every rank of the model axis gathers
     if rank == 0:
         out["params"] = task.state_dict_of(tree)
-    res["checkpoint"] = trainer.save_checkpoint()
+    res["checkpoint"] = None if dropout else trainer.save_checkpoint()
     res["shapes"] = {n: list(p.shape) for n, p in trainer.model.named_parameters()}
     if rank == 0:
         torch.save(out, os.path.join(out_dir, f"{part}_tensors.pt"))
@@ -4869,6 +4948,11 @@ def spawn_ranks(parts: tuple, data_dir: str, out_dir: str, dev, config: dict) ->
                    for r in range(2)] for part in parts}
 
 
+def share(part: float, whole: float) -> str:
+    """``part / whole`` as a percentage; "not measured" off the card (0 ms)."""
+    return f"{part / whole:.4%}" if whole else "not measured"
+
+
 def peak_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
 
@@ -4908,14 +4992,15 @@ def updates_vs(label: str, got: dict, want: dict, before: dict, tol: float) -> f
     return errs[0][0]
 
 
-def multi_gpu_launches(dp: list, tp: list) -> dict:
-    """Each rank's launches: K5a/K5b on every data-parallel step, K1 in its
-    validation batch; none on the tensor-parallel route."""
+def multi_gpu_launches(dp: list, tp: list, n_steps: int = MG_STEPS) -> dict:
+    """Each rank's launches: K5a/K5b on every one of the ``n_steps``
+    data-parallel steps, K1 in its validation batch where it ran one; none
+    on the tensor-parallel route."""
     per_step = {"residual_stack_save": 41, "residual_stack_chain": 40}
     for r in dp:
-        if r["train_launches"] != {k: MG_STEPS * v for k, v in per_step.items()}:
+        if r["train_launches"] != {k: n_steps * v for k, v in per_step.items()}:
             raise AssertionError(f"dp rank {r['rank']}: K5 launched {r['train_launches']}")
-        if r["val_launches"] != {"residual_stack": K1_LAUNCHES}:
+        if "val_launches" in r and r["val_launches"] != {"residual_stack": K1_LAUNCHES}:
             raise AssertionError(f"dp rank {r['rank']}: validation launched {r['val_launches']}")
     for r in tp:
         if r["train_launches"]:
@@ -4950,7 +5035,8 @@ def phase_multi_gpu(dev, torch, config=None):
         make_svs_dataset(data_dir, n_train=MG_ITEMS, n_valid=TRAIN_N_VALID, n_mels=128, seed=7,
                          t_ph_range=(32, 33), dur_range=(45, 49))
         config = TRAIN_HPARAMS if config is None else config
-        ranks = spawn_ranks(("dp", "tp", "sp"), data_dir, tmp, dev, config)
+        ranks = spawn_ranks(("dp", "tp", "sp", "dp_dropout", "tp_dropout"), data_dir, tmp, dev,
+                            config)
         dp, tp, sp = ranks["dp"], ranks["tp"], ranks["sp"]
         dp_t = torch.load(os.path.join(tmp, "dp_tensors.pt"), weights_only=False)
         tp_t = torch.load(os.path.join(tmp, "tp_tensors.pt"), weights_only=False)
@@ -5091,8 +5177,32 @@ def phase_multi_gpu(dev, torch, config=None):
             f"{sp_report['grad_err']:.3e} of each tensor's peak of the one-process K5 route "
             f"(tolerance {MG_SP_TOL}); launches per rank " + json.dumps(sp_report["launches"]))
 
+        # (e) dropout on: two steps of each layout against the one-process steps
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+        drop = multi_gpu_dropout(ranks, hp, batches, snapshots[0], tmp, dev, torch)
+        for layout, d in drop.items():
+            log(f"multi_gpu (e) {'data parallel' if layout == 'dp' else 'model_parallel 2'} with "
+                f"dropout {MG_DROPOUT}, {MG_TP_STEPS} steps on global B=16 x T={shape[1]}: all "
+                f"{d['masks']} masks of each rank its part of the one-process steps', exactly "
+                f"({d['split_masks']} split over the model axis); step 1 total loss "
+                f"{d['loss'][0]:.7f} vs {d['loss'][1]:.7f}, grad norm {d['grad_norm'][0]:.7f} vs "
+                f"{d['grad_norm'][1]:.7f}, max {d['metric_err']:.3e} relative over the steps "
+                f"(tolerance {MG_TP_RTOL}); step 1's gradients within {d['grad_err']:.3e} of each "
+                f"tensor's peak (tolerance {STEP_TOL}), each tensor's update within "
+                f"{d['update_err']:.3e} of its own (tolerance {MG_UPDATE_TOL}) of the one-process "
+                f"{d['route']} steps'")
+            for r in d["ranks"]:
+                log(f"multi_gpu (e) {layout} rank {r['rank']}: steps " + ", ".join(
+                    f"{ms:.3f} ms (draws {dm:.4f} ms, {share(dm, ms)})"
+                    for ms, dm in zip(r["step_ms"], r["draw_ms"]))
+                    + f"; {r['drawn_elements'][0]:,} numbers drawn a step for "
+                    f"{r['kept_elements'][0]:,} kept; CUDA events, two ranks sharing one card "
+                    f"({smi}; not a scaling figure)")
+            log(f"multi_gpu (e) {layout} one process ({d['route']} route): steps " + ", ".join(
+                f"{st['ms']:.3f} ms (draws {st['draw_ms']:.4f} ms, {share(st['draw_ms'], st['ms'])})"
+                for st in d["one"]) + f"; {d['one'][0]['kept_elements']:,} numbers a step; CUDA "
+                f"events ({smi})")
         for part, ranks in (("dp", dp), ("tp", tp)):
             log(f"multi_gpu {part}: step times by CUDA events, two ranks sharing one card ({smi}; "
                 "not a scaling figure): " + "; ".join(
@@ -5112,10 +5222,108 @@ def phase_multi_gpu(dev, torch, config=None):
                 "dp_grad_err": dp_grad, "tp_grad_err": tp_grad, "dp_param_err": dp_worst,
                 "dp_update_err": dp_update, "tp_update_err": tp_worst,
                 "tp_metric_err": tp_metric_err, "tp_forward_err": fwd,
-                "dp_step_ms": [r["step_ms"] for r in dp], "tp_step_ms": [r["step_ms"] for r in tp]}
+                "dp_step_ms": [r["step_ms"] for r in dp], "tp_step_ms": [r["step_ms"] for r in tp],
+                "dropout": drop}
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def multi_gpu_dropout(ranks: dict, hp: dict, batches: list, before: dict, tmp: str, dev,
+                      torch) -> dict:
+    """(e): the ranks' MG_TP_STEPS steps with dropout on (parts
+    ``dp_dropout`` and ``tp_dropout``) against the one-process steps on the
+    same card and global batches at the same rate: the K5 route for the
+    data-parallel ranks, the plain route for the tensor-parallel ones (part
+    (b)'s reference). Every mask a rank drew is its rows and, on the FFN's
+    split hidden, its columns of the one-process step's, exactly; then part
+    (b)'s bounds: each step's total loss and gradient norm within
+    MG_TP_RTOL relative, step 1's gradients (reduced, or gathered) within
+    STEP_TOL of each tensor's peak, each tensor's update within
+    MG_UPDATE_TOL of the one-process update's norm (over two steps, as in
+    part (b): step 1 runs at the schedule's floor rate, 1e-7, where Adam's
+    first update is about lr * sign(g) and the metric would read the signs
+    of gradients near zero)."""
+    import contextlib
+    from unittest import mock
+
+    from prodiff_tpu_torch.models import wavenet
+    from prodiff_tpu_torch.parallel.megatron import TensorParallel
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    per_step = multi_gpu_launches(ranks["dp_dropout"], ranks["tp_dropout"], n_steps=MG_TP_STEPS)
+    report = {}
+    for layout, route in (("dp", "K5"), ("tp", "plain")):
+        part = f"{layout}_dropout"
+        one = Trainer(dict(hp, dropout=MG_DROPOUT, work_dir=os.path.join(tmp, f"work_one_{part}")),
+                      device=dev)
+        one.build(get_task_cls("svs")(one.hparams))
+        seed_output_projection(one.model, torch)
+        rec, patch = recording_dropout(torch, dev)
+        plain = (mock.patch.object(wavenet, "on_kernels", lambda x, cycle: False)
+                 if route == "plain" else contextlib.nullcontext())
+        steps, masks = [], []
+        reset_counts()
+        for batch in batches[:MG_TP_STEPS]:
+            with patch, plain:
+                ms, metrics = event_timed(lambda: one.train_step(batch), dev, torch)
+            drawn = dropout_record(rec, torch)
+            masks += drawn.pop("masks")
+            steps.append(dict(drawn, ms=ms, metrics={k: float(v) for k, v in metrics.items()}))
+            if one.global_step == 0:
+                grads = {n: p.grad.detach().cpu() for n, p in one.model.named_parameters()}
+            one.global_step += 1
+        one_launches = {k: c.count for k, c in counters().items() if c.count}
+        want_launches = {k: MG_TP_STEPS * v for k, v in per_step.items()} if route == "K5" else {}
+        if one_launches != want_launches:
+            raise AssertionError(f"the one-process {route} steps with dropout launched {one_launches}")
+        after = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+        del one
+        got = torch.load(os.path.join(tmp, f"{part}_tensors.pt"), weights_only=False)
+        metric_err, split = 0.0, 0
+        for r in ranks[part]:
+            got_masks = torch.load(os.path.join(tmp, f"{part}_masks_rank{r['rank']}.pt"),
+                                   weights_only=False)
+            if len(got_masks) != len(masks) or not masks:
+                raise AssertionError(f"{part} rank {r['rank']} drew {len(got_masks)} masks, the "
+                                     f"one-process steps {len(masks)}")
+            row0 = r["rows"][0][0]
+            split = 0
+            for i, ((tp, mask), (_, want)) in enumerate(zip(got_masks, masks)):
+                want = want[row0:row0 + mask.shape[0]]
+                if tp:
+                    cols = TensorParallel(None, r["rank"], 2).index("out", want.shape[-1])
+                    want = want.index_select(-1, cols)
+                    split += 1
+                if not torch.equal(mask, want):
+                    raise AssertionError(f"{part} rank {r['rank']}: mask {i} is not its part of "
+                                         "the one-process step's")
+            for i, step in enumerate(steps):
+                for key in ("total_loss", "grad_norm"):
+                    want = step["metrics"][key]
+                    err = abs(r["metrics"][i][key] - want) / abs(want)
+                    if not err <= MG_TP_RTOL:
+                        raise AssertionError(f"{part} step {i + 1} {key} on rank {r['rank']}: "
+                                             f"{err:.3e} relative, beyond {MG_TP_RTOL}")
+                    metric_err = max(metric_err, err)
+        # the FFN hidden of each encoder layer, each step
+        if split != (MG_TP_STEPS * hp["enc_layers"] if layout == "tp" else 0):
+            raise AssertionError(f"{part}: {split} masks split over the model axis")
+        grad_err = params_vs(f"{part} step-1 gradients vs the one-process {route} step's",
+                             got["grads1"], grads, STEP_TOL)
+        update_err = updates_vs(f"{part} updates after {MG_TP_STEPS} steps vs the one-process "
+                                f"{route} steps'", got["params"], after, before, MG_UPDATE_TOL)
+        report[layout] = dict(
+            masks=len(masks), split_masks=split, metric_err=metric_err, grad_err=grad_err,
+            update_err=update_err, route=route,
+            loss=[ranks[part][0]["metrics"][0]["total_loss"], steps[0]["metrics"]["total_loss"]],
+            grad_norm=[ranks[part][0]["metrics"][0]["grad_norm"],
+                       steps[0]["metrics"]["grad_norm"]],
+            one=[{k: st[k] for k in ("ms", "draw_ms", "kept_elements")} for st in steps],
+            ranks=[{k: r[k] for k in ("rank", "step_ms", "draw_ms", "kept_elements",
+                                      "drawn_elements")} for r in ranks[part]])
+    return report
 
 
 def multi_gpu_nccl(hp: dict, tmp: str, batch, want: dict, after: dict, dev, torch) -> None:

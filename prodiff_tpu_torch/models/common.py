@@ -3,9 +3,9 @@
 
 Pre-LN self-attention without qkv bias, conv-FFN with kernel 9 scaled by
 ``k^-0.5`` then exact GELU, padding-aware sinusoidal positions, per-layer
-nonpadding masking, and ``nn.Dropout`` at the JAX package's four places
-(after the embeddings, after attention, inside the FFN after GELU, after the
-FFN), active in ``.train()`` only. Public layout is ``[B, T, C]``.
+nonpadding masking, and :class:`Dropout` (flax's) at the JAX package's four
+places (after the embeddings, after attention, inside the FFN after GELU,
+after the FFN), active in ``.train()`` only. Public layout is ``[B, T, C]``.
 Parameter names follow the torch reference's state dict
 (``encoder.layers.{i}.op.self_attn.in_proj_weight`` ...), which
 ``prodiff_tpu/utils/teacher_convert.py`` maps to the JAX package's tree. LayerNorm epsilon is flax's 1e-6, the reference this
@@ -24,19 +24,31 @@ splits the attention's heads and the FFN's filter channels over the model
 axis: a column-parallel ``in_proj``/``ffn_1`` and a row-parallel
 ``out_proj``/``ffn_2``, each module holding its rank's slices under the
 one-process names (listed in ``tp_kinds``).
+
+Dropout draws its masks as one process draws them for the global batch: a
+training step hands every :class:`Dropout` its generator
+(:func:`dropout_generator`, the JAX step's ``fold_in(rng, 2)``), each mask
+is drawn at the global batch's rows and the rank keeps its own
+(``parallel.mesh.draw_rows``), and the FFN's hidden under ``tp`` is drawn at
+the full filter width, the rank keeping its channels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from prodiff_tpu_torch.parallel.mesh import draw_rows
+
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
+_DROPOUT = threading.local()
 
 
 def cast(dtype: Optional[torch.dtype], *xs):
@@ -56,6 +68,57 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """A LayerNorm without dtype: a bf16 input meets the float32 scale and
     bias and comes out float32 (flax's promotion)."""
     return ln(widen(x))
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]):
+    """Within: every :class:`Dropout` in train mode draws from ``generator``
+    (a training step's own stream); None, or outside, torch's default
+    generator, as torch's own dropout draws."""
+    before = getattr(_DROPOUT, "generator", None)
+    _DROPOUT.generator = generator
+    try:
+        yield
+    finally:
+        _DROPOUT.generator = before
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout``: in train mode ``where(keep, x / (1 - p), 0)``
+    with ``keep = rand >= p``; in eval mode or at ``p == 0`` ``x`` itself,
+    drawing nothing (a rate of 0 shifts no later draw), and zeros at
+    ``p == 1``. No parameters. The mask is drawn at the global batch's rows
+    (``draw_rows``) and, with ``tp``, at the full width of a column-parallel
+    last dim, this rank keeping its columns (``TensorParallel.index``)."""
+
+    def __init__(self, p: float, tp=None):
+        super().__init__()
+        self.p, self.tp = float(p), tp
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+    def keep(self, shape: Sequence[int], device: torch.device) -> torch.Tensor:
+        """The keep mask of an input of ``shape`` (bool, this rank's part of
+        the one-process mask)."""
+        generator = getattr(_DROPOUT, "generator", None)
+        shape = list(shape)
+        if self.tp is not None:
+            shape[-1] *= self.tp.size
+        keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=device) >= self.p,
+                         shape)
+        if self.tp is not None:
+            keep = keep.index_select(-1, self.tp.index("out", shape[-1]).to(device))
+        return keep
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        # the keep probability in x's dtype, as flax's weakly typed scalar
+        keep_prob = torch.tensor(1.0 - self.p, dtype=x.dtype).item()
+        return torch.where(self.keep(x.shape, x.device), x / keep_prob, 0.0)
 
 
 class Embedding(nn.Embedding):
@@ -175,7 +238,7 @@ class TransformerFFNLayer(nn.Module):
             filter_size = tp.split(filter_size)
             self.tp_kinds = {"ffn_1.weight": "out", "ffn_1.bias": "out", "ffn_2.weight": "in"}
         self.ffn_1 = nn.Conv1d(hidden_size, filter_size, kernel_size, padding=kernel_size // 2)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout, tp=tp)
         self.ffn_2 = Linear(filter_size, hidden_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -203,7 +266,7 @@ class EncSALayer(nn.Module):
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.ffn = TransformerFFNLayer(hidden_size, 4 * hidden_size, kernel_size, dropout, dtype,
                                        tp=tp)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         nonpad = (~padding_mask).to(x.dtype)[:, :, None]

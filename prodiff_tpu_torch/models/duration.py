@@ -15,7 +15,7 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 
-from prodiff_tpu_torch.models.common import Embedding, Linear
+from prodiff_tpu_torch.models.common import Dropout, Embedding, Linear
 from prodiff_tpu_torch.models.encoder import FastspeechEncoder
 
 DUR_LN_EPS = 1e-12
@@ -37,7 +37,7 @@ class DurationPredictor(nn.Module):
             nn.Sequential(nn.Conv1d(in_dims if i == 0 else n_chans, n_chans, kernel_size,
                                     padding="same"),
                           nn.ReLU(), ChannelLayerNorm(n_chans, eps=DUR_LN_EPS),
-                          nn.Dropout(dropout_rate))
+                          Dropout(dropout_rate))
             for i in range(n_layers))
         self.linear = Linear(n_chans, 1)
 

@@ -8,7 +8,13 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from prodiff_tpu_torch.models.common import Embedding, FFTBlocks, Linear, SinusoidalPositionalEmbedding
+from prodiff_tpu_torch.models.common import (
+    Dropout,
+    Embedding,
+    FFTBlocks,
+    Linear,
+    SinusoidalPositionalEmbedding,
+)
 
 
 class FastspeechEncoder(FFTBlocks):
@@ -26,7 +32,7 @@ class FastspeechEncoder(FFTBlocks):
         self.hidden_size = hidden_size
         self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
         self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, txt_tokens: torch.Tensor,
                 extra_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -53,7 +59,7 @@ class NoteEncoder(FFTBlocks):
         self.note_midi_embed = Linear(1, hidden_size)
         self.note_dur_embed = Linear(1, hidden_size)
         self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, note_midi: torch.Tensor, note_rest: torch.Tensor,
                 note_dur: torch.Tensor) -> torch.Tensor:

@@ -63,6 +63,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from prodiff_tpu_torch.models.common import Dropout
 from prodiff_tpu_torch.ops.lvc import lvc, lvc_matmul, on_kernels
 from prodiff_tpu_torch.ops.ublock import (
     LRELU_SLOPE,
@@ -155,7 +156,7 @@ class KernelPredictor(nn.Module):
                                         nn.LeakyReLU(KP_LRELU))
         layers: List[nn.Module] = []
         for _ in range(3):  # reference Sequential: convs at indices 1, 3, 6, 8, 11, 13
-            layers += [nn.Dropout(0.0),
+            layers += [Dropout(0.0),
                        nn.Conv1d(hid, hid, ks, padding=(ks - 1) // 2), nn.LeakyReLU(KP_LRELU),
                        nn.Conv1d(hid, hid, ks, padding=(ks - 1) // 2), nn.LeakyReLU(KP_LRELU)]
         self.residual_conv = nn.Sequential(*layers)

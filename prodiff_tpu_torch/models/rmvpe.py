@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from prodiff_tpu_torch.models.common import Dropout
+
 SAMPLE_RATE = 16000
 N_CLASS = 360
 N_MELS = 128
@@ -173,7 +175,7 @@ class E2E0(nn.Module):
                               en_out_channels)
         self.cnn = nn.Conv2d(en_out_channels, 3, 3, padding=1)
         self.fc = nn.Sequential(BiGRU(3 * N_MELS, 256, n_gru), nn.Linear(512, N_CLASS),
-                                nn.Dropout(0.25), nn.Sigmoid())
+                                Dropout(0.25), nn.Sigmoid())
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, T, M] log-mel (T a multiple of 32) -> salience [B, T, N_CLASS]."""

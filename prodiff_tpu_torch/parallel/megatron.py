@@ -78,6 +78,11 @@ class TensorParallel:
         """After a row-parallel product: the sum of the ranks' partial products."""
         return _Reduce.apply(x, self.group)
 
+    def index(self, kind: str, n: int) -> torch.Tensor:
+        """This rank's indices along a ``kind`` split of full extent ``n``:
+        the ones :func:`shard_for_rank` cuts its slices with."""
+        return _index(kind, n, self.rank, self.size)
+
 
 def _dim(kind: str) -> int:
     return 1 if kind == "in" else 0

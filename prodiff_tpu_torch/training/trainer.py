@@ -30,8 +30,10 @@ trainer:
   while the current step runs.
 
 The diffusion step ``t`` and noise come from a ``torch.Generator`` seeded
-from (seed, step), and dropout draws from the device's generator seeded so
-for the step, so a resumed run draws what an unbroken one would.
+from (seed, step), and the dropout masks from a generator of their own,
+seeded from (seed, 2 ** 30 + step) and handed to every ``Dropout`` for the
+step (``models.common.dropout_generator``, the JAX step's
+``fold_in(rng, 2)``), so a resumed run draws what an unbroken one would.
 
 Several processes (torchrun's environment, ``parallel/mesh.py:init_distributed``;
 the JAX trainer's mesh and ``multi_host``) lay out as a (data, model) mesh
@@ -45,8 +47,12 @@ global batch:
   trainer's one process loads the global batch there), the global batch,
   cut by ``shard_batch``. ``multi_host`` without the sidecar raises, as the
   JAX multi-process path does;
-- its ``t`` and noise are its rows of the global batch's draws
-  (``mesh.batch_rows``);
+- its ``t`` and noise, and its dropout masks, are its rows of the global
+  batch's draws (``mesh.batch_rows``); the FFN's hidden, split over the
+  model axis, draws its mask at the full filter width and each rank keeps
+  its channels' columns, and the regions the model axis replicates draw
+  alike on its ranks (one stream, one shape), so every mask is the
+  one-process step's;
 - the gradients' mean over the data axis is one all-reduce of one flat
   bucket before the clip reads their norm; the logged losses are the data
   axis's means;
@@ -60,10 +66,6 @@ global batch:
   validation losses are the data axis's means weighted by ``nsamples``; the
   validation plots render data rank 0's rows on every rank of its model
   axis (a tensor-parallel render needs them all), and rank 0 draws them.
-
-Dropout differs: a rank draws its masks from (seed, step, its data rank),
-not the rows of one global draw, and the FFN's sliced dropout repeats its
-mask on each model rank.
 """
 
 from __future__ import annotations
@@ -83,6 +85,7 @@ import torch
 
 from prodiff_tpu_torch.data.dataset import drain
 from prodiff_tpu_torch.device import check_tp_dilation
+from prodiff_tpu_torch.models.common import dropout_generator
 from prodiff_tpu_torch.parallel.mesh import (
     agree,
     all_reduce_gradients,
@@ -106,21 +109,38 @@ from prodiff_tpu_torch.utils import ckpt_utils
 
 log = logging.getLogger("prodiff_tpu_torch.trainer")
 PROFILE_AT = 10  # the session's step the profile starts at, as the JAX trainer's
+# the dropout masks' stream of step s is seeded from (seed, DROPOUT_STREAM + s):
+# apart from the diffusion draws' (seed, s) and the validation's (seed, 2 ** 31)
+DROPOUT_STREAM = 2 ** 30
 
 
 class MetricsWriter:
     """``metrics.jsonl`` in the work dir, plus TensorBoard when it imports
-    (scalars under ``tr/`` and ``val/`` as in the reference)."""
+    (scalars under ``tr/`` and ``val/`` as in the reference). The TensorBoard
+    writer is made at the first scalar or figure: its import pulls in
+    TensorFlow where that is installed (seconds), which a run that logs
+    nothing does without."""
 
     def __init__(self, work_dir: str):
         os.makedirs(work_dir, exist_ok=True)
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-
-            self.tb = SummaryWriter(log_dir=work_dir)
-        except Exception:
-            self.tb = None
+        self.work_dir = work_dir
+        self._tb = None
+        self._tb_tried = False
         self.jsonl = open(os.path.join(work_dir, "metrics.jsonl"), "a")
+
+    @property
+    def tb(self):
+        """The TensorBoard ``SummaryWriter``, made at first use; None where
+        it does not import."""
+        if not self._tb_tried:
+            self._tb_tried = True
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=self.work_dir)
+            except Exception:
+                self._tb = None
+        return self._tb
 
     def add_figure(self, tag: str, fig, step: int) -> None:
         """A matplotlib figure into TensorBoard; nothing without it."""
@@ -137,8 +157,8 @@ class MetricsWriter:
         self.jsonl.flush()
 
     def close(self) -> None:
-        if self.tb is not None:
-            self.tb.close()
+        if self._tb is not None:
+            self._tb.close()
         self.jsonl.close()
 
 
@@ -301,6 +321,7 @@ class Trainer:
         self.optimizer = Optimizer(self.model.named_parameters(), self.hparams,
                                    carrier=task.carrier(), layout=layout)
         self.generator = torch.Generator(self.device)
+        self.dropout_generator = torch.Generator(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         log.info("| model params: %.2fM on %s (rank %d of %d, model axis %d)", n_params / 1e6,
                  self.device, self.mesh.rank, self.mesh.size, self.mesh.model_parallel)
@@ -312,8 +333,8 @@ class Trainer:
         moments = [*opt.mu.values(), *opt.nu.values(), *(opt.acc or {}).values()]
         replicate([*self.model.parameters(), *moments], self.mesh)
 
-    def _seeded(self, stream: int) -> torch.Generator:
-        return self.generator.manual_seed(self.seed * 2 ** 32 + stream)
+    def _seeded(self, stream: int, generator: Optional[torch.Generator] = None) -> torch.Generator:
+        return (generator or self.generator).manual_seed(self.seed * 2 ** 32 + stream)
 
     def _data_mean(self, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return dict(zip(losses, data_mean(list(losses.values()), self.mesh)))
@@ -325,11 +346,8 @@ class Trainer:
         self.model.train()
         batch = dict(batch)
         rows = batch.pop("_local_rows", None)
-        cuda = [self.device.index or 0] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=cuda), batch_rows(rows):
-            # dropout: the model axis's ranks draw alike (its replicated regions)
-            torch.manual_seed(self.seed * 2 ** 32 + 2 ** 30 + self.global_step
-                              + self.mesh.data_rank * 2 ** 24)
+        dropout = self._seeded(DROPOUT_STREAM + self.global_step, self.dropout_generator)
+        with batch_rows(rows), dropout_generator(dropout):
             losses = self.task.compute_losses(self.model, batch, self._seeded(self.global_step))
         total = sum(losses.values())
         for p in self.optimizer.params.values():

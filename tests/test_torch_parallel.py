@@ -4,7 +4,8 @@ JAX package's mesh, on the CPU.
 The ranks run in worker processes (``tests/torch_parallel_worker.py``: two
 ranks over ``gloo``, started by ``parallel.mesh.launch_local`` with
 torchrun's environment and joined to the store it holds, each call killed
-after 60 s); the JAX side runs here, on conftest's 8 virtual devices.
+after ``RANK_TIMEOUT``); the JAX side runs here, on conftest's 8 virtual
+devices.
 
 - the (data, model) layout and ``process_data_blocks`` vs JAX
   ``create_mesh`` / ``process_data_blocks`` (one device a process), and the
@@ -35,8 +36,9 @@ after 60 s); the JAX side runs here, on conftest's 8 virtual devices.
   port chosen, released and bound again), and leave their group when their
   function returns.
 
-Dropout is off throughout: a rank draws its masks from (seed, step, data
-rank), not the rows of one global draw.
+Dropout is off here, where the JAX side draws its own masks; a multi-rank
+step with dropout on is held against the port's one-process step in
+``tests/test_torch_dropout.py``.
 """
 
 import os
@@ -81,7 +83,10 @@ from tests.torch_parallel_worker import seed_output_projection
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
-RANK_TIMEOUT = 60
+# seconds: over twice the slowest call (``fit``, ~25 s under the suite's
+# ``-n 6`` load) times the heavier load a shared machine has shown (a ~18 s
+# ``dp_fit`` once took over 60 s there)
+RANK_TIMEOUT = 180
 
 
 def run_ranks(case, n, outdir, *args):

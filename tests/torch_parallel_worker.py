@@ -26,6 +26,12 @@ Cases:
   output projection seeded) on a dataset without the item-lengths sidecar:
   the step's metrics, gradients and params; then the same with
   ``multi_host: true``, whose error it records;
+- ``dropout_fit DATA_DIR``: ``Trainer.fit`` of one step with dropout 0.1 at
+  a constant learning rate of 1e-3 (the output projection seeded), data
+  parallel and then at ``model_parallel`` N: for each, the step's metrics,
+  rows, gradients and params (tensor-parallel slices gathered) and every
+  dropout mask the step drew, with whether its module splits its columns
+  over the model axis;
 - ``rendezvous``: before joining the group, whether the store's port
   (``MASTER_PORT``) already accepts a connection and whether the rank joins
   as a client of the launcher's store; then an all-reduce of the ranks;
@@ -65,7 +71,40 @@ def seed_output_projection(model: torch.nn.Module) -> None:
 def _hp(data_dir: str, outdir: str, **kw) -> dict:
     from prodiff_tpu_torch.utils.synthetic import small_hparams
 
-    return small_hparams(data_dir, dropout=0.0, work_dir=os.path.join(outdir, "work"), **kw)
+    return small_hparams(data_dir, **{"dropout": 0.0, "work_dir": os.path.join(outdir, "work"),
+                                      **kw})
+
+
+def seeded_task(task):
+    """``task`` building its model with the output projection seeded."""
+    build = task.build_model
+
+    def build_seeded():
+        model = build()
+        seed_output_projection(model)
+        return model
+
+    task.build_model = build_seeded
+    return task
+
+
+def record_masks():
+    """``(masks, patch)``: within ``patch`` every keep mask a ``Dropout``
+    draws is appended to ``masks`` as ``(splits its columns over the model
+    axis, mask)``."""
+    from unittest import mock
+
+    from prodiff_tpu_torch.models.common import Dropout
+
+    masks = []
+    keep = Dropout.keep
+
+    def recorded(self, shape, device):
+        mask = keep(self, shape, device)
+        masks.append((self.tp is not None, mask.clone()))
+        return mask
+
+    return masks, mock.patch.object(Dropout, "keep", recorded)
 
 
 def dp_step(outdir: str, data_dir: str) -> None:
@@ -181,17 +220,6 @@ def dp_fit(outdir: str, data_dir: str) -> None:
     from prodiff_tpu_torch.tasks import get_task_cls
     from prodiff_tpu_torch.training.trainer import Trainer
 
-    def seeded(task):
-        build = task.build_model
-
-        def build_seeded():
-            model = build()
-            seed_output_projection(model)
-            return model
-
-        task.build_model = build_seeded
-        return task
-
     hp = _hp(data_dir, outdir, val_check_interval=1000)
     trainer = Trainer(hp, device="cpu")
     metrics = _recorded(trainer)
@@ -205,7 +233,7 @@ def dp_fit(outdir: str, data_dir: str) -> None:
         return out
 
     trainer.train_step = kept
-    trainer.fit(seeded(get_task_cls("svs")(hp)), max_steps=1)
+    trainer.fit(seeded_task(get_task_cls("svs")(hp)), max_steps=1)
     out = {"metrics": metrics, "rows": rows, "grads": grads,
            "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()}}
     multi = dict(hp, multi_host=True, work_dir=os.path.join(outdir, "work_multi_host"))
@@ -214,6 +242,41 @@ def dp_fit(outdir: str, data_dir: str) -> None:
         out["multi_host_error"] = None
     except ValueError as e:
         out["multi_host_error"] = str(e)
+    torch.save(out, os.path.join(outdir, f"rank{trainer.mesh.rank}.pt"))
+
+
+def dropout_fit(outdir: str, data_dir: str) -> None:
+    from prodiff_tpu_torch.parallel.megatron import gather_state_dict
+    from prodiff_tpu_torch.tasks import get_task_cls
+    from prodiff_tpu_torch.training.trainer import Trainer
+
+    masks, patch = record_masks()
+    patch.start()
+    out = {}
+    for mp in (1, int(os.environ["WORLD_SIZE"])):
+        hp = _hp(data_dir, outdir, dropout=0.1, model_parallel=mp, val_check_interval=1000,
+                 scheduler="constant", lr=1e-3, work_dir=os.path.join(outdir, f"work_mp{mp}"))
+        trainer = Trainer(hp, device="cpu")
+        metrics = _recorded(trainer)
+        step = trainer.train_step
+        rows, grads = [], {}
+
+        def kept(batch, trainer=trainer, step=step, rows=rows, grads=grads):
+            rows.append(batch["_local_rows"])
+            result = step(batch)
+            grads.update({n: p.grad.clone() for n, p in trainer.model.named_parameters()})
+            return result
+
+        trainer.train_step = kept
+        masks.clear()
+        trainer.fit(seeded_task(get_task_cls("svs")(hp)), max_steps=1)
+        params = trainer.model.state_dict()
+        if trainer.tp_kinds:
+            grads = gather_state_dict(grads, trainer.tp_kinds, trainer.mesh.tp)
+            params = gather_state_dict(params, trainer.tp_kinds, trainer.mesh.tp)
+        out[mp] = {"metrics": metrics, "rows": rows, "grads": grads, "masks": list(masks),
+                   "params": {n: p.detach().clone() for n, p in params.items()},
+                   "model_rank": trainer.mesh.model_rank}
     torch.save(out, os.path.join(outdir, f"rank{trainer.mesh.rank}.pt"))
 
 
@@ -286,7 +349,7 @@ def sp_module(outdir: str, *npzs: str) -> None:
 def run(case: str, outdir: str, args: tuple) -> None:
     torch.set_num_threads(2)
     {"dp_step": dp_step, "tp_module": tp_module, "fit": fit, "resume": resume,
-     "dp_fit": dp_fit, "rendezvous": rendezvous, "linger": linger,
+     "dp_fit": dp_fit, "dropout_fit": dropout_fit, "rendezvous": rendezvous, "linger": linger,
      "sp_module": sp_module}[case](outdir, *args)
 
 
