@@ -172,9 +172,17 @@ Phases, each printing its lines before the last:
  14. (``phase_bf16_vocoders``) the serving vocoders' bf16: K2/K3-bf16
      (``csrc/resblock_bf16.cu``, tensor-core mma.sync) at the five stages of
      a T_mel=512 pass, K4-bf16 and K7-bf16 (the bf16-window builds of
-     ``ublock.cu`` and ``ublock_block.cu``) at the LJSpeech hops 8, 64 and
-     256, each against its twin and timed beside its float32 kernel with its
-     bound; the FastDiff text->wav path in fast mode by each route (layer:
+     ``ublock.cu`` and ``ublock_block.cu``, their window product on the
+     tensor cores) at the LJSpeech hops 8, 64 and 256, each against its twin
+     and timed beside its float32 kernel with two bounds (the FP32 rate's,
+     and ``mma_bound``: their product's three bf16 terms at the tensor
+     cores' rate, the conv at the FP32 rate); K4-bf16 per block also built
+     without the conv / the window product (``LVCT_SKIP``), on wide-range
+     activations (1e-3 .. 1e2) against the twin and, with a seeded bf16
+     KernelPredictor's windows, against float64, K4-bf16 at hops 24-80 and
+     the split tiles 68, 100, 260 (with ``--parent``: the earlier K4/K7
+     builds in turns, both window dtypes);
+     the FastDiff text->wav path in fast mode by each route (layer:
      K4-bf16 48; ``MONO_BLOCK``: K7-bf16 8 and K4-bf16 16; unfused: the
      float32 K6 48, as the JAX package gives ``lvc_pallas`` no bf16
      windows), and the fast FastDiff vocoder against the parity one on one
@@ -358,12 +366,23 @@ RES_LAUNCHES, RES_BF16_LAUNCHES = 18, 9  # a T_mel stage: a launch a conv (float
 # the bf16 serving kernels' split: a K1-bf16 build that stamps each layer's
 # phases, and K2/K3-bf16 builds that leave a part out
 K1_STAMPED = ("wavenet_stack_bf16", ("K1_STAMPS=1",))
+# K4-bf16 and K7-bf16 (csrc/lvc_tiles.cuh: TERMS): y in LVC_TERMS bf16 terms
+LVC_TERMS = 3
+LVC_BF16_RATE = ("the window product x 3 bf16 terms on the bf16 dense tensor cores, 989 "
+                 "TFLOP/s, plus the conv on FP32 FMAs, 67 TFLOP/s; HBM 3.35 TB/s (bf16 window "
+                 "bytes); bound_fp32_rate_ms: every FMA at 67 TFLOP/s")
+# with --parent: K4/K7-bf16 and the float32 K4/K7 against the earlier builds in turns
+PARENT_LVC_KEYS = ("parent_ms", "in_turns_ms", "f32_parent_ms", "f32_in_turns_ms")
+LVC_BF16_KEYS = ("bound_fp32_rate_ms", "bound_fp32_rate_by") + PARENT_LVC_KEYS
 RES_BF16_SKIPS = {"no_weight_stream": "RESBLOCK_SKIP=1", "no_x_loads": "RESBLOCK_SKIP=2",
                   "no_output": "RESBLOCK_SKIP=4"}
 # the earlier designs' times as PERF.md §6 records them (K1-bf16's
 # cooperative chain at T=512/640/2048; K2/K3-bf16 at a launch a conv: the
-# five stages, HiFi-GAN V1's and V2's), for the log only
+# five stages, HiFi-GAN V1's and V2's; K4-bf16 and K7-bf16 with widened
+# windows on FP32 FMAs, blocks 0-2 and 1-2), for the log only
 EARLIER_BF16_MS = {"K1-bf16, cooperative chain": (0.4821, 0.5138, 0.8245),
+                   "K4-bf16, widened windows on FP32 FMAs": (0.0404, 0.1013, 0.3609),
+                   "K7-bf16, widened windows on FP32 FMAs": (0.1073, 0.3661),
                    "K2/K3-bf16 stages, a launch a conv": (0.5930, 0.9861, 0.6917, 0.5622, 0.5000),
                    "HiFi-GAN V1 bf16 stages, a launch a conv": (0.5955, 0.9878, 0.6890, 0.5631),
                    "HiFi-GAN V2 bf16 stages, a launch a conv": (0.2066, 0.1911, 0.1759, 0.1042)}
@@ -4072,75 +4091,308 @@ def bf16_vocoder_kernels(dev, torch) -> tuple:
         f"{res['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s: {res['bound_by']}), "
         f"share of bound {res['bound_ms'] / res['ms']:.3f}")
 
+    k4, k7 = lvc_bf16_kernels(dev, torch)
+    return res, k4, k7
+
+
+def mma_bound(t: int, n_layers: int, nbytes: float) -> dict:
+    """The least time of K4-bf16's / K7-bf16's arithmetic over ``n_layers``
+    layers of T = t rows: the window product's 12,288 FLOP a row x
+    ``LVC_TERMS`` bf16 terms at the bf16 tensor cores' rate plus the conv's
+    6,144 on FP32 FMAs, against ``nbytes`` at the HBM rate."""
+    t_ops = n_layers * t * (12288 * LVC_TERMS / BF16_PEAK + 6144 / FP32_PEAK)
+    t_bytes = nbytes / HBM_RATE
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def graph_in_turns(earlier, this, torch) -> dict:
+    """``graph_ms`` of two lists of calls in turns (earlier, this, this,
+    earlier): {"parent_ms": [2], "in_turns_ms": [2]}."""
+    got = {"parent_ms": [graph_ms(earlier, torch)],
+           "in_turns_ms": [graph_ms(this, torch) for _ in range(2)]}
+    got["parent_ms"].append(graph_ms(earlier, torch))
+    return got
+
+
+def wide_range(rng, shape, torch, dev):
+    """Normal values scaled element by element by 10 ** U(-3, 2) (magnitudes
+    1e-3 to 1e2: tests/test_torch_ublock_bf16_split.py's activations)."""
+    return torch.tensor(rng.normal(size=shape) * 10.0 ** rng.uniform(-3, 2, size=shape),
+                        dtype=torch.float32, device=dev)
+
+
+def lvc_bf16_kernels(dev, torch) -> tuple:
+    """K4-bf16 at every (block, layer) of the LJSpeech FastDiff net at
+    T_mel=512 and K7-bf16 at blocks 1 and 2, each against its twin on the
+    same bf16 windows at ``KERNEL_TOL`` (both compute with the windows
+    widened exactly; the kernels' y in three bf16 terms keeps float32's
+    bits), timed as ``phase_fastdiff_kernels`` times K4/K7 (``graph_ms``
+    over the four steps of a hoisted stack) beside the float32 build on the
+    same (float32) windows and the twin, with two bounds: the FP32 rate's
+    (``bound``: every FMA at 67 TFLOP/s, bf16 window bytes) and the bf16
+    build's arithmetic's (``mma_bound``). Per block also K4-bf16 built
+    without the conv, the window product or both (``LVCT_SKIP``), and with
+    ``--parent`` the earlier checkout's K4 / K7 in turns (earlier, this,
+    this, earlier), both window dtypes; the variant and earlier builds are
+    called through tools/probe_bf16_kernels.py's ``LvcBuild``. Then the
+    wide-range check (``lvc_bf16_wide``) and K4-bf16 at the hops its
+    contract takes beyond LJSpeech's (``lvc_bf16_widened_hops``). Returns
+    the kernels-line summaries of K4-bf16 and K7-bf16."""
+    from prodiff_tpu_torch.ops import cuda_build
+    from prodiff_tpu_torch.ops.ublock import (mono_block_supported, ublock_block,
+                                              ublock_block_plain, ublock_layer, ublock_layer_plain)
+
+    rng = np.random.default_rng(SEED + 17)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    bf16 = torch.bfloat16
+    lvc_build = probe_module().LvcBuild
+    skips = {label: lvc_build(torch, cuda_build.load("ublock", (f"LVCT_SKIP={v}",))).layer
+             for label, v in K4_SKIPS.items()}
     c, n_layers, n_win = 32, FD_CONFIG["lvc_layers_each_block"], FD_T_MEL
     dilations = [3 ** i for i in range(n_layers)]
     k4 = {"max_abs_err": 0.0, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0, "by_block": []}
     k7 = {"max_abs_err": 0.0, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0, "by_block": []}
-    totals = {"k4": [0, 0], "k7": [0, 0]}
+    totals = {"k4": [0, 0, 0], "k7": [0, 0, 0]}  # FLOP, bytes, rows x layers
     for blk, hop in enumerate(FD_HOPS):
         t = n_win * hop
         x, ad = rand(1, t, c), rand(1, t, c)
-        km16 = rand(FD_STEPS, 1, n_win, n_layers * 3 * c, 2 * c, scale=0.1).to(torch.bfloat16)
+        km16 = rand(FD_STEPS, 1, n_win, n_layers * 3 * c, 2 * c, scale=0.1).to(bf16)
         km32 = km16.float()
         lb = rand(FD_STEPS, 1, n_win, n_layers * 2 * c, scale=0.1)
         window_bytes = n_win * (2 * 3 * c * 2 * c + 4 * 2 * c)  # a (step, layer): bf16 kernels
         cws, cbs = [rand(c, c, 3, scale=0.2) for _ in dilations], [rand(c, scale=0.1)
                                                                     for _ in dilations]
-        row = {"block": blk, "hop": hop, "T": t, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0}
+        row = {"block": blk, "hop": hop, "T": t, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0,
+               "max_abs_err": 0.0, "phases_ms": dict.fromkeys(K4_SKIPS, 0.0)}
+        if PARENT is not None:
+            row.update({k: [0.0, 0.0] for k in PARENT_LVC_KEYS})
         flops_b, bytes_b = 18432 * t * n_layers, n_layers * (4 * (3 * t * c + 3 * c * c + c)
                                                              + window_bytes)
         for i, d in enumerate(dilations):
             def call(fn, s, km, i=i, d=d):
-                return fn(x, ad, cws[i], cbs[i], km, lb, d, hop, step_idx=s, layer_idx=i)
+                return fn(x, ad, cws[i], cbs[i], km, lb, d, hop, s, i)
+
+            def steps(fn=ublock_layer, km=km16):
+                return per_steps(lambda s: call(fn, s, km))
             res4 = compare(f"K4-bf16 ublock_layer hop={hop} dilation={d} (step {i}, layer {i}) vs "
                            f"its twin", call(ublock_layer, i, km16),
                            call(ublock_layer_plain, i, km16), torch)
-            k4["max_abs_err"] = max(k4["max_abs_err"], res4["max_abs_err"])
-            row["ms"] += graph_ms(per_steps(lambda s: call(ublock_layer, s, km16)), torch)
-            row["f32_ms"] += graph_ms(per_steps(lambda s: call(ublock_layer, s, km32)), torch)
-            row["plain_ms"] += graph_ms(per_steps(lambda s: call(ublock_layer_plain, s, km16)),
-                                        torch)
-        row.update(bound(flops_b, bytes_b))
+            row["max_abs_err"] = max(row["max_abs_err"], res4["max_abs_err"])
+            row["ms"] += graph_ms(steps(), torch)
+            row["f32_ms"] += graph_ms(steps(km=km32), torch)
+            row["plain_ms"] += graph_ms(steps(ublock_layer_plain), torch)
+            for label, layer in skips.items():
+                row["phases_ms"][label] += graph_ms(steps(layer), torch)
+            if PARENT is not None:  # both builds, each against the earlier one in turns
+                for pre, km in (("", km16), ("f32_", km32)):
+                    turns = graph_in_turns(steps(PARENT["lvc"].layer, km), steps(km=km), torch)
+                    for k, v in turns.items():
+                        row[pre + k] = [a + b for a, b in zip(row[pre + k], v)]
+        row["phases_ms"]["all"] = row["ms"]
+        fp32 = bound(flops_b, bytes_b)
+        row.update(bound_fp32_rate_ms=fp32["bound_ms"], bound_fp32_rate_by=fp32["bound_by"],
+                   **mma_bound(t, n_layers, bytes_b))
+        k4["max_abs_err"] = max(k4["max_abs_err"], row["max_abs_err"])
         log(f"K4-bf16 block {blk} (hop {hop}, T={t}), its {n_layers} layers: kernel "
             f"{row['ms']:.4f} ms, float32 K4 {row['f32_ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"share of bound {row['bound_ms'] / row['ms']:.3f}")
+            f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}; share "
+            f"{row['bound_ms'] / row['ms']:.3f}), at the FP32 rate "
+            f"{row['bound_fp32_rate_ms']:.4f} ms (share "
+            f"{row['bound_fp32_rate_ms'] / row['ms']:.3f}); max |kernel - twin| "
+            f"{row['max_abs_err']:.3e}")
+        log(f"K4-bf16 block {blk} (hop {hop}) by phase (LVCT_SKIP builds), its {n_layers} layers: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row["phases_ms"].items()))
+        if PARENT is not None:
+            log(f"K4-bf16 block {blk} (hop {hop}) in turns with the earlier design (its "
+                f"{n_layers} layers): earlier {row['parent_ms']}, this {row['in_turns_ms']} ms; "
+                f"float32 K4: earlier {row['f32_parent_ms']}, this {row['f32_in_turns_ms']} ms")
         for k in ("ms", "f32_ms", "plain_ms"):
             k4[k] += row[k]
         k4["by_block"].append(row)
-        totals["k4"][0] += flops_b
-        totals["k4"][1] += bytes_b
-        if mono_block_supported(hop, dilations):
+        totals["k4"] = [a + v for a, v in zip(totals["k4"], (flops_b, bytes_b, t * n_layers))]
+        if mono_block_supported(hop, dilations, bf16):
             def block(fn, s, km):
                 return fn(x, ad, cws, cbs, km, lb, dilations, hop, s)
+
+            def bsteps(fn=ublock_block, km=km16):
+                return per_steps(lambda s: block(fn, s, km))
             res7 = compare(f"K7-bf16 ublock_block hop={hop} T={t} (step 2) vs its twin",
                            block(ublock_block, 2, km16), block(ublock_block_plain, 2, km16), torch)
             k7["max_abs_err"] = max(k7["max_abs_err"], res7["max_abs_err"])
             bytes7 = 4 * (3 * t * c + n_layers * (3 * c * c + c)) + n_layers * window_bytes
-            row7 = dict(block=blk, hop=hop, T=t,
-                        ms=graph_ms(per_steps(lambda s: block(ublock_block, s, km16)), torch),
-                        f32_ms=graph_ms(per_steps(lambda s: block(ublock_block, s, km32)), torch),
-                        plain_ms=graph_ms(per_steps(lambda s: block(ublock_block_plain, s, km16)),
-                                          torch),
-                        **bound(flops_b, bytes7))
+            fp32 = bound(flops_b, bytes7)
+            row7 = dict(block=blk, hop=hop, T=t, ms=graph_ms(bsteps(), torch),
+                        f32_ms=graph_ms(bsteps(km=km32), torch),
+                        plain_ms=graph_ms(bsteps(ublock_block_plain), torch),
+                        max_abs_err=res7["max_abs_err"], bound_fp32_rate_ms=fp32["bound_ms"],
+                        bound_fp32_rate_by=fp32["bound_by"], **mma_bound(t, n_layers, bytes7))
+            if PARENT is not None:
+                for pre, km in (("", km16), ("f32_", km32)):
+                    turns = graph_in_turns(bsteps(PARENT["lvc"].block, km), bsteps(km=km), torch)
+                    row7.update({pre + k: v for k, v in turns.items()})
             log(f"K7-bf16 block {blk} (hop {hop}, T={t}): kernel {row7['ms']:.4f} ms, float32 K7 "
-                f"{row7['f32_ms']:.4f} ms, plain {row7['plain_ms']:.4f} ms, bound "
-                f"{row7['bound_ms']:.4f} ms ({row7['bound_by']}), share of bound "
-                f"{row7['bound_ms'] / row7['ms']:.3f}")
+                f"{row7['f32_ms']:.4f} ms, plain {row7['plain_ms']:.4f} ms; bound "
+                f"{row7['bound_ms']:.4f} ms ({row7['bound_by']}; share "
+                f"{row7['bound_ms'] / row7['ms']:.3f}), at the FP32 rate "
+                f"{row7['bound_fp32_rate_ms']:.4f} ms (share "
+                f"{row7['bound_fp32_rate_ms'] / row7['ms']:.3f})"
+                + (f"; in turns with the earlier design: earlier {row7['parent_ms']}, this "
+                   f"{row7['in_turns_ms']} ms; float32 K7: earlier {row7['f32_parent_ms']}, this "
+                   f"{row7['f32_in_turns_ms']} ms" if PARENT is not None else ""))
             for k in ("ms", "f32_ms", "plain_ms"):
                 k7[k] += row7[k]
             k7["by_block"].append(row7)
-            totals["k7"][0] += flops_b
-            totals["k7"][1] += bytes7
+            totals["k7"] = [a + v for a, v in zip(totals["k7"], (flops_b, bytes7, t * n_layers))]
         del km16, km32, lb
-    k4.update(bound(*totals["k4"]))
-    k7.update(bound(*totals["k7"]))
+    for acc, (flops, nbytes, rows_layers) in ((k4, totals["k4"]), (k7, totals["k7"])):
+        fp32 = bound(flops, nbytes)
+        acc.update(bound_fp32_rate_ms=fp32["bound_ms"], bound_fp32_rate_by=fp32["bound_by"],
+                   **mma_bound(rows_layers, 1, nbytes))
+        for k in PARENT_LVC_KEYS if PARENT is not None else ():
+            acc[k] = [sum(r[k][j] for r in acc["by_block"]) for j in range(2)]
     for name, acc in (("K4-bf16, the 12 layers", k4), ("K7-bf16, blocks 1 and 2", k7)):
         log(f"{name} of one FastDiff forward at T_mel={FD_T_MEL}: kernel {acc['ms']:.4f} ms, "
             f"float32 kernel {acc['f32_ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, bound "
-            f"{acc['bound_ms']:.4f} ms ({acc['bound_by']}; FP32 rate, bf16 window bytes)")
+            f"{acc['bound_ms']:.4f} ms ({acc['bound_by']}: the product's {LVC_TERMS} terms at "
+            f"989 TFLOP/s, the conv at 67, bytes at 3.35 TB/s; share "
+            f"{acc['bound_ms'] / acc['ms']:.3f}), at the FP32 rate {acc['bound_fp32_rate_ms']:.4f} "
+            f"ms (share {acc['bound_fp32_rate_ms'] / acc['ms']:.3f})"
+            + (f"; in turns with the earlier design: earlier {acc['parent_ms']}, this "
+               f"{acc['in_turns_ms']} ms; float32: earlier {acc['f32_parent_ms']}, this "
+               f"{acc['f32_in_turns_ms']} ms" if PARENT is not None else ""))
+    k4["wide_range"] = lvc_bf16_wide(dev, torch)
+    k4["widened_hops"] = lvc_bf16_widened_hops(dev, torch)
+    k4["max_abs_err"] = max([k4["max_abs_err"]] + [r["max_abs_err"] for r in k4["widened_hops"]])
     torch.cuda.empty_cache()
-    return res, k4, k7
+    return k4, k7
+
+
+def layer_f64(x, ad, cw, cb, km, lb, d, hop, layer, torch):
+    """ublock_layer_plain's layer in float64 (step 0 of the stack, layer
+    ``layer``): the reference of the wide-range check."""
+    import torch.nn.functional as F
+
+    from prodiff_tpu_torch.ops.ublock import dilated_conv, gated_residual
+
+    xa = x.double() + ad.double()
+    y = F.leaky_relu(dilated_conv(F.leaky_relu(xa, 0.2), cw.double(), cb.double(), d), 0.2)
+    b, t, c = y.shape
+    k = km[0, :, :, layer * 3 * c:(layer + 1) * 3 * c].double()
+    bias = lb[0, :, :, layer * 2 * c:(layer + 1) * 2 * c].double()
+    yp = F.pad(y, (0, 0, 1, 1))
+    taps = torch.cat([yp[:, j: j + t] for j in range(3)], dim=2).view(b, t // hop, hop, 3 * c)
+    return gated_residual(xa, (torch.matmul(taps, k) + bias[:, :, None, :]).reshape(b, t, 2 * c))
+
+
+def lvc_bf16_wide(dev, torch) -> list:
+    """K4-bf16 on wide-range x and audio_down (1e-3 .. 1e2) at the LJSpeech
+    hops (B=1, 512 windows; layer 3, dilation 27), twice:
+    - windows at the card tests' scale (normal x 0.1): against the twin at
+      ``KERNEL_TOL``, the largest error and its share of the tolerance,
+      which it must meet;
+    - windows of a seeded bf16 KernelPredictor (std ~1): there the float32
+      sums' rounding alone exceeds ``KERNEL_TOL`` (|gate, filter| reach
+      ~1e3), so no float32 computation meets it against the twin, nor the
+      twin against float64; K4-bf16, the float32 K4 and the twin are each
+      held against the layer in float64 (``layer_f64``), and K4-bf16 must
+      come no further from it than the float32 computations (the twin, the
+      float32 K4) do. Its distance from the twin is logged."""
+    from prodiff_tpu_torch.models.fastdiff import KernelPredictor
+    from prodiff_tpu_torch.ops.ublock import ublock_layer, ublock_layer_plain
+
+    rng = np.random.default_rng(SEED + 18)
+    c, n_layers, n_win, i = 32, FD_CONFIG["lvc_layers_each_block"], FD_T_MEL, 3
+    torch.manual_seed(SEED)
+    kp = KernelPredictor(FD_CONFIG["cond_channels"], c, 2 * c, n_layers,
+                         dtype=torch.bfloat16).to(dev)
+    cond = torch.tensor(rng.normal(size=(1, n_win, FD_CONFIG["cond_channels"])) - 4.0,
+                        dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        kflat, bflat = kp(cond)
+    kp_windows = (kflat.view(1, 1, n_win, n_layers * 3 * c, 2 * c),
+                  bflat.float().view(1, 1, n_win, n_layers * 2 * c))
+
+    def share(got, want):
+        err = (got.double() - want.double()).abs()
+        tol = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * want.double().abs()
+        return {"max_abs_err": float(err.max()), "share_of_tol": float((err / tol).max()),
+                "over_tol": int((err > tol).sum())}
+    out = []
+    for hop in FD_HOPS:
+        t = n_win * hop
+        x, ad = wide_range(rng, (1, t, c), torch, dev), wide_range(rng, (1, t, c), torch, dev)
+        cw = torch.tensor(rng.normal(size=(c, c, 3)) * 0.2, dtype=torch.float32, device=dev)
+        cb = torch.tensor(rng.normal(size=c) * 0.1, dtype=torch.float32, device=dev)
+        card = (torch.tensor(rng.normal(size=(1, 1, n_win, n_layers * 3 * c, 2 * c)) * 0.1,
+                             dtype=torch.float32, device=dev).to(torch.bfloat16),
+                torch.tensor(rng.normal(size=(1, 1, n_win, n_layers * 2 * c)) * 0.1,
+                             dtype=torch.float32, device=dev))
+        rec = {"hop": hop, "T": t, "kp_window_std": float(kp_windows[0].float().std())}
+        for scale, (km, lb) in (("card_scale", card), ("kp_scale", kp_windows)):
+            def run(kmat=km):
+                return ublock_layer(x, ad, cw, cb, kmat, lb, 3 ** i, hop, 0, i)
+            twin = ublock_layer_plain(x, ad, cw, cb, km, lb, 3 ** i, hop, 0, i)
+            if scale == "card_scale":
+                rec[scale] = {"vs_twin": share(run(), twin)}
+            else:
+                ref = layer_f64(x, ad, cw, cb, km, lb, 3 ** i, hop, i, torch)
+                rec[scale] = {"vs_float64": {"k4_bf16": share(run(), ref),
+                                             "float32_k4": share(run(km.float()), ref),
+                                             "twin": share(twin, ref)},
+                              "vs_twin": share(run(), twin)}
+        log(f"K4-bf16 on wide-range activations (1e-3 .. 1e2), hop {hop}: " + json.dumps(
+            {k: rec[k] for k in ("card_scale", "kp_scale")}))
+        if rec["card_scale"]["vs_twin"]["over_tol"]:
+            raise AssertionError(f"K4-bf16 at hop {hop} is off its twin on wide-range activations")
+        f64 = rec["kp_scale"]["vs_float64"]
+        if f64["k4_bf16"]["max_abs_err"] > max(f64["twin"]["max_abs_err"],
+                                                f64["float32_k4"]["max_abs_err"]):
+            raise AssertionError(f"K4-bf16 at hop {hop} is further from float64 than the float32 "
+                                 f"twin and K4 on wide-range activations with the "
+                                 f"KernelPredictor's windows")
+        out.append(rec)
+    return out
+
+
+def lvc_bf16_widened_hops(dev, torch) -> list:
+    """K4-bf16 against its twin at the hops its contract takes beyond the
+    LJSpeech net's (``K4_EXTRA_HOPS``: B=2, 512 windows, layer 3, dilation
+    27; operands drawn on the card), timed a layer with both bounds."""
+    from prodiff_tpu_torch.ops.ublock import ublock_layer, ublock_layer_plain
+
+    c, n_layers = 32, FD_CONFIG["lvc_layers_each_block"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+
+    def drand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    rows = []
+    for hop in K4_EXTRA_HOPS:
+        b, n, i, d = 2, K4_EXTRA_WINDOWS, n_layers - 1, 3 ** (n_layers - 1)
+        t = n * hop
+        x, ad = drand(b, t, c), drand(b, t, c)
+        cw, cb = drand(c, c, 3, scale=0.2), drand(c, scale=0.1)
+        km = drand(FD_STEPS, b, n, n_layers * 3 * c, 2 * c, scale=0.1).to(torch.bfloat16)
+        lb = drand(FD_STEPS, b, n, n_layers * 2 * c, scale=0.1)
+
+        def call(fn, s):
+            return fn(x, ad, cw, cb, km, lb, d, hop, step_idx=s, layer_idx=i)
+        res = compare(f"K4-bf16 ublock_layer hop={hop} B={b} L={n} dilation={d} (step 0, layer "
+                      f"{i})", call(ublock_layer, 0), call(ublock_layer_plain, 0), torch)
+        ms = graph_ms(per_steps(lambda s: call(ublock_layer, s)), torch)
+        nbytes = 4 * (3 * b * t * c + 3 * c * c + c) + b * n * (2 * 3 * c * 2 * c + 4 * 2 * c)
+        fp32 = bound(18432 * b * t, nbytes)
+        row = dict(hop=hop, B=b, T=t, dilation=d, ms=ms, max_abs_err=res["max_abs_err"],
+                   bound_fp32_rate_ms=fp32["bound_ms"], **mma_bound(b * t, 1, nbytes))
+        log(f"K4-bf16 hop={hop} B={b} T={t} dilation={d}: kernel {ms:.4f} ms a layer, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; share {row['bound_ms'] / ms:.3f}), at "
+            f"the FP32 rate {row['bound_fp32_rate_ms']:.4f} ms")
+        rows.append(row)
+        del km, lb
+    return rows
 
 
 def bf16_fastdiff_paths(dev, torch) -> dict:
@@ -5393,16 +5645,19 @@ def probe_module():
 
 
 def set_parent(parent_dir: str, torch) -> None:
-    """Builds the earlier version's K1-bf16, K2/K3 (both tap dtypes) and K5a/K5b-bf16 (its
-    sources, as tools/probe_bf16_kernels.py copies them) for ``PARENT``, and
-    logs that version's split: the stage's convs and, where its K1-bf16 is
-    the cooperative chain (the earlier design), that chain's phases from a stamped
-    copy (K5's split by kernel comes with its turns, in the bf16 phase). A
-    K1-bf16 with this checkout's interface (the cluster chain) is called
-    through this checkout's wrapper."""
+    """Builds the earlier version's K1-bf16, K2/K3 (both tap dtypes),
+    K5a/K5b-bf16 and K4/K7 (its sources, as tools/probe_bf16_kernels.py
+    copies them) for ``PARENT``, and logs that version's split: the stage's
+    convs and, where its K1-bf16 is the cooperative chain (the earlier
+    design), that chain's phases from a stamped copy (K5's split by kernel
+    comes with its turns, in the bf16 phase). A K1-bf16 with this checkout's
+    interface (the cluster chain) is called through this checkout's wrapper;
+    K4/K7 through the probe's ``LvcBuild``."""
     global PARENT
     probe = probe_module()
     plain = probe.parent_sources(parent_dir, False)
+    lvc = probe.LvcBuild(torch, probe.build_variant("ublock", plain, "PARENT"),
+                         probe.build_variant("ublock_block", plain, "PARENT"))
     with open(os.path.join(plain, "wavenet_stack_bf16.cu")) as f:
         cooperative = probe.CHAIN_LOOP in f.read()
     k1_lib = probe.build_variant("wavenet_stack_bf16", plain, "PARENT")
@@ -5429,7 +5684,7 @@ def set_parent(parent_dir: str, torch) -> None:
         log("earlier design's K5a/K5b-bf16: this checkout's source, not timed in turns")
     else:
         k5 = probe.ParentK5(probe.build_variant("wavenet_train_bf16", plain, "PARENT"), torch)
-    PARENT = {"k1": k1, "stage": stage, "stage32": stage32, "k5": k5}
+    PARENT = {"k1": k1, "stage": stage, "stage32": stage32, "k5": k5, "lvc": lvc}
 
 
 def main() -> int:
@@ -5443,8 +5698,8 @@ def main() -> int:
                              "K7 vs their twins, timed), printing its JSON")
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of an earlier version: its K1-bf16, K2/K3 (both tap "
-                             "dtypes, C = 8 included) and K5a/K5b-bf16 are built and timed in "
-                             "turns beside this one's (and split, by "
+                             "dtypes, C = 8 included), K5a/K5b-bf16 and K4/K7-bf16 are built "
+                             "and timed in turns beside this one's (and split, by "
                              "tools/probe_bf16_kernels.py)")
     args = parser.parse_args()
     t_script = time.time()
@@ -5610,13 +5865,14 @@ def main() -> int:
              shape="HiFi-GAN V2's last stage: B=1, T=131072, C=8 (T_mel=512), the whole stage "
                    "in one launch, two taps a k16 step"),
         dict(bf16_entry("ublock_layer_bf16", "ublock.cu", "prodiff_tpu/ops/pallas/ublock.py:221",
-                        k4_bf16, "ublock_layer_bf16",
-                        "FP32 FMA, 67 TFLOP/s; HBM 3.35 TB/s (bf16 window bytes)"),
-             by_block=k4_bf16["by_block"], launches_mono=k4_bf16["launches_mono"]),
+                        k4_bf16, "ublock_layer_bf16", LVC_BF16_RATE),
+             by_block=k4_bf16["by_block"], launches_mono=k4_bf16["launches_mono"],
+             **{k: k4_bf16[k] for k in LVC_BF16_KEYS if k in k4_bf16},
+             wide_range=k4_bf16["wide_range"], widened_hops=k4_bf16["widened_hops"]),
         dict(bf16_entry("ublock_block_bf16", "ublock_block.cu",
                         "prodiff_tpu/ops/pallas/ublock.py:583", k7_bf16, "ublock_block_bf16",
-                        "FP32 FMA, 67 TFLOP/s; HBM 3.35 TB/s (bf16 window bytes)"),
-             by_block=k7_bf16["by_block"]),
+                        LVC_BF16_RATE),
+             by_block=k7_bf16["by_block"], **{k: k7_bf16[k] for k in LVC_BF16_KEYS if k in k7_bf16}),
     ]
     if fd_mono_launches["ublock_block"] != vocode_launches["fastdiff"]["ublock_block"]:
         raise AssertionError("K7 launched a different number of times in the mono render and vocode")

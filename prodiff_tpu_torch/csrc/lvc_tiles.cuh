@@ -68,13 +68,43 @@
 //
 // Window elements W: float, or bf16 in K4's and K7's bf16 builds (the
 // window kernels of the JAX package's accelerator route, whose
-// KernelPredictor computes in bf16). A bf16 window is staged and streamed
-// as bf16 (half the bytes: 12.3 KB a window's kernel) and widened to float32
-// where a thread reads it, from shared memory (tiled) or global memory
-// (streaming), as ublock_layer_packed and ublock_block_packed widen each
-// window at their VMEM read (prodiff_tpu/ops/pallas/ublock.py:439-446,
-// :772); the rest of the unit is the float32 unit. The biases are float32
-// in both builds.
+// KernelPredictor computes in bf16). The function is the Pallas kernels':
+// each bf16 window value is widened exactly and the product is float32
+// (prodiff_tpu/ops/pallas/ublock.py:437-446, :772). The float build keeps
+// the FMA product above; the bf16 build runs the window product on the
+// tensor cores (mma.sync m16n8k16 bf16 -> f32), the bf16 window the B
+// operand as it is, never widened:
+//   - the conv's epilogue splits each float32 y into TERMS bf16 terms (y =
+//     y_0 + y_1 + y_2, each the rounded remainder: 24 significant bits, y's
+//     own) and stores them in ys instead of yT; every term's product with
+//     the exact window accumulates in float32, so the result keeps float32
+//     accuracy (two terms leave 2^-17 of |y|, over the card tolerance on
+//     wide-range activations: tests/test_torch_ublock_bf16_split.py);
+//   - a k16 step's TERMS products go, smallest term first, into a zeroed
+//     fragment that is then added to the sum in float32: the tensor cores
+//     truncate what they add to an accumulator, and a chain of all 18 into
+//     one left a 4-layer block on wide-range inputs further from its twin
+//     than the float build;
+//   - both plans stage the unit's windows as bf16 by cp.async (each kernel
+//     row's 16-byte chunks swizzled by the row, kw_at); the tiled plan
+//     issues its first unit's copies before it stages the conv weight, the
+//     32-row plan (hop < 64) right behind its x loads (issued first, its 49
+//     KB held the conv back);
+//   - a warp's fragment holds gate columns 8j .. 8j + 7 beside filter
+//     columns 32 + 8j .., so the gate forms in registers: tiled (R = 256),
+//     a warp 32 rows x 64 outputs; R = 32, a warp 16 rows x 16 outputs. A
+//     k16 step is one tap's 16 channels: A (the taps of y, rows shifted by
+//     the tap) from ys by ldmatrix, B from the window by ldmatrix.trans. A
+//     warp makes one pass a window its rows touch and writes that window's
+//     rows in the pass, so every hop the plans take (a window edge inside
+//     an m16 tile included: hop 8, 72, or hops of 4 mod 8) runs one code.
+// The tiled plan's product is mma.sync too, in the unit's 256 rows: wgmma
+// (m64n64k16, A from registers or from shared memory) and 128-row units were
+// tried and not kept (PERF.md; no committed comparison). The rest of the
+// unit (staging, the conv on FP32 FMAs, the gate) is the float unit's.
+// Shared memory of the bf16 build at d = 27: hop
+// 256 114,432 bytes (two blocks an SM), hop 64 152,064 (one), hop 8 80,384.
+// The biases are float32 in both builds.
 //
 // LVCT_SKIP (0 in every kernel the port runs) builds variants that leave a
 // phase out, for measuring where a unit's time goes (chip_smoke.py): bit 0
@@ -89,6 +119,7 @@
 #include <type_traits>
 
 #include "lvc_window.cuh"
+#include "mma_bf16.cuh"
 #include "tile_gemm.cuh"
 
 #ifndef LVCT_SKIP
@@ -115,6 +146,11 @@ __host__ __device__ constexpr int kw_floats() { return KC * CO * (int)sizeof(W) 
 constexpr int TILED_MIN_HOP = 64;
 constexpr int TILED_ROWS = 256, STREAM_ROWS = 32;
 constexpr bool RUN_CONV = !(LVCT_SKIP & 1), RUN_WINDOWS = !(LVCT_SKIP & 2);
+constexpr int TERMS = 3;  // bf16 terms of a float32 y in the bf16 build's product
+
+// Whether window elements W take the tensor-core product (the bf16 build).
+template <class W>
+constexpr bool MMA = std::is_same_v<W, bf16>;
 
 __host__ __device__ inline int unit_rows(int hop) {
   return hop >= TILED_MIN_HOP ? TILED_ROWS : STREAM_ROWS;
@@ -145,22 +181,32 @@ __host__ __device__ inline int unit_windows(int hop) {
   return (hop - gcd(R, hop) + R - 1) / hop + 1;
 }
 
-// Windows whose kernels a block stages in shared memory (none when streaming).
+// Windows whose kernels a block stages in shared memory (none when the
+// float build streams; the bf16 build stages them in both plans).
+template <class W = float>
 __host__ __device__ inline int staged_windows(int hop) {
-  return hop >= TILED_MIN_HOP ? unit_windows(hop) : 0;
+  return hop >= TILED_MIN_HOP || MMA<W> ? unit_windows(hop) : 0;
+}
+
+// Floats of y as the product reads it: yT [C][R + 8] (float build), or the
+// TERMS bf16 terms ys [TERMS][C / 8][R + 2][8] (bf16 build).
+template <class W>
+__host__ __device__ inline int y_floats(int R) {
+  return MMA<W> ? TERMS * (R + 2) * C / 2 : C * (R + 8);
 }
 
 // Shared-memory floats of a block for conv dilations up to dmax.
 template <class W = float>
 __host__ __device__ inline int smem_floats(int hop, int dmax) {
   const int R = unit_rows(hop);
-  return staged_windows(hop) * kw_floats<W>() + WS + (R + 2 * (dmax + 1)) * C + C * (R + 8);
+  return staged_windows<W>(hop) * kw_floats<W>() + WS + (R + 2 * (dmax + 1)) * C +
+         y_floats<W>(R);
 }
 
 // Whether two blocks of smem_floats(hop, dmax) fit on one SM (228 KB, 1 KB
 // reserved a block). Where they do (hop >= 256) the tiled kernel is
 // compiled for two blocks an SM (at most 128 registers a thread); where they
-// do not (hop 64 and 96: 185 KB; 136 KB with bf16 windows) for one, with
+// do not (hop 64 and 96: 185 KB; 152 KB with bf16 windows) for one, with
 // the registers that frees.
 template <class W = float>
 __host__ __device__ inline bool two_per_sm(int hop, int dmax) {
@@ -215,11 +261,28 @@ __device__ __forceinline__ int xs_at(int row, int c4) {
   return row * C + ((c4 ^ ((row >> 2) & 7)) << 2);
 }
 
+// The bf16 build's y terms: ys [TERMS][C / 8][R + 2][8] (bf16), row j =
+// time t0 - 1 + j: each 8-channel chunk a column of 16-byte rows, so the 8
+// consecutive rows an ldmatrix phase reads (from any row: a tap's shift)
+// are 128 contiguous bytes, in distinct banks.
+template <int R>
+__device__ __forceinline__ int ys_at(int j, int c) {
+  return ((c >> 3) * (R + 2) + j) * 8 + (c & 7);
+}
+
+// A staged bf16 window kernel [KC][CO]: row k's eight 16-byte chunks
+// swizzled by k & 7 (ldmatrix.trans reads 8 consecutive rows of a chunk
+// from distinct banks).
+__device__ __forceinline__ int kw_at(int k, int n) {
+  return k * CO + (((n >> 3) ^ (k & 7)) << 3) + (n & 7);
+}
+
 struct Tiles {
   float* Kb;  // [staged windows][kw_floats<W>()]: kernel [KC][CO] of W, then bias [CO]
   float* Ws;  // [3][C][C] (tap, in, out) then the bias [C]
   float* xs;  // [R + 2h][32] (swizzled), row i = time t0 - h + i, h = dmax + 1
-  float* yT;  // [C][R + 8], col j + 3 = time t0 - 1 + j
+  float* yT;  // float build: [C][R + 8], col j + 3 = time t0 - 1 + j
+  bf16* ys;   // bf16 build, in yT's place: the y terms (ys_at)
 };
 
 template <bool STREAM = false, class W = float>
@@ -227,9 +290,10 @@ __device__ __forceinline__ Tiles carve(float* smem, int hop, int dmax) {
   const int R = unit_rows(hop);
   Tiles tl;
   tl.Kb = smem;
-  tl.Ws = tl.Kb + (STREAM ? 0 : unit_windows(hop) * kw_floats<W>());
+  tl.Ws = tl.Kb + (STREAM && !MMA<W> ? 0 : unit_windows(hop) * kw_floats<W>());
   tl.xs = tl.Ws + WS;
   tl.yT = tl.xs + (R + 2 * (dmax + 1)) * C;
+  tl.ys = reinterpret_cast<bf16*>(tl.yT);
   return tl;
 }
 
@@ -274,8 +338,9 @@ __device__ __forceinline__ void stage_conv(const Lyr& a, const Tiles& tl, int ti
   if (tid < C) tl.Ws[3 * C * C + tid] = cb;
 }
 
-// Start the copies of the windows that tiled unit (b, t0) reads; one commit
-// group.
+// Start the copies of the windows that unit (b, t0) reads (a tiled unit, or
+// any unit of the bf16 build); one commit group. bf16 kernels land swizzled
+// (kw_at).
 template <int R, class W>
 __device__ __forceinline__ void issue_kernels(const LayerT<W>& a, int b, int t0, const Tiles& tl,
                                               int tid) {
@@ -286,7 +351,12 @@ __device__ __forceinline__ void issue_kernels(const LayerT<W>& a, int b, int t0,
     const float* src = reinterpret_cast<const float*>(a.s.kernel(b, l));
     const float* bsrc = a.s.bias(b, l);
     float* dst = tl.Kb + (l - l0) * KWF;
-    for (int i = tid; i < PIECES; i += NT) tile::cp_async16(dst + 4 * i, src + 4 * i, true);
+    for (int i = tid; i < PIECES; i += NT) {
+      if constexpr (MMA<W>)  // piece i: chunk i % 8 of kernel row i / 8
+        tile::cp_async16(dst + kw_at(i >> 3, (i & 7) << 3) / 2, src + 4 * i, true);
+      else
+        tile::cp_async16(dst + 4 * i, src + 4 * i, true);
+    }
     if (tid < CO / 4) tile::cp_async16(dst + KWF - CO + 4 * tid, bsrc + 4 * tid, true);
   }
   tile::cp_async_commit();
@@ -440,11 +510,129 @@ __device__ __forceinline__ void stream_product(const LayerT<W>& a, int b, int t0
                         gated(xa.z, g[2], f[2]), gated(xa.w, g[3], f[3])));
 }
 
+// The TERMS bf16 terms of the pair (a, b) (a in the low half of each word,
+// as ldmatrix reads k order): term i rounds what terms 0 .. i-1 left. Each
+// remainder is exact in float32.
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t (&t)[TERMS]) {
+#pragma unroll
+  for (int i = 0; i < TERMS; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    t[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    a -= f.x;
+    b -= f.y;
+  }
+}
+
+// Store y values v[0 .. N-1] of channels c .. c + N - 1 (N = 4 or 8, c a
+// multiple of N) at ys row j, as their TERMS terms.
+template <int N, int R>
+__device__ __forceinline__ void store_terms(bf16* ys, int j, int c, const float (&v)[N]) {
+  static_assert(N == 4 || N == 8, "half or whole 16-byte chunks");
+  uint32_t t[N / 2][TERMS];
+#pragma unroll
+  for (int p = 0; p < N / 2; ++p) split_pair(v[2 * p], v[2 * p + 1], t[p]);
+#pragma unroll
+  for (int i = 0; i < TERMS; ++i) {
+    bf16* dst = ys + i * (R + 2) * C + ys_at<R>(j, c);
+    if constexpr (N == 8)
+      *reinterpret_cast<uint4*>(dst) = make_uint4(t[0][i], t[1][i], t[2][i], t[3][i]);
+    else
+      *reinterpret_cast<uint2*>(dst) = make_uint2(t[0][i], t[1][i]);
+  }
+}
+
+// The bf16 build's window product, + bias, the gate, + xa, for
+// one warp on mma.sync: MT m16 tiles of rows r0 .. r0 + 16 MT - 1 of
+// unit (b, t0) by NG channel groups j0 .. j0 + NG - 1 (n8 tiles: gate
+// columns 8j, then filter columns 32 + 8j). acc = bias + sum over the 6 k16
+// steps (tap q = ks / 2, channels 16 (ks & 1) ..) of taps(y) . K: a step's
+// TERMS products, each an m16n8k16 bf16 mma, smallest term first, go into a
+// zeroed float32 fragment that is then added to acc in float32 (see the
+// file's head). One pass a window the rows touch, an m16 tile at a time; the
+// pass writes that window's rows (those before T: T is a multiple of the
+// hop).
+template <int R, int MT, int NG>
+__device__ __forceinline__ void mma_product(const LayerT<bf16>& a, int b, int t0, const Tiles& tl,
+                                            int r0, int j0) {
+  constexpr int NN = 2 * NG, TS = (R + 2) * C;
+  const int T = a.T, h = a.dil + 1, lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
+  const int first = t0 + r0;
+  if (first >= T) return;
+  const int last = min(first + 16 * MT, T) - 1, l0 = t0 / a.hop;
+  int ncol[NN];
+#pragma unroll
+  for (int ni = 0; ni < NN; ++ni) ncol[ni] = (ni < NG ? 0 : C - 8 * NG) + 8 * (j0 + ni);
+  for (int l = first / a.hop; l <= last / a.hop; ++l) {
+    const float* slot = tl.Kb + (l - l0) * kw_floats<bf16>();
+    const bf16* K = reinterpret_cast<const bf16*>(slot);
+    const float* bias = slot + kw_floats<bf16>() - CO;
+    const int lo = l * a.hop - first, hi = (l + 1) * a.hop - first;  // the window's rows
+#pragma unroll 1
+    for (int mt = 0; mt < MT; ++mt) {
+      if (16 * mt >= hi || 16 * mt + 16 <= lo) continue;  // no row in this window
+      float acc[NN][4];
+#pragma unroll
+      for (int ni = 0; ni < NN; ++ni) {
+        const float2 bv = *reinterpret_cast<const float2*>(bias + ncol[ni] + 2 * q4);
+        acc[ni][0] = acc[ni][2] = bv.x;
+        acc[ni][1] = acc[ni][3] = bv.y;
+      }
+#pragma unroll 2
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        uint32_t bfr[NN][2];
+#pragma unroll
+        for (int np = 0; np < NN / 2; ++np) {
+          uint32_t r[4];
+          mma::ldsm_x4_trans(r, K + kw_at(ks * 16 + (lane & 15), ncol[2 * np + (lane >> 4)]));
+          bfr[2 * np][0] = r[0];
+          bfr[2 * np][1] = r[1];
+          bfr[2 * np + 1][0] = r[2];
+          bfr[2 * np + 1][1] = r[3];
+        }
+        // A: rows shifted by the tap; ys row j = unit row + q (time - 1 + q)
+        const bf16* A = tl.ys + ys_at<R>(r0 + 16 * mt + (lane & 15) + ks / 2,
+                                         (ks & 1) * 16 + (lane >> 4) * 8);
+        float part[NN][4] = {};
+#pragma unroll
+        for (int i = TERMS - 1; i >= 0; --i) {
+          uint32_t af[4];
+          mma::ldsm_x4(af, A + i * TS);
+#pragma unroll
+          for (int ni = 0; ni < NN; ++ni) mma::mma16816(part[ni], af, bfr[ni][0], bfr[ni][1]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < NN; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ni][e] += part[ni][e];
+      }
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int row = 16 * mt + g + 8 * e2;  // of the warp's rows
+        if (row < lo || row >= hi || first + row >= T) continue;
+        const int ur = r0 + row;  // of the unit's
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const int ch = ncol[n] + 2 * q4;
+          const float2 xa =
+              *reinterpret_cast<const float2*>(tl.xs + xs_at(ur + h, ch >> 2) + (ch & 3));
+          const float* gv = acc[n] + 2 * e2;
+          const float* fv = acc[NG + n] + 2 * e2;
+          *reinterpret_cast<float2*>(a.out + ((size_t)b * T + first + row) * C + ch) =
+              make_float2(gated(xa.x, gv[0], fv[0]), gated(xa.y, gv[1], fv[1]));
+        }
+      }
+    }
+  }
+}
+
 // Unit (b, t0) of layer a; STREAM: the streaming plan (R = 32, the window
 // kernels loaded into registers while the conv runs), else the tiled plan,
 // whose window copies are in flight when `kernels_issued`, else started here;
 // SPLIT (tiled, hop = 4 mod 8): a tile's last 4 rows read the window of its
-// row 4 and are not written past T.
+// row 4 and are not written past T. The bf16 build (MMA<W>) stages the
+// windows in both plans (as the tiled plan) and runs mma_product, which
+// needs no SPLIT.
 // Starts with a barrier (the block's previous unit is done with the tiles);
 // the conv weight of this layer is staged before the call. The block's next
 // unit of the layer, (nb, nt0) unless nb < 0, is prefetched into L2 as the
@@ -455,10 +643,12 @@ __device__ __forceinline__ void run_unit(const LayerT<W>& a, int b, int t0, cons
   static_assert(R == (NT / (C / CN)) * CM, "the conv is one pass of the block");
   static_assert(STREAM ? R == 8 * (NT / 64) : R == 32 * M && M % 4 == 0,
                 "streaming: a warp pair a row group of 8; tiled: 32 row groups of M rows");
-  static_assert(!SPLIT || (!STREAM && M == 8), "SPLIT: tiled 8-row tiles in halves of 4");
+  static_assert(!SPLIT || (!STREAM && M == 8 && !MMA<W>),
+                "SPLIT: the float build's tiled 8-row tiles in halves of 4");
   const int T = a.T, d = a.dil, h = d + 1;
   const size_t off = (size_t)b * T * C;
-  std::conditional_t<STREAM, StreamKernel, char> sk;  // the tiled plan holds none
+  constexpr bool STAGED = !STREAM || MMA<W>;  // the unit's windows in shared memory
+  std::conditional_t<STREAM, StreamKernel, char> sk;  // the tiled plan holds none (bf16: unused)
   __syncthreads();
   if constexpr (!STREAM)
     if (!kernels_issued) issue_kernels<R>(a, b, t0, tl, tid);
@@ -479,6 +669,11 @@ __device__ __forceinline__ void run_unit(const LayerT<W>& a, int b, int t0, cons
         va[k] = __ldg(reinterpret_cast<const float4*>(a.ad + g));
       }
     }
+    // the bf16 32-row plan's window copies, right behind its first x loads
+    // (issued before them, their 49 KB would queue ahead of the x the conv
+    // waits for)
+    if constexpr (STREAM && MMA<W>)
+      if (i0 == tid) issue_kernels<R>(a, b, t0, tl, tid);
 #pragma unroll
     for (int k = 0; k < XS_BATCH; ++k) {
       const int i = i0 + k * NT;
@@ -489,7 +684,7 @@ __device__ __forceinline__ void run_unit(const LayerT<W>& a, int b, int t0, cons
   // streaming: the window kernels' loads, in flight while the conv runs (a
   // barrier waits for a thread's outstanding loads, so they are issued
   // after the one above)
-  if constexpr (STREAM && RUN_WINDOWS) load_stream_kernel(a, b, t0, tid, sk);
+  if constexpr (!STAGED && RUN_WINDOWS) load_stream_kernel(a, b, t0, tid, sk);
 
   // 3. conv rows j = 1 .. R (times t0 .. t0 + R - 1); tap q of row j reads xs
   // row j + q * d.
@@ -540,14 +735,19 @@ __device__ __forceinline__ void run_unit(const LayerT<W>& a, int b, int t0, cons
     for (int m = 0; m < CM; ++m)
 #pragma unroll
       for (int n = 0; n < CN; ++n) acc[m][n] = t0 + j0 - 1 + m < T ? leaky(acc[m][n]) : 0.f;
+    if constexpr (MMA<W>) {
 #pragma unroll
-    for (int n = 0; n < CN; ++n) {
-      float* yc = tl.yT + (co0 + n) * LDY + 3 + j0;  // 16-byte aligned where CM = 4
-      if constexpr (CM == 4) {
-        tile::st4(yc, make_float4(acc[0][n], acc[1][n], acc[2][n], acc[3][n]));
-      } else {
+      for (int m = 0; m < CM; ++m) store_terms<CN, R>(tl.ys, j0 + m, co0, acc[m]);
+    } else {
 #pragma unroll
-        for (int m = 0; m < CM; ++m) yc[m] = acc[m][n];
+      for (int n = 0; n < CN; ++n) {
+        float* yc = tl.yT + (co0 + n) * LDY + 3 + j0;  // 16-byte aligned where CM = 4
+        if constexpr (CM == 4) {
+          tile::st4(yc, make_float4(acc[0][n], acc[1][n], acc[2][n], acc[3][n]));
+        } else {
+#pragma unroll
+          for (int m = 0; m < CM; ++m) yc[m] = acc[m][n];
+        }
       }
     }
   }
@@ -570,13 +770,39 @@ __device__ __forceinline__ void run_unit(const LayerT<W>& a, int b, int t0, cons
       }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (p == 0) tl.yT[o * LDY + 3 + j] = (t >= 0 && t < T) ? leaky(sum + cbs[o]) : 0.f;
+    if constexpr (MMA<W>) {
+      if (p == 0) {
+        uint32_t terms[TERMS];
+        split_pair((t >= 0 && t < T) ? leaky(sum + cbs[o]) : 0.f, 0.f, terms);
+#pragma unroll
+        for (int i = 0; i < TERMS; ++i)
+          tl.ys[i * (R + 2) * C + ys_at<R>(j, o)] = __ushort_as_bfloat16((unsigned short)terms[i]);
+      }
+    } else {
+      if (p == 0) tl.yT[o * LDY + 3 + j] = (t >= 0 && t < T) ? leaky(sum + cbs[o]) : 0.f;
+    }
   }
-  if constexpr (!STREAM) tile::cp_async_wait_all();
+  if constexpr (STAGED) tile::cp_async_wait_all();
   __syncthreads();
 
   // 4. window product + gate + residual
   if (tid == 0 && nb >= 0) prefetch_unit<R>(a, nb, nt0);
+  if constexpr (MMA<W>) {
+    const int w = tid >> 5;
+    if constexpr (!RUN_WINDOWS) {  // the output is xa
+      for (int i = tid; i < R * (C / 4); i += NT) {
+        const int row = i >> 3, c4 = i & 7;
+        if (t0 + row < T)
+          tile::st4(a.out + off + (size_t)(t0 + row) * C + 4 * c4,
+                    tile::ld4(tl.xs + xs_at(row + h, c4)));
+      }
+    } else if constexpr (STREAM) {  // 2 m16 tiles x 4 channel groups
+      mma_product<R, 1, 1>(a, b, t0, tl, 16 * (w & 1), w >> 1);
+    } else {  // 16 m16 tiles, two a warp, all 64 outputs
+      mma_product<R, 2, 4>(a, b, t0, tl, 32 * w, 0);
+    }
+    return;
+  }
   if constexpr (STREAM) {
     if constexpr (RUN_WINDOWS) {
       stream_product<R>(a, b, t0, tl, tid, sk);

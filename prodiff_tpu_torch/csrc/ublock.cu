@@ -31,12 +31,18 @@
 // an 8-row tile may straddle a window edge: the tiled plan's SPLIT build
 // reads a second window's kernel for the tile's last 4 rows.
 //
-// The bf16 build (ublock_layer_forward_bf16; template argument W = bf16)
-// takes the bf16 window kernels of the JAX package's accelerator route
-// (K4-bf16): staged or streamed as bf16, half the window bytes, which bound
-// block 0, and widened to float32 at each read, as ublock_layer_packed
-// widens them at its VMEM read (ublock.py:439-446); everything else is the
-// float32 layer.
+// The bf16 build (ublock_layer_forward_bf16; template argument W = bf16,
+// K4-bf16) takes the bf16 window kernels of the JAX package's accelerator
+// route and computes ublock_layer_packed's function with them (each window
+// value widened exactly, the product in float32: ublock.py:439-446). Its
+// window product runs on the tensor cores (lvc_tiles.cuh:mma_product): the
+// bf16 window is the B operand as it is, y the A operand as three bf16
+// terms, each product accumulated in float32. Both plans stage the windows
+// in shared memory (the tiled plan's first unit's copies start before the
+// conv weight is staged, the 32-row plan's after its x loads). What bounds
+// it: the conv's FP32 FMAs and the bytes
+// (block 2: 0.80 GFLOP = 12 us at 67 TFLOP/s against 57 MB = 17 us at 3.35
+// TB/s a layer; the product's 3 x 1.61 GFLOP at 989 TFLOP/s is 4.9 us).
 
 #include "lvc_tiles.cuh"
 
@@ -53,20 +59,24 @@ __global__ void __launch_bounds__(NT, MINB) ublock_tiled_kernel(LayerT<W> a, int
   const Tiles tl = carve<false, W>(reinterpret_cast<float*>(smem4), a.hop, a.dil);
   const int tid = threadIdx.x, per_b = (a.T + R - 1) / R;
   const int units = B * per_b;
+  if constexpr (MMA<W>)  // the first unit's window copies, in flight while the conv weight is staged
+    issue_kernels<R>(a, blockIdx.x / per_b, blockIdx.x % per_b * R, tl, tid);
   stage_conv(a, tl, tid);  // made visible by run_unit's barriers
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int n = u + gridDim.x < units ? u + gridDim.x : -1;
-    run_unit<LVCT_TILED, SPLIT>(a, u / per_b, u % per_b * R, tl, tid, false,
-                                n < 0 ? -1 : n / per_b, n % per_b * R);
+    run_unit<LVCT_TILED, SPLIT>(a, u / per_b, u % per_b * R, tl, tid,
+                                MMA<W> && u == (int)blockIdx.x, n < 0 ? -1 : n / per_b,
+                                n % per_b * R);
   }
 }
 
-// hop < 64: the streaming plan, one block an SM (its registers)
+// hop < 64: the streaming plan, one block an SM (its registers; the bf16
+// build stages its 32-row units' windows instead)
 template <class W>
 __global__ void __launch_bounds__(NT, 1) ublock_stream_kernel(LayerT<W> a, int B) {
   extern __shared__ float4 smem4[];
   constexpr int R = STREAM_ROWS;
-  const Tiles tl = carve<true>(reinterpret_cast<float*>(smem4), a.hop, a.dil);
+  const Tiles tl = carve<true, W>(reinterpret_cast<float*>(smem4), a.hop, a.dil);
   const int tid = threadIdx.x, per_b = (a.T + R - 1) / R;
   const int units = B * per_b;
   stage_conv(a, tl, tid);  // made visible by run_unit's barriers
@@ -77,6 +87,15 @@ __global__ void __launch_bounds__(NT, 1) ublock_stream_kernel(LayerT<W> a, int B
   }
 }
 
+// Whether (hop, W) runs the SPLIT tiled kernel: the float build at hops of 4
+// mod 8 (the bf16 build's product takes a window edge anywhere, and its
+// kernels are instantiated without SPLIT: ublock_tiled_kernel<W, 1, !MMA<W>>
+// is then the one-block kernel).
+template <class W>
+bool split_kernel(int hop) {
+  return !MMA<W> && split_tiles(hop);
+}
+
 // Blocks of the persistent grid for (B, T, hop, dil), or a negative error.
 template <class W>
 int layer_grid(int B, int T, int hop, int dil, int* grid) {
@@ -85,7 +104,8 @@ int layer_grid(int B, int T, int hop, int dil, int* grid) {
   int per_sm = 0, sms = 0;
   cudaError_t e =
       hop < TILED_MIN_HOP ? blocks_per_sm(ublock_stream_kernel<W>, v, smem, &per_sm)
-      : split_tiles(hop)  ? blocks_per_sm(ublock_tiled_kernel<W, 1, true>, v + 3, smem, &per_sm)
+      : split_kernel<W>(hop)
+          ? blocks_per_sm(ublock_tiled_kernel<W, 1, !MMA<W>>, v + 3, smem, &per_sm)
       : two_per_sm<W>(hop, dil)
           ? blocks_per_sm(ublock_tiled_kernel<W, 2>, v + 1, smem, &per_sm)
           : blocks_per_sm(ublock_tiled_kernel<W, 1>, v + 2, smem, &per_sm);
@@ -111,8 +131,8 @@ int layer_forward(const float* x, const float* ad, const float* cw, const float*
   const LayerT<W> a{x, ad, cw, cb, StackT<W>{km, lb, B, L, layers, step, layer}, out, T, hop, dil};
   if (hop < TILED_MIN_HOP)
     ublock_stream_kernel<W><<<grid, NT, smem, stream>>>(a, B);
-  else if (split_tiles(hop))
-    ublock_tiled_kernel<W, 1, true><<<grid, NT, smem, stream>>>(a, B);
+  else if (split_kernel<W>(hop))
+    ublock_tiled_kernel<W, 1, !MMA<W>><<<grid, NT, smem, stream>>>(a, B);
   else if (two_per_sm<W>(hop, dil))
     ublock_tiled_kernel<W, 2><<<grid, NT, smem, stream>>>(a, B);
   else

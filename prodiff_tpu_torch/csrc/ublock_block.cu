@@ -27,9 +27,11 @@
 // the caller sees, never a fallback.
 //
 // The bf16 build (ublock_block_forward_bf16; W = bf16, K7-bf16) takes the
-// bf16 window kernels of the JAX package's accelerator route, staged as
-// bf16 and widened to float32 at each shared-memory read, as
-// ublock_block_packed widens them at its VMEM read (ublock.py:772).
+// bf16 window kernels of the JAX package's accelerator route and computes
+// ublock_block_packed's function with them (each value widened exactly, the
+// product in float32: ublock.py:772); through run_unit its window product
+// runs on the tensor cores, as K4-bf16's (ublock.cu), and its first layer's
+// first unit's windows are copied from the start.
 
 #include <cooperative_groups.h>
 
@@ -58,14 +60,18 @@ ublock_block_kernel(const __grid_constant__ BlockArgs<W> p) {
   cg::grid_group grid = cg::this_grid();
   constexpr int R = 256;
   const int tid = threadIdx.x, per_b = (p.layer[0].T + R - 1) / R, units = p.B * per_b;
+  if constexpr (MMA<W>)
+    issue_kernels<R>(p.layer[0], blockIdx.x / per_b, blockIdx.x % per_b * R, tl, tid);
   stage_conv(p.layer[0], tl, tid);
   for (int i = 0; i < p.n; ++i) {
     const LayerT<W>& a = p.layer[i];
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const int n = u + gridDim.x < units ? u + gridDim.x : -1;
-      // layer i > 0: its first unit's kernels were issued before the barrier
-      run_unit<LVCT_TILED>(a, u / per_b, u % per_b * R, tl, tid, i > 0 && u == (int)blockIdx.x,
-                           n < 0 ? -1 : n / per_b, n % per_b * R);
+      // layer i > 0 (bf16: every layer): its first unit's kernels were issued
+      // before the barrier (before the conv weight)
+      run_unit<LVCT_TILED>(a, u / per_b, u % per_b * R, tl, tid,
+                           (MMA<W> || i > 0) && u == (int)blockIdx.x, n < 0 ? -1 : n / per_b,
+                           n % per_b * R);
     }
     if (i + 1 < p.n) {
       __syncthreads();  // the tiles are free

@@ -239,7 +239,8 @@ class TimeAwareLVCBlock(nn.Module):
         x = self.upsample(F.leaky_relu(x, 0.2)).transpose(1, 2).contiguous()
         dilations = [conv.dilation[0] for conv in self.convs]
         kernels = on_kernels(hop, fused_layer)
-        if MONO_BLOCK and fused_layer and kernels and mono_block_supported(hop, dilations):
+        if MONO_BLOCK and fused_layer and kernels and mono_block_supported(hop, dilations,
+                                                                           km.dtype):
             return ublock_block(x, audio_down, [conv.weight for conv in self.convs],
                                 [conv.bias for conv in self.convs], km, lb, dilations, hop,
                                 step_idx)

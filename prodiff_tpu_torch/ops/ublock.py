@@ -31,10 +31,13 @@ takes. Both kernels run ``csrc/lvc_tiles.cuh``'s work units, whose plan
 Each kernel has a float32-window build and a bf16-window build (K4-bf16,
 K7-bf16: the same source, the window element a template argument), which
 the window kernels' dtype picks: bf16 windows are the KernelPredictor's
-output in ``fast`` mode, and the kernels widen each value to float32 where
-they read it, as ``ublock_layer_packed``/``ublock_block_packed`` do at their
-VMEM read; the plain twins compute on ``kmat.float()``. Every other operand
-is float32.
+output in ``fast`` mode. Both compute ``ublock_layer_packed``'s /
+``ublock_block_packed``'s function, each bf16 window value widened exactly
+and the product in float32; the plain twins compute on ``kmat.float()``.
+The bf16 build runs the window product on the tensor cores, the bf16
+window as it is against y split into ``TERMS`` bf16 terms (each the
+rounded remainder of the ones before), each product accumulated in float32.
+Every other operand is float32.
 """
 
 from __future__ import annotations
@@ -56,6 +59,10 @@ from prodiff_tpu_torch.ops.lvc import KERNEL_C, MAX_SMEM, check_kernel_operands,
 
 LRELU_SLOPE = 0.2
 WINDOW_DTYPES = (torch.float32, torch.bfloat16)  # K4's and K7's builds
+# bf16 terms of y in the bf16 build's tensor-core product (csrc/lvc_tiles.cuh:
+# TERMS, split_pair): three keep float32's 24 significant bits; two leave
+# 2^-17 of |y| (tests/test_torch_ublock_bf16_split.py)
+TERMS = 3
 
 
 def gated_residual(xa: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -170,20 +177,34 @@ def _window_floats(window_dtype: torch.dtype) -> int:
 
 def layer_plan(hop: int, dilation: int, window_dtype: torch.dtype = torch.float32) -> dict:
     """One block's work unit for an LVC layer at (hop, dilation): ``rows`` (R),
-    ``rows_per_thread`` of the window product, the most ``windows`` a unit
-    touches (units start at multiples of R), whether it ``streams`` the
-    window kernels into registers (hop < 64: a warp 8 rows x 32 outputs, a
-    lane 8 rows x 4 outputs over a quarter of the channels) rather than
-    staging them in shared memory (a thread 8 rows x 8 outputs), and the
-    block's shared-memory bytes (staged window kernels in ``window_dtype``,
-    conv weight, x + audio_down with a dilation + 1 halo, y k-major)."""
+    the most ``windows`` a unit touches (units start at multiples of R),
+    whether it ``streams`` the window kernels into registers rather than
+    staging them in shared memory, the ``product`` and its ``warp_rows``
+    (rows a warp's share of it holds), ``terms`` (bf16 terms of y, 0 for the
+    float build) and the block's shared-memory bytes (staged window kernels
+    in ``window_dtype``, conv weight, x + audio_down with a dilation + 1
+    halo, y).
+
+    float32 windows: FP32 FMAs, ``rows_per_thread`` 8; hop < 64 streams (a
+    warp 8 rows x 32 outputs, a lane 8 rows x 4 outputs over a quarter of
+    the channels), hop >= 64 stages (a thread 8 rows x 8 outputs); y k-major
+    ``[C][R + 8]`` floats. bf16 windows: ``mma`` (mma.sync m16n8k16 on the
+    tensor cores), every hop staged; a warp 32 rows x 64 outputs (R = 256)
+    or 16 rows x 16 outputs (R = 32); y as ``TERMS`` bf16 terms ``[TERMS][C
+    / 8][R + 2][8]``."""
     tiled = hop >= TILED_MIN_HOP
+    mma = window_dtype == torch.bfloat16
     rows = 256 if tiled else 32
     windows = (hop - math.gcd(rows, hop) + rows - 1) // hop + 1
-    floats = ((windows * _window_floats(window_dtype) if tiled else 0) + _WS
-              + (rows + 2 * (dilation + 1)) * KERNEL_C + KERNEL_C * (rows + 8))
-    return {"rows": rows, "rows_per_thread": 8, "windows": windows, "streams": not tiled,
-            "smem": 4 * floats}
+    staged = tiled or mma
+    y_floats = TERMS * (rows + 2) * KERNEL_C // 2 if mma else KERNEL_C * (rows + 8)
+    floats = ((windows * _window_floats(window_dtype) if staged else 0) + _WS
+              + (rows + 2 * (dilation + 1)) * KERNEL_C + y_floats)
+    return {"rows": rows, "windows": windows, "streams": not staged,
+            "product": "mma" if mma else "fma", "rows_per_thread": None if mma else 8,
+            "warp_rows": (32 if tiled else 16) if mma else (32 if tiled else 8),
+            "terms": TERMS if mma else 0, "smem": 4 * floats}
+
 
 
 def pingpong(n_layers: int) -> list:
@@ -195,16 +216,19 @@ def pingpong(n_layers: int) -> list:
     return list(zip(["x"] + dst[:-1], dst))
 
 
-def mono_block_supported(hop: int, dilations: Sequence[int]) -> bool:
+def mono_block_supported(hop: int, dilations: Sequence[int],
+                         window_dtype: torch.dtype = torch.float32) -> bool:
     """Static gate of :func:`ublock_block`: the audio-rate blocks (hop a
     multiple of 32, at least ``MONO_MIN_HOP``, where the layers run the tiled
     plan) of at most ``MONO_MAX_LAYERS`` layers whose largest dilation's halo
-    fits in shared memory. At the LJSpeech config that is blocks 1 and 2
-    (hops 64 and 256), the blocks the JAX route runs ``ublock_block_packed``
-    on; no sequence length is too short for the kernel."""
+    fits in shared memory (in the build for ``window_dtype`` windows). At the
+    LJSpeech config that is blocks 1 and 2 (hops 64 and 256), the blocks the
+    JAX route runs ``ublock_block_packed`` on; no sequence length is too
+    short for the kernel."""
     dilations = list(dilations)
     return (hop >= MONO_MIN_HOP and hop % 32 == 0 and 1 <= len(dilations) <= MONO_MAX_LAYERS
-            and min(dilations) >= 1 and layer_plan(hop, max(dilations))["smem"] <= MAX_SMEM)
+            and min(dilations) >= 1
+            and layer_plan(hop, max(dilations), window_dtype)["smem"] <= MAX_SMEM)
 
 
 def ublock_block_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[torch.Tensor],
@@ -219,9 +243,14 @@ def ublock_block_plain(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Seque
 
 
 def _block_library(window_dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
-    """``csrc/ublock_block.cu`` with the C entries of its build for
-    ``window_dtype`` windows declared."""
-    lib = cuda_build.load("ublock_block")
+    return bind_block_library(cuda_build.load("ublock_block"), window_dtype)
+
+
+def bind_block_library(lib: ctypes.CDLL, window_dtype: torch.dtype = torch.float32
+                       ) -> ctypes.CDLL:
+    """Declare the C entries of K7's build for ``window_dtype`` windows on
+    ``lib`` (``csrc/ublock_block.cu``, or another checkout's build of it,
+    which only measurement code loads)."""
     sfx = _suffix(window_dtype)
     fwd = getattr(lib, f"ublock_block_forward{sfx}")
     fwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 5
@@ -252,7 +281,8 @@ def ublock_block(x: torch.Tensor, audio_down: torch.Tensor, conv_ws: Sequence[to
         raise ValueError(f"ublock_block: unsupported device {x.device}")
     dilations = [int(d) for d in dilations]
     n = len(dilations)
-    if not (len(conv_ws) == len(conv_bs) == n) or not mono_block_supported(hop, dilations):
+    if not (len(conv_ws) == len(conv_bs) == n) or not mono_block_supported(hop, dilations,
+                                                                          kmat.dtype):
         raise ValueError(f"ublock_block: {len(conv_ws)} convs, {len(conv_bs)} biases, dilations "
                          f"{dilations} at hop {hop}: outside the kernel's gate")
     cw, cb = torch.stack(list(conv_ws)), torch.stack(list(conv_bs))

@@ -464,11 +464,15 @@ def test_wrappers_refuse_what_their_kernels_do_not_take():
 
 @pytest.mark.parametrize("hop,d", [(8, 9), (64, 27), (256, 27), (100, 3)])
 def test_layer_plan_bf16_windows(hop, d):
-    """The bf16 builds stage half the window bytes: at hop >= 64 a tiled unit's
-    shared memory shrinks by 6,144 values of 2 bytes a staged window
-    (``csrc/lvc_tiles.cuh:kw_floats``); the streaming plan stages none."""
+    """The bf16 builds keep the float plan's units (rows, windows a unit
+    touches) and stage their windows as bf16 in every plan, half the bytes
+    (``csrc/lvc_tiles.cuh:kw_floats``; below hop 64 the float build streams
+    them instead), and hold y for the tensor cores as three bf16 terms
+    [3][4][R + 2][8] in the float plan's yT [32][R + 8] floats' place."""
     p32, p16 = layer_plan(hop, d), layer_plan(hop, d, BF16)
-    assert {k: v for k, v in p16.items() if k != "smem"} == \
-        {k: v for k, v in p32.items() if k != "smem"}
-    staged = p32["windows"] if not p32["streams"] else 0
-    assert p32["smem"] - p16["smem"] == staged * 96 * 64 * 2
+    assert (p16["rows"], p16["windows"]) == (p32["rows"], p32["windows"])
+    assert (p16["streams"], p16["product"], p16["terms"]) == (False, "mma", 3)
+    rows, staged32 = p32["rows"], (p32["windows"] if not p32["streams"] else 0)
+    window32, window16 = 96 * 64 * 4 + 64 * 4, 96 * 64 * 2 + 64 * 4
+    assert p32["smem"] - p16["smem"] == (staged32 * window32 - p16["windows"] * window16
+                                         + 32 * (rows + 8) * 4 - 3 * (rows + 2) * 32 * 2)

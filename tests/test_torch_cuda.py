@@ -1385,14 +1385,30 @@ def test_resblock_unit_smem_matches_plan(cuda):
                 assert plan["resident"] or plan["stages"] >= 2
 
 
-@pytest.mark.parametrize("hop,dilation,n_win", [(256, 27, 4), (64, 3, 8), (8, 9, 32), (100, 9, 6),
-                                                (40, 1, 9)])
-def test_ublock_layer_bf16_kernel_matches_twin(cuda, hop, dilation, n_win):
-    """K4-bf16 (the bf16-window build: tiled, split-tile and streaming plans)
-    vs its twin, read in place from a bf16 stack; its shared memory as
+def _wide(rng, t):
+    """t scaled element by element by 10 ** U(-3, 2): activations from 1e-3
+    to 1e2, so y, split into bf16 terms by the kernels, spans that range."""
+    return t * torch.tensor(10.0 ** rng.uniform(-3, 2, size=t.shape), dtype=t.dtype,
+                            device=t.device)
+
+
+@pytest.mark.parametrize("hop,dilation,n_win,wide", [
+    (256, 27, 4, False), (64, 3, 8, False), (8, 9, 32, False), (100, 9, 6, False),
+    (40, 1, 9, False),
+    # the LJSpeech blocks at full length (T_mel = 512: T = 4,096 / 32,768 / 131,072)
+    (8, 27, 512, False), (64, 27, 512, False), (256, 27, 512, False),
+    # wide-range activations
+    (8, 27, 512, True), (64, 9, 512, True), (256, 27, 512, True), (100, 9, 6, True),
+])
+def test_ublock_layer_bf16_kernel_matches_twin(cuda, hop, dilation, n_win, wide):
+    """K4-bf16 (the bf16-window build: the window product on the tensor
+    cores, y in three bf16 terms; tiled, split-tile and 32-row plans) vs its
+    twin, read in place from a bf16 stack; its shared memory as
     layer_plan's."""
     rng = np.random.default_rng(41)
     x, ad, cw, cb, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(3, 4))
+    if wide:
+        x, ad = _wide(rng, x), _wide(rng, ad)
     km = km.to(torch.bfloat16)
     f32, b16 = ublock_layer.launches.count, ublock_layer.bf16_launches.count
     got = ublock_layer(x, ad, cw, cb, km, lb, dilation, hop, step_idx=2, layer_idx=1)
@@ -1406,12 +1422,45 @@ def test_ublock_layer_bf16_kernel_matches_twin(cuda, hop, dilation, n_win):
     assert lib.ublock_layer_grid_bf16(2, n_win * hop, hop, dilation) > 0
 
 
-@pytest.mark.parametrize("hop,n_win,step", [(64, 7, 2), (256, 3, 1)])
-def test_ublock_block_bf16_kernel_matches_twin(cuda, hop, n_win, step):
-    """K7-bf16 (one cooperative launch, bf16 windows) vs its twin."""
+@pytest.mark.parametrize("made", ["kmat", "x", "audio_down"])
+@pytest.mark.parametrize("hop", [64, 256])
+def test_ublock_layer_bf16_reads_operands_written_just_before(cuda, hop, made):
+    """K4-bf16's tiled build reads no operand before the kernel just before
+    it has written it: kmat cast to bf16, x computed, or a strided
+    audio_down made contiguous by the wrapper, each into memory that held
+    NaNs, gives the twin's result."""
+    rng = np.random.default_rng(44)
+    x, ad, cw, cb, km, lb = _layer_operands(rng, 1, 512, hop, cuda, stack=(3, 4))
+    km16 = km.to(torch.bfloat16)
+    want = ublock_layer_plain(x, ad, cw, cb, km16, lb, 27, hop, step_idx=2, layer_idx=1)
+    # not contiguous: the wrapper's copy of it is the last kernel before the launch
+    strided = ad.transpose(1, 2).contiguous().transpose(1, 2)
+    for _ in range(3):
+        ops = {"kmat": km16, "x": x, "audio_down": strided if made == "audio_down" else ad}
+        stale = torch.full_like(ops[made], float("nan"))  # its memory is the new operand's
+        del stale
+        if made == "kmat":
+            ops["kmat"] = km.to(torch.bfloat16)
+        elif made == "x":
+            ops["x"] = x * 1.0
+        got = ublock_layer(ops["x"], ops["audio_down"], cw, cb, ops["kmat"], lb, 27, hop,
+                           step_idx=2, layer_idx=1)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hop,n_win,step,wide", [
+    (64, 7, 2, False), (256, 3, 1, False),
+    (64, 512, 2, False), (256, 512, 1, False),   # the LJSpeech blocks 1, 2 at full length
+    (64, 512, 0, True), (256, 512, 2, True),     # wide-range activations
+])
+def test_ublock_block_bf16_kernel_matches_twin(cuda, hop, n_win, step, wide):
+    """K7-bf16 (one cooperative launch, bf16 windows, K4-bf16's unit) vs its
+    twin."""
     rng = np.random.default_rng(42)
     dils = [1, 3, 9, 27]
     x, ad, _, _, km, lb = _layer_operands(rng, 2, n_win, hop, cuda, stack=(3, 4))
+    if wide:
+        x, ad = _wide(rng, x), _wide(rng, ad)
     km = km.to(torch.bfloat16)
     cws = [torch.tensor(rng.normal(size=(32, 32, 3)) * 0.2, dtype=torch.float32, device=cuda)
            for _ in dils]

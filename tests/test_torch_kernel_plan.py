@@ -273,6 +273,41 @@ def test_lvc_layer_smem_grows_with_the_halo():
     assert ublock.layer_plan(64, 211)["smem"] > ublock.MAX_SMEM
 
 
+@pytest.mark.parametrize("hop,rows,windows,smem,two", [
+    (8, 32, 4, 80384, True),       # block 0: the 32-row units stage their 4 windows too
+    (16, 32, 2, 55296, True),
+    (64, 256, 4, 152064, False),   # block 1: one block an SM (185,472 bytes in float32)
+    (96, 256, 4, 152064, False),
+    (256, 256, 1, 114432, True),   # block 2: two blocks an SM
+    (100, 256, 4, 152064, False),  # hops of 4 mod 8: the same product code
+    (260, 256, 2, 126976, False),
+])
+def test_lvc_layer_plan_bf16(hop, rows, windows, smem, two):
+    """K4-bf16's and K7-bf16's units at dilation 27 (csrc/lvc_tiles.cuh's
+    bf16 build): every plan stages its windows as bf16 (12,544 bytes each
+    with the bias) and holds y as three bf16 terms [3][4][R + 2][8] for the
+    tensor cores (mma.sync; a warp 32 rows x 64 outputs, or 16 x 16 at R =
+    32); two blocks an SM at hop 256 and below 64, one at hop 64."""
+    plan = ublock.layer_plan(hop, 27, torch.bfloat16)
+    assert (plan["rows"], plan["windows"], plan["streams"], plan["product"], plan["terms"]) == \
+        (rows, windows, False, "mma", 3)
+    assert plan["warp_rows"] == (32 if rows == 256 else 16) and plan["rows_per_thread"] is None
+    assert plan["smem"] == smem <= ublock.MAX_SMEM
+    assert plan["smem"] == windows * 12544 + 4 * (3 * 32 * 32 + 32) + 4 * 32 * (rows + 56) + \
+        3 * (rows + 2) * 32 * 2
+    assert (2 * (plan["smem"] + 1024) <= 233472) == two
+
+
+def test_mono_gate_follows_the_builds_plan():
+    """K7's gate reads the plan of the window dtype it launches: at hop 256
+    the bf16 build's y terms outweigh its halved window, so its largest
+    dilation is 488 against the float build's 501."""
+    assert ublock.mono_block_supported(256, [501]) and not ublock.mono_block_supported(256, [502])
+    assert ublock.mono_block_supported(256, [488], torch.bfloat16)
+    assert not ublock.mono_block_supported(256, [489], torch.bfloat16)
+    assert ublock.mono_block_supported(64, [1, 3, 9, 27], torch.bfloat16)
+
+
 @pytest.mark.parametrize("b,t,hop,units", [
     (1, 4096, 8, 128),       # block 0 at T_mel = 512: one unit for each of 128 SMs
     (1, 32768, 64, 128),     # block 1: one block an SM (185 KB), one unit each

@@ -4,6 +4,7 @@
     python3 tools/probe_bf16_kernels.py --parent DIR [--out FILE]
     python3 tools/probe_bf16_kernels.py --parent DIR --k5-only
     python3 tools/probe_bf16_kernels.py --parent DIR --c8-only [--c8-variants no_products=C8_SKIP=1]
+    python3 tools/probe_bf16_kernels.py --parent DIR --lvc-only [--lvc-variants no_conv=LVCT_SKIP=1]
 
 DIR is a checkout of an earlier version of the repository (``git archive``
 unpacked; ``.`` for this one). The probe builds that version's
@@ -31,6 +32,14 @@ H=128, vari's):
   (torch.profiler: the mean kernel's times the launches a call makes), and
   both in turns; other ``C8_SKIP`` bits leave out the epilogues (2), the
   global loads (4) and the ResBlocks' copies of x (8);
+
+- K4-bf16 (``--lvc-only``: only these; ``csrc/ublock.cu``'s bf16-window
+  build), the earlier version's and this one's, and ``--lvc-variants``
+  builds of this checkout's ``ublock.cu``: each block of the LJSpeech
+  FastDiff net at T_mel=512 (hops 8 / 64 / 256, its 4 layers, one step of a
+  hoisted bf16 stack) checked against its twin, the 4 layers by CUDA graph
+  in turns (earlier, this, this, earlier), and each version's device time
+  a layer (torch.profiler over eager calls) beside its graph time;
 
 - the earlier version's split: K1's device time by kernel (torch.profiler)
   and its layer chain by phase, from ``%globaltimer`` stamps that a copy of
@@ -239,6 +248,114 @@ class ParentStage:
         if err:
             raise RuntimeError(f"resblock stage ({self.fn.__name__}): CUDA error {err}")
         return out
+
+
+class LvcBuild:
+    """K4's (``layer``) and K7's (``block``) C entries of another build (the
+    parent's, or a variant of this checkout's), called as ops/ublock.py's
+    ``ublock_layer`` and ``ublock_block`` call them, with their arguments;
+    the window kernels' dtype picks the entry. Launches are not counted."""
+
+    def __init__(self, torch, layer_lib=None, block_lib=None):
+        from prodiff_tpu_torch.ops import ublock as ub
+
+        self.torch, self.layer_lib, self.block_lib = torch, layer_lib, block_lib
+        for dtype in (torch.float32, torch.bfloat16):
+            if layer_lib is not None:
+                ub.bind_layer_library(layer_lib, dtype)
+            if block_lib is not None:
+                ub.bind_block_library(block_lib, dtype)
+
+    def _entry(self, lib, name, kmat):
+        return getattr(lib, name + ("_bf16" if kmat.dtype == self.torch.bfloat16 else ""))
+
+    def layer(self, x, ad, cw, cb, kmat, bias, dilation, hop, step_idx, layer_idx):
+        torch = self.torch
+        b, t, c = x.shape
+        out = torch.empty_like(x)
+        err = self._entry(self.layer_lib, "ublock_layer_forward", kmat)(
+            x.data_ptr(), ad.data_ptr(), cw.data_ptr(), cb.data_ptr(), kmat.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, t, kmat.shape[-3], hop, dilation,
+            bias.shape[-1] // (2 * c), step_idx, layer_idx, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"ublock_layer_forward ({self.layer_lib}): CUDA error {err}")
+        return out
+
+    def block(self, x, ad, cws, cbs, kmat, bias, dilations, hop, step_idx):
+        from prodiff_tpu_torch.ops.ublock import pingpong
+
+        torch = self.torch
+        b, t, c = x.shape
+        n = len(dilations)
+        cw, cb = torch.stack(list(cws)), torch.stack(list(cbs))
+        bufs = {"x": x, "out": torch.empty_like(x), "scratch": torch.empty_like(x)}
+        plan = pingpong(n)
+        err = self._entry(self.block_lib, "ublock_block_forward", kmat)(
+            (ctypes.c_void_p * n)(*(bufs[s].data_ptr() for s, _ in plan)),
+            (ctypes.c_void_p * n)(*(bufs[d].data_ptr() for _, d in plan)), ad.data_ptr(),
+            cw.data_ptr(), cb.data_ptr(), kmat.data_ptr(), bias.data_ptr(),
+            (ctypes.c_int * n)(*dilations), n, b, t, kmat.shape[-3], hop,
+            bias.shape[-1] // (2 * c), step_idx, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"ublock_block_forward ({self.block_lib}): CUDA error {err}")
+        return bufs["out"]
+
+
+LVC_HOPS, LVC_WINDOWS, LVC_LAYERS = (8, 64, 256), 512, 4  # the LJSpeech FastDiff net
+
+
+def graph_replay(fn, torch):
+    """``fn`` captured into a CUDA graph (after a warm call): its replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def lvc_probe(builds, torch, dev):
+    """K4-bf16 by each build of ``builds`` (name -> a layer call with
+    ``ublock_layer``'s arguments; "earlier" and "this" timed in turns) at
+    the LJSpeech blocks: checked against the twin, the block's 4 layers
+    (dilations 1, 3, 9, 27; step 0 of a 4-step bf16 stack) by CUDA graph,
+    and each build's device time a layer (torch.profiler, 10 eager passes)."""
+    from prodiff_tpu_torch.ops.ublock import ublock_layer_plain
+
+    rng = np.random.default_rng(23)
+    c = 32
+    for hop in LVC_HOPS:
+        t = LVC_WINDOWS * hop
+        x, ad = rand(rng, dev, torch, 1, t, c), rand(rng, dev, torch, 1, t, c)
+        cws = [rand(rng, dev, torch, c, c, 3, scale=0.2) for _ in range(LVC_LAYERS)]
+        cbs = [rand(rng, dev, torch, c, scale=0.1) for _ in range(LVC_LAYERS)]
+        km = rand(rng, dev, torch, 4, 1, LVC_WINDOWS, LVC_LAYERS * 3 * c, 2 * c,
+                  scale=0.1).to(torch.bfloat16)
+        lb = rand(rng, dev, torch, 4, 1, LVC_WINDOWS, LVC_LAYERS * 2 * c, scale=0.1)
+
+        def chain(layer):
+            def run():
+                h = x
+                for i in range(LVC_LAYERS):
+                    h = layer(h, ad, cws[i], cbs[i], km, lb, 3 ** i, hop, 0, i)
+                return h
+            return run
+        want = chain(ublock_layer_plain)()
+        runs = {name: chain(layer) for name, layer in builds.items()}
+        rec = {"hop": hop, "T": t}
+        for name, run in runs.items():
+            kern = [us for n, us in device_kernels(run, 10, torch) if "ublock" in n]
+            rec[name] = {"max_abs_err": float((run() - want).abs().max()),
+                         "graph_ms": timed_ms(graph_replay(run, torch), 20, torch) / LVC_LAYERS,
+                         "device_ms": sum(kern) / len(kern) / 1e3, "kernels": len(kern)}
+        earlier, this = graph_replay(runs["earlier"], torch), graph_replay(runs["this"], torch)
+        rec["in_turns_ms"] = {"earlier": [], "this": []}
+        for name, fn in (("earlier", earlier), ("this", this), ("this", this),
+                         ("earlier", earlier)):
+            rec["in_turns_ms"][name].append(timed_ms(fn, 20, torch) / LVC_LAYERS)
+        emit("lvc_bf16_layer", **rec)
+        del km, lb
+        torch.cuda.empty_cache()
 
 
 K5_SHAPES = ((16, 1536, 256, 256), (16, 1536, 256, 128))  # the teacher's and vari's
@@ -781,6 +898,11 @@ def main():
     parser.add_argument("--c8-variants", default="",
                         help="name=DEFINE[;DEFINE],... : builds of this checkout's resblock.cu "
                              "and resblock_bf16.cu with defines (C8_SKIP), split beside it")
+    parser.add_argument("--lvc-only", action="store_true",
+                        help="only K4-bf16: both versions at the LJSpeech blocks, in turns")
+    parser.add_argument("--lvc-variants", default="",
+                        help="name=DEFINE[;DEFINE],... : builds of this checkout's ublock.cu "
+                             "with defines (LVCT_SKIP), timed beside it")
     parser.add_argument("--k5-variants", default="",
                         help="name=DEFINE[;DEFINE],... : builds of this checkout's "
                              "wavenet_train_bf16.cu with defines, timed in turns beside it")
@@ -823,6 +945,28 @@ def main():
             variants = {dt: {f"this_{v}": ParentStage(cuda_build.load(n, d), torch, fn)
                              for v, d in defines.items()} for dt, (n, fn) in C8_ENTRIES.items()}
             c8_probe(os.path.abspath(args.parent), torch, dev, variants)
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(records, f, indent=1)
+        return 0 if not any(r["probe"] == "build_this_failed" for r in records) else 1
+    if args.lvc_only:
+        parent_k4 = LvcBuild(torch, build_variant("ublock", plain, "PARENT"))
+        emit("build_parent", seconds=round(time.time() - t0, 3))
+        defines = {name: tuple(d.split(";")) for name, d in
+                   (item.split("=", 1) for item in filter(None, args.lvc_variants.split(",")))}
+        try:
+            cuda_build.load_all(["ublock"] + [("ublock", d) for d in defines.values()])
+        except RuntimeError as e:
+            emit("build_this_failed", error=str(e)[-6000:])
+        else:
+            from prodiff_tpu_torch.ops.ublock import ublock_layer
+
+            emit("build_this", ptxas=[ln.strip() for ln in cuda_build.build_log(
+                "ublock").splitlines() if "registers" in ln or "spill" in ln])
+            builds = {"earlier": parent_k4.layer, "this": ublock_layer}
+            builds.update({name: LvcBuild(torch, cuda_build.load("ublock", d)).layer
+                           for name, d in defines.items()})
+            lvc_probe(builds, torch, dev)
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(records, f, indent=1)
