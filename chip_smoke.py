@@ -407,7 +407,9 @@ BF16_KERNEL_TOL, BF16_STEP_TOL, BF16_RENDER_TOL = 1e-2, 2e-2, 2e-2
 # parity on one mel and injected noise at 2e-2 of the wav's peak
 # (tests/test_torch_bf16_vocoders.py: 4.5e-3 on the CPU twins, held at 1.5e-2)
 RES_BF16_TOL, WAV_BF16_MAX_ABS, WAV_BF16_CORR, FD_BF16_WAV_TOL = 7e-3, 0.05, 0.999, 2e-2
-BF16_EXP, BF16_TRAIN_STEPS, BF16_CONV_CHANNELS = "bf16", 4, 64
+# the CLI runs of train svs take 5 steps each: steps 2-4 are timed, step 5 runs
+# under torch.profiler (its launches and kernel time)
+BF16_EXP, BF16_TRAIN_STEPS, BF16_CONV_CHANNELS = "bf16", 5, 64
 # vocode wav2wav: NSF-HiFiGAN at the base config's audio settings (the openvpi
 # 44.1 kHz generator), FastDiff at its LJSpeech audio settings (22.05 kHz, hop
 # 256, 80 mels, fmin 80, fmax 7600), both with the built-in ACF extractor
@@ -3672,8 +3674,9 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
     ``bf16: true`` on the same items (each step timed and its launches
     counted), then ``train svs`` with ``amp: true`` and ``train
     svs_rectified --precision fast`` (``bf16: null``) on shorter runs; the
-    bf16 teacher step held against the same step on the CPU. Returns the
-    launches of the bf16 run."""
+    last step of the float32 and the bf16 run under torch.profiler (its
+    kernel launches and kernel time); the bf16 teacher step held against
+    the same step on the CPU. Returns the launches of the bf16 run."""
     import yaml
 
     from prodiff_tpu_torch.__main__ import main as port_cli
@@ -3685,24 +3688,33 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
     make_svs_dataset(data_dir, n_train=2 * TRAIN_B, n_valid=1, n_mels=128, seed=7,
                      t_ph_range=(32, 33), dur_range=(45, 49))
     hp = dict(train_config(data_dir), val_check_interval=10 ** 6, num_sanity_val_steps=0)
-    calls = []
+    calls, profiled, now = [], {}, {}
     orig = Trainer.train_step
 
     def timed(self, batch):
         torch.cuda.synchronize()
         before = {k: c.count for k, c in counters().items()}
         start = time.perf_counter()
-        out = orig(self, batch)
+        if now.get("profile") and len(calls) == now["steps"] - 1:
+            box = []
+            wall, busy, sums, rows = kernel_split(lambda: box.append(orig(self, batch)), 1, {},
+                                                  torch)
+            profiled[now["name"]] = dict(wall_ms=wall, busy_ms=busy, by_group_ms=sums,
+                                         launches=sum(n for _, n, _ in rows))
+            out = box[0]
+        else:
+            out = orig(self, batch)
         torch.cuda.synchronize()
         calls.append(((time.perf_counter() - start) * 1e3,
                       {k: c.count - before[k] for k, c in counters().items() if c.count != before[k]}))
         return out
 
-    def run(name, task, steps, extra=(), **keys):
+    def run(name, task, steps, extra=(), profile=False, **keys):
         cfg = os.path.join(tmp, f"{name}.yaml")
         with open(cfg, "w") as f:
             yaml.dump(dict(hp, **keys), f)
         calls.clear()
+        now.update(name=name, steps=steps, profile=profile)
         Trainer.train_step = timed
         try:
             port_cli(["train", task, "--config", cfg, "--exp_name", name, "--max_steps", str(steps),
@@ -3714,9 +3726,9 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        runs = {"f32": run("f32", "svs", BF16_TRAIN_STEPS, bf16=False)}
+        runs = {"f32": run("f32", "svs", BF16_TRAIN_STEPS, profile=True, bf16=False)}
         reset_counts()
-        runs["bf16"] = run("bf16", "svs", BF16_TRAIN_STEPS, bf16=True)
+        runs["bf16"] = run("bf16", "svs", BF16_TRAIN_STEPS, profile=True, bf16=True)
         torch.cuda.synchronize()
         per_step = k5_bf16_launches()
         launches = check_counts(f"train svs with bf16: true ({BF16_TRAIN_STEPS} steps)",
@@ -3727,11 +3739,17 @@ def bf16_train_runs(tmp, dev, torch) -> dict:
             bad = [d for _, d in run_calls if d != want]
             if len(run_calls) != BF16_TRAIN_STEPS or bad:
                 raise AssertionError(f"{label} steps launched {bad or len(run_calls)}")
-        med = {k: sorted(ms for ms, _ in v[1:])[(len(v) - 1) // 2] for k, v in runs.items()}
+        med = {k: sorted(ms for ms, _ in v[1:-1])[(len(v) - 3) // 2] for k, v in runs.items()}
         log(f"train svs (CLI, B={TRAIN_B} x T={TRAIN_T}, {BF16_TRAIN_STEPS} steps each, the same "
-            f"items): median step (host clock, synchronised, steps 2-{BF16_TRAIN_STEPS}) float32 "
+            f"items): median step (host clock, synchronised, steps 2-{BF16_TRAIN_STEPS - 1}) float32 "
             f"{med['f32']:.3f} ms, bf16 {med['bf16']:.3f} ms; every bf16 step launched "
             f"{json.dumps(per_step)} and no float32 kernel")
+        for label, got in profiled.items():
+            log(f"{label} step {BF16_TRAIN_STEPS} of train svs under torch.profiler: "
+                f"{got['launches']} kernel launches, {got['busy_ms']:.3f} ms of kernel time, "
+                f"{got['wall_ms']:.3f} ms on the host clock (profiler on; device idle share "
+                f"{max(0.0, 1 - got['busy_ms'] / got['wall_ms']):.3f}); kernel time by group (ms): "
+                f"{json.dumps({k: round(v, 3) for k, v in got['by_group_ms'].items()})}")
         amp = run("amp", "svs", 1, bf16=None, amp=True)
         if [d for _, d in amp] != [per_step]:
             raise AssertionError(f"train svs with amp: true launched {amp}")

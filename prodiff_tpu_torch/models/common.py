@@ -17,7 +17,12 @@ parameters stay float32 ``nn.Parameter``s. The casts are explicit, not
 ``torch.autocast``, so the ops that stay in float32 are the JAX modules'
 own: attention scores accumulate and the softmax runs in float32, and the
 LayerNorms (no dtype) promote a bf16 input to float32, as bf16 + f32 does
-in both frameworks.
+in both frameworks. In bf16 the port rounds where the JAX program does, op
+by op: a product is rounded before its bias is added (:func:`linear`,
+:func:`conv1d`), a Python constant is rounded to the operand's dtype before
+it multiplies (:func:`weak`), and the activations run JAX's own formulas
+and differentiation rules in the operand's dtype (:func:`sigmoid`,
+:func:`tanh`, :func:`gelu`). In float32 the torch ops run as they are.
 
 ``tp`` (a ``parallel.megatron.TensorParallel``, the JAX modules' ``tp_axis``)
 splits the attention's heads and the FFN's filter channels over the model
@@ -57,6 +62,107 @@ def cast(dtype: Optional[torch.dtype], *xs):
     if dtype is None:
         return xs
     return tuple(None if x is None else x.to(dtype) for x in xs)
+
+
+def weak(c: float, x: torch.Tensor) -> float:
+    """A Python constant as JAX applies it to ``x``: weakly typed, so first
+    rounded to x's dtype (in bf16 ``9 ** -0.5`` is 0.333984375, where
+    torch would multiply by the float32 value)."""
+    return torch.tensor(c, dtype=x.dtype).item()
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``F.linear`` as flax's ``Dense(dtype=dtype)``: the operands cast to
+    ``dtype``, the product rounded to it, then the bias added in it (two
+    roundings, ``dot_general`` then ``y + bias``). Without ``dtype`` the
+    bias is fused, as float32 leaves no rounding to tell apart."""
+    x, weight, bias = cast(dtype, x, weight, bias)
+    fused = dtype is None or bias is None
+    y = F.linear(x, weight, bias if fused else None)
+    return y if fused else y + bias
+
+
+def conv1d(x: torch.Tensor, conv: nn.Conv1d, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``conv`` (its padding and dilation) on ``[B, T, C]`` as flax's
+    ``Conv(dtype=dtype)``: the bias added after the product is rounded, as
+    :func:`linear` adds it."""
+    x, w, b = cast(dtype, x, conv.weight, conv.bias)
+    fused = dtype is None or b is None
+    y = F.conv1d(x.transpose(1, 2), w, b if fused else None, padding=conv.padding,
+                 dilation=conv.dilation).transpose(1, 2)
+    return y if fused else y + b
+
+
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic`` in bf16: ``1 / (1 + exp(-x))``,
+    each op rounded (JAX lowers it so), and JAX's VJP ``g * (ans * (1 -
+    ans))``, each op rounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return g * (ans * (1 - ans))
+
+
+class _Tanh(torch.autograd.Function):
+    """``jnp.tanh`` in bf16: one rounding forward, and the
+    transpose of JAX's JVP ``(g + g * ans) * (1 - ans)``, each op rounded:
+    ``u = g * (1 - ans)``, then ``u + u * ans``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = torch.tanh(x)
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        u = g * (1 - ans)
+        return u + u * ans
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu(x, approximate=False)`` in bf16: ``0.5 * x * erfc(-x *
+    s)`` with ``s`` the bf16 ``sqrt(0.5)``, each op
+    rounded, and the transpose of JAX's JVPs (erfc's ``-2 / sqrt(pi) * g *
+    exp(-b ** 2)``), each op rounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        b = -x * weak(0.5 ** 0.5, x)
+        e = torch.special.erfc(b)
+        ctx.save_for_backward(x, b, e)
+        return 0.5 * x * e
+
+    @staticmethod
+    def backward(ctx, g):
+        x, b, e = ctx.saved_tensors
+        db = g * (0.5 * x) * weak(-2 / math.sqrt(math.pi), x) * torch.exp(-(b * b))
+        return (g * e) * 0.5 - db * weak(0.5 ** 0.5, x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: torch's in float32, JAX's rounding points in bf16."""
+    return _Logistic.apply(x) if x.dtype == torch.bfloat16 else torch.sigmoid(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.tanh``: torch's in float32, JAX's backward rounding in bf16."""
+    return _Tanh.apply(x) if x.dtype == torch.bfloat16 else torch.tanh(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=False)``: torch's exact GELU in float32,
+    JAX's rounding points in bf16."""
+    return _Gelu.apply(x) if x.dtype == torch.bfloat16 else F.gelu(x)
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
@@ -117,8 +223,7 @@ class Dropout(nn.Module):
         if self.p == 1.0:
             return torch.zeros_like(x)
         # the keep probability in x's dtype, as flax's weakly typed scalar
-        keep_prob = torch.tensor(1.0 - self.p, dtype=x.dtype).item()
-        return torch.where(self.keep(x.shape, x.device), x / keep_prob, 0.0)
+        return torch.where(self.keep(x.shape, x.device), x / weak(1.0 - self.p, x), 0.0)
 
 
 class Embedding(nn.Embedding):
@@ -145,7 +250,7 @@ class Linear(nn.Linear):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(*cast(self.dtype, x, self.weight, self.bias))
+        return linear(x, self.weight, self.bias, self.dtype)
 
 
 def sinusoidal_embedding_table(num_embeddings: int, embedding_dim: int,
@@ -213,7 +318,8 @@ class MultiheadSelfAttention(nn.Module):
         x, w = cast(self.dtype, x, self.in_proj_weight)
         q, k, v = (x @ w.t()).chunk(3, dim=-1)
         h = q.shape[-1] // d  # this rank's heads
-        q = q.reshape(b, t, h, d) * d ** -0.5
+        q = q.reshape(b, t, h, d)
+        q = q * weak(d ** -0.5, q)
         k = k.reshape(b, t, h, d)
         v = v.reshape(b, t, h, d)
         attn = torch.einsum("bqhd,bkhd->bhqk", widen(q), widen(k))
@@ -244,9 +350,8 @@ class TransformerFFNLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
             x = self.tp.copy(x)
-        x, w, b = cast(self.dtype, x, self.ffn_1.weight, self.ffn_1.bias)
-        x = F.conv1d(x.transpose(1, 2), w, b, padding=self.kernel_size // 2).transpose(1, 2)
-        x = self.dropout(F.gelu(x * self.kernel_size ** -0.5))
+        x = conv1d(x, self.ffn_1, self.dtype)
+        x = self.dropout(gelu(x * weak(self.kernel_size ** -0.5, x)))
         if self.tp is None:
             return self.ffn_2(x)
         x, w, b = cast(self.dtype, x, self.ffn_2.weight, self.ffn_2.bias)

@@ -18,8 +18,9 @@ the stack runs ``parallel/tp_wavenet.py:wavenet_apply_tp`` in float32, the
 projections around it too, whatever ``dtype`` is.
 
 ``dtype`` is flax's ``dtype=`` of the JAX module (the teacher's bf16
-policy): the linen route casts every conv's operands to it and carries the
-residual and skip sums in it, the diffusion projection and the step MLP stay
+policy): the linen route casts every conv's operands to it, rounds where
+the JAX module rounds (``models/common.py``), carries the residual and
+skip sums in it, the diffusion projection and the step MLP stay
 float32, and the output is cast to float32. On the kernels the projections
 around the stack take ``dtype`` the same way, and the stack's products take
 the operand dtype of ``device.kernel_operand_dtype``: the module's dtype in
@@ -41,7 +42,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from prodiff_tpu_torch import device
-from prodiff_tpu_torch.models.common import Linear, SinusoidalPosEmb, cast, mish, params_key, widen
+from prodiff_tpu_torch.models.common import (
+    Linear,
+    SinusoidalPosEmb,
+    conv1d,
+    linear,
+    mish,
+    params_key,
+    sigmoid,
+    tanh,
+    weak,
+    widen,
+)
 from prodiff_tpu_torch.ops.wavenet_stack import StackedWaveNet, cast_stack
 from prodiff_tpu_torch.ops.wavenet_train import differentiable_stack
 from prodiff_tpu_torch.parallel.halo import halo_width, on_window
@@ -55,8 +67,9 @@ class Mish(nn.Module):
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv1d, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A kernel-size-1 ``Conv1d`` applied to ``[B, T, C]``, its operands in
-    ``dtype`` (None: as they are)."""
-    return F.linear(*cast(dtype, x, conv.weight[:, :, 0], conv.bias))
+    ``dtype`` (None: as they are; a bf16 product rounded before its bias is
+    added, as ``common.linear``)."""
+    return linear(x, conv.weight[:, :, 0], conv.bias, dtype)
 
 
 def _conv(cin: int, cout: int, k: int = 1, dilation: int = 1) -> nn.Conv1d:
@@ -96,15 +109,13 @@ class ResidualBlock(nn.Module):
     def forward(self, x, cond, step):
         """x [B,T,C], cond [B,T,H], step [B,C] -> (residual out, skip)."""
         c = x.shape[-1]
-        conv = self.dilated_conv
         y = x + self.diffusion_projection(step)[:, None, :]
-        y, w, b = cast(self.dtype, y, conv.weight, conv.bias)
-        y = F.conv1d(y.transpose(1, 2), w, b, padding=conv.padding,
-                     dilation=conv.dilation).transpose(1, 2)
+        y = conv1d(y, self.dilated_conv, self.dtype)
         y = y + conv1x1(cond, self.conditioner_projection, self.dtype)
-        y = torch.sigmoid(y[..., :c]) * torch.tanh(y[..., c:])
+        y = sigmoid(y[..., :c]) * tanh(y[..., c:])
         y = conv1x1(y, self.output_projection, self.dtype)
-        return (x + y[..., :c]) * (2.0 ** -0.5), y[..., c:]
+        x = x + y[..., :c]
+        return x * weak(2.0 ** -0.5, x), y[..., c:]
 
 
 class WaveNet(nn.Module):
@@ -215,6 +226,6 @@ class WaveNet(nn.Module):
             for layer in self.residual_layers:
                 x, skip = layer(x, cond, step)
                 skip_sum = skip_sum + skip
-            x = skip_sum * (1.0 / math.sqrt(len(self.residual_layers)))
+            x = skip_sum * weak(1.0 / math.sqrt(len(self.residual_layers)), skip_sum)
         x = F.relu(conv1x1(x, self.skip_projection, dt))
         return widen(conv1x1(x, self.output_projection, dt))
